@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each printed on its own line; any failure exits non-zero:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build every kernel of the serving path from ``deeplearning_mpi_tpu_torch/csrc``
+   (``nvcc -Xptxas -v`` output printed);
+3. K1 (flash-attention forward) against its plain PyTorch version at the 110M
+   widths: bf16 B8 S2048 H12 D64 causal and window 512 (both layouts), f32
+   S512, and the shift / lse / f32-output options at a small ragged size;
+4. K4 (flash-decode) against its plain version: B8, L1024 and L8192, H12, D64,
+   Hkv 12 and 4, per-row fill levels including -1, a window, int8 K/V;
+5. serve a seeded random-init 110M ``TransformerConfig()`` (float32) through
+   the continuous-batching engine and hold every stream token-identical to the
+   port's offline greedy ``generate``; K1's and K4's launch counters are set
+   to 0 just before and must both be above 0 just after; then replay the
+   trace once more under ``torch.profiler`` for the device-busy share and the
+   device time by kernel;
+6. time K1 and K4 with CUDA events at the phase-5 shapes, beside their plain
+   versions, the least time the card could take (``bound_ms``) and
+   ``F.scaled_dot_product_attention`` as a yardstick (the port never calls it).
+
+The second-to-last lines are the kernel table (one JSON object) and the
+card's name and power limit; the last line is the result JSON. Without CUDA,
+or without the package beside this file, it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: Published peaks of one H100 SXM (dense): bf16 tensor cores, float32 on the
+#: CUDA cores (the f32 path must not round through TF32), HBM bandwidth.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_name_and_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call over ``iters`` calls, by CUDA
+    events. A sleep kernel queued first holds the card while the host
+    enqueues every call, so the host's launch overhead (tens of
+    microseconds a call, more than a small kernel runs) is not timed —
+    unless ``fn`` itself waits for the card, as a plain version that reads
+    a device value on the host does."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def close(got, want, tol: float) -> bool:
+    """|got - want| <= tol * (1 + |want|) everywhere: bf16 outputs differ by
+    up to one rounding of the output itself (2**-8 relative), so the bound
+    grows with the value."""
+    return bool(((got.float() - want.float()).abs() <= tol * (1 + want.float().abs())).all())
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# -- phase 3 -----------------------------------------------------------------
+def check_k1(torch, gen) -> None:
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    cases = [
+        # (name, B, S, H, D, dtype, kwargs, layout, tolerance)
+        ("bf16 causal", 8, 2048, 12, 64, torch.bfloat16, {}, "bshd", 2e-2),
+        ("bf16 window512", 8, 2048, 12, 64, torch.bfloat16, {"window": 512}, "bshd", 2e-2),
+        ("bf16 window512 bhsd", 8, 2048, 12, 64, torch.bfloat16, {"window": 512}, "bhsd", 2e-2),
+        ("f32 causal S512", 8, 512, 12, 64, torch.float32, {}, "bshd", 1e-4),
+        ("f32 full S300", 2, 300, 4, 64, torch.float32, {"causal": False}, "bshd", 1e-4),
+        ("f32 D128 causal S200", 1, 200, 2, 128, torch.float32, {}, "bhsd", 1e-4),
+        ("f32 D8 window S77", 2, 77, 3, 8, torch.float32, {"window": 9}, "bshd", 1e-4),
+        ("bf16 D24 causal S90", 2, 90, 3, 24, torch.bfloat16, {}, "bhsd", 2e-2),
+        ("bf16 D128 full S200", 1, 200, 2, 128, torch.bfloat16, {"causal": False}, "bshd", 2e-2),
+        ("bf16 shift lse f32-out", 2, 200, 3, 64, torch.bfloat16,
+         {"window": 64, "shift": 100, "return_lse": True, "out_dtype": torch.float32},
+         "bshd", 2e-2),
+        ("f32 shift lse", 1, 130, 2, 64, torch.float32,
+         {"window": 40, "shift": 150, "return_lse": True}, "bhsd", 1e-4),
+    ]
+    for name, B, S, H, D, dtype, kw, layout, tol in cases:
+        shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
+        q, k, v = (rand(*shape, dtype=dtype) for _ in range(3))
+        call = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                    shift=kw.get("shift", 0), return_lse=kw.get("return_lse", False),
+                    out_dtype=kw.get("out_dtype"), layout=layout)
+        got = fa.flash_attention_cuda(q, k, v, **call)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_reference(q, k, v, **call)
+        if call["return_lse"]:
+            (got, got_lse), (want, want_lse) = got, want
+            finite = want_lse > -1e29
+            require(torch.equal(finite, got_lse > -1e29), f"K1 {name}: lse masked rows differ")
+            lse_err = max_err(got_lse[finite], want_lse[finite])
+            require(lse_err <= 1e-4, f"K1 {name}: lse max abs err {lse_err}")
+        require(got.dtype == want.dtype, f"K1 {name}: dtype {got.dtype} != {want.dtype}")
+        require(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite output")
+        err = max_err(got, want)
+        log(f"K1 {name}: max_abs_err {err:.3e} (tol {tol:g} abs+rel)")
+        require(close(got, want, tol), f"K1 {name}: max abs err {err}, tol {tol} (abs+rel)")
+
+
+# -- phase 4 -----------------------------------------------------------------
+def check_k4(torch, gen) -> None:
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+
+    B, H, D = 8, 12, 64
+    for L in (1024, 8192):
+        for hkv in (12, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                for window, quant in ((None, False), (300, False), (None, True), (500, True)):
+                    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+                    k = torch.randn(B, L, hkv, D, generator=gen, device="cuda").to(dtype)
+                    v = torch.randn(B, L, hkv, D, generator=gen, device="cuda").to(dtype)
+                    index = torch.randint(0, L, (B,), generator=gen, device="cuda")
+                    index[1], index[2], index[3] = -1, 0, L - 1
+                    index = index.to(torch.int32)
+                    scales = {}
+                    if quant:
+                        k, ks = fd.quantize_kv(k)
+                        v, vs = fd.quantize_kv(v)
+                        scales = {"k_scale": ks, "v_scale": vs}
+                    got = fd.flash_decode_cuda(q, k, v, index, window=window, **scales)
+                    torch.cuda.synchronize()
+                    want = fd.flash_decode_reference(q, k, v, index, window=window, **scales)
+                    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+                    err = max_err(got, want)
+                    name = (f"L{L} Hkv{hkv} {str(dtype)[6:]} window={window} "
+                            f"int8={quant}")
+                    log(f"K4 {name}: max_abs_err {err:.3e} (tol {tol:g} abs+rel)")
+                    require(bool(torch.isfinite(got).all()), f"K4 {name}: non-finite")
+                    require(bool((got[1] == 0).all()), f"K4 {name}: inactive row not zero")
+                    require(close(got, want, tol), f"K4 {name}: err {err}, tol {tol} (abs+rel)")
+
+
+# -- phase 5 -----------------------------------------------------------------
+def serve(torch, seed: int):
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import latency_report, offline_greedy, replay
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
+    from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
+    import numpy as np
+
+    cfg = TransformerConfig()  # the 110M model at full width and depth
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+    rng = np.random.default_rng(seed)
+    lens = [128, 512, 200, 384, 160, 448, 256, 320]
+    entries, t = [], 0.0
+    for n in lens:
+        t += float(rng.exponential(1.0 / 50.0))
+        entries.append({"arrival": t, "max_new": 32,
+                        "prompt": rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)})
+    engine_cfg = EngineConfig(
+        max_slots=8, block_size=16, max_blocks_per_seq=64, num_blocks=320,
+        prefill_chunk=128,
+    )
+    engine = ServingEngine(model, engine_cfg)
+    flash_attention_cuda.launches = 0
+    flash_decode_cuda.launches = 0
+    t0 = time.perf_counter()
+    reqs, wall_s = replay(engine, entries)
+    torch.cuda.synchronize()
+    rep = latency_report(reqs, wall_s)
+    expects = [offline_greedy(model, r.prompt, r.max_new_tokens, None) for r in reqs]
+    torch.cuda.synchronize()
+    launches = {"K1": flash_attention_cuda.launches, "K4": flash_decode_cuda.launches}
+    log(f"serve: {json.dumps(rep)} | phase {time.perf_counter() - t0:.1f}s | "
+        f"launches {launches} | {engine.decode_steps} decode steps, "
+        f"{engine.prefill_chunks} prefill chunks")
+    bad = [(r.rid, r.state.value) for r in reqs if r.state is not RequestState.FINISHED]
+    require(not bad, f"serve: requests not finished: {bad}")
+    mismatched = 0
+    for r, expect in zip(reqs, expects):
+        if r.generated == expect:
+            continue
+        mismatched += 1
+        i = next(j for j, (a, b) in enumerate(zip(r.generated, expect)) if a != b)
+        ctx = np.concatenate([r.prompt, np.asarray(r.generated[:i], np.int32)])
+        with torch.no_grad():
+            logits = model(torch.as_tensor(ctx, dtype=torch.long, device="cuda")[None])[0, -1]
+        top2 = torch.topk(logits, 2).values
+        log(f"serve: rid {r.rid} diverges at step {i}: engine {r.generated[i]} offline "
+            f"{expect[i]}; top-2 logit gap there {float(top2[0] - top2[1]):.3e}")
+    require(mismatched == 0, f"serve: {mismatched}/{len(reqs)} streams differ from offline greedy")
+    require(launches["K1"] > 0 and launches["K4"] > 0, f"serve: kernel not launched: {launches}")
+    log(f"serve OK: {len(reqs)} streams token-identical to offline greedy")
+    profile = profile_replay(torch, ServingEngine(model, engine_cfg), entries)
+    # Shapes the main path gave each kernel, for phase 6.
+    k1_shape = (1, max(lens), cfg.num_heads, cfg.head_dim)
+    fills = [n + 32 // 2 - 1 for n in lens]  # mid-generation fill levels
+    width = 1
+    while width < -(-max(n + 32 for n in lens) // 16):
+        width *= 2
+    return launches, k1_shape, fills, min(width, 64) * 16, profile
+
+
+def profile_replay(torch, engine, entries) -> dict:
+    """Replay the trace again on a fresh engine under ``torch.profiler``
+    (the profiler slows the host, so its latencies are not phase 5's).
+    Returns the device-busy share of the replay's wall time — the union of
+    the device events' intervals over the host clock — and the device time
+    by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import replay
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_s = replay(engine, entries)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict[str, list] = {}
+    for e in device:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += (e.time_range.end - e.time_range.start) / 1e3
+        entry[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    summary = {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+               "busy_share": busy_us / 1e6 / wall_s, "device_events": len(device),
+               "top": [{"name": n, "device_ms": ms, "calls": c} for n, (ms, c) in top]}
+    require(len(device) > 0, "profile: no device events traced")
+    log(f"profile: replay wall {wall_s:.3f}s, device busy {busy_us / 1e6:.4f}s "
+        f"({100 * summary['busy_share']:.2f}%), {len(device)} device events")
+    for t in summary["top"]:
+        log(f"profile: {t['device_ms']:9.3f} ms {t['calls']:6d} x {t['name'][:110]}")
+    return summary
+
+
+# -- phase 6 -----------------------------------------------------------------
+def time_kernels(torch, gen, launches, k1_shape, fills, k4_len) -> list[dict]:
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+
+    rows = []
+    # K1 at the offline prefill shape: one prompt, causal, float32.
+    B, S, H, D = k1_shape
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda") for _ in range(3))
+    kw = dict(causal=True, window=None, shift=0, return_lse=False, out_dtype=None, layout="bshd")
+    pairs = B * H * S * (S + 1) // 2
+    flops, nbytes = 4 * D * pairs, 4 * B * S * H * D * 4
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    k1 = {
+        "name": "K1 flash_attention_fwd", "route": "cuda",
+        "source": "deeplearning_mpi_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_attention.py:110",
+        "launches": launches["K1"],
+        "max_abs_err": max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                               fa.flash_attention_reference(q, k, v, **kw)),
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw)),
+        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        "shape": f"B{B} S{S} H{H} D{D} float32 causal",
+    }
+    rows.append(k1)
+    # K4 at the engine's decode shape: every slot active at a mid-run fill.
+    B, H, D = len(fills), 12, 64
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda")
+    kb = torch.randn(B, k4_len, H, D, generator=gen, device="cuda")
+    vb = torch.randn(B, k4_len, H, D, generator=gen, device="cuda")
+    index = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    filled = sum(f + 1 for f in fills)
+    nbytes = (2 * filled * H * D + 2 * B * H * D) * 4
+    flops = 4 * filled * H * D
+    pos = torch.arange(k4_len, device="cuda")
+    mask = (pos[None, :] <= index[:, None].long())[:, None, None, :]
+    qs, ks, vs = q.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2)
+    k4 = {
+        "name": "K4 flash_decode", "route": "cuda",
+        "source": "deeplearning_mpi_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_decode.py:100",
+        "launches": launches["K4"],
+        "max_abs_err": max_err(fd.flash_decode_cuda(q, kb, vb, index),
+                               fd.flash_decode_reference(q, kb, vb, index)),
+        "ms": time_ms(lambda: fd.flash_decode_cuda(q, kb, vb, index)),
+        "plain_ms": time_ms(lambda: fd.flash_decode_reference(q, kb, vb, index)),
+        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+        "shape": f"B{B} L{k4_len} H{H} Hkv{H} D{D} float32 fills {fills}",
+    }
+    rows.append(k4)
+    for r in rows:
+        log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def time_extra(torch, gen) -> list[dict]:
+    """K1 and K4 at the 110M model's long shapes (reported, not in the table)."""
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+
+    out = []
+    B, S, H, D = 8, 2048, 12, 64
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    kw = dict(causal=True, window=None, shift=0, return_lse=False, out_dtype=None, layout="bshd")
+    flops = 4 * D * B * H * S * (S + 1) // 2
+    out.append({"what": "K1 bf16 B8 S2048 H12 D64 causal",
+                "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=5),
+                "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), iters=3),
+                "bound_ms": max(flops / PEAK_FLOPS["bfloat16"], 4 * B * S * H * D * 2 / PEAK_BYTES) * 1e3})
+    L = 8192
+    q = torch.randn(8, 1, 12, 64, generator=gen, device="cuda")
+    kb = torch.randn(8, L, 12, 64, generator=gen, device="cuda")
+    vb = torch.randn(8, L, 12, 64, generator=gen, device="cuda")
+    index = torch.full((8,), L - 1, dtype=torch.int32, device="cuda")
+    nbytes = 2 * 8 * L * 12 * 64 * 4
+    out.append({"what": "K4 f32 B8 L8192 H12 D64 full fill",
+                "ms": time_ms(lambda: fd.flash_decode_cuda(q, kb, vb, index)),
+                "plain_ms": time_ms(lambda: fd.flash_decode_reference(q, kb, vb, index)),
+                "bound_ms": nbytes / PEAK_BYTES * 1e3})
+    for r in out:
+        log(f"time {r['what']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms")
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=None, help="also write the results here as JSON")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "deeplearning_mpi_tpu_torch", "csrc")):
+        print(f"chip_smoke: the port is not beside this script in {ROOT}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from deeplearning_mpi_tpu_torch.ops.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = gpu_name_and_power()
+    log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all(force=True)
+    for name, out in logs.items():
+        for line in out.splitlines():
+            if line.strip():
+                log(f"nvcc {name}: {line.strip()}")
+    log(f"phase 2 build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    check_k1(torch, gen)
+    log(f"phase 3 K1 vs plain OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_k4(torch, gen)
+    log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches, k1_shape, fills, k4_len, profile = serve(torch, args.seed)
+    log(f"phase 5 serve OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    kernels = time_kernels(torch, gen, launches, k1_shape, fills, k4_len)
+    extra = time_extra(torch, gen)
+    log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+    table = [{k: r[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in kernels]
+    log(json.dumps({"kernels": table}))
+    log(gpu_name_and_power())
+    log(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""deeplearning_mpi_tpu_torch — the PyTorch/CUDA port of ``deeplearning_mpi_tpu``.
+
+The JAX package beside this one is the reference; this package computes the
+same functions in PyTorch, and every Pallas TPU kernel on a ported path is a
+CUDA C++ kernel written by hand for Hopper (``csrc/``). Module paths mirror
+the JAX package so each counterpart is easy to find:
+
+- ``ops.attention``          — dense / decode / batched-decode attention;
+- ``ops.kernels``            — the hand-written kernels (K1 flash-attention
+  forward, K4 flash-decode), their builder, and their plain versions;
+- ``models.transformer``     — the decoder-only TransformerLM (inference);
+- ``models.convert``         — JAX param tree -> ``state_dict``;
+- ``models.generate``        — prefill, decode, sampling, ``generate``;
+- ``serving``                — paged KV pool, scheduler, continuous-batching
+  engine;
+- ``cli.serve_lm``           — ``--selftest`` trace replay with a parity check.
+
+This package never imports ``jax``, ``flax`` or ``deeplearning_mpi_tpu``.
+Entry points take ``device=`` and default to ``"cuda"``; asking for CUDA on
+a machine without it raises (nothing falls back to the CPU silently).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and
+    absent — the port never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev

@@ -1,0 +1,193 @@
+"""Serving self-test: replay a Poisson trace through the engine, check parity.
+
+Port of ``deeplearning_mpi_tpu/cli/serve_lm.py``'s ``--selftest``: a seeded
+random-init model serves a synthetic Poisson trace through the
+continuous-batching engine, and every completed stream must equal the
+port's offline greedy ``generate`` of the same prompt token for token —
+co-batched strangers, chunked prefill, paged KV and slot churn must all be
+invisible in the tokens. Reports TTFT (arrival -> first token) and TPOT
+(decode seconds per token after the first).
+
+    python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest            # on the GPU
+    python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu \\
+        --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="serve_lm",
+        description="Replay a Poisson request trace through the continuous-"
+        "batching engine and check every stream against offline greedy decode.",
+    )
+    model = parser.add_argument_group("model")
+    model.add_argument("--vocab_size", type=int, default=256)
+    model.add_argument("--num_layers", type=int, default=4)
+    model.add_argument("--num_heads", type=int, default=8)
+    model.add_argument("--num_kv_heads", type=int, default=0,
+                       help="grouped-query K/V heads (0 = num_heads)")
+    model.add_argument("--head_dim", type=int, default=32)
+    model.add_argument("--d_model", type=int, default=256)
+    model.add_argument("--d_ff", type=int, default=1024)
+    model.add_argument("--attention_window", type=int, default=0)
+    model.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    eng = parser.add_argument_group("engine")
+    eng.add_argument("--max_slots", type=int, default=4)
+    eng.add_argument("--block_size", type=int, default=16)
+    eng.add_argument("--num_blocks", type=int, default=64)
+    eng.add_argument("--max_blocks_per_seq", type=int, default=8)
+    eng.add_argument("--prefill_chunk", type=int, default=16)
+    eng.add_argument("--max_queue", type=int, default=64)
+    trace = parser.add_argument_group("trace")
+    trace.add_argument("--rate", type=float, default=20.0, help="Poisson arrivals, requests/s")
+    trace.add_argument("--num_requests", type=int, default=16)
+    trace.add_argument("--prompt_len_min", type=int, default=4)
+    trace.add_argument("--prompt_len_max", type=int, default=24)
+    trace.add_argument("--max_new_tokens", type=int, default=16)
+    trace.add_argument("--eos_id", type=int, default=-1, help="token that ends a stream (-1 = off)")
+    trace.add_argument("--random_seed", type=int, default=0)
+    parser.add_argument("--selftest", action="store_true",
+                        help="random-init model, synthetic trace, parity check "
+                        "against offline greedy decode (the only mode in this slice)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return parser
+
+
+def poisson_trace(args) -> list[dict]:
+    """Seeded Poisson arrivals with uniform prompt lengths (tokens 1..vocab-1)."""
+    rng = np.random.default_rng(args.random_seed)
+    t = 0.0
+    entries = []
+    for _ in range(args.num_requests):
+        t += float(rng.exponential(1.0 / args.rate))
+        n = int(rng.integers(args.prompt_len_min, args.prompt_len_max + 1))
+        entries.append({
+            "arrival": t,
+            "prompt": rng.integers(1, args.vocab_size, size=n).astype(np.int32),
+            "max_new": args.max_new_tokens,
+        })
+    return entries
+
+
+def replay(engine, entries, *, poll_s: float = 0.0005):
+    """Submit each entry at its arrival offset (wall clock) and step the
+    engine until everything drains. Returns (requests, wall seconds)."""
+    idle = engine.scheduler.idle
+    pending = deque(entries)
+    reqs = []
+    t0 = time.monotonic()
+    while pending or not idle():
+        now = time.monotonic() - t0
+        while pending and pending[0]["arrival"] <= now:
+            e = pending.popleft()
+            reqs.append(engine.submit(e["prompt"], e["max_new"], arrival=t0 + e["arrival"]))
+        if not idle():
+            engine.step()
+        elif pending:
+            time.sleep(min(poll_s, max(pending[0]["arrival"] - now, 0.0)))
+    return reqs, time.monotonic() - t0
+
+
+def latency_report(reqs, wall_s: float) -> dict:
+    """TTFT / TPOT percentiles (seconds) and throughput over the finished
+    requests."""
+    from deeplearning_mpi_tpu_torch.serving import RequestState
+
+    done = [r for r in reqs if r.state is RequestState.FINISHED]
+    ttft = np.array([r.ttft for r in done]) if done else np.zeros(0)
+    tpot = np.array([r.tpot for r in done if len(r.generated) > 1])
+    tokens = sum(len(r.generated) for r in done)
+
+    def pct(a, q):
+        return float(np.percentile(a, q)) if a.size else None
+
+    return {
+        "requests": len(reqs), "completed": len(done), "tokens": tokens,
+        "wall_s": wall_s, "tokens_per_s": tokens / wall_s if wall_s > 0 else None,
+        "ttft_p50_s": pct(ttft, 50), "ttft_p95_s": pct(ttft, 95),
+        "tpot_p50_s": pct(tpot, 50), "tpot_p95_s": pct(tpot, 95),
+    }
+
+
+def offline_greedy(model, prompt: np.ndarray, max_new: int, eos_id: int | None) -> list[int]:
+    """The parity oracle: offline prefill + decode of one prompt, cut after
+    the first EOS (offline pads with EOS; the engine stops)."""
+    from deeplearning_mpi_tpu_torch.models.generate import generate
+
+    out = generate(
+        model, torch.as_tensor(prompt, dtype=torch.long, device=model.device)[None],
+        max_new_tokens=max_new, temperature=0.0, eos_id=eos_id,
+    )
+    expect = out[0, len(prompt):].tolist()
+    if eos_id is not None and eos_id in expect:
+        expect = expect[: expect.index(eos_id) + 1]
+    return expect
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if not args.selftest:
+        print("only --selftest is supported in this slice", file=sys.stderr)
+        return 2
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
+
+    eos_id = args.eos_id if args.eos_id >= 0 else None
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size, num_layers=args.num_layers,
+        num_heads=args.num_heads, num_kv_heads=args.num_kv_heads or None,
+        head_dim=args.head_dim, d_model=args.d_model, d_ff=args.d_ff,
+        attention_window=args.attention_window,
+    )
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = TransformerLM(cfg, dtype=dtype, device=args.device).init_weights(args.random_seed)
+    engine = ServingEngine(model, EngineConfig(
+        max_slots=args.max_slots, block_size=args.block_size,
+        num_blocks=args.num_blocks, max_blocks_per_seq=args.max_blocks_per_seq,
+        prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+    ), eos_id=eos_id)
+    reqs, wall_s = replay(engine, poisson_trace(args))
+    rep = latency_report(reqs, wall_s)
+    ms = {k: (f"{v * 1e3:.2f}" if v is not None else "n/a")
+          for k, v in rep.items() if k.endswith("_s") and k != "wall_s"}
+    print(
+        f"requests: {rep['requests']} submitted, {rep['completed']} completed | "
+        f"{rep['tokens']} tokens in {wall_s:.3f}s on {args.device} | TTFT p50/p95 "
+        f"{ms['ttft_p50_s']}/{ms['ttft_p95_s']} ms | TPOT p50/p95 "
+        f"{ms['tpot_p50_s']}/{ms['tpot_p95_s']} ms | {engine.decode_steps} decode "
+        f"steps, {engine.prefill_chunks} prefill chunks",
+        file=sys.stderr,
+    )
+    bad = [(r.rid, r.state.value, r.shed_reason) for r in reqs
+           if r.state is not RequestState.FINISHED]
+    if bad:
+        print(f"selftest: not all requests completed: {bad}", file=sys.stderr)
+        return 1
+    mismatched = 0
+    for r in reqs:
+        expect = offline_greedy(model, r.prompt, r.max_new_tokens, eos_id)
+        if r.generated != expect:
+            mismatched += 1
+            print(f"selftest: rid {r.rid} diverged from offline greedy:\n"
+                  f"  engine : {r.generated}\n  offline: {expect}", file=sys.stderr)
+    if mismatched:
+        print(f"selftest FAILED: {mismatched}/{len(reqs)} request(s) diverged", file=sys.stderr)
+        return 1
+    print(f"selftest OK: {len(reqs)} requests bit-identical to offline greedy decode "
+          f"({engine.pool.total_allocated} block allocations, "
+          f"{engine.pool.total_freed} frees)", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+// Shared helpers for the hand-written kernels: dtype codes, conversions,
+// vector loads and warp reductions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Element-type codes, as the Python wrappers pass them.
+enum DType : int32_t { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+
+// Finite mask value, as in ops/attention.py: a fully masked tile gives
+// exp(s - m) = 1, so every kernel re-zeroes masked probabilities itself.
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+template <class T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// Eight consecutive elements of T, loaded with one or two vector loads
+// (the caller guarantees alignment: every head dim is a multiple of 8).
+template <class T> struct Vec8;
+template <> struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void to_f32(float* out) const {
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  }
+};
+template <> struct Vec8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void zero() { u = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void to_f32(float* out) const {
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
+  }
+};
+template <> struct Vec8<int8_t> {
+  uint2 u;
+  __device__ __forceinline__ void load(const int8_t* p) { u = *reinterpret_cast<const uint2*>(p); }
+  __device__ __forceinline__ void zero() { u = make_uint2(0, 0); }
+  __device__ __forceinline__ void to_f32(float* out) const {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Calls f(std::integral_constant<int, D>) for the compiled head dims (every
+// multiple of 8 up to 128); returns false for any other.
+#include <type_traits>
+template <class F>
+inline bool dispatch_head_dim(int d, F&& f) {
+  switch (d) {
+#define HEAD_DIM_CASE(N) \
+  case N:                \
+    f(std::integral_constant<int, N>{}); \
+    return true;
+    HEAD_DIM_CASE(8) HEAD_DIM_CASE(16) HEAD_DIM_CASE(24) HEAD_DIM_CASE(32)
+    HEAD_DIM_CASE(40) HEAD_DIM_CASE(48) HEAD_DIM_CASE(56) HEAD_DIM_CASE(64)
+    HEAD_DIM_CASE(72) HEAD_DIM_CASE(80) HEAD_DIM_CASE(88) HEAD_DIM_CASE(96)
+    HEAD_DIM_CASE(104) HEAD_DIM_CASE(112) HEAD_DIM_CASE(120) HEAD_DIM_CASE(128)
+#undef HEAD_DIM_CASE
+    default:
+      return false;
+  }
+}

@@ -1,0 +1,323 @@
+"""Decoder-only Transformer LM — the inference forward, in PyTorch.
+
+Port of ``deeplearning_mpi_tpu/models/transformer.py``: RoPE (split halves,
+cos/sin in float32 cast to the activation dtype), RMSNorm (eps 1e-6, f32
+accumulation), multi-head attention with grouped K/V heads and an optional
+sliding window, SwiGLU, pre-norm blocks and a tied (or untied) head.
+Parameters are float32; ``dtype`` is the compute dtype every projection
+casts both operands to, as flax ``Dense(dtype=...)`` does.
+
+Three modes, chosen by the arguments of :meth:`TransformerLM.forward`:
+
+- full sequence (``cache=None``): attention by ``attention_fn`` (default
+  :func:`~deeplearning_mpi_tpu_torch.ops.attention.dense_attention`);
+- prefill (``cache`` empty, several tokens): K/V written into the cache,
+  the chunk attends within itself with ``attention_fn`` (K1 on CUDA when
+  ``models.generate.prefill`` passes it);
+- decode (one token): K/V appended at ``cache.index`` and attended over
+  the filled prefix with ``decode_attention``.
+
+The explicit :class:`KVCache` replaces flax's mutable ``cache``
+collection. MoE, quantized projections and remat come in a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deeplearning_mpi_tpu_torch import resolve_device
+from deeplearning_mpi_tpu_torch.ops.attention import (
+    decode_attention,
+    dense_attention,
+    repeat_kv,
+)
+
+# (q, k, v [B,S,H,D], causal=..., [window=...]) -> context [B,S,H,D]
+AttentionFn = Callable[..., torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Size knobs for :class:`TransformerLM`; the defaults are the 110M
+    model, ``tiny()`` the test config (same values as the reference)."""
+
+    vocab_size: int = 32_000
+    num_layers: int = 12
+    num_heads: int = 12
+    #: grouped-query attention: K/V heads (None = num_heads). Must divide
+    #: num_heads.
+    num_kv_heads: int | None = None
+    head_dim: int = 64
+    d_model: int = 768
+    d_ff: int = 2048
+    tied_embeddings: bool = True
+    #: sliding-window attention (0 = unlimited); a model property honoured
+    #: by the full-sequence, prefill and decode paths alike.
+    attention_window: int = 0
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @staticmethod
+    def tiny() -> "TransformerConfig":
+        return TransformerConfig(
+            vocab_size=256, num_layers=2, num_heads=4, head_dim=8,
+            d_model=32, d_ff=64,
+        )
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over ``[B, S, H, D]`` (D even), rotating
+    the two halves of D (not interleaved pairs). Angles and cos/sin are
+    computed in float32 and cast to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[:, :, None].float() * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm, f32 accumulation, learned scale."""
+
+    def __init__(self, dim: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        normed = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return (normed * self.scale).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """Bias-free projection with flax ``Dense(dtype=...)`` numerics: both
+    operands cast to the compute dtype, f32 weights untouched."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer K/V buffers ``[B, max_len, Hkv, D]`` (zero-initialised:
+    the dense decode path reads every row, and 0 x NaN is NaN) plus the
+    number of filled positions ``index``."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    index: int = 0
+
+    @staticmethod
+    def empty(
+        config: TransformerConfig, batch: int, max_len: int,
+        dtype: torch.dtype, device: torch.device | str,
+    ) -> "KVCache":
+        shape = (batch, max_len, config.kv_heads, config.head_dim)
+        return KVCache(
+            k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.num_layers)],
+            v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.num_layers)],
+        )
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[1]
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with RoPE, grouped K/V heads and an
+    optional sliding window."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype) -> None:
+        super().__init__()
+        c = config
+        if c.num_heads % c.kv_heads:
+            raise ValueError(
+                f"num_kv_heads ({c.kv_heads}) must divide num_heads ({c.num_heads})"
+            )
+        self.num_heads, self.kv_heads, self.head_dim = c.num_heads, c.kv_heads, c.head_dim
+        self.window = c.attention_window or None
+        self.q_proj = Dense(c.d_model, c.num_heads * c.head_dim, dtype)
+        self.k_proj = Dense(c.d_model, c.kv_heads * c.head_dim, dtype)
+        self.v_proj = Dense(c.d_model, c.kv_heads * c.head_dim, dtype)
+        self.out_proj = Dense(c.num_heads * c.head_dim, c.d_model, dtype)
+
+    def project(
+        self, x: torch.Tensor, positions: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]``, RoPE applied."""
+        batch, seq, _ = x.shape
+        q = self.q_proj(x).reshape(batch, seq, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(batch, seq, self.kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(batch, seq, self.kv_heads, self.head_dim)
+        return apply_rope(q, positions), apply_rope(k, positions), v
+
+    def output(self, ctx: torch.Tensor) -> torch.Tensor:
+        batch, seq = ctx.shape[:2]
+        return self.out_proj(ctx.reshape(batch, seq, self.num_heads * self.head_dim))
+
+    def _window_kw(self) -> dict:
+        return {"window": self.window} if self.window else {}
+
+    def full(self, q, k, v, attention_fn: AttentionFn | None) -> torch.Tensor:
+        rep = self.num_heads // self.kv_heads
+        attn = attention_fn or dense_attention
+        return attn(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=True, **self._window_kw())
+
+    def forward(
+        self, x: torch.Tensor, positions: torch.Tensor, *,
+        cache: KVCache | None = None, layer: int = 0,
+        attention_fn: AttentionFn | None = None,
+    ) -> torch.Tensor:
+        q, k, v = self.project(x, positions)
+        if cache is None:
+            return self.output(self.full(q, k, v, attention_fn))
+        seq, i = x.shape[1], cache.index
+        k_buf, v_buf = cache.k[layer], cache.v[layer]
+        # In-place cache write (the reference returns new buffers).
+        k_buf[:, i:i + seq] = k.to(k_buf.dtype)
+        v_buf[:, i:i + seq] = v.to(v_buf.dtype)
+        if seq != 1:
+            # Prefill on an empty cache: the chunk attends within itself.
+            return self.output(self.full(q, k, v, attention_fn))
+        return self.output(decode_attention(q, k_buf, v_buf, i, window=self.window))
+
+
+class SwiGLU(nn.Module):
+    """Gated MLP: ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.gate_proj = Dense(d_model, d_ff, dtype)
+        self.up_proj = Dense(d_model, d_ff, dtype)
+        self.down_proj = Dense(d_ff, d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block: x + attn(norm(x)); x + mlp(norm(x))."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.attn_norm = RMSNorm(config.d_model)
+        self.attn = Attention(config, dtype)
+        self.mlp_norm = RMSNorm(config.d_model)
+        self.mlp = SwiGLU(config.d_model, config.d_ff, dtype)
+
+    def forward(self, x, positions, *, cache=None, layer=0, attention_fn=None):
+        x = x + self.attn(
+            self.attn_norm(x), positions, cache=cache, layer=layer,
+            attention_fn=attention_fn,
+        )
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: token embed -> N blocks -> final norm -> float32 logits.
+
+    Weights are float32 and uninitialised until :meth:`init_weights` or
+    ``load_state_dict``; ``device`` defaults to CUDA (raises without it)."""
+
+    def __init__(
+        self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        self.embed = nn.Embedding(config.vocab_size, config.d_model)
+        self.layers = nn.ModuleList(Block(config, dtype) for _ in range(config.num_layers))
+        self.final_norm = RMSNorm(config.d_model)
+        self.lm_head = (
+            None if config.tied_embeddings
+            else Dense(config.d_model, config.vocab_size, dtype)
+        )
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, seed: int = 0) -> "TransformerLM":
+        """Seeded random init with the reference's distributions (embedding
+        normal(0.02), projections LeCun truncated normal, norms ones),
+        drawn on the CPU so every device gets the same weights."""
+        gen = torch.Generator().manual_seed(seed)
+        for name, p in self.named_parameters():
+            host = torch.empty(p.shape)
+            if name.endswith("scale"):
+                host.fill_(1.0)
+            elif name == "embed.weight":
+                host.normal_(0.0, 0.02, generator=gen)
+            else:
+                # Dense weight [out, in]: fan_in is the input width.
+                std = 1.0 / math.sqrt(p.shape[1]) / 0.87962566103423978
+                nn.init.trunc_normal_(host, std=std, a=-2 * std, b=2 * std, generator=gen)
+            p.copy_(host)
+        return self
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embed.weight.to(self.dtype))
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-norm activations -> float32 logits (tied: ``x @ E^T`` in
+        the compute dtype, as flax ``Embed.attend``)."""
+        if self.lm_head is None:
+            logits = x.to(self.dtype) @ self.embed.weight.to(self.dtype).T
+        else:
+            logits = self.lm_head(x)
+        return logits.float()
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        positions: torch.Tensor | None = None,
+        *,
+        cache: KVCache | None = None,
+        attention_fn: AttentionFn | None = None,
+        return_hidden: bool = False,
+    ) -> torch.Tensor:
+        """Logits ``[B, S, V]`` (or, with ``return_hidden``, the final-norm
+        activations ``[B, S, d_model]``). With ``cache``: a multi-token call
+        prefills an EMPTY cache, a one-token call decodes at
+        ``cache.index``; either way the cache advances by ``S``."""
+        batch, seq = tokens.shape
+        if cache is not None:
+            if seq != 1 and cache.index != 0:
+                raise ValueError(
+                    f"multi-token cache writes are prefill on an empty cache only "
+                    f"(cache.index={cache.index}); decode feeds one token per step"
+                )
+            if cache.index + seq > cache.max_len:
+                raise ValueError(
+                    f"cache holds {cache.max_len} positions; writing {seq} at "
+                    f"{cache.index} overflows it"
+                )
+        if positions is None:
+            start = cache.index if cache is not None else 0
+            positions = torch.arange(start, start + seq, device=tokens.device)
+            positions = positions[None].expand(batch, seq)
+        x = self.embed_tokens(tokens)
+        for i, block in enumerate(self.layers):
+            x = block(x, positions, cache=cache, layer=i, attention_fn=attention_fn)
+        if cache is not None:
+            cache.index += seq
+        x = self.final_norm(x)
+        return x if return_hidden else self.head(x)

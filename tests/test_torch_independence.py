@@ -1,0 +1,74 @@
+"""The PyTorch port stands alone: no JAX, flax, optax, orbax or JAX package.
+
+An AST scan of every module of ``deeplearning_mpi_tpu_torch`` and of
+``chip_smoke.py`` finds no such import; a subprocess with ``jax`` blocked in
+``sys.modules`` imports the port's serving engine and generation and runs
+one tiny engine step on the CPU.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeplearning_mpi_tpu")
+PORT_FILES = sorted((ROOT / "deeplearning_mpi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "from deeplearning_mpi_tpu_torch.models.generate import generate\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
+        "from deeplearning_mpi_tpu_torch.serving.engine import EngineConfig, ServingEngine\n"
+        "m = TransformerLM(TransformerConfig.tiny(), dtype=torch.float32, device='cpu').init_weights(0)\n"
+        "e = ServingEngine(m, EngineConfig())\n"
+        "r = e.submit(np.arange(1, 6, dtype=np.int32), 3)\n"
+        "e.run_until_idle()\n"
+        "want = generate(m, torch.arange(1, 6)[None], max_new_tokens=3, temperature=0.0)\n"
+        "assert r.generated == want[0, 5:].tolist()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
+def test_chip_smoke_refuses_without_card_or_port(alone, tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result where there is
+    no CUDA device (here), and in a directory that holds nothing else of
+    the repo."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    out = subprocess.run(
+        [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
