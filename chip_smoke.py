@@ -6,7 +6,7 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the serving path from ``deeplearning_mpi_tpu_torch/csrc``
+2. build every kernel of the serving and training paths from ``deeplearning_mpi_tpu_torch/csrc``
    (``nvcc -Xptxas -v`` output printed);
 3. K1 (flash-attention forward) against its plain PyTorch version at the 110M
    widths: bf16 B8 S2048 H12 D64 causal and window 512 (both layouts), f32
@@ -21,7 +21,22 @@ Phases, each printed on its own line; any failure exits non-zero:
    device time by kernel;
 6. time K1 and K4 with CUDA events at the phase-5 shapes, beside their plain
    versions, the least time the card could take (``bound_ms``) and
-   ``F.scaled_dot_product_attention`` as a yardstick (the port never calls it).
+   ``F.scaled_dot_product_attention`` as a yardstick (the port never calls it);
+   K2 and K3 likewise at the phase-8 shape, with SDPA's backward (timed after
+   phase 9, since their launch counts come from phase 8);
+7. K2 and K3 (flash-attention backward) against their plain version: bf16
+   B8 S2048 H12 D64 causal and window 512 in both layouts, f32 S512, head
+   dims 8 / 24 / 128, ragged S, and shift with window and float32 grads;
+8. train the 110M ``TransformerConfig()`` at ``bench_lm``'s shape (bf16,
+   ``flash_attention_bhsd``, B8 S2048, Adam 3e-4, clip 1.0) for 10 steps
+   through ``make_train_step``, on 16 seeded synthetic sequences (vocab 32000)
+   that the port's loader reshuffles each epoch: every loss finite and
+   the last three below the first, K1/K2/K3 each launched exactly 12 times a
+   step (counters set to 0 just before), the step-1 gradients of the flash
+   path within bf16 tolerance of the dense path (B1 S2048, all 12 layers);
+   the step time, tokens/s, MFU, peak memory and one profiled step;
+9. the port's ``cli.train_lm`` at the 110M widths (vocab 256), seq 2048,
+   batch 8, flash in bf16: must return 0.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -238,18 +253,25 @@ def serve(torch, seed: int):
 
 def profile_replay(torch, engine, entries) -> dict:
     """Replay the trace again on a fresh engine under ``torch.profiler``
-    (the profiler slows the host, so its latencies are not phase 5's).
-    Returns the device-busy share of the replay's wall time — the union of
-    the device events' intervals over the host clock — and the device time
-    by kernel name."""
+    (the profiler slows the host, so its latencies are not phase 5's)."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import replay
+
+    return device_profile(torch, lambda: replay(engine, entries), "profile")
+
+
+def device_profile(torch, fn, label: str) -> dict:
+    """Run ``fn`` under ``torch.profiler``; returns the device-busy share of
+    its wall time (the union of the device events' intervals over the host
+    clock, synchronised at the end) and the device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deeplearning_mpi_tpu_torch.cli.serve_lm import replay
-
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_s = replay(engine, entries)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
@@ -264,11 +286,11 @@ def profile_replay(torch, engine, entries) -> dict:
     summary = {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
                "busy_share": busy_us / 1e6 / wall_s, "device_events": len(device),
                "top": [{"name": n, "device_ms": ms, "calls": c} for n, (ms, c) in top]}
-    require(len(device) > 0, "profile: no device events traced")
-    log(f"profile: replay wall {wall_s:.3f}s, device busy {busy_us / 1e6:.4f}s "
+    require(len(device) > 0, f"{label}: no device events traced")
+    log(f"{label}: wall {wall_s:.4f}s, device busy {busy_us / 1e6:.4f}s "
         f"({100 * summary['busy_share']:.2f}%), {len(device)} device events")
     for t in summary["top"]:
-        log(f"profile: {t['device_ms']:9.3f} ms {t['calls']:6d} x {t['name'][:110]}")
+        log(f"{label}: {t['device_ms']:9.3f} ms {t['calls']:6d} x {t['name'][:110]}")
     return summary
 
 
@@ -366,6 +388,214 @@ def time_extra(torch, gen) -> list[dict]:
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+def check_k2k3(torch, gen) -> None:
+    """K2 and K3 against their plain version on the same o, do and lse (o and
+    lse from K1), over cases that mirror phase 3."""
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (name, B, S, H, D, dtype, kwargs, layout, tolerance)
+        ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd", 2e-2),
+        ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd", 2e-2),
+        ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd", 2e-2),
+        ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd", 2e-2),
+        ("f32 causal S512", 8, 512, 12, 64, f32, {}, "bshd", 1e-4),
+        ("f32 full S300", 2, 300, 4, 64, f32, {"causal": False}, "bhsd", 1e-4),
+        ("f32 D8 window S77", 2, 77, 3, 8, f32, {"window": 9}, "bshd", 1e-4),
+        ("bf16 D24 causal S90", 2, 90, 3, 24, bf16, {}, "bhsd", 2e-2),
+        ("f32 D128 causal S200", 1, 200, 2, 128, f32, {}, "bhsd", 1e-4),
+        ("bf16 D128 full S200", 1, 200, 2, 128, bf16, {"causal": False}, "bshd", 2e-2),
+        ("bf16 window shift f32-grads", 2, 200, 3, 64, bf16,
+         {"window": 64, "shift": 100, "grad_dtype": f32}, "bshd", 2e-2),
+        ("f32 window shift", 1, 130, 2, 64, f32, {"window": 40, "shift": 150}, "bhsd", 1e-4),
+    ]
+    for name, B, S, H, D, dtype, kw, layout, tol in cases:
+        shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
+        q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        call = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                    shift=kw.get("shift", 0), layout=layout)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, out_dtype=None, **call)
+        call["grad_dtype"] = kw.get("grad_dtype")
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **call)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **call)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **call)
+        errs = []
+        for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            require(got.dtype == ref.dtype, f"K2/K3 {name}: {label} dtype {got.dtype} != {ref.dtype}")
+            require(bool(torch.isfinite(got).all()), f"K2/K3 {name}: non-finite {label}")
+            errs.append(max_err(got, ref))
+            require(close(got, ref, tol), f"K2/K3 {name}: {label} max abs err {errs[-1]}, "
+                    f"tol {tol} (abs+rel)")
+        log(f"K2/K3 {name}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+            f"(tol {tol:g} abs+rel)")
+
+
+# -- phase 8 -----------------------------------------------------------------
+def lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step, the reference's count
+    (``telemetry/flops.py``): 3x the forward's matmuls — per token and block
+    2*d*(H+2*Hkv)*Dh for q/k/v, 2*H*Dh*d out, 4*(S/2)*H*Dh causal attention,
+    6*d*d_ff SwiGLU; plus the 2*d*V head per token."""
+    d, hd, kvd = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    per_block = 2 * d * hd + 4 * d * kvd + 2 * hd * d + 4 * (seq / 2) * hd + 6 * d * cfg.d_ff
+    return 3.0 * batch * seq * (cfg.num_layers * per_block + 2 * d * cfg.vocab_size)
+
+
+def train_110m(torch, seed: int) -> dict:
+    """The 110M ``TransformerConfig()`` at ``bench_lm``'s shape: bf16, flash
+    attention (K1/K2/K3), B8 S2048, Adam 3e-4 with clip 1.0, 10 steps (5
+    epochs of 2 batches) through the port's loader and ``make_train_step``."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.train import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TransformerConfig()
+    B, S, steps = 8, 2048, 10
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    # 16 sequences through the port's loader: 2 batches an epoch, 5 epochs,
+    # reshuffled each epoch (fresh random 32k-token motifs in every batch
+    # would leave 10 steps nothing to learn).
+    loader = Loader(SyntheticTokens(2 * B, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=True, seed=seed, device="cuda")
+    batches = [b for epoch in range(steps // 2) for b in loader.epoch(epoch)]
+
+    # Step-1 gradients, flash against dense, on the init params and batch 0
+    # at B1 (the dense path's [B, 12, S, S] scores at B8 would not fit).
+    def grads(attention_fn):
+        model.zero_grad(set_to_none=True)
+        from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+
+        tokens = batches[0]["tokens"][:1]
+        lm_cross_entropy(model(tokens, attention_fn=attention_fn), tokens).backward()
+        return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    g_flash, g_dense = grads(fa.flash_attention_bhsd), grads(None)
+    model.zero_grad(set_to_none=True)
+    rel = {n: float((g_flash[n] - g_dense[n]).norm() / g_dense[n].norm().clamp(min=1e-30))
+           for n in g_dense}
+    worst = max(rel, key=rel.get)
+    log(f"train: flash vs dense step-1 grads (B1 S{S}, {len(rel)} tensors): relative L2 error "
+        f"max {rel[worst]:.3e} ({worst}), median {sorted(rel.values())[len(rel) // 2]:.3e} "
+        f"(tol 5e-2)")
+    require(rel[worst] <= 5e-2, f"train: flash grads differ from dense: {worst} {rel[worst]}")
+    del g_flash, g_dense
+
+    state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                               attention_fn=fa.flash_attention_bhsd)
+    step = make_train_step("lm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+               fa.flash_attention_bwd_dkv_cuda):
+        fn.launches = 0
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = {"K1": fa.flash_attention_cuda.launches,
+                "K2": fa.flash_attention_bwd_dq_cuda.launches,
+                "K3": fa.flash_attention_bwd_dkv_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[2:])[len(times[2:]) // 2]
+    flops = lm_train_flops(cfg, B, S)
+    result = {"losses": losses, "step_times_s": times, "step_s_median": step_s,
+              "tokens_per_s": B * S / step_s, "model_flops_per_step": flops,
+              "mfu": flops / step_s / PEAK_FLOPS["bfloat16"], "max_memory_allocated": peak,
+              "launches": launches}
+    log(f"train: losses {[round(x, 4) for x in losses]}")
+    log(f"train: step median {1e3 * step_s:.2f} ms (steps 3-10), {result['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {100 * result['mfu']:.2f}% of 989 TFLOP/s ({flops:.4e} model FLOPs a "
+        f"step), max_memory_allocated {peak / 2**30:.2f} GiB, launches {launches}")
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(sum(losses[-3:]) / 3 < losses[0], f"train: loss did not fall: {losses}")
+    require(all(n == 12 * steps for n in launches.values()),
+            f"train: expected {12 * steps} launches of each kernel, got {launches}")
+    result["profile"] = device_profile(
+        torch, lambda: step(state, batches[-1]), "train profile (one step)")
+    return result
+
+
+# -- phase 9 -----------------------------------------------------------------
+def train_cli() -> None:
+    """The port's training CLI at the 110M widths (vocab 256, as the JAX
+    CLI), seq 2048, batch 8, flash attention in bf16: 5 steps and an eval."""
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+
+    rc = train_lm.main([
+        "--device", "cuda", "--attention", "flash", "--dtype", "bfloat16",
+        "--num_layers", "12", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
+        "--d_ff", "2048", "--seq_len", "2048", "--batch_size", "8",
+        "--train_sequences", "48", "--num_epochs", "1",
+    ])
+    require(rc == 0, f"train_lm CLI exited {rc}")
+
+
+def time_backward(torch, gen, launches) -> list[dict]:
+    """K2 and K3 at the phase-8 shape (bf16 B8 S2048 H12 D64 causal, BHSD),
+    beside the plain backward and the backward of
+    ``F.scaled_dot_product_attention`` (the pair's yardstick, timed once and
+    reported in both rows; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, H, S, D = 8, 12, 2048, 64
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    kw = dict(causal=True, window=None, shift=0, grad_dtype=None, layout="bhsd")
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, out_dtype=None,
+                                     **{n: kw[n] for n in ("causal", "window", "shift", "layout")})
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **kw)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **kw),
+                       iters=3, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
+    pairs = B * H * S * (S + 1) // 2
+    tensor = B * H * S * D * 2  # one bf16 [B, H, S, D] tensor
+    rowvec = B * H * S * 4  # one float32 [B, H, S] vector
+    rows = []
+    for name, fn, flops, nbytes, err, replaces in (
+        ("K2 flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **kw),
+         6 * D * pairs, 6 * tensor + rowvec, max_err(dq, want[0]),
+         "deeplearning_mpi_tpu/ops/pallas/flash_attention.py:338"),
+        ("K3 flash_attention_bwd_dkv",
+         lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **kw),
+         8 * D * pairs, 6 * tensor + 2 * rowvec, max(max_err(dk, want[1]), max_err(dv, want[2])),
+         "deeplearning_mpi_tpu/ops/pallas/flash_attention.py:386"),
+    ):
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning_mpi_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": replaces, "launches": launches[name[:2]], "max_abs_err": err,
+            "ms": time_ms(fn), "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": sdpa_ms,
+            "shape": f"B{B} S{S} H{H} D{D} bf16 causal bhsd",
+        })
+    for r in rows:
+        log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain (dq+dk+dv) "
+            f"{r['plain_ms']:.4f} ms, sdpa backward (dq+dk+dv) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -409,6 +639,18 @@ def main() -> int:
     kernels = time_kernels(torch, gen, launches, k1_shape, fills, k4_len)
     extra = time_extra(torch, gen)
     log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_k2k3(torch, gen)
+    log(f"phase 7 K2/K3 vs plain OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train = train_110m(torch, args.seed)
+    log(f"phase 8 train OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_cli()
+    log(f"phase 9 train_lm CLI OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    kernels[1:1] = time_backward(torch, gen, train["launches"])
+    log(f"phase 6 K2/K3 timing in {time.perf_counter() - t0:.1f}s")
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -416,7 +658,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
-                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "train": train, "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in kernels]

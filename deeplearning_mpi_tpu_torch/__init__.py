@@ -7,13 +7,20 @@ the JAX package so each counterpart is easy to find:
 
 - ``ops.attention``          — dense / decode / batched-decode attention;
 - ``ops.kernels``            — the hand-written kernels (K1 flash-attention
-  forward, K4 flash-decode), their builder, and their plain versions;
-- ``models.transformer``     — the decoder-only TransformerLM (inference);
+  forward, K2/K3 its backward and the autograd join, K4 flash-decode),
+  their nvcc build, and their plain versions;
+- ``ops.loss``               — LM cross-entropy, masked mean, chunked loss;
+- ``models.transformer``     — the decoder-only TransformerLM (training and
+  inference);
 - ``models.convert``         — JAX param tree -> ``state_dict``;
 - ``models.generate``        — prefill, decode, sampling, ``generate``;
+- ``train``                  — train state, train/eval steps, optimizers and
+  LR schedules, the trainer;
+- ``data``                   — LM datasets and the batch loader;
 - ``serving``                — paged KV pool, scheduler, continuous-batching
   engine;
-- ``cli.serve_lm``           — ``--selftest`` trace replay with a parity check.
+- ``cli.serve_lm``           — ``--selftest`` trace replay with a parity check;
+- ``cli.train_lm``           — LM training with the JAX trainer's flags.
 
 This package never imports ``jax``, ``flax`` or ``deeplearning_mpi_tpu``.
 Entry points take ``device=`` and default to ``"cuda"``; asking for CUDA on

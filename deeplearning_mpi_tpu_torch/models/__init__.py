@@ -1,1 +1,1 @@
-"""The decoder-only TransformerLM (inference), its converter and generation."""
+"""The decoder-only TransformerLM (training and inference), its converter and generation."""

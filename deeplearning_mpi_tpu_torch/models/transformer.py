@@ -1,4 +1,4 @@
-"""Decoder-only Transformer LM — the inference forward, in PyTorch.
+"""Decoder-only Transformer LM, in PyTorch: training and inference forward.
 
 Port of ``deeplearning_mpi_tpu/models/transformer.py``: RoPE (split halves,
 cos/sin in float32 cast to the activation dtype), RMSNorm (eps 1e-6, f32
@@ -17,19 +17,38 @@ Three modes, chosen by the arguments of :meth:`TransformerLM.forward`:
 - decode (one token): K/V appended at ``cache.index`` and attended over
   the filled prefix with ``decode_attention``.
 
+An ``attention_fn`` carrying ``.layout == "bhsd"`` (the port's
+``flash_attention_bhsd``) switches the full-sequence path to the kernel's
+layout: q/k/v are projected straight into ``[B, H, S, D]`` and the context
+consumed from it (the reference's ``_ProjToBHSD`` / ``_ProjFromBHSD``), with
+the same ``Dense.weight`` tensors, so one ``state_dict`` serves both paths.
+
+Training options, as in the reference: ``remat`` (``"none"``, ``"full"``:
+each block under ``torch.utils.checkpoint``; ``"dots"``: a selective
+checkpoint that saves the matmul outputs), ``return_prehead`` (final-norm
+activations and the tied head kernel for ``ops.loss.chunked_lm_loss``) and
+the config's ``onehot_embed`` (the embedding as a one-hot matmul: the same
+forward, a matmul gradient).
+
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
-collection. MoE, quantized projections and remat come in a later slice.
+collection. MoE and quantized projections come in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from deeplearning_mpi_tpu_torch import resolve_device
 from deeplearning_mpi_tpu_torch.ops.attention import (
@@ -60,6 +79,9 @@ class TransformerConfig:
     #: sliding-window attention (0 = unlimited); a model property honoured
     #: by the full-sequence, prefill and decode paths alike.
     attention_window: int = 0
+    #: embedding lookup as a one-hot matmul instead of a gather: the same
+    #: forward values, but the gradient is a matmul, not a scatter-add.
+    onehot_embed: bool = False
 
     @property
     def kv_heads(self) -> int:
@@ -73,15 +95,31 @@ class TransformerConfig:
         )
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0) -> torch.Tensor:
+def attention_fn_layout(fn: AttentionFn | None) -> str:
+    """Layout an attention fn expects: its ``layout`` attribute, followed
+    through ``functools.partial`` chains (``partial`` does not forward
+    attributes)."""
+    while fn is not None:
+        layout = getattr(fn, "layout", None)
+        if layout is not None:
+            return layout
+        fn = getattr(fn, "func", None)
+    return "bshd"
+
+
+def apply_rope(
+    x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0, layout: str = "bshd",
+) -> torch.Tensor:
     """Rotary position embedding over ``[B, S, H, D]`` (D even), rotating
     the two halves of D (not interleaved pairs). Angles and cos/sin are
-    computed in float32 and cast to ``x``'s dtype."""
+    computed in float32 and cast to ``x``'s dtype. ``layout="bhsd"``
+    rotates ``[B, H, S, D]``."""
     half = x.shape[-1] // 2
     freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     angles = positions[:, :, None].float() * freqs  # [B, S, half]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    axis = 1 if layout == "bhsd" else 2  # where the head axis broadcasts
+    cos = torch.cos(angles).unsqueeze(axis).to(x.dtype)
+    sin = torch.sin(angles).unsqueeze(axis).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -179,11 +217,38 @@ class Attention(nn.Module):
         attn = attention_fn or dense_attention
         return attn(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=True, **self._window_kw())
 
+    def forward_bhsd(
+        self, x: torch.Tensor, positions: torch.Tensor, attention_fn: AttentionFn,
+    ) -> torch.Tensor:
+        """Full-sequence attention in the kernel's ``[B, H, S, D]`` layout:
+        the projections write and read it directly (each ``Dense.weight``
+        viewed as ``[H, D, d_model]`` inside the einsum), so no BSHD copy
+        exists in either pass."""
+        dtype = self.q_proj.dtype
+        xc = x.to(dtype)
+
+        def proj(dense: Dense, heads: int) -> torch.Tensor:
+            w = dense.weight.to(dtype).reshape(heads, self.head_dim, -1)
+            return torch.einsum("bsm,hdm->bhsd", xc, w)
+
+        q = apply_rope(proj(self.q_proj, self.num_heads), positions, layout="bhsd")
+        k = apply_rope(proj(self.k_proj, self.kv_heads), positions, layout="bhsd")
+        v = proj(self.v_proj, self.kv_heads)
+        rep = self.num_heads // self.kv_heads
+        ctx = attention_fn(
+            q, repeat_kv(k, rep, axis=1), repeat_kv(v, rep, axis=1), causal=True,
+            **self._window_kw(),
+        )
+        w = self.out_proj.weight.to(dtype).reshape(-1, self.num_heads, self.head_dim)
+        return torch.einsum("bhsd,mhd->bsm", ctx.to(dtype), w)
+
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor, *,
         cache: KVCache | None = None, layer: int = 0,
         attention_fn: AttentionFn | None = None,
     ) -> torch.Tensor:
+        if cache is None and attention_fn_layout(attention_fn) == "bhsd":
+            return self.forward_bhsd(x, positions, attention_fn)
         q, k, v = self.project(x, positions)
         if cache is None:
             return self.output(self.full(q, k, v, attention_fn))
@@ -229,18 +294,46 @@ class Block(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+#: Matmul outputs the ``"dots"`` remat policy keeps (the reference's
+#: ``jax.checkpoint_policies.checkpoint_dots``); everything else is recomputed.
+_DOT_OPS = {
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+}
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
 class TransformerLM(nn.Module):
     """Causal LM: token embed -> N blocks -> final norm -> float32 logits.
 
     Weights are float32 and uninitialised until :meth:`init_weights` or
-    ``load_state_dict``; ``device`` defaults to CUDA (raises without it)."""
+    ``load_state_dict``; ``device`` defaults to CUDA (raises without it).
+    ``remat`` applies to the full-sequence (training) forward with grad
+    enabled; ``return_prehead`` makes that forward return ``(final-norm
+    activations, head kernel [d, V])`` for the chunked loss (tied
+    embeddings only)."""
 
     def __init__(
         self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
-        device: str | torch.device = "cuda",
+        device: str | torch.device = "cuda", remat: str = "none",
+        return_prehead: bool = False,
     ) -> None:
         super().__init__()
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {remat!r} (expected one of {REMAT_POLICIES})")
+        if return_prehead and not config.tied_embeddings:
+            raise ValueError(
+                "return_prehead requires tied_embeddings (the chunked loss "
+                "takes the embedding as the head kernel)"
+            )
         self.config, self.dtype = config, dtype
+        self.remat, self.return_prehead = remat, return_prehead
         self.embed = nn.Embedding(config.vocab_size, config.d_model)
         self.layers = nn.ModuleList(Block(config, dtype) for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.d_model)
@@ -274,7 +367,23 @@ class TransformerLM(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed.weight.to(self.dtype))
+        table = self.embed.weight.to(self.dtype)
+        if self.config.onehot_embed:
+            onehot = F.one_hot(tokens.long(), self.config.vocab_size).to(self.dtype)
+            return torch.einsum("bsv,vd->bsd", onehot, table)
+        return F.embedding(tokens, table)
+
+    def _run_block(self, block: Block, x, positions, attention_fn) -> torch.Tensor:
+        """One block of the full-sequence forward, under the remat policy."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return block(x, positions, attention_fn=attention_fn)
+        context_fn = (
+            functools.partial(create_selective_checkpoint_contexts, _save_dots)
+            if self.remat == "dots" else None
+        )
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(block, x, positions, use_reentrant=False,
+                          attention_fn=attention_fn, **kw)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final-norm activations -> float32 logits (tied: ``x @ E^T`` in
@@ -295,9 +404,10 @@ class TransformerLM(nn.Module):
         return_hidden: bool = False,
     ) -> torch.Tensor:
         """Logits ``[B, S, V]`` (or, with ``return_hidden``, the final-norm
-        activations ``[B, S, d_model]``). With ``cache``: a multi-token call
-        prefills an EMPTY cache, a one-token call decodes at
-        ``cache.index``; either way the cache advances by ``S``."""
+        activations ``[B, S, d_model]``; with the model's ``return_prehead``
+        and no cache, ``(activations, head kernel)``). With ``cache``: a
+        multi-token call prefills an EMPTY cache, a one-token call decodes
+        at ``cache.index``; either way the cache advances by ``S``."""
         batch, seq = tokens.shape
         if cache is not None:
             if seq != 1 and cache.index != 0:
@@ -316,8 +426,15 @@ class TransformerLM(nn.Module):
             positions = positions[None].expand(batch, seq)
         x = self.embed_tokens(tokens)
         for i, block in enumerate(self.layers):
-            x = block(x, positions, cache=cache, layer=i, attention_fn=attention_fn)
+            if cache is None:
+                x = self._run_block(block, x, positions, attention_fn)
+            else:
+                x = block(x, positions, cache=cache, layer=i, attention_fn=attention_fn)
         if cache is not None:
             cache.index += seq
         x = self.final_norm(x)
-        return x if return_hidden else self.head(x)
+        if return_hidden:
+            return x
+        if self.return_prehead and cache is None:
+            return x, self.embed.weight.T
+        return self.head(x)

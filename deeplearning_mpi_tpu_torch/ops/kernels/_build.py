@@ -31,6 +31,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 #: ctypes argument types (every pointer and the stream as ``c_void_p``).
 _EXPORTS: dict[str, dict[str, list]] = {
     "flash_attention_fwd": {"flash_attention_fwd": [ctypes.c_void_p, ctypes.c_void_p]},
+    "flash_attention_bwd": {
+        "flash_attention_bwd_dq": [ctypes.c_void_p, ctypes.c_void_p],
+        "flash_attention_bwd_dkv": [ctypes.c_void_p, ctypes.c_void_p],
+    },
     "flash_decode": {"flash_decode": [ctypes.c_void_p, ctypes.c_void_p]},
 }
 

@@ -1,0 +1,98 @@
+"""Loss functions of the LM training path.
+
+Port of ``deeplearning_mpi_tpu/ops/loss.py`` (the parts the LM and
+classification trainers use). Every loss is computed in float32 whatever
+the input dtype: the model runs bf16 matmuls, but the log-softmax and the
+reductions need f32 accumulation.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-element negative log-likelihood, f32 log-softmax over the last axis."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(log_probs, -1, labels.long()[..., None])[..., 0]
+
+
+def masked_mean(values: torch.Tensor, where: torch.Tensor | None) -> torch.Tensor:
+    """Mean of ``values``, optionally weighted by a broadcast-compatible
+    validity mask (0 = excluded); the denominator is ``max(sum(w), 1)``."""
+    if where is None:
+        return values.mean()
+    w = where.float()
+    return (values * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, where: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels; ``where`` ([B],
+    1 = real example) excludes wrap-padded eval rows."""
+    return masked_mean(_token_nll(logits, labels), where)
+
+
+def lm_cross_entropy(
+    logits: torch.Tensor, tokens: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Next-token LM loss: predict ``tokens[:, 1:]`` from ``logits[:, :-1]``;
+    ``mask`` (1 = real token) excludes padding from the mean."""
+    nll = _token_nll(logits[:, :-1], tokens[:, 1:])
+    return masked_mean(nll, None if mask is None else mask[:, 1:])
+
+
+def _chunk_nll_sum(
+    x_c: torch.Tensor, kernel: torch.Tensor, labels_c: torch.Tensor, w_c: torch.Tensor
+) -> torch.Tensor:
+    logits = torch.einsum("btd,dv->btv", x_c, kernel)  # the only logits tile alive
+    return (_token_nll(logits, labels_c) * w_c).sum()
+
+
+def chunked_lm_loss(
+    x: torch.Tensor,
+    head_kernel: torch.Tensor,
+    tokens: torch.Tensor,
+    *,
+    chunk_size: int,
+    mask: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Next-token loss from pre-head activations, never holding the full
+    ``[B, S, V]`` logits.
+
+    ``x`` is the final-norm output ``[B, S, d]``, ``head_kernel`` ``[d, V]``
+    (tied embeddings: ``embed.weight.T``). The S-1 prediction positions are
+    padded to whole chunks with zero weight; each chunk's head matmul and
+    cross-entropy run under ``torch.utils.checkpoint``, so the backward
+    recomputes its ``[B, chunk, V]`` logits instead of saving them.
+    ``compute_dtype`` is the matmul dtype (default ``x.dtype``); logits are
+    cast to f32 before the log-softmax, as in the dense path.
+    """
+    compute_dtype = compute_dtype or x.dtype
+    seq = x.shape[1]
+    x_in = x[:, :-1].to(compute_dtype)
+    labels = tokens[:, 1:]
+    weights = (
+        torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+        if mask is None else mask[:, 1:].float()
+    )
+    n_pos = seq - 1
+    chunk_size = max(1, min(chunk_size, n_pos))
+    pad = (-n_pos) % chunk_size
+    if pad:
+        x_in = F.pad(x_in, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        weights = F.pad(weights, (0, pad))  # zero weight = excluded
+    kernel = head_kernel.to(compute_dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, n_pos + pad, chunk_size):
+        sl = slice(start, start + chunk_size)
+        total = total + checkpoint(
+            _chunk_nll_sum, x_in[:, sl], kernel, labels[:, sl], weights[:, sl],
+            use_reentrant=False,
+        )
+    return total / torch.clamp(weights.sum(), min=1.0)

@@ -1,0 +1,435 @@
+"""Train/eval step factories, the optimizers and LR schedules, the trainer.
+
+Port of ``deeplearning_mpi_tpu/train/trainer.py`` for the LM task, single
+device. What is carried over exactly:
+
+- the loss is the masked mean over valid tokens; ``grad_accum`` chunks are
+  combined by their valid-token weight, so the result equals the
+  full-batch mean even under a ragged token mask;
+- a non-finite loss (or, with ``guard_metrics``, a non-finite gradient
+  norm) skips the update: parameters, optimizer state and EMA stay as they
+  were while ``step`` still advances, and the epoch mean leaves the step
+  out;
+- clipping by global norm and the optimizers compute what optax computes
+  (``clip_by_global_norm``, ``sgd`` with coupled L2 before the momentum
+  trace, ``adam``, ``adamw`` and ``lion`` with decoupled decay), with the
+  LR schedules as functions of the optimizer's own update count;
+- the ``__loss_scale__`` / ``__grad_scale__`` batch keys: the first scales
+  the reported and the differentiated loss, the second only the
+  differentiated one.
+
+The step is eager PyTorch: the reference's ``jit`` has no counterpart the
+port needs. The NaN guard selects with ``torch.where`` on the device, so a
+step adds no host sync; the trainer reads its metrics once per epoch.
+Checkpointing, chaos, guardrails, telemetry and AOT warmup are not ported
+yet (ROADMAP), nor ``adafactor`` and the MoE aux loss.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Iterable
+
+import torch
+from torch.func import functional_call
+
+from deeplearning_mpi_tpu_torch.ops.loss import chunked_lm_loss, lm_cross_entropy
+from deeplearning_mpi_tpu_torch.train.state import TrainState
+
+Batch = dict[str, torch.Tensor]
+#: count (a tensor of optimizer updates so far) -> learning rate (a tensor)
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+# -- losses -------------------------------------------------------------------
+def _lm_mask(batch: Batch, where: torch.Tensor | None) -> torch.Tensor | None:
+    # Combine the loader's [B] validity mask with any [B, S] token mask.
+    mask = batch.get("mask")
+    if where is not None:
+        where_bs = where[:, None].expand(batch["tokens"].shape).float()
+        mask = where_bs if mask is None else mask * where_bs
+    return mask
+
+
+def _lm_loss(outputs, batch: Batch, where: torch.Tensor | None = None) -> torch.Tensor:
+    return lm_cross_entropy(outputs, batch["tokens"], _lm_mask(batch, where))
+
+
+def _lm_loss_chunked(chunk_size: int) -> Callable[..., torch.Tensor]:
+    """LM loss over ``(prehead x, head kernel)`` model outputs — pair with
+    ``TransformerLM(return_prehead=True)``."""
+
+    def fn(outputs, batch: Batch, where: torch.Tensor | None = None) -> torch.Tensor:
+        x, head_kernel = outputs
+        return chunked_lm_loss(x, head_kernel, batch["tokens"], chunk_size=chunk_size,
+                               mask=_lm_mask(batch, where))
+
+    return fn
+
+
+def _loss_fn(task: str, loss_chunk: int) -> Callable[..., torch.Tensor]:
+    if task != "lm":
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet: the port's trainer runs the LM task"
+        )
+    return _lm_loss_chunked(loss_chunk) if loss_chunk > 0 else _lm_loss
+
+
+# -- LR schedules ---------------------------------------------------------------
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """``optax.linear_schedule``."""
+    if steps <= 0:
+        return lambda count: torch.full_like(count, init)
+    return lambda count: (init - end) * (1 - count.clamp(0, steps) / steps) + end
+
+
+def _cosine(init: float, steps: int) -> Schedule:
+    """``optax.cosine_decay_schedule`` to 0."""
+    return lambda count: init * 0.5 * (1 + torch.cos(math.pi * count.clamp(max=steps) / steps))
+
+
+def _join(schedules: list[Schedule], boundaries: list[int]) -> Schedule:
+    """``optax.join_schedules``."""
+
+    def fn(count: torch.Tensor) -> torch.Tensor:
+        out = schedules[0](count)
+        for boundary, schedule in zip(boundaries, schedules[1:]):
+            out = torch.where(count < boundary, out, schedule(count - boundary))
+        return out
+
+    return fn
+
+
+def build_lr_schedule(
+    base_lr: float, schedule: str = "constant", *, warmup_steps: int = 0, decay_steps: int = 0,
+) -> float | Schedule:
+    """LR over optimizer steps, as the reference's: ``constant`` with no
+    warmup is the bare float; ``cosine`` / ``linear`` decay from ``base_lr``
+    to 0 over ``decay_steps`` after a linear warmup from 0. A schedule maps
+    a float32 count tensor to the LR, on the count's device."""
+    if schedule == "constant":
+        if not warmup_steps:
+            return base_lr
+        return _join([_linear(0.0, base_lr, warmup_steps), lambda c: torch.full_like(c, base_lr)],
+                     [warmup_steps])
+    if decay_steps <= warmup_steps:
+        raise ValueError(
+            f"{schedule} schedule needs decay_steps ({decay_steps}) > "
+            f"warmup_steps ({warmup_steps}) — set it to the planned total "
+            "optimizer steps (steps_per_epoch * num_epochs)"
+        )
+    if schedule == "cosine":
+        return _join([_linear(0.0, base_lr, warmup_steps),
+                      _cosine(base_lr, decay_steps - warmup_steps)], [warmup_steps])
+    if schedule == "linear":
+        return _join([_linear(0.0, base_lr, warmup_steps),
+                      _linear(base_lr, 0.0, decay_steps - warmup_steps)], [warmup_steps])
+    raise ValueError(f"unknown lr schedule '{schedule}'")
+
+
+# -- optimizers -----------------------------------------------------------------
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm over every element of every tensor."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+#: optax's defaults, which the reference's ``build_optimizer`` keeps.
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+LION_BETAS = (0.9, 0.99)
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """An optax-style chain over named tensors: ``init(params) -> state``
+    and ``update(grads, state, params) -> (updates, new state)``, pure
+    functions that allocate new tensors (the caller decides what to keep).
+    ``updates`` are added to the parameters; the LR is scaled in."""
+
+    name: str
+    learning_rate: float | Schedule
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    clip_norm: float | None = None
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict[str, Any]:
+        device = next(iter(params.values())).device
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        state: dict[str, Any] = {"count": torch.zeros((), dtype=torch.int32, device=device)}
+        if self.name == "sgd":
+            state["trace"] = zeros()
+        elif self.name in ("adam", "adamw"):
+            state["mu"], state["nu"] = zeros(), zeros()
+        elif self.name == "lion":
+            state["mu"] = zeros()
+        return state
+
+    def _lr(self, count: torch.Tensor) -> float | torch.Tensor:
+        if callable(self.learning_rate):
+            return self.learning_rate(count.float())
+        return self.learning_rate
+
+    def update(
+        self, grads: dict[str, torch.Tensor], state: dict[str, Any],
+        params: dict[str, torch.Tensor],
+    ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+        if self.clip_norm is not None:
+            g_norm = global_norm(grads.values())
+            keep = g_norm < self.clip_norm
+            grads = {n: torch.where(keep, g, (g / g_norm) * self.clip_norm)
+                     for n, g in grads.items()}
+        lr = self._lr(state["count"])
+        count = state["count"] + 1
+        new: dict[str, Any] = {"count": count}
+        wd = self.weight_decay
+        if self.name == "sgd":
+            if wd:
+                grads = {n: g + wd * params[n] for n, g in grads.items()}
+            new["trace"] = {n: g + self.momentum * state["trace"][n] for n, g in grads.items()}
+            direction = new["trace"]
+        elif self.name in ("adam", "adamw"):
+            b1, b2 = ADAM_BETAS
+            new["mu"] = {n: (1 - b1) * g + b1 * state["mu"][n] for n, g in grads.items()}
+            new["nu"] = {n: (1 - b2) * g * g + b2 * state["nu"][n] for n, g in grads.items()}
+            c = count.float()
+            bc1 = 1 - torch.pow(torch.tensor(b1, device=c.device), c)
+            bc2 = 1 - torch.pow(torch.tensor(b2, device=c.device), c)
+            direction = {n: (new["mu"][n] / bc1) / (torch.sqrt(new["nu"][n] / bc2) + ADAM_EPS)
+                         for n in grads}
+            if self.name == "adamw":
+                direction = {n: u + wd * params[n] for n, u in direction.items()}
+        elif self.name == "lion":
+            b1, b2 = LION_BETAS
+            direction = {n: torch.sign((1 - b1) * g + b1 * state["mu"][n])
+                         for n, g in grads.items()}
+            new["mu"] = {n: (1 - b2) * g + b2 * state["mu"][n] for n, g in grads.items()}
+            direction = {n: u + wd * params[n] for n, u in direction.items()}
+        else:
+            raise ValueError(f"unknown optimizer '{self.name}'")
+        return {n: -lr * u for n, u in direction.items()}, new
+
+
+def build_optimizer(
+    name: str, learning_rate: float | Schedule, *, momentum: float = 0.9,
+    weight_decay: float = 0.0, clip_norm: float | None = None,
+) -> Optimizer:
+    """The reference's optimizers (``sgd``: coupled L2 before momentum;
+    ``adam``; ``adamw`` and ``lion``: decoupled decay), each with an
+    optional ``clip_norm`` in front. ``adafactor`` is not ported yet."""
+    if name == "adafactor":
+        raise NotImplementedError("optimizer 'adafactor' is not ported yet (ROADMAP slice 2)")
+    if name not in ("sgd", "adam", "adamw", "lion"):
+        raise ValueError(f"unknown optimizer '{name}'")
+    return Optimizer(name, learning_rate, momentum=momentum, weight_decay=weight_decay,
+                     clip_norm=clip_norm)
+
+
+# -- steps ----------------------------------------------------------------------
+def _forward(state: TrainState, tokens: torch.Tensor, params: dict | None = None):
+    kw = {"attention_fn": state.attention_fn}
+    if params is None:
+        return state.model(tokens, **kw)
+    return functional_call(state.model, params, (tokens,), kw)
+
+
+def make_train_step(
+    task: str, *, grad_accum: int = 1, loss_chunk: int = 0, ema_decay: float = 0.0,
+    guard_metrics: bool = False,
+) -> Callable[[TrainState, Batch], tuple[TrainState, dict[str, torch.Tensor]]]:
+    """Build the optimizer step for a task (``"lm"``).
+
+    ``grad_accum > 1`` splits the batch into that many equal chunks, each
+    weighted by its valid-token count over the full batch's, and runs one
+    update. ``loss_chunk > 0`` takes the chunked head+loss (pair with
+    ``TransformerLM(return_prehead=True)``). ``ema_decay > 0`` advances the
+    state's EMA after each accepted update (``ema = d*ema + (1-d)*params``).
+    ``guard_metrics`` adds the gradient global norm to the metrics and to
+    the finite guard. Metrics are device scalars: ``loss``, ``finite``
+    (1.0 or 0.0) and, with ``guard_metrics``, ``grad_norm``.
+    """
+    loss_fn = _loss_fn(task, loss_chunk)
+
+    def chunk_weight(chunk: Batch) -> torch.Tensor:
+        # The chunk loss's own denominator: the cross-chunk weighted mean
+        # then reproduces the full-batch mean.
+        mask = chunk.get("mask")
+        if mask is not None:
+            return mask[:, 1:].float().sum()
+        return torch.ones((), device=chunk["tokens"].device)
+
+    def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        batch = dict(batch)
+        loss_scale = batch.pop("__loss_scale__", None)
+        grad_scale = batch.pop("__grad_scale__", None)
+        names, params = zip(*state.model.named_parameters())
+
+        def loss_and_grads(chunk: Batch, data_scale=None):
+            outputs = _forward(state, chunk["tokens"])
+            loss = loss_fn(outputs, chunk)
+            if loss_scale is not None:
+                loss = loss * loss_scale
+            total = loss if data_scale is None else data_scale * loss
+            if grad_scale is not None:
+                total = total * grad_scale
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            return loss.detach(), grads
+
+        if grad_accum == 1:
+            loss, grads = loss_and_grads(batch)
+        else:
+            for key, x in batch.items():
+                if x.shape[0] % grad_accum:
+                    raise ValueError(
+                        f"batch dim of batch[{key!r}] (shape {tuple(x.shape)}) not "
+                        f"divisible by grad_accum={grad_accum}"
+                    )
+            if batch.get("mask") is not None:
+                w_total = torch.clamp(chunk_weight(batch), min=1.0)
+            else:
+                w_total = float(grad_accum)
+            loss, grads = 0.0, None
+            for i in range(grad_accum):
+                chunk = {k: x.chunk(grad_accum)[i] for k, x in batch.items()}
+                w = chunk_weight(chunk) / w_total
+                c_loss, c_grads = loss_and_grads(chunk, data_scale=w)
+                loss = loss + w * c_loss
+                grads = c_grads if grads is None else [a + b for a, b in zip(grads, c_grads)]
+
+        with torch.no_grad():
+            grads = dict(zip(names, grads))
+            old = {n: p.detach() for n, p in zip(names, params)}
+            updates, new_opt = state.tx.update(grads, state.opt_state, old)
+            grad_norm = global_norm(grads.values()) if guard_metrics else None
+            finite = torch.isfinite(loss)
+            if grad_norm is not None:
+                finite = finite & torch.isfinite(grad_norm)
+            # NaN/Inf guard: keep the old parameters, optimizer state and EMA.
+            keep = lambda new, cur: torch.where(finite, new, cur)  # noqa: E731
+            for n in names:
+                old[n].copy_(keep(old[n] + updates[n], old[n]))
+            opt_state = _tree_map2(keep, new_opt, state.opt_state)
+            ema = state.ema_params
+            if ema_decay:
+                if ema is None:
+                    raise ValueError(
+                        "ema_decay set but the state tracks no EMA — build it "
+                        "with create_train_state(..., ema=True)"
+                    )
+                ema = {n: keep(ema_decay * e + (1.0 - ema_decay) * old[n], e)
+                       for n, e in ema.items()}
+        metrics = {"loss": loss, "finite": finite.float()}
+        if grad_norm is not None:
+            metrics["grad_norm"] = grad_norm
+        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state,
+                                   ema_params=ema), metrics
+
+    return step
+
+
+def _tree_map2(fn, a, b):
+    """``fn`` over the tensor leaves of two dicts of the same structure."""
+    if isinstance(a, dict):
+        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def make_eval_step(
+    task: str, *, loss_chunk: int = 0,
+) -> Callable[[TrainState, Batch], dict[str, torch.Tensor]]:
+    """The eval step: loss on one batch with the EMA weights when tracked.
+    Wrap-padded rows (``__valid__`` 0) are excluded; ``weight`` is the
+    count of real rows, for the caller's weighted mean."""
+    loss_fn = _loss_fn(task, loss_chunk)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
+        params = None if state.ema_params is None else state.ema_params
+        outputs = _forward(state, batch["tokens"], params)
+        valid = batch.get("__valid__")
+        return {
+            "loss": loss_fn(outputs, batch, valid),
+            "weight": (valid.sum() if valid is not None
+                       else torch.tensor(float(batch["tokens"].shape[0]))),
+        }
+
+    return step
+
+
+class Trainer:
+    """The epoch loop: per-epoch mean loss over finite steps, eval every
+    ``eval_every`` epochs and after the last, per-epoch timing."""
+
+    def __init__(
+        self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
+        grad_accum: int = 1, loss_chunk: int = 0, ema_decay: float = 0.0,
+        log: Callable[[str], None] = print,
+    ) -> None:
+        self.state = state
+        self.task = task
+        self.eval_every = eval_every
+        self.log = log
+        self.train_step = make_train_step(task, grad_accum=grad_accum, loss_chunk=loss_chunk,
+                                          ema_decay=ema_decay)
+        self.eval_step = make_eval_step(task, loss_chunk=loss_chunk)
+        self.history: list[dict[str, float]] = []
+
+    def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
+        """One training epoch; the mean loss leaves non-finite steps out."""
+        t0 = time.perf_counter()
+        loss_sum = finite_sum = None
+        n_batches = sequences = 0
+        for batch in loader.epoch(epoch):
+            self.state, metrics = self.train_step(self.state, batch)
+            contrib = torch.where(metrics["finite"] > 0, metrics["loss"], 0.0)  # NaN*0 is NaN
+            loss_sum = contrib if loss_sum is None else loss_sum + contrib
+            finite_sum = metrics["finite"] if finite_sum is None else finite_sum + metrics["finite"]
+            n_batches += 1
+            sequences += batch["tokens"].shape[0]
+        if not n_batches:
+            raise ValueError("empty epoch — dataset smaller than one batch")
+        n_finite = float(finite_sum)  # one host sync per epoch
+        mean_loss = float(loss_sum) / n_finite if n_finite else float("nan")
+        duration = time.perf_counter() - t0
+        stats = {"epoch": epoch, "loss": mean_loss, "duration_s": duration,
+                 "images_per_s": sequences / duration, "steps": n_batches}
+        if n_finite < n_batches:
+            self.log(f"Epoch {epoch}: skipped {n_batches - int(n_finite)} non-finite loss batch(es)")
+        self.log(f"Epoch {epoch}: loss {mean_loss:.4f}, {duration:.1f}s, "
+                 f"{stats['images_per_s']:.1f} sequences/s")
+        return stats
+
+    def evaluate(self, loader: Any) -> dict[str, float]:
+        """Weighted mean of the eval metrics over the loader; perplexity."""
+        sums: dict[str, torch.Tensor] = {}
+        weight = None
+        for batch in loader.epoch(0):
+            metrics = self.eval_step(self.state, batch)
+            w = metrics.pop("weight").to(metrics["loss"].device)
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v * w if k in sums else v * w
+            weight = w if weight is None else weight + w
+        if weight is None or not float(weight):
+            raise ValueError("empty eval loader")
+        means = {k: float(v) / float(weight) for k, v in sums.items()}
+        means["perplexity"] = math.exp(min(means["loss"], 30.0))
+        return means
+
+    def fit(self, train_loader: Any, num_epochs: int, *, eval_loader: Any = None,
+            start_epoch: int = 0) -> list[dict[str, float]]:
+        """Train ``num_epochs`` epochs, with the reference's eval cadence."""
+        last_evaled = -1
+        for epoch in range(start_epoch, num_epochs):
+            stats = self.run_epoch(train_loader, epoch)
+            if epoch % self.eval_every == 0 and eval_loader is not None:
+                ev = self.evaluate(eval_loader)
+                last_evaled = epoch
+                stats.update({f"eval_{k}": v for k, v in ev.items()})
+                self.log(f"Epoch {epoch} eval: " + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
+            self.history.append(stats)
+        if eval_loader is not None and self.history and last_evaled != num_epochs - 1:
+            final = self.evaluate(eval_loader)
+            self.history[-1].update({f"eval_{k}": v for k, v in final.items()})
+            self.log("Final eval: " + ", ".join(f"{k} {v:.4f}" for k, v in final.items()))
+        return self.history

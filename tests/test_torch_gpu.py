@@ -51,6 +51,101 @@ def test_flash_attention_kernel_rejects_unsupported_head_dim(cuda):
         fa.flash_attention(x, x, x)
 
 
+def _close(got, want, tol):
+    """|got - want| <= tol * (1 + |want|): bf16 grads differ by up to one
+    rounding of ds or p (2**-8 relative) and of the output itself."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * (1 + want.float().abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(causal=False), dict(window=33), dict(window=40, shift=70),
+     dict(grad_dtype=torch.float32), dict(window=7, shift=100)],
+    ids=["causal", "full", "window", "shift", "f32_grads", "rows_without_keys"],
+)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, tol, kw, layout):
+    """K2 and K3 against their plain version on the same o, do and lse
+    (ragged S 150, D 64); rows with no valid key get zero grads."""
+    shape = (2, 150, 3, 64) if layout == "bshd" else (2, 3, 150, 64)
+    q, k, v, do = (torch.randn(*shape, generator=cuda, device="cuda").to(dtype) for _ in range(4))
+    fwd = {n: kw[n] for n in ("window", "shift") if n in kw}
+    fwd["causal"] = kw.get("causal", True)
+    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, layout=layout, **fwd)
+    before = (fa.flash_attention_bwd_dq_cuda.launches, fa.flash_attention_bwd_dkv_cuda.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, layout=layout, **kw)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_bwd_dq_cuda.launches, fa.flash_attention_bwd_dkv_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout=layout, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == (kw.get("grad_dtype") or dtype)
+        _close(g, w, tol)
+    if "shift" in kw and kw["shift"] > 99:
+        dead = lse < -1e29  # [B, H, S]: rows that saw no key
+        assert bool(dead.any())
+        dq = got[0] if layout == "bhsd" else got[0].transpose(1, 2)
+        assert bool((dq[dead] == 0).all())
+
+
+@pytest.mark.parametrize("head_dim", [8, 24, 128])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_flash_attention_bwd_kernels_head_dims(cuda, head_dim, dtype, tol):
+    q, k, v, do = (torch.randn(1, 2, 97, head_dim, generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, layout="bhsd", window=50)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, layout="bhsd", window=50)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout="bhsd", window=50)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+
+
+def test_flash_attention_autograd_runs_k1_k2_k3(cuda):
+    """Under autograd the entry runs K1 with the lse, then K2 and K3."""
+    q, k, v = (torch.randn(2, 4, 130, 64, generator=cuda, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    counts = lambda: (fa.flash_attention_cuda.launches, fa.flash_attention_bwd_dq_cuda.launches,  # noqa: E731
+                      fa.flash_attention_bwd_dkv_cuda.launches)
+    before = counts()
+    out = fa.flash_attention_bhsd(q, k, v, window=64)
+    do = torch.randn(out.shape, generator=cuda, device="cuda").to(torch.bfloat16)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert counts() == tuple(c + 1 for c in before)
+    o, lse = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), return_lse=True,
+                                          layout="bhsd", window=64)
+    want = fa.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), o, do, lse,
+                                            layout="bhsd", window=64)
+    for g, w in zip(got, want):
+        _close(g, w, 2e-2)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_composes_with_the_kernels(cuda, remat):
+    """Under ``torch.utils.checkpoint`` (full, and the selective "dots"
+    policy) the flash path recomputes K1 in the backward and gives the
+    grads of remat "none"."""
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(vocab_size=512, num_layers=2, num_heads=4, head_dim=64,
+                            d_model=256, d_ff=512)
+    tokens = torch.randint(0, 512, (2, 256), generator=cuda, device="cuda")
+
+    def grads(policy):
+        model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda", remat=policy).init_weights(0)
+        before = fa.flash_attention_cuda.launches
+        model(tokens, attention_fn=fa.flash_attention_bhsd).float().square().mean().backward()
+        return fa.flash_attention_cuda.launches - before, {
+            n: p.grad for n, p in model.named_parameters()}
+
+    k1_none, want = grads("none")
+    k1_remat, got = grads(remat)
+    assert k1_none == 2 and k1_remat == 4  # the forward of each layer runs again
+    for n in want:
+        torch.testing.assert_close(got[n], want[n], atol=1e-5, rtol=1e-4, msg=n)
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("window", [None, 50])
 def test_flash_decode_kernel_matches_plain(cuda, quant, window):

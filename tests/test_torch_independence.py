@@ -3,7 +3,7 @@
 An AST scan of every module of ``deeplearning_mpi_tpu_torch`` and of
 ``chip_smoke.py`` finds no such import; a subprocess with ``jax`` blocked in
 ``sys.modules`` imports the port's serving engine and generation and runs
-one tiny engine step on the CPU.
+one tiny engine step and one train step with flash attention on the CPU.
 """
 
 import ast
@@ -49,6 +49,13 @@ def test_port_runs_with_jax_blocked():
         "e.run_until_idle()\n"
         "want = generate(m, torch.arange(1, 6)[None], max_new_tokens=3, temperature=0.0)\n"
         "assert r.generated == want[0, 5:].tolist()\n"
+        "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens\n"
+        "from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_bhsd\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step\n"
+        "s = create_train_state(m, build_optimizer('adam', 1e-3, clip_norm=1.0), attention_fn=flash_attention_bhsd)\n"
+        "batch = next(Loader(SyntheticTokens(4, 32), 4, device='cpu').epoch(0))\n"
+        "s, metrics = make_train_step('lm')(s, batch)\n"
+        "assert s.step == 1 and float(metrics['finite']) == 1.0\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -68,15 +68,22 @@ def test_flash_attention_f32_out_from_bf16():
 
 def test_flash_attention_cpu_dispatch_and_contract():
     """CPU tensors take the plain version and never touch the launch
-    count; the forward-only contract and the option checks raise."""
+    counts; a grad-requiring input returns grads through the autograd
+    Function; the forward-only options and the option checks raise."""
     x = torch.randn(1, 20, 2, 12)  # ragged S, head dim 12: fine on the plain path
     before = tfa.flash_attention_cuda.launches
     out = tfa.flash_attention(x, x, x)
     assert out.shape == x.shape and tfa.flash_attention_cuda.launches == before == 0
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(x.clone().requires_grad_(), x, x)
+    q = x.clone().requires_grad_()
+    out = tfa.flash_attention(q, x, x)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    (grad,) = torch.autograd.grad(out.sum(), q)
+    assert grad.shape == x.shape and bool(torch.isfinite(grad).all())
+    assert (tfa.flash_attention_bwd_dq_cuda.launches, tfa.flash_attention_bwd_dkv_cuda.launches) == (0, 0)
+    with pytest.raises(ValueError, match="forward-only"):
+        tfa.flash_attention(q, x, x, return_lse=True)
     with torch.no_grad():
-        tfa.flash_attention(x.clone().requires_grad_(), x, x)
+        tfa.flash_attention(q, x, x, return_lse=True)
     with pytest.raises(ValueError, match="shift requires window"):
         tfa.flash_attention(x, x, x, shift=4)
     with pytest.raises(ValueError, match="causal by definition"):
