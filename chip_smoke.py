@@ -27,11 +27,13 @@ Phases, each printed on its own line; any failure exits non-zero:
 7. K2 and K3 (flash-attention backward) against their plain version: bf16
    B8 S2048 H12 D64 causal and window 512 in both layouts, f32 S512, head
    dims 8 / 24 / 128, ragged S, and shift with window and float32 grads;
+   each gradient held element by element and in relative L2 (``GRAD_TOL``);
 8. train the 110M ``TransformerConfig()`` at ``bench_lm``'s shape (bf16,
    ``flash_attention_bhsd``, B8 S2048, Adam 3e-4, clip 1.0) for 10 steps
    through ``make_train_step``, on 16 seeded synthetic sequences (vocab 32000)
    that the port's loader reshuffles each epoch: every loss finite and
-   the last three below the first, K1/K2/K3 each launched exactly 12 times a
+   the last three below the first (a memorisation check on those 16
+   sequences, not a measure of learning), K1/K2/K3 each launched exactly 12 times a
    step (counters set to 0 just before), the step-1 gradients of the flash
    path within bf16 tolerance of the dense path (B1 S2048, all 12 layers);
    the step time, tokens/s, MFU, peak memory and one profiled step;
@@ -103,6 +105,27 @@ def close(got, want, tol: float) -> bool:
     up to one rounding of the output itself (2**-8 relative), so the bound
     grows with the value."""
     return bool(((got.float() - want.float()).abs() <= tol * (1 + want.float().abs())).all())
+
+
+#: Phase 7's bound on K2/K3 by input dtype, ``(atol, rtol, l2)``: every
+#: element within ``atol + rtol * |want|`` and each tensor within ``l2``
+#: relative L2 error. In bf16 the kernel and the plain version round p and
+#: ds at the same points, but a probability near a rounding boundary may
+#: round the other way; in the first rows, which see few keys, p is near 1
+#: and one such flip moves a small gradient by 2**-8 |do| (3.9e-3 at a value
+#: under 0.1 on the H100), hence the atol. The relative L2 error is what
+#: holds the kernel: 8e-5 to 1.7e-4 on the card at S2048, against 3e-2 and
+#: more for a kernel that drops one tile or is 3% off
+#: (``tests/test_torch_flash_bwd.py``).
+GRAD_TOL = {"bfloat16": (1e-2, 2e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-4)}
+
+
+def grads_close(got, want, atol: float, rtol: float, l2: float) -> tuple[bool, float, float]:
+    """``(within the bound, max abs err, relative L2 err)`` of one gradient."""
+    diff, ref = got.float() - want.float(), want.float()
+    rel = float(diff.norm() / ref.norm().clamp(min=1e-30))
+    ok = bool((diff.abs() <= atol + rtol * ref.abs()).all()) and rel <= l2
+    return ok, float(diff.abs().max()), rel
 
 
 def require(ok: bool, what: str) -> None:
@@ -396,22 +419,23 @@ def check_k2k3(torch, gen) -> None:
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (name, B, S, H, D, dtype, kwargs, layout, tolerance)
-        ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd", 2e-2),
-        ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd", 2e-2),
-        ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd", 2e-2),
-        ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd", 2e-2),
-        ("f32 causal S512", 8, 512, 12, 64, f32, {}, "bshd", 1e-4),
-        ("f32 full S300", 2, 300, 4, 64, f32, {"causal": False}, "bhsd", 1e-4),
-        ("f32 D8 window S77", 2, 77, 3, 8, f32, {"window": 9}, "bshd", 1e-4),
-        ("bf16 D24 causal S90", 2, 90, 3, 24, bf16, {}, "bhsd", 2e-2),
-        ("f32 D128 causal S200", 1, 200, 2, 128, f32, {}, "bhsd", 1e-4),
-        ("bf16 D128 full S200", 1, 200, 2, 128, bf16, {"causal": False}, "bshd", 2e-2),
+        # (name, B, S, H, D, input dtype, kwargs, layout); bound GRAD_TOL[dtype]
+        ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd"),
+        ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd"),
+        ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd"),
+        ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd"),
+        ("f32 causal S512", 8, 512, 12, 64, f32, {}, "bshd"),
+        ("f32 full S300", 2, 300, 4, 64, f32, {"causal": False}, "bhsd"),
+        ("f32 D8 window S77", 2, 77, 3, 8, f32, {"window": 9}, "bshd"),
+        ("bf16 D24 causal S90", 2, 90, 3, 24, bf16, {}, "bhsd"),
+        ("f32 D128 causal S200", 1, 200, 2, 128, f32, {}, "bhsd"),
+        ("bf16 D128 full S200", 1, 200, 2, 128, bf16, {"causal": False}, "bshd"),
         ("bf16 window shift f32-grads", 2, 200, 3, 64, bf16,
-         {"window": 64, "shift": 100, "grad_dtype": f32}, "bshd", 2e-2),
-        ("f32 window shift", 1, 130, 2, 64, f32, {"window": 40, "shift": 150}, "bhsd", 1e-4),
+         {"window": 64, "shift": 100, "grad_dtype": f32}, "bshd"),
+        ("f32 window shift", 1, 130, 2, 64, f32, {"window": 40, "shift": 150}, "bhsd"),
     ]
-    for name, B, S, H, D, dtype, kw, layout, tol in cases:
+    for name, B, S, H, D, dtype, kw, layout in cases:
+        atol, rtol, l2 = GRAD_TOL[str(dtype)[6:]]
         shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
         q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
@@ -423,15 +447,14 @@ def check_k2k3(torch, gen) -> None:
         dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **call)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **call)
-        errs = []
+        errs, bound = [], f"bound atol {atol:g} + rtol {rtol:g}, rel L2 {l2:g}"
         for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             require(got.dtype == ref.dtype, f"K2/K3 {name}: {label} dtype {got.dtype} != {ref.dtype}")
             require(bool(torch.isfinite(got).all()), f"K2/K3 {name}: non-finite {label}")
-            errs.append(max_err(got, ref))
-            require(close(got, ref, tol), f"K2/K3 {name}: {label} max abs err {errs[-1]}, "
-                    f"tol {tol} (abs+rel)")
-        log(f"K2/K3 {name}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-            f"(tol {tol:g} abs+rel)")
+            ok, err, rel = grads_close(got, ref, atol, rtol, l2)
+            errs.append(f"{label} {err:.3e}/{rel:.3e}")
+            require(ok, f"K2/K3 {name}: {label} max abs err {err}, rel L2 {rel}, {bound}")
+        log(f"K2/K3 {name}: max abs err / rel L2: {', '.join(errs)} ({bound})")
 
 
 # -- phase 8 -----------------------------------------------------------------

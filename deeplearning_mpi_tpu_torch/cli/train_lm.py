@@ -4,8 +4,9 @@ Port of ``deeplearning_mpi_tpu/cli/train_lm.py``: the same model, training
 and data flags (names and defaults), vocab 256, the 90/10 train/eval split
 and the same batch order (``data.loader.Loader``), so the port trains on
 the JAX CLI's batches. ``--attention flash`` selects
-``flash_attention_bhsd`` (K1 forward, K2/K3 backward on CUDA; the model then
-projects straight into the kernel's layout). Adam with clip 1.0 by default.
+``flash_attention_bhsd`` (K1 forward, K2/K3 backward on CUDA; the model
+hands it ``[B, H, S, D]`` views of its projections). Adam with clip 1.0 by
+default.
 
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --attention flash --dtype bfloat16
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --num_layers 2 \\

@@ -18,17 +18,18 @@ Three modes, chosen by the arguments of :meth:`TransformerLM.forward`:
   the filled prefix with ``decode_attention``.
 
 An ``attention_fn`` carrying ``.layout == "bhsd"`` (the port's
-``flash_attention_bhsd``) switches the full-sequence path to the kernel's
-layout: q/k/v are projected straight into ``[B, H, S, D]`` and the context
-consumed from it (the reference's ``_ProjToBHSD`` / ``_ProjFromBHSD``), with
-the same ``Dense.weight`` tensors, so one ``state_dict`` serves both paths.
+``flash_attention_bhsd``) is called on ``[B, H, S, D]`` views of the
+projections and its context viewed back: its kernels read element strides,
+so the views cost no copy (the reference projects straight into that layout,
+``_ProjToBHSD`` / ``_ProjFromBHSD``, because its TPU kernel cannot).
 
 Training options, as in the reference: ``remat`` (``"none"``, ``"full"``:
 each block under ``torch.utils.checkpoint``; ``"dots"``: a selective
-checkpoint that saves the matmul outputs), ``return_prehead`` (final-norm
-activations and the tied head kernel for ``ops.loss.chunked_lm_loss``) and
-the config's ``onehot_embed`` (the embedding as a one-hot matmul: the same
-forward, a matmul gradient).
+checkpoint that saves the matmul outputs) and ``return_prehead`` (final-norm
+activations and the tied head kernel for ``ops.loss.chunked_lm_loss``). The
+reference config's ``onehot_embed`` has no counterpart: it changes only how
+the embedding's gradient is computed, never the parameters, so a config
+that sets it converts to the same model.
 
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
 collection. MoE and quantized projections come in a later slice.
@@ -79,9 +80,6 @@ class TransformerConfig:
     #: sliding-window attention (0 = unlimited); a model property honoured
     #: by the full-sequence, prefill and decode paths alike.
     attention_window: int = 0
-    #: embedding lookup as a one-hot matmul instead of a gather: the same
-    #: forward values, but the gradient is a matmul, not a scatter-add.
-    onehot_embed: bool = False
 
     @property
     def kv_heads(self) -> int:
@@ -95,31 +93,15 @@ class TransformerConfig:
         )
 
 
-def attention_fn_layout(fn: AttentionFn | None) -> str:
-    """Layout an attention fn expects: its ``layout`` attribute, followed
-    through ``functools.partial`` chains (``partial`` does not forward
-    attributes)."""
-    while fn is not None:
-        layout = getattr(fn, "layout", None)
-        if layout is not None:
-            return layout
-        fn = getattr(fn, "func", None)
-    return "bshd"
-
-
-def apply_rope(
-    x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0, layout: str = "bshd",
-) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding over ``[B, S, H, D]`` (D even), rotating
     the two halves of D (not interleaved pairs). Angles and cos/sin are
-    computed in float32 and cast to ``x``'s dtype. ``layout="bhsd"``
-    rotates ``[B, H, S, D]``."""
+    computed in float32 and cast to ``x``'s dtype."""
     half = x.shape[-1] // 2
     freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
     angles = positions[:, :, None].float() * freqs  # [B, S, half]
-    axis = 1 if layout == "bhsd" else 2  # where the head axis broadcasts
-    cos = torch.cos(angles).unsqueeze(axis).to(x.dtype)
-    sin = torch.sin(angles).unsqueeze(axis).to(x.dtype)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -215,40 +197,17 @@ class Attention(nn.Module):
     def full(self, q, k, v, attention_fn: AttentionFn | None) -> torch.Tensor:
         rep = self.num_heads // self.kv_heads
         attn = attention_fn or dense_attention
-        return attn(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=True, **self._window_kw())
-
-    def forward_bhsd(
-        self, x: torch.Tensor, positions: torch.Tensor, attention_fn: AttentionFn,
-    ) -> torch.Tensor:
-        """Full-sequence attention in the kernel's ``[B, H, S, D]`` layout:
-        the projections write and read it directly (each ``Dense.weight``
-        viewed as ``[H, D, d_model]`` inside the einsum), so no BSHD copy
-        exists in either pass."""
-        dtype = self.q_proj.dtype
-        xc = x.to(dtype)
-
-        def proj(dense: Dense, heads: int) -> torch.Tensor:
-            w = dense.weight.to(dtype).reshape(heads, self.head_dim, -1)
-            return torch.einsum("bsm,hdm->bhsd", xc, w)
-
-        q = apply_rope(proj(self.q_proj, self.num_heads), positions, layout="bhsd")
-        k = apply_rope(proj(self.k_proj, self.kv_heads), positions, layout="bhsd")
-        v = proj(self.v_proj, self.kv_heads)
-        rep = self.num_heads // self.kv_heads
-        ctx = attention_fn(
-            q, repeat_kv(k, rep, axis=1), repeat_kv(v, rep, axis=1), causal=True,
-            **self._window_kw(),
-        )
-        w = self.out_proj.weight.to(dtype).reshape(-1, self.num_heads, self.head_dim)
-        return torch.einsum("bhsd,mhd->bsm", ctx.to(dtype), w)
+        k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+        if getattr(attn, "layout", "bshd") == "bhsd":
+            ctx = attn(*(t.transpose(1, 2) for t in (q, k, v)), causal=True, **self._window_kw())
+            return ctx.transpose(1, 2)
+        return attn(q, k, v, causal=True, **self._window_kw())
 
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor, *,
         cache: KVCache | None = None, layer: int = 0,
         attention_fn: AttentionFn | None = None,
     ) -> torch.Tensor:
-        if cache is None and attention_fn_layout(attention_fn) == "bhsd":
-            return self.forward_bhsd(x, positions, attention_fn)
         q, k, v = self.project(x, positions)
         if cache is None:
             return self.output(self.full(q, k, v, attention_fn))
@@ -367,11 +326,7 @@ class TransformerLM(nn.Module):
         return self
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        table = self.embed.weight.to(self.dtype)
-        if self.config.onehot_embed:
-            onehot = F.one_hot(tokens.long(), self.config.vocab_size).to(self.dtype)
-            return torch.einsum("bsv,vd->bsd", onehot, table)
-        return F.embedding(tokens, table)
+        return F.embedding(tokens, self.embed.weight.to(self.dtype))
 
     def _run_block(self, block: Block, x, positions, attention_fn) -> torch.Tensor:
         """One block of the full-sequence forward, under the remat policy."""

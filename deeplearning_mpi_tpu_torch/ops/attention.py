@@ -25,12 +25,12 @@ NEG_INF = -1e30  # large-negative mask value; -inf breaks softmax when a row is 
 DECODE_DENSE_MAX = 4096
 
 
-def repeat_kv(x: torch.Tensor, n_rep: int, *, axis: int = -2) -> torch.Tensor:
-    """Repeat each KV head ``n_rep`` times along the head axis (GQA → MHA);
-    ``axis=-2`` is the BSHD head axis, BHSD callers pass 1."""
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """Repeat each KV head ``n_rep`` times along the head axis of
+    ``[B, S, Hkv, D]`` (GQA → MHA)."""
     if n_rep == 1:
         return x
-    return torch.repeat_interleave(x, n_rep, dim=axis)
+    return torch.repeat_interleave(x, n_rep, dim=-2)
 
 
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

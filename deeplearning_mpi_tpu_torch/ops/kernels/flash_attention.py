@@ -159,7 +159,8 @@ def flash_attention_cuda(
     q, k, v = (_aligned(t) for t in (q, k, v))
     s_ax, h_ax = (1, 2) if layout == "bshd" else (2, 1)
     batch, seq, heads = q.shape[0], q.shape[s_ax], q.shape[h_ax]
-    o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    # q's strides: on BHSD views of BSHD storage the output is such a view too.
+    o = torch.empty_like(q, dtype=out_dtype)
     lse = (
         torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
         if return_lse else None
@@ -283,7 +284,7 @@ def flash_attention_bwd_dq_cuda(
     """Launch K2 (after its ``delta = rowsum(o * do)`` pre-pass) on CUDA
     tensors; returns ``(dq, delta)``, delta ``[B, H, S]`` float32 for K3."""
     q, k, v, o, do, lse, grad_dtype = _bwd_inputs(q, k, v, o, do, lse, grad_dtype)
-    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    dq = torch.empty_like(q, dtype=grad_dtype)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     params = _bwd_params(q, k, v, o, do, lse, delta, dq, None, None, causal=causal,
                          window=window, shift=shift, grad_dtype=grad_dtype, layout=layout)
@@ -301,8 +302,8 @@ def flash_attention_bwd_dkv_cuda(
     q, k, v, o, do, lse, grad_dtype = _bwd_inputs(q, k, v, o, do, lse, grad_dtype)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError("delta must be a contiguous float32 [B, H, S] tensor")
-    dk = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    dk = torch.empty_like(k, dtype=grad_dtype)
+    dv = torch.empty_like(v, dtype=grad_dtype)
     params = _bwd_params(q, k, v, o, do, lse, delta, None, dk, dv, causal=causal,
                          window=window, shift=shift, grad_dtype=grad_dtype, layout=layout)
     _launch("flash_attention_bwd_dkv", params, q.device)
@@ -396,5 +397,5 @@ def flash_attention_bhsd(
                      return_lse=return_lse, out_dtype=out_dtype, layout="bhsd")
 
 
-#: Read by a model to project q/k/v straight into this entry's layout.
+#: Read by a model to call this entry on ``[B, H, S, D]`` views of its q/k/v.
 flash_attention_bhsd.layout = "bhsd"

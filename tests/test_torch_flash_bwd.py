@@ -9,6 +9,11 @@
   the Pallas ``flash_attention`` / ``flash_attention_bhsd`` (interpret,
   16 x 16 blocks, so JAX really tiles).
 - Port only: rows that see no key get zero dq and give nothing to dk/dv.
+- ``chip_smoke.py``'s phase-7 bound on the bf16 kernels (``GRAD_TOL``), at
+  the main path's S2048, on CPU stand-ins for the kernels' output: the
+  exact gradients rounded once more (summation-order noise) pass it; a K2
+  that drops its last kv tile, a K3 that drops its last q tile and a dq 3%
+  low fail it. The 2e-2 abs+rel bound phase 3 holds K1 to passes the last.
 
 Tolerances: atol = rtol = 1e-5 at float32 (the same sums in another
 order); 2e-2 at bf16 (p and ds are rounded to bf16 on both sides, and a
@@ -16,6 +21,8 @@ value near a rounding boundary may round the other way).
 """
 
 import functools
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -117,3 +124,59 @@ def test_rows_without_keys_get_zero_grads():
     _, dk2, dv2 = tfa.flash_attention_bwd(q, k, v, o, do_live, lse, **kw)
     torch.testing.assert_close(dk, dk2, atol=0, rtol=0)
     torch.testing.assert_close(dv, dv2, atol=0, rtol=0)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _masked_bwd(q, k, v, o, do, lse, keep, acc):
+    """The plain K2/K3 math over BHSD, summing in ``acc``, with the pairs
+    outside ``keep`` left out (a stand-in for a kernel that skips them)."""
+    scale = q.shape[-1] ** -0.5
+    s = (q.to(acc) @ k.to(acc).mT) * scale
+    p = torch.where(keep, torch.exp(s - lse[..., None].to(acc)), 0.0)
+    delta = (o.to(acc) * do.to(acc)).sum(-1, keepdim=True)
+    ds = torch.where(keep, p * (do.to(acc) @ v.to(acc).mT - delta) * scale, 0.0)
+    ds, p = ds.to(q.dtype).to(acc), p.to(q.dtype).to(acc)
+    return tuple(g.to(q.dtype) for g in (ds @ k.to(acc), ds.mT @ q.to(acc), p.mT @ do.to(acc)))
+
+
+@functools.lru_cache(maxsize=2)
+def _main_path_bwd(window):
+    """bf16 B1 H2 S2048 D64 causal inputs and their plain (dq, dk, dv)."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(1, 2, 2048, 64, generator=gen).bfloat16() for _ in range(4))
+    o, lse = tfa.flash_attention_reference(q, k, v, return_lse=True, layout="bhsd", window=window)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout="bhsd", window=window)
+    return (q, k, v, o, do, lse), want
+
+
+@pytest.mark.parametrize("mutant", ["none", "k2_last_kv_tile", "k3_last_q_tile", "dq_3pct_low"])
+@pytest.mark.parametrize("window", [None, 512], ids=["causal", "window512"])
+def test_phase7_bound_rejects_a_wrong_kernel(mutant, window):
+    cs = _chip_smoke()
+    inputs, want = _main_path_bwd(window)
+    seq, tile = 2048, 64  # the kernels' tile (kTile in csrc/flash_attention_bwd.cu)
+    i, j = torch.arange(seq)[:, None], torch.arange(seq)[None, :]
+    valid = tfa._valid_pairs(seq, True, window, 0, "cpu")
+    # The last tile of each block's loop: K2's q tile ends at row i|63, its
+    # last kv tile holds that row; K3's last q tile holds row k_hi + window - 1.
+    last_kv = (i // tile * tile + tile - 1).clamp(max=seq - 1) // tile
+    last_q = (j // tile * tile + tile - 1 + (window or seq) - 1).clamp(max=seq - 1) // tile
+    if mutant == "none":
+        got = _masked_bwd(*inputs, valid, torch.float64)
+    elif mutant == "k2_last_kv_tile":
+        got = (_masked_bwd(*inputs, valid & (j // tile != last_kv), torch.float32)[0], *want[1:])
+    elif mutant == "k3_last_q_tile":
+        got = (want[0], *_masked_bwd(*inputs, valid & (i // tile != last_q), torch.float32)[1:])
+    else:
+        got = ((want[0].float() * 0.97).bfloat16(), *want[1:])
+    verdicts = [cs.grads_close(g, w, *cs.GRAD_TOL["bfloat16"])[0] for g, w in zip(got, want)]
+    assert all(verdicts) == (mutant == "none"), verdicts
+    if mutant == "dq_3pct_low":
+        assert cs.close(got[0], want[0], 2e-2)

@@ -121,6 +121,25 @@ def test_flash_attention_autograd_runs_k1_k2_k3(cuda):
         _close(g, w, 2e-2)
 
 
+def test_bhsd_views_of_bshd_tensors_match_bshd(cuda):
+    """``flash_attention_bhsd`` on BHSD views of BSHD tensors (what the model
+    passes) runs the same kernels over the same memory as ``flash_attention``
+    on the tensors themselves: the same output and grads, bit for bit, and
+    the output and grads come back as views of BSHD storage."""
+    q, k, v = (torch.randn(2, 130, 4, 64, generator=cuda, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn(2, 130, 4, 64, generator=cuda, device="cuda").to(torch.bfloat16)
+    want = fa.flash_attention(q, k, v, window=64)
+    want_grads = torch.autograd.grad(want, (q, k, v), do)
+    got = fa.flash_attention_bhsd(*(t.transpose(1, 2) for t in (q, k, v)), window=64)
+    assert got.transpose(1, 2).is_contiguous()
+    got_grads = torch.autograd.grad(got, (q, k, v), do.transpose(1, 2))
+    torch.testing.assert_close(got.transpose(1, 2), want, atol=0, rtol=0)
+    for g, w in zip(got_grads, want_grads):
+        assert g.is_contiguous()
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_composes_with_the_kernels(cuda, remat):
     """Under ``torch.utils.checkpoint`` (full, and the selective "dots"
