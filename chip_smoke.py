@@ -22,12 +22,15 @@ Phases, each printed on its own line; any failure exits non-zero:
 6. time K1 and K4 with CUDA events at the phase-5 shapes, beside their plain
    versions, the least time the card could take (``bound_ms``) and
    ``F.scaled_dot_product_attention`` as a yardstick (the port never calls it);
-   K2 and K3 likewise at the phase-8 shape, with SDPA's backward (timed after
-   phase 9, since their launch counts come from phase 8);
+   K2 and K3 likewise at the phase-8 shape, with SDPA's backward, and K1 at
+   the training shape beside SDPA's forward (timed after phase 9, since
+   their launch counts come from phase 8);
 7. K2 and K3 (flash-attention backward) against their plain version: bf16
-   B8 S2048 H12 D64 causal and window 512 in both layouts, f32 S512, head
-   dims 8 / 24 / 128, ragged S, and shift with window and float32 grads;
-   each gradient held element by element and in relative L2 (``GRAD_TOL``);
+   B8 S2048 H12 D64 causal and window 512 in both layouts, a ragged B2 S2000
+   and a window of 300 (not a multiple of the kernels' 128-row blocks), f32
+   S512, head dims 8 / 24 / 128, ragged S, and shift with window and float32
+   grads; each gradient held element by element and in relative L2
+   (``GRAD_TOL``), and a second launch on the same inputs bit-identical;
 8. train the 110M ``TransformerConfig()`` at ``bench_lm``'s shape (bf16,
    ``flash_attention_bhsd``, B8 S2048, Adam 3e-4, clip 1.0) for 10 steps
    through ``make_train_step``, on 16 seeded synthetic sequences (vocab 32000)
@@ -381,8 +384,13 @@ def time_kernels(torch, gen, launches, k1_shape, fills, k4_len) -> list[dict]:
     return rows
 
 
-def time_extra(torch, gen) -> list[dict]:
-    """K1 and K4 at the 110M model's long shapes (reported, not in the table)."""
+def time_extra(torch, gen, k1_per_step: int) -> list[dict]:
+    """K1 and K4 at the 110M model's long shapes (reported, not in the
+    table): K1 at the training shape beside ``F.scaled_dot_product_attention``
+    forward (its yardstick there; the port never calls it), with K1's
+    launches a step from phase 8."""
+    import torch.nn.functional as F
+
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
 
@@ -391,10 +399,13 @@ def time_extra(torch, gen) -> list[dict]:
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16() for _ in range(3))
     kw = dict(causal=True, window=None, shift=0, return_lse=False, out_dtype=None, layout="bshd")
     flops = 4 * D * B * H * S * (S + 1) // 2
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out.append({"what": "K1 bf16 B8 S2048 H12 D64 causal",
                 "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=5),
                 "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), iters=3),
-                "bound_ms": max(flops / PEAK_FLOPS["bfloat16"], 4 * B * S * H * D * 2 / PEAK_BYTES) * 1e3})
+                "bound_ms": max(flops / PEAK_FLOPS["bfloat16"], 4 * B * S * H * D * 2 / PEAK_BYTES) * 1e3,
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+                "launches_per_step": k1_per_step})
     L = 8192
     q = torch.randn(8, 1, 12, 64, generator=gen, device="cuda")
     kb = torch.randn(8, L, 12, 64, generator=gen, device="cuda")
@@ -407,7 +418,9 @@ def time_extra(torch, gen) -> list[dict]:
                 "bound_ms": nbytes / PEAK_BYTES * 1e3})
     for r in out:
         log(f"time {r['what']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms")
+            f"bound {r['bound_ms']:.4f} ms"
+            + (f", sdpa {r['library_ms']:.4f} ms, {r['launches_per_step']} launches a train step"
+               if "library_ms" in r else ""))
     return out
 
 
@@ -424,6 +437,8 @@ def check_k2k3(torch, gen) -> None:
         ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd"),
         ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd"),
         ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd"),
+        ("bf16 causal ragged S2000", 2, 2000, 12, 64, bf16, {}, "bshd"),
+        ("bf16 window300 bhsd", 8, 2048, 12, 64, bf16, {"window": 300}, "bhsd"),
         ("f32 causal S512", 8, 512, 12, 64, f32, {}, "bshd"),
         ("f32 full S300", 2, 300, 4, 64, f32, {"causal": False}, "bhsd"),
         ("f32 D8 window S77", 2, 77, 3, 8, f32, {"window": 9}, "bshd"),
@@ -445,7 +460,10 @@ def check_k2k3(torch, gen) -> None:
         call["grad_dtype"] = kw.get("grad_dtype")
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **call)
         dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **call)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, **call)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                f"K2/K3 {name}: a second launch on the same inputs differs")
         want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **call)
         errs, bound = [], f"bound atol {atol:g} + rtol {rtol:g}, rel L2 {l2:g}"
         for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
@@ -454,7 +472,8 @@ def check_k2k3(torch, gen) -> None:
             ok, err, rel = grads_close(got, ref, atol, rtol, l2)
             errs.append(f"{label} {err:.3e}/{rel:.3e}")
             require(ok, f"K2/K3 {name}: {label} max abs err {err}, rel L2 {rel}, {bound}")
-        log(f"K2/K3 {name}: max abs err / rel L2: {', '.join(errs)} ({bound})")
+        log(f"K2/K3 {name}: max abs err / rel L2: {', '.join(errs)} ({bound}); "
+            f"bit-identical on a second launch")
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -660,7 +679,6 @@ def main() -> int:
     log(f"phase 5 serve OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels = time_kernels(torch, gen, launches, k1_shape, fills, k4_len)
-    extra = time_extra(torch, gen)
     log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k2k3(torch, gen)
@@ -673,7 +691,8 @@ def main() -> int:
     log(f"phase 9 train_lm CLI OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels[1:1] = time_backward(torch, gen, train["launches"])
-    log(f"phase 6 K2/K3 timing in {time.perf_counter() - t0:.1f}s")
+    extra = time_extra(torch, gen, train["launches"]["K1"] // len(train["losses"]))
+    log(f"phase 6 K2/K3 and long-shape timing in {time.perf_counter() - t0:.1f}s")
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

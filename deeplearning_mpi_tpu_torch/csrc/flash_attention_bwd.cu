@@ -15,41 +15,60 @@
 // What bounds them on an H100: at the training shape (bf16 B8 S2048 H12
 // D64 causal, 201.4 M valid pairs) K2 does 6*D flops a pair (77.3 GFLOP,
 // 0.078 ms at 989 TFLOP/s) against ~152 MB (0.045 ms at 3.35 TB/s); K3 does
-// 8*D a pair (103.1 GFLOP, 0.104 ms). Both are bound by operations.
-//
-// Design. The TPU's sequential last grid axis becomes a loop inside the
-// block, so the two kernels stay deterministic with no atomics:
-// - K2: one block per (q tile of 64 rows, head, batch), looping over the kv
-//   tiles from the window's first to the one holding row q_hi + shift;
-// - K3: one block per (kv tile of 64 keys, head, batch), looping over the q
-//   rows max(0, k_lo - shift) .. min(S-1, k_hi + window - 1 - shift) — the
-//   exact form of the reference's clamped q anchor.
+// 8*D a pair (103.1 GFLOP, 0.104 ms). Both are bound by operations, so the
+// bf16 path is built around the tensor cores' wgmma:
+// - Two kernels, deterministic, no atomics (the TPU's sequential last grid
+//   axis becomes a loop inside the block). K2: a block owns 128 q rows and
+//   loops over the kv tiles from the window's first to the one holding row
+//   q_hi + shift. K3: a block owns 128 keys and loops over the q rows
+//   max(0, k_lo - shift) .. min(S-1, k_hi + window - 1 - shift), the exact
+//   form of the reference's clamped q anchor.
+// - bf16: each of two consumer warpgroups owns 64 of the block's rows. The
+//   resident rows (Q and dO for K2, K and V for K3) are loaded once; 64-row
+//   tiles of the other side (K, V; or Q, dO with their lse and delta) stream
+//   through a 4-stage shared-memory ring that a producer warpgroup fills
+//   with 16-byte cp.async copies (zero-filled past S and past the head dim;
+//   setmaxnreg hands its registers to the consumers). The copies arrive on
+//   each stage's mbarrier as they land, so up to four tiles are in flight
+//   and loads overlap the math.
+//   K3 computes S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16 (both
+//   operands in shared memory, K-major), then dV += P^T dO and dK += dS^T Q
+//   with P^T / dS^T packed to bf16 straight from the accumulators as the
+//   register A operand and the same Q / dO tile read MN-major through its
+//   descriptor. K2 does S = Q K^T, dP = dO V^T, dQ += dS K likewise. So each
+//   tile has one copy in shared memory (128-byte swizzle, 64-column panels;
+//   head dims below 64 or between 64 and 128 are zero-padded to 64 / 128, so
+//   one kernel serves every head dim), with no transposed second copy.
+//   Within a tile p = exp(s - lse) is computed while dP is still on the
+//   tensor cores; every wgmma group is retired before the tile ends, since
+//   ptxas serializes all wgmmas of a kernel that keeps one in flight across
+//   a branch or a loop's back edge (measured: 0.78 ms for the pair with the
+//   next tile's S / dP in flight, 0.62 ms without). The two warpgroups'
+//   tiles interleave on the tensor cores.
+// - Tiles wholly inside the valid region skip the per-score mask; diagonal,
+//   window-edge and ragged-edge tiles take it; a warpgroup skips a tile in
+//   which none of its pairs is valid.
+// - Causal blocks with the most tiles launch first (blockIdx.y, the slowest
+//   launch axis, walks them longest first), so the grid does not end on a
+//   tail of long blocks.
+// - float32 runs on the CUDA cores in true float32 (no TF32): a quad of
+//   threads per row (K2) or per key (K3), 64-row tiles, as in K1's float32
+//   path.
 // delta is computed once per row by a small pre-pass (launched with K2)
 // into [B, H, S] float32 scratch; the reference recomputes it per tile only
 // because of the TPU's lane-replicated layout. The lse is [B, H, S] float32,
-// as K1 writes it. Both layouts run by element strides, with no transposes;
-// the ragged sequence edge is masked in the kernels.
-// - bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulation).
-//   K2: each of 4 warps owns 16 q rows, with Q and dO as A fragments in
-//   registers; K, V and K^T tiles in shared memory. K3: each warp owns 16
-//   keys, with K and V as A fragments; it computes S^T and dP^T, and Q, dO,
-//   Q^T, dO^T tiles sit in shared memory. P and dS leave the accumulators
-//   straight as A fragments of the next product.
-// - float32 runs on the CUDA cores in true float32 (no TF32): a quad of
-//   threads per row (K2) or per key (K3), as in K1's float32 path.
+// as K1 writes it. Both layouts run by element strides, with no transposes.
 // The finite NEG_INF: p = exp(s - lse) is 1, not 0, on a row whose lse is
-// NEG_INF; every score keeps a validity bit and masked p and ds are set to
-// 0 explicitly, so a row with no valid key gets zero dq and gives nothing to
-// dk / dv.
-//
-// Later work (not here): wgmma and TMA with a multi-stage ring, ldmatrix
-// (.trans) in place of the second transposed copy of each tile, one fused
-// kernel with atomics on dq as FlashAttention-2 does.
+// NEG_INF; on masked tiles every score keeps a validity bit and masked p is
+// set to 0 explicitly, and ds = p * (dp - delta) * scale with dp and delta
+// finite is 0 there too, so a row with no valid key gets zero dq and gives
+// nothing to dk / dv.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
-constexpr int kTile = 64;  // q rows per K2 block, keys per K3 block, and the streamed tile
+constexpr int kTile = 64;  // float32 path: q rows per K2 block, keys per K3 block, streamed tile
 }  // namespace
 
 // Mirrors BwdParams in ops/kernels/flash_attention.py (ctypes.Structure).
@@ -91,27 +110,30 @@ struct TileRange {
   int lo, hi;
 };
 
-// K2: kv tiles [lo, hi) that can meet some row of the q tile at q_lo.
+// K2: the T-row kv tiles [lo, hi) that can meet some row of the R q rows at q_lo.
+template <int R, int T>
 __device__ __forceinline__ TileRange kv_tiles(const BwdParams& p, int q_lo) {
-  const int q_hi = min(q_lo + kTile - 1, p.S - 1);
+  const int q_hi = min(q_lo + R - 1, p.S - 1);
   int kv_hi = p.S;
   if (p.causal) kv_hi = min(p.S, q_hi + p.shift + 1);
   int kv_lo = 0;
   if (p.window > 0) kv_lo = max(0, q_lo + p.shift - p.window + 1);
-  const int lo = kv_lo / kTile;
-  return {lo, kv_hi > kv_lo ? (kv_hi + kTile - 1) / kTile : lo};
+  const int lo = kv_lo / T;
+  return {lo, kv_hi > kv_lo ? (kv_hi + T - 1) / T : lo};
 }
 
-// K3: q tiles [lo, hi) holding some row that sees a key of the tile at k_lo.
+// K3: the T-row q tiles [lo, hi) holding some row that sees one of the R keys
+// at k_lo: rows max(0, k_lo - shift) .. min(S-1, k_hi + window - 1 - shift).
+template <int R, int T>
 __device__ __forceinline__ TileRange q_tiles(const BwdParams& p, int k_lo) {
-  const int k_hi = min(k_lo + kTile - 1, p.S - 1);
+  const int k_hi = min(k_lo + R - 1, p.S - 1);
   int i_lo = 0, i_hi = p.S - 1;
   if (p.causal) {
     i_lo = max(0, k_lo - p.shift);
     if (p.window > 0) i_hi = min(p.S - 1, k_hi + p.window - 1 - p.shift);
   }
-  const int lo = i_lo / kTile;
-  return {lo, i_hi >= i_lo ? i_hi / kTile + 1 : lo};
+  const int lo = i_lo / T;
+  return {lo, i_hi >= i_lo ? i_hi / T + 1 : lo};
 }
 
 // delta[b, h, s] = sum_d o * do, one thread per row.
@@ -197,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
 
-  const TileRange tiles = kv_tiles(p, q_lo);
+  const TileRange tiles = kv_tiles<kTile, kTile>(p, q_lo);
   for (int tile = tiles.lo; tile < tiles.hi; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // every thread is done with the previous tile
@@ -274,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdParams p) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) dk[c] = dv[c] = 0.f;
 
-  const TileRange tiles = q_tiles(p, k_lo);
+  const TileRange tiles = q_tiles<kTile, kTile>(p, k_lo);
   for (int tile = tiles.lo; tile < tiles.hi; ++tile) {
     const int q0 = tile * kTile;
     __syncthreads();
@@ -338,261 +360,341 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdParams p) {
 // bf16: tensor cores, mma.sync m16n8k16, 16 rows (K2) or keys (K3) per warp.
 // ---------------------------------------------------------------------------
 namespace bf16path {
-constexpr int kThreads = 128;
-constexpr int NT = kTile / 8;  // 8-column n-tiles of a score tile
+// One kernel for K2 and K3 (kDKV), for head dims up to 64 (DP 64) or 128
+// (DP 128). A block holds kBlockRows resident rows: q rows and their dO (K2)
+// or keys and their V (K3), 64 per consumer warpgroup, and streams 64-row
+// tiles of the other side (K and V for K2; Q, dO, lse and delta for K3)
+// through a kStages ring that a producer warpgroup fills with cp.async.
+// Registers move from the producer (40 a thread) to the consumers (232).
+constexpr int kBlockRows = 128;
+constexpr int kTileRows = 64;
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kThreads = kConsumers + 128;     // and the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Head dim rounded up to the mma's k = 16; padded row strides (+8 bf16:
-// rows stay 16-byte aligned, and a fragment load's 8 rows hit distinct banks).
-template <int D> __host__ __device__ constexpr int dk() { return (D + 15) / 16 * 16; }
-template <int D> __host__ __device__ constexpr int row_stride() { return dk<D>() + 8; }
-constexpr int kTStride = kTile + 8;  // transposed tiles [D][64 + 8]
+template <int DP>
+struct Layout {
+  static constexpr int P = DP / 64;                         // 64-column panels
+  static constexpr uint32_t kResPanel = kBlockRows * 128;   // bytes
+  static constexpr uint32_t kTilePanel = kTileRows * 128;
+  static constexpr uint32_t kRes = P * kResPanel;           // one resident tensor
+  static constexpr uint32_t kTile = P * kTilePanel;         // one stage of one streamed tensor
+  static constexpr uint32_t X = 0, Y = kRes;                // resident: Q, dO (K2) / K, V (K3)
+  static constexpr uint32_t U = 2 * kRes;                   // streamed: K (K2) / Q (K3)
+  static constexpr uint32_t W = U + kStages * kTile;        // streamed: V (K2) / dO (K3)
+  static constexpr uint32_t LSE = W + kStages * kTile;      // K3: [kStages][64] float
+  static constexpr uint32_t DELTA = LSE + kStages * kTileRows * 4;
+  static constexpr uint32_t FULL = DELTA + kStages * kTileRows * 4;  // mbarriers
+  static constexpr uint32_t EMPTY = FULL + kStages * 8;
+  static constexpr size_t kBytes = EMPTY + kStages * 8 + 1024;       // + alignment slack
+};
 
-// Stage rows [r0, r0 + 64) of a bf16 [S, D] slab into dst [64][row_stride];
-// rows past S and columns in [D, dk) become zeros.
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t rs,
-                                      int r0, int S) {
-  constexpr int VPR = dk<D>() / 8;
-  for (int u = threadIdx.x; u < kTile * VPR; u += kThreads) {
-    const int row = u / VPR, col = (u % VPR) * 8;
-    Vec8<__nv_bfloat16> x;
-    if (r0 + row < S && col < D) x.load(src + (int64_t)(r0 + row) * rs + col); else x.zero();
-    *reinterpret_cast<uint4*>(dst + row * row_stride<D>() + col) = x.u;
+// Copy rows [r0, r0 + R) of a bf16 [S, D] slab (row stride rs) into swizzled
+// panels at dst (panel_stride bytes apart), zeros past S and past D; this
+// thread takes chunks lane, lane + n, ...
+template <int R, int P>
+__device__ __forceinline__ void load_rows(uint32_t dst, uint32_t panel_stride,
+                                          const __nv_bfloat16* src, int64_t rs, int r0, int S,
+                                          int D, int lane, int n) {
+#pragma unroll 4
+  for (int c = lane; c < R * 8 * P; c += n) {
+    const int row = c / (8 * P), ch = c % (8 * P);
+    const bool ok = r0 + row < S && ch * 8 < D;
+    cp_async16(dst + (ch >> 3) * panel_stride + swizzle128(row, ch & 7),
+               ok ? src + (int64_t)(r0 + row) * rs + ch * 8 : src, ok);
   }
 }
 
-// Stage the same rows transposed: dst[d][row], d < D.
-template <int D>
-__device__ __forceinline__ void stage_t(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t rs,
-                                        int r0, int S) {
-  for (int u = threadIdx.x; u < kTile * (D / 8); u += kThreads) {
-    const int row = u / (D / 8), col = (u % (D / 8)) * 8;
-    Vec8<__nv_bfloat16> x;
-    if (r0 + row < S) x.load(src + (int64_t)(r0 + row) * rs + col); else x.zero();
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x.u);
+// Pairs of q rows [qa, qb] and keys [ka, kb]: 0 none valid, 1 some masked
+// (diagonal, window edge, ragged edge), 2 all valid (no per-score test).
+__device__ __forceinline__ int tile_kind(const BwdParams& p, int qa, int qb, int ka, int kb) {
+  if (qa >= p.S || ka >= p.S) return 0;
+  if (p.causal) {
+    if (qb + p.shift < ka) return 0;
+    if (p.window > 0 && qa + p.shift - kb >= p.window) return 0;
+  }
+  bool all = qb < p.S && kb < p.S;
+  if (p.causal)
+    all = all && qa + p.shift >= kb && (p.window == 0 || qb + p.shift - ka < p.window);
+  return all ? 2 : 1;
+}
+
+__device__ __forceinline__ bool pair_ok(const BwdParams& p, int q, int k) {
+  return q < p.S && pair_valid(p, q + p.shift, k);
+}
+
+// The four A fragments (k = 16 columns each) of a 64 x 64 accumulator,
+// rounded to bf16: an accumulator's layout is the register A layout.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * kTStride + row] = e[i];
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// A fragments of the warp's 16 rows (from r0) of a staged [64][row_stride] tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[dk<D>() / 16][4], const __nv_bfloat16* tile,
-                                       int r0, int g, int tig) {
-  constexpr int SQ = row_stride<D>();
+// acc[64 x DP] += A (four k16 fragments) . B, B a streamed [64][DP] tile
+// read MN-major (its rows are the reduction dim).
+template <int DP>
+__device__ __forceinline__ void product_rs(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                           uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < dk<D>() / 16; ++kk) {
-    const __nv_bfloat16* base = tile + (r0 + g) * SQ + kk * 16 + tig * 2;
-    a[kk][0] = lds32(base);
-    a[kk][1] = lds32(base + 8 * SQ);
-    a[kk][2] = lds32(base + 8);
-    a[kk][3] = lds32(base + 8 * SQ + 8);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = wgmma_desc(tile + kk * 2048, Layout<DP>::kTilePanel, 1024);
+    if constexpr (DP == 64) wgmma_rs_n64(acc, a[kk], b);
+    else wgmma_rs_n128(acc, a[kk], b);
   }
 }
 
-// c[16 x 64] = A[16 x D] . B^T, B a staged [64][row_stride] tile. Element
-// (nt, i) is row g + 8 * (i >> 1), column nt * 8 + tig * 2 + (i & 1).
-template <int D>
-__device__ __forceinline__ void product_nt(float (&c)[NT][4], uint32_t (&a)[dk<D>() / 16][4],
-                                           const __nv_bfloat16* tile, int g, int tig) {
-  constexpr int SQ = row_stride<D>();
+// s[64 x 64] = X_wg[64 x DP] . T^T, X_wg resident, T a streamed [64][DP]
+// tile, both K-major.
+template <int DP>
+__device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t t) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < dk<D>() / 16; ++kk) {
-      const __nv_bfloat16* base = tile + (nt * 8 + g) * SQ + kk * 16 + tig * 2;
-      mma_bf16(c[nt], a[kk], lds32(base), lds32(base + 8));
-    }
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    const uint64_t a = wgmma_desc(x + (kk >> 2) * Layout<DP>::kResPanel + off, 16, 1024);
+    const uint64_t b = wgmma_desc(t + (kk >> 2) * Layout<DP>::kTilePanel + off, 16, 1024);
+    if (kk == 0) wgmma_ss_n64<false>(s, a, b);
+    else wgmma_ss_n64<true>(s, a, b);
   }
 }
 
-// acc[16 x D] += bf16(x)[16 x 64] . B, B given transposed as Bt[d][64]
-// (stride kTStride): x's accumulator layout is the next product's A layout.
-template <int D>
-__device__ __forceinline__ void product_acc(float (&acc)[D / 8][4], float (&x)[NT][4],
-                                            const __nv_bfloat16* bt, int g, int tig) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(x[2 * kk][0], x[2 * kk][1]), pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-        pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const __nv_bfloat16* base = bt + (nd * 8 + g) * kTStride + kk * 16 + tig * 2;
-      mma_bf16(acc[nd], a, lds32(base), lds32(base + 8));
-    }
-  }
-}
-
-// Write rows g and g + 8 of the warp's 16 (from global row row0) of acc.
-template <class O, int D>
-__device__ __forceinline__ void store_rows(void* out, int64_t sb, int64_t ss, int64_t sh, int b,
-                                           int h, int row0, int S, float (&acc)[D / 8][4],
-                                           int tig) {
+// Write a 64 x DP accumulator (rows row0 + 16 * warp + g (+8), columns < D).
+template <class O, int DP>
+__device__ __forceinline__ void store_acc(void* out, int64_t sb, int64_t ss, int64_t sh, int b,
+                                          int h, int row0, const BwdParams& p,
+                                          const float (&acc)[DP / 2], int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= S) continue;
-    O* o = static_cast<O*>(out) + b * sb + h * sh + row * ss;
+    const int row = row0 + g + 8 * r;
+    if (row >= p.S) continue;
+    O* o = static_cast<O*>(out) + b * sb + h * sh + row * ss + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd * 8 + tig * 2] = from_f32<O>(acc[nd][2 * r]);
-      o[nd * 8 + tig * 2 + 1] = from_f32<O>(acc[nd][2 * r + 1]);
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= p.D) break;
+      const float x0 = acc[4 * j + 2 * r], x1 = acc[4 * j + 2 * r + 1];
+      if constexpr (sizeof(O) == 4) {
+        *reinterpret_cast<float2*>(o + 8 * j) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(x0, x1);
+      }
     }
   }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(3 * kTile * row_stride<D>() + D * kTStride);
+// p = exp(s * scale - lse), in place in sc; with kMask, pairs outside the
+// valid region get p = 0. K3: rows are keys my0 (+8), columns q rows r0 +
+// col with their lse from the stage; K2: rows are q rows my0 (+8) with nl =
+// -lse * log2e, columns keys r0 + col.
+template <bool kDKV, bool kMask>
+__device__ __forceinline__ void p_of(float (&sc)[32], const BwdParams& p, const float* lse_s,
+                                     const float (&nl)[2], int r0, int my0, int t) {
+  const float c = p.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float2 ls = make_float2(0.f, 0.f);
+    if (kDKV) ls = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, r = e >> 1, col = 8 * j + 2 * t + (e & 1);
+      const float nlse = kDKV ? -((e & 1) ? ls.y : ls.x) * kLog2e : nl[r];
+      const float pv = exp2f(fmaf(sc[i], c, nlse));
+      if (kMask) {
+        const bool ok = kDKV ? pair_ok(p, r0 + col, my0 + 8 * r) : pair_ok(p, my0 + 8 * r, r0 + col);
+        sc[i] = ok ? pv : 0.f;
+      } else {
+        sc[i] = pv;
+      }
+    }
+  }
 }
 
-template <class O, int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
-  constexpr int SQ = row_stride<D>(), KT = dk<D>() / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q, then dO: [64][SQ]
-  __nv_bfloat16* sK = sA + kTile * SQ;                              // [64][SQ]
-  __nv_bfloat16* sV = sK + kTile * SQ;                              // [64][SQ]
-  __nv_bfloat16* sKt = sV + kTile * SQ;                             // [D][kTStride]
+// ds = p * (dp - delta) * scale, in place in dp (zero where p is: dp and
+// delta are finite). K3 takes delta by column from the stage, K2 by row (dl).
+template <bool kDKV>
+__device__ __forceinline__ void ds_of(float (&dp)[32], const float (&sc)[32], const BwdParams& p,
+                                      const float* del_s, const float (&dl)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float2 de = make_float2(0.f, 0.f);
+    if (kDKV) de = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float delta = kDKV ? ((e & 1) ? de.y : de.x) : dl[e >> 1];
+      dp[i] = sc[i] * (dp[i] - delta) * p.scale;
+    }
+  }
+}
 
-  const int q_lo = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
+template <class O, int DP, bool kDKV>
+__global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdParams p) {
+  using L = Layout<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));  // generic view of base
+
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int nblk = (p.S + kBlockRows - 1) / kBlockRows;
+  // Longest work first: causal K3 blocks at low keys and K2 blocks at high q
+  // rows walk the most tiles, and blockIdx.y is the slowest launch axis.
+  const int blk = (p.causal && !kDKV) ? nblk - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int lo = blk * kBlockRows;
+  const TileRange tiles = kDKV ? q_tiles<kBlockRows, kTileRows>(p, lo)
+                               : kv_tiles<kBlockRows, kTileRows>(p, lo);
+  const int n_tiles = tiles.hi - tiles.lo;
+
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* gr = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t row0 = ((int64_t)b * p.H + h) * p.S;  // this (b, h) in lse / delta
 
-  const int r0 = warp * 16;
-  uint32_t qa[KT][4], ga[KT][4];
-  stage<D>(sA, q, p.q_ss, q_lo, p.S);
-  __syncthreads();
-  load_a<D>(qa, sA, r0, g, tig);
-  __syncthreads();
-  stage<D>(sA, gr, p.do_ss, q_lo, p.S);
-  __syncthreads();
-  load_a<D>(ga, sA, r0, g, tig);
-
-  // Rows g and g + 8 of the warp: their lse and delta.
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q_lo + r0 + g + 8 * r;
-    const int64_t id = ((int64_t)b * p.H + h) * p.S + row;
-    lse[r] = row < p.S ? p.lse[id] : 0.f;
-    delta[r] = row < p.S ? p.delta[id] : 0.f;
-  }
-  const int qpos0 = q_lo + r0 + g + p.shift;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const TileRange tiles = kv_tiles(p, q_lo);
-  for (int tile = tiles.lo; tile < tiles.hi; ++tile) {
-    const int k0 = tile * kTile;
-    __syncthreads();
-    stage<D>(sK, k, p.k_ss, k0, p.S);
-    stage<D>(sV, v, p.v_ss, k0, p.S);
-    stage_t<D>(sKt, k, p.k_ss, k0, p.S);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    product_nt<D>(s, qa, sK, g, tig);
-    product_nt<D>(dp, ga, sV, g, tig);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const bool ok = pair_valid(p, qpos0 + 8 * r, k0 + nt * 8 + tig * 2 + (i & 1));
-        const float pi = ok ? expf(s[nt][i] * p.scale - lse[r]) : 0.f;
-        s[nt][i] = ok ? pi * (dp[nt][i] - delta[r]) * p.scale : 0.f;  // ds
-      }
-    product_acc<D>(acc, s, sKt, g, tig);
-  }
-  store_rows<O, D>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, q_lo + r0 + g, p.S, acc, tig);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(3 * kTile * row_stride<D>() + 2 * D * kTStride) +
-         sizeof(float) * 2 * kTile;
-}
-
-template <class O, int D>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdParams p) {
-  constexpr int SQ = row_stride<D>(), KT = dk<D>() / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // K, then V: [64][SQ]
-  __nv_bfloat16* sQ = sA + kTile * SQ;                              // [64][SQ]
-  __nv_bfloat16* sDO = sQ + kTile * SQ;                             // [64][SQ]
-  __nv_bfloat16* sQt = sDO + kTile * SQ;                            // [D][kTStride]
-  __nv_bfloat16* sDOt = sQt + D * kTStride;                         // [D][kTStride]
-  float* sLse = reinterpret_cast<float*>(sDOt + D * kTStride);      // [64]
-  float* sDelta = sLse + kTile;                                     // [64]
-
-  const int k_lo = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* gr = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int64_t row0 = ((int64_t)b * p.H + h) * p.S;
-
-  const int r0 = warp * 16;
-  uint32_t ka[KT][4], va[KT][4];
-  stage<D>(sA, k, p.k_ss, k_lo, p.S);
-  __syncthreads();
-  load_a<D>(ka, sA, r0, g, tig);
-  __syncthreads();
-  stage<D>(sA, v, p.v_ss, k_lo, p.S);
-  __syncthreads();
-  load_a<D>(va, sA, r0, g, tig);
-
-  const int kpos0 = k_lo + r0 + g;  // keys g and g + 8 of the warp
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[nd][i] = dv[nd][i] = 0.f;
-
-  const TileRange tiles = q_tiles(p, k_lo);
-  for (int tile = tiles.lo; tile < tiles.hi; ++tile) {
-    const int q0 = tile * kTile;
-    __syncthreads();
-    stage<D>(sQ, q, p.q_ss, q0, p.S);
-    stage<D>(sDO, gr, p.do_ss, q0, p.S);
-    stage_t<D>(sQt, q, p.q_ss, q0, p.S);
-    stage_t<D>(sDOt, gr, p.do_ss, q0, p.S);
-    if (threadIdx.x < kTile) {
-      const int i = q0 + threadIdx.x;
-      sLse[threadIdx.x] = i < p.S ? p.lse[row0 + i] : 0.f;
-      sDelta[threadIdx.x] = i < p.S ? p.delta[row0 + i] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(base + L::FULL + 8 * s, kThreads - kConsumers);
+      mbar_init(base + L::EMPTY + 8 * s, kConsumers);
     }
-    __syncthreads();
-    float s[NT][4], dp[NT][4];  // S^T and dP^T: rows are keys, columns q rows
-    product_nt<D>(s, ka, sQ, g, tig);
-    product_nt<D>(dp, va, sDO, g, tig);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + tig * 2 + (i & 1), qrow = q0 + col;
-        const bool ok = qrow < p.S && pair_valid(p, qrow + p.shift, kpos0 + 8 * (i >> 1));
-        const float pi = ok ? expf(s[nt][i] * p.scale - sLse[col]) : 0.f;
-        s[nt][i] = pi;
-        dp[nt][i] = ok ? pi * (dp[nt][i] - sDelta[col]) * p.scale : 0.f;  // ds^T
-      }
-    product_acc<D>(dv, s, sDOt, g, tig);
-    product_acc<D>(dk, dp, sQt, g, tig);
+    mbar_init_fence();
   }
-  store_rows<O, D>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, h, kpos0, p.S, dk, tig);
-  store_rows<O, D>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, h, kpos0, p.S, dv, tig);
+  __syncthreads();
+
+  // Warpgroup index, broadcast from lane 0 so that the compiler sees it is
+  // uniform across each warp (branches on it then need no wgmma serialization).
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kConsumers / 128) {
+    // Producer warpgroup: fill stage it % kStages with tile it once the
+    // consumers have released it. Each thread's copies arrive on the stage's
+    // full barrier as they land, so up to kStages tiles are in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lane = threadIdx.x - kConsumers, n = kThreads - kConsumers;
+    const __nv_bfloat16* u = kDKV ? q : k;
+    const __nv_bfloat16* w = kDKV ? gr : v;
+    const int64_t u_rs = kDKV ? p.q_ss : p.k_ss, w_rs = kDKV ? p.do_ss : p.v_ss;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages, r0 = (tiles.lo + it) * kTileRows;
+      mbar_wait(base + L::EMPTY + 8 * s, ((it / kStages) & 1) ^ 1);
+      load_rows<kTileRows, L::P>(base + L::U + s * L::kTile, L::kTilePanel, u, u_rs, r0, p.S,
+                                 p.D, lane, n);
+      load_rows<kTileRows, L::P>(base + L::W + s * L::kTile, L::kTilePanel, w, w_rs, r0, p.S,
+                                 p.D, lane, n);
+      if (kDKV && lane < kTileRows) {
+        const bool ok = r0 + lane < p.S;
+        const int64_t i = row0 + (ok ? r0 + lane : 0);
+        cp_async4(base + L::LSE + (s * kTileRows + lane) * 4, p.lse + i, ok);
+        cp_async4(base + L::DELTA + (s * kTileRows + lane) * 4, p.delta + i, ok);
+      }
+      cp_async_arrive(base + L::FULL + 8 * s);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // Consumer warpgroup wg: resident rows lo + 64 * wg .. + 63.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw0 = lo + 64 * wg;
+  const uint32_t x = base + L::X + wg * 64 * 128, y = base + L::Y + wg * 64 * 128;
+  load_rows<64, L::P>(x, L::kResPanel, kDKV ? k : q, kDKV ? p.k_ss : p.q_ss, rw0, p.S, p.D,
+                      threadIdx.x & 127, 128);
+  load_rows<64, L::P>(y, L::kResPanel, kDKV ? v : gr, kDKV ? p.v_ss : p.do_ss, rw0, p.S, p.D,
+                      threadIdx.x & 127, 128);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+
+  // K2: this thread's rows my0 and my0 + 8: -lse * log2e and delta.
+  const int my0 = rw0 + 16 * warp + g;
+  float nl[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (!kDKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (my0 + 8 * r < p.S) {
+        nl[r] = -p.lse[row0 + my0 + 8 * r] * kLog2e;
+        dl[r] = p.delta[row0 + my0 + 8 * r];
+      }
+    }
+  }
+  float acc1[DP / 2], acc2[DP / 2];  // dv, dk (K3); dq, unused (K2)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc1[i] = acc2[i] = 0.f;
+
+  // Per tile: S (S^T) and dP (dP^T) as two wgmma groups; p = exp(...) runs
+  // while dP is still on the tensor cores; then ds, and the products that
+  // take p and ds as register A operands. Every group is retired within its
+  // tile, so no wgmma is in flight across a branch or the loop's back edge
+  // (ptxas would serialize all of them). The other warpgroup's tile fills
+  // the tensor cores while this one computes.
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, r0 = (tiles.lo + it) * kTileRows;
+    const uint32_t ut = base + L::U + s * L::kTile, wt = base + L::W + s * L::kTile;
+    mbar_wait(base + L::FULL + 8 * s, (it / kStages) & 1);
+    fence_proxy_async();  // the stage's cp.async writes, before wgmma reads them
+    const int kind = kDKV ? tile_kind(p, r0, r0 + kTileRows - 1, rw0, rw0 + 63)
+                          : tile_kind(p, rw0, rw0 + 63, r0, r0 + kTileRows - 1);
+    if (kind != 0) {
+      float sc[32], dp[32];
+      wgmma_fence();
+      product_ss<DP>(sc, x, ut);
+      wgmma_commit();
+      product_ss<DP>(dp, y, wt);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE) + s * kTileRows;
+      const float* del_s = reinterpret_cast<const float*>(gbase + L::DELTA) + s * kTileRows;
+      if (kind == 1) p_of<kDKV, true>(sc, p, lse_s, nl, r0, my0, t);
+      else p_of<kDKV, false>(sc, p, lse_s, nl, r0, my0, t);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      ds_of<kDKV>(dp, sc, p, del_s, dl, t);
+      uint32_t da[4][4];
+      to_a_frags(da, dp);
+      fence_regs(acc1);
+      if constexpr (kDKV) {
+        uint32_t pa[4][4];
+        to_a_frags(pa, sc);
+        fence_regs(acc2);
+        wgmma_fence();
+        product_rs<DP>(acc1, pa, wt);  // dv += p^T . dO
+        product_rs<DP>(acc2, da, ut);  // dk += ds^T . Q
+      } else {
+        wgmma_fence();
+        product_rs<DP>(acc1, da, ut);  // dq += ds . K
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      if constexpr (kDKV) fence_regs(acc2);
+    }
+    mbar_arrive(base + L::EMPTY + 8 * s);
+  }
+  if constexpr (kDKV) {
+    store_acc<O, DP>(p.dk, p.dk_sb, p.dk_ss, p.dk_sh, b, h, rw0 + 16 * warp, p, acc2, g, t);
+    store_acc<O, DP>(p.dv, p.dv_sb, p.dv_ss, p.dv_sh, b, h, rw0 + 16 * warp, p, acc1, g, t);
+  } else {
+    store_acc<O, DP>(p.dq, p.dq_sb, p.dq_ss, p.dq_sh, b, h, rw0 + 16 * warp, p, acc1, g, t);
+  }
+}
+
+template <class O, bool kDKV>
+cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  const dim3 grid(p.B * p.H, (p.S + kBlockRows - 1) / kBlockRows);
+  auto run = [&](auto kernel, size_t smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  };
+  if (p.D <= 64) return run(bwd_kernel<O, 64, kDKV>, Layout<64>::kBytes);
+  return run(bwd_kernel<O, 128, kDKV>, Layout<128>::kBytes);
 }
 }  // namespace bf16path
 
@@ -619,34 +721,31 @@ extern "C" int flash_attention_bwd_dq(const BwdParams* params, void* stream) {
     else delta_kernel<__nv_bfloat16, D><<<blocks, 256, 0, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return;
-    err = cudaErrorInvalidValue;
-    if (p.in_dtype == DT_F32 && p.grad_dtype == DT_F32)
-      err = launch(f32path::dq_kernel<D>, f32path::dq_smem_bytes<D>(), f32path::kThreads, p, s);
-    else if (p.in_dtype == DT_BF16 && p.grad_dtype == DT_BF16)
-      err = launch(bf16path::dq_kernel<__nv_bfloat16, D>, bf16path::dq_smem_bytes<D>(),
-                   bf16path::kThreads, p, s);
-    else if (p.in_dtype == DT_BF16 && p.grad_dtype == DT_F32)
-      err = launch(bf16path::dq_kernel<float, D>, bf16path::dq_smem_bytes<D>(),
-                   bf16path::kThreads, p, s);
+    if (p.in_dtype == DT_F32)
+      err = p.grad_dtype == DT_F32 ? launch(f32path::dq_kernel<D>, f32path::dq_smem_bytes<D>(),
+                                            f32path::kThreads, p, s)
+                                   : cudaErrorInvalidValue;
   });
-  return (int)err;
+  if (err != cudaSuccess || p.in_dtype != DT_BF16) return (int)err;
+  if (p.grad_dtype == DT_BF16) return (int)bf16path::launch<__nv_bfloat16, false>(p, s);
+  if (p.grad_dtype == DT_F32) return (int)bf16path::launch<float, false>(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K3; reads the delta the dq entry wrote.
 extern "C" int flash_attention_bwd_dkv(const BwdParams* params, void* stream) {
   const BwdParams& p = *params;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.in_dtype == DT_BF16 && p.D % 8 == 0 && p.D >= 8 && p.D <= 128) {
+    if (p.grad_dtype == DT_BF16) return (int)bf16path::launch<__nv_bfloat16, true>(p, s);
+    if (p.grad_dtype == DT_F32) return (int)bf16path::launch<float, true>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaErrorInvalidValue;
   dispatch_head_dim(p.D, [&](auto dc) {
     constexpr int D = decltype(dc)::value;
     if (p.in_dtype == DT_F32 && p.grad_dtype == DT_F32)
       err = launch(f32path::dkv_kernel<D>, f32path::dkv_smem_bytes<D>(), f32path::kThreads, p, s);
-    else if (p.in_dtype == DT_BF16 && p.grad_dtype == DT_BF16)
-      err = launch(bf16path::dkv_kernel<__nv_bfloat16, D>, bf16path::dkv_smem_bytes<D>(),
-                   bf16path::kThreads, p, s);
-    else if (p.in_dtype == DT_BF16 && p.grad_dtype == DT_F32)
-      err = launch(bf16path::dkv_kernel<float, D>, bf16path::dkv_smem_bytes<D>(),
-                   bf16path::kThreads, p, s);
   });
   return (int)err;
 }

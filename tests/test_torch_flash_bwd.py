@@ -161,13 +161,16 @@ def _main_path_bwd(window):
 def test_phase7_bound_rejects_a_wrong_kernel(mutant, window):
     cs = _chip_smoke()
     inputs, want = _main_path_bwd(window)
-    seq, tile = 2048, 64  # the kernels' tile (kTile in csrc/flash_attention_bwd.cu)
+    # The bf16 kernels' block and streamed tile (kBlockRows, kTileRows in
+    # csrc/flash_attention_bwd.cu): a block owns 128 q rows (K2) or keys (K3)
+    # and streams 64-row tiles of the other side.
+    seq, block, tile = 2048, 128, 64
     i, j = torch.arange(seq)[:, None], torch.arange(seq)[None, :]
     valid = tfa._valid_pairs(seq, True, window, 0, "cpu")
-    # The last tile of each block's loop: K2's q tile ends at row i|63, its
+    # The last tile of each block's loop: K2's block ends at q row i|127, its
     # last kv tile holds that row; K3's last q tile holds row k_hi + window - 1.
-    last_kv = (i // tile * tile + tile - 1).clamp(max=seq - 1) // tile
-    last_q = (j // tile * tile + tile - 1 + (window or seq) - 1).clamp(max=seq - 1) // tile
+    last_kv = (i // block * block + block - 1).clamp(max=seq - 1) // tile
+    last_q = (j // block * block + block - 1 + (window or seq) - 1).clamp(max=seq - 1) // tile
     if mutant == "none":
         got = _masked_bwd(*inputs, valid, torch.float64)
     elif mutant == "k2_last_kv_tile":

@@ -9,6 +9,9 @@ time) where ``torch.cuda.is_available()`` is false. On the card:
 not use and the card's machine need not have.)
 """
 
+import importlib.util
+import pathlib
+
 import pytest
 import torch
 
@@ -51,14 +54,40 @@ def test_flash_attention_kernel_rejects_unsupported_head_dim(cuda):
         fa.flash_attention(x, x, x)
 
 
-def _close(got, want, tol):
-    """|got - want| <= tol * (1 + |want|): bf16 grads differ by up to one
-    rounding of ds or p (2**-8 relative) and of the output itself."""
-    err = (got.float() - want.float()).abs()
-    assert bool((err <= tol * (1 + want.float().abs())).all()), float(err.max())
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def _grads_close(got, want, in_dtype, label=""):
+    """Each gradient within ``chip_smoke.GRAD_TOL`` (by input dtype) of its
+    plain version: ``atol + rtol * |want|`` element by element and a
+    relative L2 bound (bf16: p and ds may round the other way near a
+    rounding boundary)."""
+    cs = _chip_smoke()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype
+        assert bool(torch.isfinite(g).all()), f"{label} {name}: non-finite"
+        ok, err, rel = cs.grads_close(g, w, *cs.GRAD_TOL[str(in_dtype)[6:]])
+        assert ok, f"{label} {name}: max abs err {err}, rel L2 {rel}"
+
+
+def _bwd_case(gen, shape, dtype, layout="bhsd", **kw):
+    """K2/K3 and their plain version on seeded inputs with o and lse from
+    the plain forward; returns (got, want, lse)."""
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    fwd = {n: kw[n] for n in ("causal", "window", "shift") if n in kw}
+    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, layout=layout, **fwd)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, layout=layout, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout=layout, **kw)
+    return got, want, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "kw",
     [dict(), dict(causal=False), dict(window=33), dict(window=40, shift=70),
@@ -66,23 +95,16 @@ def _close(got, want, tol):
     ids=["causal", "full", "window", "shift", "f32_grads", "rows_without_keys"],
 )
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, tol, kw, layout):
+def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, kw, layout):
     """K2 and K3 against their plain version on the same o, do and lse
     (ragged S 150, D 64); rows with no valid key get zero grads."""
     shape = (2, 150, 3, 64) if layout == "bshd" else (2, 3, 150, 64)
-    q, k, v, do = (torch.randn(*shape, generator=cuda, device="cuda").to(dtype) for _ in range(4))
-    fwd = {n: kw[n] for n in ("window", "shift") if n in kw}
-    fwd["causal"] = kw.get("causal", True)
-    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, layout=layout, **fwd)
     before = (fa.flash_attention_bwd_dq_cuda.launches, fa.flash_attention_bwd_dkv_cuda.launches)
-    got = fa.flash_attention_bwd(q, k, v, o, do, lse, layout=layout, **kw)
-    torch.cuda.synchronize()
+    got, want, lse = _bwd_case(cuda, shape, dtype, layout, **kw)
     after = (fa.flash_attention_bwd_dq_cuda.launches, fa.flash_attention_bwd_dkv_cuda.launches)
     assert after == (before[0] + 1, before[1] + 1)
-    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout=layout, **kw)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype == (kw.get("grad_dtype") or dtype)
-        _close(g, w, tol)
+    assert got[0].dtype == (kw.get("grad_dtype") or dtype)
+    _grads_close(got, want, dtype)
     if "shift" in kw and kw["shift"] > 99:
         dead = lse < -1e29  # [B, H, S]: rows that saw no key
         assert bool(dead.any())
@@ -90,16 +112,45 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, tol, kw, layout):
         assert bool((dq[dead] == 0).all())
 
 
-@pytest.mark.parametrize("head_dim", [8, 24, 128])
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_flash_attention_bwd_kernels_head_dims(cuda, head_dim, dtype, tol):
-    q, k, v, do = (torch.randn(1, 2, 97, head_dim, generator=cuda, device="cuda").to(dtype)
+@pytest.mark.parametrize(
+    "seq, kw",
+    [(63, {}), (64, {}), (65, {}), (127, {}), (128, {}), (129, {}), (2000, {}),
+     (129, dict(causal=False)), (300, dict(window=100)), (300, dict(window=100, shift=250))],
+    ids=["S63", "S64", "S65", "S127", "S128", "S129", "S2000", "full_S129", "window100",
+         "window100_shift_dead_rows"],
+)
+def test_flash_attention_bwd_kernels_block_edges(cuda, seq, kw):
+    """bf16 K2/K3 at the edges of their 128-row blocks and 64-row tiles: S
+    around 64 and 128 and a ragged 2000, a window of 100 whose edge crosses
+    a block boundary, and a shift that leaves rows with no key."""
+    got, want, lse = _bwd_case(cuda, (1, 2, seq, 64), torch.bfloat16, **kw)
+    _grads_close(got, want, torch.bfloat16, f"S{seq} {kw}")
+    dead = lse < -1e29
+    assert bool(dead.any()) == ("shift" in kw)
+    assert bool((got[0][dead] == 0).all())
+
+
+@pytest.mark.parametrize("head_dim", [8, 24, 72, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_kernels_head_dims(cuda, head_dim, dtype):
+    """Head dims below 64 and between 64 and 128 (zero-padded in the bf16
+    kernel's shared memory) and 128, ragged S across two blocks."""
+    got, want, _ = _bwd_case(cuda, (1, 2, 197, head_dim), dtype, window=150)
+    _grads_close(got, want, dtype, f"D{head_dim}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_kernels_are_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bit-identical dq, dk and dv: no
+    atomics, a fixed order of every sum."""
+    q, k, v, do = (torch.randn(2, 4, 1000, 64, generator=cuda, device="cuda").to(dtype)
                    for _ in range(4))
-    o, lse = fa.flash_attention_reference(q, k, v, return_lse=True, layout="bhsd", window=50)
-    got = fa.flash_attention_bwd(q, k, v, o, do, lse, layout="bhsd", window=50)
-    want = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout="bhsd", window=50)
-    for g, w in zip(got, want):
-        _close(g, w, tol)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=None, shift=0,
+                                     return_lse=True, out_dtype=None, layout="bhsd")
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, layout="bhsd")
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse, layout="bhsd")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_runs_k1_k2_k3(cuda):
@@ -117,8 +168,7 @@ def test_flash_attention_autograd_runs_k1_k2_k3(cuda):
                                           layout="bhsd", window=64)
     want = fa.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), o, do, lse,
                                             layout="bhsd", window=64)
-    for g, w in zip(got, want):
-        _close(g, w, 2e-2)
+    _grads_close(got, want, torch.bfloat16)
 
 
 def test_bhsd_views_of_bshd_tensors_match_bshd(cuda):
