@@ -1,5 +1,6 @@
 // Shared helpers for the hand-written kernels: dtype codes, conversions,
-// vector loads and warp reductions.
+// vector loads, warp reductions, and the flash-attention kernels' masks and
+// tile ranges.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -115,4 +116,56 @@ inline bool dispatch_head_dim(int d, F&& f) {
     default:
       return false;
   }
+}
+
+// ---- flash-attention masks and tile ranges ------------------------------------
+// For the forward's and backward's parameter structs (fields S, causal,
+// window, shift): q row i sits at position i + shift; window 0 = none.
+
+// Whether the query at position qpos sees the key at kpos.
+template <class P>
+__device__ __forceinline__ bool pair_valid(const P& p, int qpos, int kpos) {
+  bool ok = kpos < p.S;
+  if (p.causal) {
+    ok = ok && qpos >= kpos;
+    if (p.window > 0) ok = ok && qpos - kpos < p.window;
+  }
+  return ok;
+}
+
+// Whether q row q sees key k.
+template <class P>
+__device__ __forceinline__ bool pair_ok(const P& p, int q, int k) {
+  return q < p.S && pair_valid(p, q + p.shift, k);
+}
+
+// Pairs of q rows [qa, qb] and keys [ka, kb]: 0 none valid, 1 some masked
+// (diagonal, window edge, ragged edge), 2 all valid (no per-score test).
+template <class P>
+__device__ __forceinline__ int tile_kind(const P& p, int qa, int qb, int ka, int kb) {
+  if (qa >= p.S || ka >= p.S) return 0;
+  if (p.causal) {
+    if (qb + p.shift < ka) return 0;
+    if (p.window > 0 && qa + p.shift - kb >= p.window) return 0;
+  }
+  bool all = qb < p.S && kb < p.S;
+  if (p.causal)
+    all = all && qa + p.shift >= kb && (p.window == 0 || qb + p.shift - ka < p.window);
+  return all ? 2 : 1;
+}
+
+struct TileRange {
+  int lo, hi;
+};
+
+// The T-row kv tiles [lo, hi) that can meet some row of the R q rows at q_lo.
+template <int R, int T, class P>
+__device__ __forceinline__ TileRange kv_tiles(const P& p, int q_lo) {
+  const int q_hi = min(q_lo + R - 1, p.S - 1);
+  int kv_hi = p.S;
+  if (p.causal) kv_hi = min(p.S, q_hi + p.shift + 1);
+  int kv_lo = 0;
+  if (p.window > 0) kv_lo = max(0, q_lo + p.shift - p.window + 1);
+  const int lo = kv_lo / T;
+  return {lo, kv_hi > kv_lo ? (kv_hi + T - 1) / T : lo};
 }

@@ -52,8 +52,7 @@
 //   launch axis, walks them longest first), so the grid does not end on a
 //   tail of long blocks.
 // - float32 runs on the CUDA cores in true float32 (no TF32): a quad of
-//   threads per row (K2) or per key (K3), 64-row tiles, as in K1's float32
-//   path.
+//   threads per row (K2) or per key (K3), 64-row tiles.
 // delta is computed once per row by a small pre-pass (launched with K2)
 // into [B, H, S] float32 scratch; the reference recomputes it per tile only
 // because of the TPU's lane-replicated layout. The lse is [B, H, S] float32,
@@ -96,31 +95,6 @@ struct BwdParams {
   int32_t in_dtype, grad_dtype;
   float scale;
 };
-
-__device__ __forceinline__ bool pair_valid(const BwdParams& p, int qpos, int kpos) {
-  bool ok = kpos < p.S;
-  if (p.causal) {
-    ok = ok && qpos >= kpos;
-    if (p.window > 0) ok = ok && qpos - kpos < p.window;
-  }
-  return ok;
-}
-
-struct TileRange {
-  int lo, hi;
-};
-
-// K2: the T-row kv tiles [lo, hi) that can meet some row of the R q rows at q_lo.
-template <int R, int T>
-__device__ __forceinline__ TileRange kv_tiles(const BwdParams& p, int q_lo) {
-  const int q_hi = min(q_lo + R - 1, p.S - 1);
-  int kv_hi = p.S;
-  if (p.causal) kv_hi = min(p.S, q_hi + p.shift + 1);
-  int kv_lo = 0;
-  if (p.window > 0) kv_lo = max(0, q_lo + p.shift - p.window + 1);
-  const int lo = kv_lo / T;
-  return {lo, kv_hi > kv_lo ? (kv_hi + T - 1) / T : lo};
-}
 
 // K3: the T-row q tiles [lo, hi) holding some row that sees one of the R keys
 // at k_lo: rows max(0, k_lo - shift) .. min(S-1, k_hi + window - 1 - shift).
@@ -390,79 +364,6 @@ struct Layout {
   static constexpr size_t kBytes = EMPTY + kStages * 8 + 1024;       // + alignment slack
 };
 
-// Copy rows [r0, r0 + R) of a bf16 [S, D] slab (row stride rs) into swizzled
-// panels at dst (panel_stride bytes apart), zeros past S and past D; this
-// thread takes chunks lane, lane + n, ...
-template <int R, int P>
-__device__ __forceinline__ void load_rows(uint32_t dst, uint32_t panel_stride,
-                                          const __nv_bfloat16* src, int64_t rs, int r0, int S,
-                                          int D, int lane, int n) {
-#pragma unroll 4
-  for (int c = lane; c < R * 8 * P; c += n) {
-    const int row = c / (8 * P), ch = c % (8 * P);
-    const bool ok = r0 + row < S && ch * 8 < D;
-    cp_async16(dst + (ch >> 3) * panel_stride + swizzle128(row, ch & 7),
-               ok ? src + (int64_t)(r0 + row) * rs + ch * 8 : src, ok);
-  }
-}
-
-// Pairs of q rows [qa, qb] and keys [ka, kb]: 0 none valid, 1 some masked
-// (diagonal, window edge, ragged edge), 2 all valid (no per-score test).
-__device__ __forceinline__ int tile_kind(const BwdParams& p, int qa, int qb, int ka, int kb) {
-  if (qa >= p.S || ka >= p.S) return 0;
-  if (p.causal) {
-    if (qb + p.shift < ka) return 0;
-    if (p.window > 0 && qa + p.shift - kb >= p.window) return 0;
-  }
-  bool all = qb < p.S && kb < p.S;
-  if (p.causal)
-    all = all && qa + p.shift >= kb && (p.window == 0 || qb + p.shift - ka < p.window);
-  return all ? 2 : 1;
-}
-
-__device__ __forceinline__ bool pair_ok(const BwdParams& p, int q, int k) {
-  return q < p.S && pair_valid(p, q + p.shift, k);
-}
-
-// The four A fragments (k = 16 columns each) of a 64 x 64 accumulator,
-// rounded to bf16: an accumulator's layout is the register A layout.
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// acc[64 x DP] += A (four k16 fragments) . B, B a streamed [64][DP] tile
-// read MN-major (its rows are the reduction dim).
-template <int DP>
-__device__ __forceinline__ void product_rs(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
-                                           uint32_t tile) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t b = wgmma_desc(tile + kk * 2048, Layout<DP>::kTilePanel, 1024);
-    if constexpr (DP == 64) wgmma_rs_n64(acc, a[kk], b);
-    else wgmma_rs_n128(acc, a[kk], b);
-  }
-}
-
-// s[64 x 64] = X_wg[64 x DP] . T^T, X_wg resident, T a streamed [64][DP]
-// tile, both K-major.
-template <int DP>
-__device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t t) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;
-    const uint64_t a = wgmma_desc(x + (kk >> 2) * Layout<DP>::kResPanel + off, 16, 1024);
-    const uint64_t b = wgmma_desc(t + (kk >> 2) * Layout<DP>::kTilePanel + off, 16, 1024);
-    if (kk == 0) wgmma_ss_n64<false>(s, a, b);
-    else wgmma_ss_n64<true>(s, a, b);
-  }
-}
-
 // Write a 64 x DP accumulator (rows row0 + 16 * warp + g (+8), columns < D).
 template <class O, int DP>
 __device__ __forceinline__ void store_acc(void* out, int64_t sb, int64_t ss, int64_t sh, int b,
@@ -641,9 +542,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdParams p) {
     if (kind != 0) {
       float sc[32], dp[32];
       wgmma_fence();
-      product_ss<DP>(sc, x, ut);
+      product_ss<DP>(sc, x, L::kResPanel, ut, L::kTilePanel);
       wgmma_commit();
-      product_ss<DP>(dp, y, wt);
+      product_ss<DP>(dp, y, L::kResPanel, wt, L::kTilePanel);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(sc);
@@ -662,11 +563,11 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const BwdParams p) {
         to_a_frags(pa, sc);
         fence_regs(acc2);
         wgmma_fence();
-        product_rs<DP>(acc1, pa, wt);  // dv += p^T . dO
-        product_rs<DP>(acc2, da, ut);  // dk += ds^T . Q
+        product_rs<DP>(acc1, pa, wt, L::kTilePanel);  // dv += p^T . dO
+        product_rs<DP>(acc2, da, ut, L::kTilePanel);  // dk += ds^T . Q
       } else {
         wgmma_fence();
-        product_rs<DP>(acc1, da, ut);  // dq += ds . K
+        product_rs<DP>(acc1, da, ut, L::kTilePanel);  // dq += ds . K
       }
       wgmma_commit();
       wgmma_wait<0>();

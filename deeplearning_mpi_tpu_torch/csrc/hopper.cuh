@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialized kernels: shared-
 // memory addresses, mbarriers, cp.async with zero-fill, the async-proxy
 // fence, named barriers, and bf16 wgmma (m64nNk16, f32 accumulation) with
-// operands described by 128-byte-swizzled shared-memory descriptors.
+// operands described by 128-byte-swizzled shared-memory descriptors, and
+// the tile loads and products that the flash-attention kernels build on them.
 //
 // Tile layout used with these helpers: a tile of R rows by 64 bf16 columns is
 // R rows of 128 bytes, 1024-byte aligned, and 16-byte chunk c of row r sits
@@ -11,6 +12,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -166,3 +169,60 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 #undef WG_W8
 #undef WG_R32
 #undef WG_R8
+
+// ---- tiles and products ------------------------------------------------------
+// Copy rows [r0, r0 + R) of a bf16 [S, D] slab (row stride rs) into swizzled
+// panels at dst (panel_stride bytes apart), zeros past S and past D; this
+// thread takes chunks lane, lane + n, ...
+template <int R, int P>
+__device__ __forceinline__ void load_rows(uint32_t dst, uint32_t panel_stride,
+                                          const __nv_bfloat16* src, int64_t rs, int r0, int S,
+                                          int D, int lane, int n) {
+#pragma unroll 4
+  for (int c = lane; c < R * 8 * P; c += n) {
+    const int row = c / (8 * P), ch = c % (8 * P);
+    const bool ok = r0 + row < S && ch * 8 < D;
+    cp_async16(dst + (ch >> 3) * panel_stride + swizzle128(row, ch & 7),
+               ok ? src + (int64_t)(r0 + row) * rs + ch * 8 : src, ok);
+  }
+}
+
+// The four A fragments (k = 16 columns each) of a 64 x 64 accumulator,
+// rounded to bf16: an accumulator's layout is the register A layout.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// acc[64 x DP] += A (four k16 fragments) . B, B a [64][DP] tile in panels
+// tile_panel bytes apart, read MN-major (its rows are the reduction dim).
+template <int DP>
+__device__ __forceinline__ void product_rs(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                           uint32_t tile, uint32_t tile_panel) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = wgmma_desc(tile + kk * 2048, tile_panel, 1024);
+    if constexpr (DP == 64) wgmma_rs_n64(acc, a[kk], b);
+    else wgmma_rs_n128(acc, a[kk], b);
+  }
+}
+
+// s[64 x 64] = X[64 x DP] . T^T, X 64 rows of panels x_panel bytes apart,
+// T a [64][DP] tile of panels t_panel bytes apart, both K-major.
+template <int DP>
+__device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t x_panel,
+                                           uint32_t t, uint32_t t_panel) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    const uint64_t a = wgmma_desc(x + (kk >> 2) * x_panel + off, 16, 1024);
+    const uint64_t b = wgmma_desc(t + (kk >> 2) * t_panel + off, 16, 1024);
+    if (kk == 0) wgmma_ss_n64<false>(s, a, b);
+    else wgmma_ss_n64<true>(s, a, b);
+  }
+}

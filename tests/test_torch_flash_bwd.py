@@ -13,7 +13,8 @@
   the main path's S2048, on CPU stand-ins for the kernels' output: the
   exact gradients rounded once more (summation-order noise) pass it; a K2
   that drops its last kv tile, a K3 that drops its last q tile and a dq 3%
-  low fail it. The 2e-2 abs+rel bound phase 3 holds K1 to passes the last.
+  low fail it. An elementwise bound alone, ``2e-2 (1 + |want|)``, passes the
+  last.
 
 Tolerances: atol = rtol = 1e-5 at float32 (the same sums in another
 order); 2e-2 at bf16 (p and ds are rounded to bf16 on both sides, and a

@@ -29,13 +29,52 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _out_close(got, want, in_dtype, label=""):
+    """K1's output within ``chip_smoke.FWD_TOL`` (by input dtype) of its plain
+    version: ``atol + rtol * |want|`` element by element and a relative L2
+    bound."""
+    cs = _chip_smoke()
+    assert got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all()), f"{label}: non-finite"
+    ok, err, rel = cs.grads_close(got, want, *cs.FWD_TOL[str(in_dtype)[6:]])
+    assert ok, f"{label}: max abs err {err}, rel L2 {rel}"
+
+
+def _fwd_case(gen, shape, dtype, layout="bshd", **kw):
+    """K1 (with the lse) and its plain version on seeded inputs: the output
+    held to FWD_TOL, the lse to 1e-4 where finite; returns (got, lse)."""
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    call = dict(causal=kw.pop("causal", True), window=kw.pop("window", None),
+                shift=kw.pop("shift", 0), return_lse=True, out_dtype=kw.pop("out_dtype", None),
+                layout=layout)
+    assert not kw
+    before = fa.flash_attention_cuda.launches
+    got, lse = fa.flash_attention_cuda(q, k, v, **call)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want, want_lse = fa.flash_attention_reference(q, k, v, **call)
+    _out_close(got, want, dtype, f"{tuple(shape)} {call}")
+    finite = want_lse > -1e29
+    assert torch.equal(finite, lse > -1e29)
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-4, rtol=0)
+    return got, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "kw",
     [dict(), dict(causal=False), dict(window=33), dict(window=40, shift=70, return_lse=True)],
     ids=["causal", "full", "window", "shift_lse"],
 )
-def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, kw):
+def test_flash_attention_kernel_matches_plain(cuda, dtype, kw):
     q, k, v = (torch.randn(2, 150, 3, 64, generator=cuda, device="cuda").to(dtype)
                for _ in range(3))
     before = fa.flash_attention_cuda.launches
@@ -45,21 +84,60 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, kw):
     if kw.get("return_lse"):
         (got, got_lse), (want, want_lse) = got, want
         torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _out_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "seq, kw",
+    [(127, {}), (128, {}), (129, {}), (2000, {}), (2048, dict(window=300)),
+     (300, dict(window=7, shift=100))],
+    ids=["S127", "S128", "S129", "S2000", "window300", "window7_shift_dead_rows"],
+)
+def test_flash_attention_kernel_block_edges(cuda, dtype, seq, kw):
+    """K1 at the edges of its blocks (128 q rows bf16, 32 float32) and 64-key
+    tiles: S around 128, a ragged 2000, a window of 300 (not a multiple of
+    64 or 128), and a shift that leaves rows with no key (zero output, lse
+    NEG_INF)."""
+    got, lse = _fwd_case(cuda, (1, seq, 4, 64), dtype, **kw)
+    dead = lse < -1e29  # [B, H, S]
+    assert bool(dead.any()) == ("shift" in kw)
+    assert bool((got.transpose(1, 2)[dead] == 0).all())
+
+
+@pytest.mark.parametrize("head_dim", [8, 24, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_head_dims(cuda, head_dim, dtype):
+    """Head dims below 64 and between 64 and 128 (zero-padded in the bf16
+    kernel's shared memory), ragged S across two bf16 blocks, BHSD."""
+    _fwd_case(cuda, (2, 3, 197, head_dim), dtype, layout="bhsd", window=150)
+
+
+def test_flash_attention_kernel_f32_out_from_bf16(cuda):
+    got, _ = _fwd_case(cuda, (2, 300, 3, 64), torch.bfloat16, window=100, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_is_deterministic_and_layout_free(cuda, dtype):
+    """Two launches on the same inputs give bit-identical output and lse,
+    and BHSD views of BSHD storage (the train step's call) give the BSHD
+    call's output and lse bit for bit, as a view of BSHD storage."""
+    q, k, v = (torch.randn(2, 1000, 4, 64, generator=cuda, device="cuda").to(dtype)
+               for _ in range(3))
+    call = dict(causal=True, window=None, shift=0, return_lse=True, out_dtype=None)
+    first = fa.flash_attention_cuda(q, k, v, layout="bshd", **call)
+    second = fa.flash_attention_cuda(q, k, v, layout="bshd", **call)
+    views = fa.flash_attention_cuda(*(t.transpose(1, 2) for t in (q, k, v)), layout="bhsd", **call)
+    assert views[0].transpose(1, 2).is_contiguous()
+    for a, b, c in zip(first, second, (views[0].transpose(1, 2), views[1])):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_flash_attention_kernel_rejects_unsupported_head_dim(cuda):
     x = torch.randn(1, 16, 2, 12, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(x, x, x)
-
-
-def _chip_smoke():
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def _grads_close(got, want, in_dtype, label=""):
