@@ -55,6 +55,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                "r"(valid ? 16 : 0)
                : "memory");
 }
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 4 : 0)

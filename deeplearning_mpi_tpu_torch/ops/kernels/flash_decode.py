@@ -8,6 +8,10 @@ and reads nothing past ``index[b]``. ``index < 0`` marks an inactive row:
 its output is zero (the reference zeroes such rows outside its kernel, in
 ``batched_decode_attention``). Buffers are bfloat16, float32, or int8 with
 per-(token, head) float32 scales from :func:`quantize_kv`.
+
+On CUDA tensors K4 splits each row's walk over blocks of ``SPLIT_ROWS``
+cache rows and merges the splits' partials in the same launch
+(``csrc/flash_decode.cu``); on CPU tensors the plain walk runs.
 """
 
 from __future__ import annotations
@@ -24,17 +28,39 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: Chunk of cache rows per step of the plain walk.
 DEFAULT_DECODE_BLOCK = 1024
 
+#: K4's blocking (``csrc/flash_decode.cu``): a block of ``WARPS`` warps takes
+#: one ``SPLIT_ROWS``-row split of a row's cache, each warp one
+#: ``CHUNK_ROWS``-row chunk of it.
+WARPS, CHUNK_ROWS = 4, 32
+SPLIT_ROWS = WARPS * CHUNK_ROWS
+
 
 class DecodeParams(ctypes.Structure):
     """Mirrors ``struct DecodeParams`` in ``csrc/flash_decode.cu``."""
 
     _fields_ = (
-        [(n, ctypes.c_void_p) for n in ("q", "k", "v", "k_scale", "v_scale", "index", "o")]
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "k_scale", "v_scale", "index", "o", "part_acc", "part_ml",
+            "counters",
+        )]
         + [(n, ctypes.c_int32) for n in (
-            "B", "L", "H", "Hkv", "D", "window", "q_dtype", "kv_dtype",
+            "B", "L", "H", "Hkv", "D", "window", "q_dtype", "kv_dtype", "n_split",
         )]
         + [("scale", ctypes.c_float)]
     )
+
+
+#: Per (device, stream): K4's arrival counters, one per (row, kv head);
+#: every launch leaves them at zero.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return counters
 
 
 def quantize_kv(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,7 +161,9 @@ def flash_decode_cuda(
     index: torch.Tensor, *, window: int | None = None,
     k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch K4 on CUDA tensors (``index`` already ``[B]`` int32)."""
+    """Launch K4 on CUDA tensors (``index`` already ``[B]`` int32): the
+    split walk and its merge, one launch, on a workspace of per-split
+    partials."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_decode kernel takes float32 or bfloat16 q, got {q.dtype}")
     if k_buf.dtype != torch.int8 and k_buf.dtype != q.dtype:
@@ -151,7 +179,7 @@ def flash_decode_cuda(
             f"flash_decode kernel is compiled for head dims that are multiples of 8 "
             f"up to 128; got shape {tuple(q.shape)}"
         )
-    # The kernel loads 8-element vectors: buffers must start 16-byte aligned.
+    # The kernel copies rows in 16-byte units: buffers must start 16-byte aligned.
     q, k_buf, v_buf = (
         t if t.is_contiguous() and t.data_ptr() % 16 == 0
         else t.clone(memory_format=torch.contiguous_format)
@@ -161,19 +189,27 @@ def flash_decode_cuda(
     if k_scale is not None:
         k_scale, v_scale = k_scale.float().contiguous(), v_scale.float().contiguous()
     batch, _, heads, _ = q.shape
+    length, kv_heads = k_buf.shape[1], k_buf.shape[2]
+    n_split = -(-length // SPLIT_ROWS)
     o = torch.empty_like(q)
+    # Partials of every (row, kv head, split): acc [G, D], then (m, l) [G, 2].
+    parts = batch * kv_heads * n_split * (heads // kv_heads)
+    work = torch.empty(parts * (head_dim + 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     params = DecodeParams(
         q=q.data_ptr(), k=k_buf.data_ptr(), v=v_buf.data_ptr(),
         k_scale=k_scale.data_ptr() if k_scale is not None else None,
         v_scale=v_scale.data_ptr() if v_scale is not None else None,
         index=index.data_ptr(), o=o.data_ptr(),
-        B=batch, L=k_buf.shape[1], H=heads, Hkv=k_buf.shape[2], D=head_dim,
+        part_acc=work.data_ptr(), part_ml=work[parts * head_dim:].data_ptr(),
+        counters=_counters(q.device, stream, batch * kv_heads).data_ptr(),
+        B=batch, L=length, H=heads, Hkv=kv_heads, D=head_dim,
         window=window or 0, q_dtype=_DTYPE_CODE[q.dtype],
-        kv_dtype=_DTYPE_CODE[k_buf.dtype], scale=head_dim**-0.5,
+        kv_dtype=_DTYPE_CODE[k_buf.dtype], n_split=n_split,
+        scale=head_dim**-0.5,
     )
     lib = _build.load("flash_decode")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_decode(ctypes.addressof(params), stream)
     _build.check(err, "flash_decode")
     flash_decode_cuda.launches += 1

@@ -293,19 +293,90 @@ def test_remat_composes_with_the_kernels(cuda, remat):
         torch.testing.assert_close(got[n], want[n], atol=1e-5, rtol=1e-4, msg=n)
 
 
-@pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("window", [None, 50])
-def test_flash_decode_kernel_matches_plain(cuda, quant, window):
-    q = torch.randn(4, 1, 8, 64, generator=cuda, device="cuda")
-    k = torch.randn(4, 300, 2, 64, generator=cuda, device="cuda")
-    v = torch.randn(4, 300, 2, 64, generator=cuda, device="cuda")
-    index = torch.tensor([-1, 0, 150, 299], dtype=torch.int32, device="cuda")
+def _decode_case(gen, B, L, H, hkv, D, dtype, fills, window=None, quant=False):
+    """K4 on seeded inputs against its plain version: held to
+    ``chip_smoke.DEC_TOL`` (by q dtype), inactive rows zero, one launch
+    counted per call (the merge pass not counted), and a second launch
+    bit-identical."""
+    cs = _chip_smoke()
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, L, hkv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, L, hkv, D, generator=gen, device="cuda").to(dtype)
+    index = torch.tensor(fills, dtype=torch.int32, device="cuda")
     scales = {}
     if quant:
         k, ks = fd.quantize_kv(k)
         v, vs = fd.quantize_kv(v)
         scales = dict(k_scale=ks, v_scale=vs)
-    got = fd.flash_decode(q, k, v, index, window=window, **scales)
+    before = fd.flash_decode_cuda.launches
+    got = fd.flash_decode_cuda(q, k, v, index, window=window, **scales)
+    again = fd.flash_decode_cuda(q, k, v, index, window=window, **scales)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_cuda.launches == before + 2
+    assert torch.equal(got, again)
     want = fd.flash_decode_reference(q, k, v, index, window=window, **scales)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    assert torch.all(got[0] == 0)
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    assert all(bool((got[b] == 0).all()) for b, f in enumerate(fills) if f < 0)
+    ok, err, rel = cs.decode_close(got, want, *cs.DEC_TOL[str(dtype)[6:]])
+    assert ok, f"max abs err {err}, rel L2 {rel}"
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_decode_kernel_matches_plain(cuda, quant, window):
+    _decode_case(cuda, 4, 300, 8, 2, 64, torch.float32, [-1, 0, 150, 299], window, quant)
+
+
+def _split_edges(L):
+    s = fd.SPLIT_ROWS
+    return [s - 1, s, s + 1, 0, -1, L - 1, 2 * s + 17, s // 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, "half_split", "mid_split"])
+@pytest.mark.parametrize("L", [1024, 1000, 2111])
+def test_flash_decode_kernel_split_edges(cuda, dtype, window, L):
+    """Fills on a split boundary and either side of it; a window shorter
+    than one split, and one whose first row falls mid-split; L not a
+    multiple of the split."""
+    s = fd.SPLIT_ROWS
+    w = {None: None, "half_split": s // 2 + 3, "mid_split": 2 * s + s // 3}[window]
+    _decode_case(cuda, 8, L, 12, 4, 64, dtype, _split_edges(L), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv", [1, 4, 12])
+def test_flash_decode_kernel_gqa(cuda, hkv, dtype):
+    _decode_case(cuda, 8, 1500, 12, hkv, 64, dtype, [5, 1499, -1, 700, 128, 0, 1023, 384], 400)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 300])
+def test_flash_decode_kernel_int8(cuda, dtype, window):
+    _decode_case(cuda, 8, 1100, 12, 4, 64, dtype, _split_edges(1100), window, quant=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("head_dim", [8, 24, 128])
+def test_flash_decode_kernel_head_dims(cuda, head_dim, quant, dtype):
+    _decode_case(cuda, 4, 700, 6, 2, head_dim, dtype, [699, -1, 127, 300], 200, quant)
+
+
+def test_flash_decode_kernel_fill_past_the_buffer(cuda):
+    """A fill level past L - 1 reads up to L - 1; with a short window it
+    attends nothing, and the row's output is zero."""
+    _decode_case(cuda, 4, 600, 4, 2, 64, torch.float32, [900, 650, 599, 3], 64)
+    _decode_case(cuda, 4, 600, 4, 2, 64, torch.bfloat16, [900, 700, -1, 200], None)
+
+
+def test_flash_decode_kernel_serving_shape(cuda):
+    cs = _chip_smoke()
+    _decode_case(cuda, 8, 1024, 12, 12, 64, torch.float32, cs.serve_fills())
+
+
+def test_flash_decode_kernel_rejects_unsupported_head_dim(cuda):
+    q = torch.randn(2, 1, 4, 72 + 4, device="cuda")
+    k = torch.randn(2, 64, 2, 76, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        fd.flash_decode(q, k, k, torch.tensor([3, 5], device="cuda"))
