@@ -53,7 +53,22 @@ Phases, each printed on its own line; any failure exits non-zero:
    path within bf16 tolerance of the dense path (B1 S2048, all 12 layers);
    the step time, tokens/s, MFU, peak memory and one profiled step;
 9. the port's ``cli.train_lm`` at the 110M widths (vocab 256), seq 2048,
-   batch 8, flash in bf16: must return 0.
+   batch 8, flash in bf16: must return 0;
+10. checkpoint, resume, generate and serve at those widths, in a temporary
+    directory under ``build/``: (a) 2 epochs with ``--model_dir`` against 1
+    epoch and a ``--resume`` to 2: equal epoch losses and final
+    ``tree_digests`` bit for bit, K1/K2/K3 launched by the resumed run; (b)
+    a save of the final state restored (verified) to the same digests, with
+    its bytes and save / hash / restore seconds; (c) ``--eval_only`` reports
+    the last eval loss; (d) a corrupted newest step: ``--resume`` rolls back
+    to epoch 0 and retrains onto the same digests; (e) ``cli.generate
+    --greedy --time`` token-identical to ``generate`` on the restored model,
+    K1 and K4 launched, then one ``generate`` under ``torch.profiler``; (f) one beam equals greedy, and ``--num_beams 4
+    --eos_id 10 --length_penalty 0.6`` equals ``beam_search``, K4 launched;
+    (g) ``--prompts_file`` with 4 ragged prompts: each row's window equals
+    its solo greedy run; (h) ``--quantize int8``: the share of tokens equal
+    to the float stream's (no bar); (i) ``cli.serve_lm --model_dir
+    --selftest`` exits 0, K4 launched.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -537,7 +552,8 @@ def time_kernels(torch, gen, launches, k1_shape, fills, k4_len) -> list[dict]:
 
 def time_extra(torch, gen) -> dict:
     """K4 at the 110M model's longest cache, L8192 with every row full, with
-    Hkv 12 and 4 (400 and 134 MB a call: cold by size); then
+    Hkv 12 and 4 (400 and 134 MB a call: cold by size), beside SDPA with the
+    fill mask (the Hkv-4 K/V repeated to 12 heads first); then
     ``decode_attention``'s two schedules (``DECODE_DENSE_MAX``): the one
     masked matmul over the whole buffer against K4, B1 and B8, L 1024 to
     8192, float32 and bf16, every row full, L2-cold (buffer pairs in turn,
@@ -545,20 +561,32 @@ def time_extra(torch, gen) -> dict:
     from deeplearning_mpi_tpu_torch.ops.attention import decode_attention
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
 
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.attention import repeat_kv
+
     L, out = 8192, {"long": [], "dense_vs_k4": []}
     for hkv in (12, 4):
         q = torch.randn(8, 1, 12, 64, generator=gen, device="cuda")
         kb = torch.randn(8, L, hkv, 64, generator=gen, device="cuda")
         vb = torch.randn(8, L, hkv, 64, generator=gen, device="cuda")
         index = torch.full((8,), L - 1, dtype=torch.int32, device="cuda")
+        # SDPA with the fill mask; Hkv 4 on K/V repeated to 12 heads before
+        # the timed calls (the repeat itself is not timed).
+        ks, vs = (repeat_kv(t, 12 // hkv).transpose(1, 2) for t in (kb, vb))
+        mask = torch.ones(8, 1, 1, L, dtype=torch.bool, device="cuda")
+        qs = q.transpose(1, 2)
         r = {"what": f"K4 f32 B8 L{L} H12 Hkv{hkv} D64 full fill",
              "ms": time_ms(lambda: fd.flash_decode_cuda(q, kb, vb, index)),
              "plain_ms": time_ms(lambda: fd.flash_decode_reference(q, kb, vb, index)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                          attn_mask=mask)),
              "bound_ms": (2 * 8 * L * hkv * 64 + 2 * 8 * 12 * 64) * 4 / PEAK_BYTES * 1e3}
         log(f"time {r['what']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms")
+            f"sdpa with mask {r['library_ms']:.4f} ms (Hkv {hkv} repeated to 12), bound "
+            f"{r['bound_ms']:.4f} ms")
         out["long"].append(r)
-        del q, kb, vb
+        del q, kb, vb, ks, vs
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 8):
             for L in (1024, 2048, 4096, 8192):
@@ -567,13 +595,13 @@ def time_extra(torch, gen) -> dict:
                 bufs = [tuple(torch.randn(B, L, 12, 64, generator=gen, device="cuda").to(dtype)
                               for _ in range(2)) for _ in range(max(1, -(-120_000_000 // pair)))]
 
-                def timed(dense_max):
+                def timed(use_kernel):
                     turn = itertools.cycle(bufs)
-                    return time_ms(lambda: decode_attention(q, *next(turn), L - 1,
-                                                            dense_max=dense_max))
+                    return time_ms(lambda: decode_attention(q, *next(turn), L - 1, dense_max=L,
+                                                            use_kernel=use_kernel))
 
-                r = {"B": B, "L": L, "dtype": str(dtype)[6:], "dense_ms": timed(L),
-                     "k4_ms": timed(0), "copies": len(bufs)}
+                r = {"B": B, "L": L, "dtype": str(dtype)[6:], "dense_ms": timed(False),
+                     "k4_ms": timed(True), "copies": len(bufs)}
                 log(f"time decode_attention {r['dtype']} B{B} L{L} full: dense "
                     f"{r['dense_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms")
                 out["dense_vs_k4"].append(r)
@@ -815,6 +843,192 @@ def time_training(torch, gen, launches) -> list[dict]:
     return rows
 
 
+# -- phase 10 ----------------------------------------------------------------
+#: Phase 10's model flags: the 110M widths at vocab 256 (phase 9's).
+P10_MODEL = ["--num_layers", "12", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
+             "--d_ff", "2048"]
+#: Its training: seq 2048, batch 8, flash in bf16; 24 sequences (22 train:
+#: 2 steps an epoch; 2 eval), so each epoch's checkpoint is a full-size state.
+P10_TRAIN = P10_MODEL + ["--device", "cuda", "--attention", "flash", "--dtype", "bfloat16",
+                         "--seq_len", "2048", "--batch_size", "8", "--train_sequences", "24"]
+P10_PROMPT = ("Checkpoints are written atomically, verified by their digests and restored "
+              "onto the card before any decode step.")
+P10_PROMPTS = ["A short one.", "Two prompts of another length, both ASCII.",
+               "Ragged rows switch from their prompt to their own samples at their own length.",
+               P10_PROMPT]
+P10_NEW = 64
+
+
+def checkpoint_phase(torch, card: str) -> dict:
+    """Train, checkpoint, verify, resume, then generate and serve from the
+    checkpoint, through the port's CLIs at the 110M widths (10a-10i)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.cli import generate as gen_cli
+    from deeplearning_mpi_tpu_torch.cli import serve_lm, train_lm
+    from deeplearning_mpi_tpu_torch.models.generate import beam_search, generate
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.resilience import corrupt_checkpoint, dir_digests, tree_digests
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_mpi_tpu_torch.utils.config import restore_lm
+
+    kernels = {"K1": fa.flash_attention_cuda, "K2": fa.flash_attention_bwd_dq_cuda,
+               "K3": fa.flash_attention_bwd_dkv_cuda, "K4": fd.flash_decode_cuda}
+
+    def zero(*names):
+        for n in names:
+            kernels[n].launches = 0
+
+    def read(*names):
+        torch.cuda.synchronize()
+        return {n: kernels[n].launches for n in names}
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase10-", dir=os.path.join(ROOT, "build"))
+    out: dict = {"card": card}
+    try:
+        a_dir, b_dir = os.path.join(work, "a"), os.path.join(work, "b")
+        # 10a: 2 epochs uninterrupted; 1 epoch, then --resume to 2.
+        a = train_lm.train(P10_TRAIN + ["--num_epochs", "2", "--model_dir", a_dir])
+        saved = tree_digests(a.state.arrays())
+        b = train_lm.train(P10_TRAIN + ["--num_epochs", "1", "--model_dir", b_dir])
+        zero("K1", "K2", "K3")
+        b2 = train_lm.train(P10_TRAIN + ["--num_epochs", "2", "--model_dir", b_dir, "--resume"])
+        launches = read("K1", "K2", "K3")
+        same = tree_digests(b2.state.arrays()) == saved
+        losses = {"a": [h["loss"] for h in a.history], "b": [b.history[0]["loss"]],
+                  "b_resumed": [h["loss"] for h in b2.history]}
+        log(f"10a resume: losses {json.dumps(losses)}; final digests equal: {same}; "
+            f"resumed run's launches {launches}")
+        require(b.history[0]["loss"] == a.history[0]["loss"], "10a: epoch 0 losses differ")
+        require(b2.history[-1]["loss"] == a.history[1]["loss"],
+                "10a: the resumed epoch 1 loss differs from the uninterrupted run's")
+        require(same, "10a: the resumed run's final state differs from the uninterrupted run's")
+        require(all(n > 0 for n in launches.values()), f"10a: kernel not launched: {launches}")
+        out["resume"] = {"losses": losses, "launches": launches}
+        shutil.rmtree(b_dir)
+        # 10b: a save of A's final state, hashed and restored (verified).
+        ck = Checkpointer(os.path.join(work, "timing"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(a.state, epoch=0)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(ck.step_dir(0), f))
+                     for f in os.listdir(ck.step_dir(0)))
+        t0 = time.perf_counter()
+        dir_digests(ck.step_dir(0))
+        hash_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = ck.restore_verified(b2.state)  # b2's buffers, overwritten
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(tree_digests(restored.arrays()) == saved,
+                "10b: the restored state's digests differ from the saved state's")
+        out["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "hash_s": hash_s,
+                             "restore_verified_s": restore_s}
+        log(f"10b checkpoint: {nbytes} bytes, save {save_s:.3f}s, hash {hash_s:.3f}s, "
+            f"verified restore {restore_s:.3f}s; restored digests equal the saved [{card}]")
+        del b, b2, restored
+        shutil.rmtree(ck.directory)
+        # 10c: --eval_only reports run A's last eval loss.
+        ev = train_lm.train(P10_TRAIN + ["--num_epochs", "2", "--model_dir", a_dir, "--eval_only"])
+        log(f"10c eval_only: loss {ev.history[0]['loss']!r}, run A's last eval "
+            f"{a.history[-1]['eval_loss']!r}")
+        require(ev.history[0]["loss"] == a.history[-1]["eval_loss"],
+                "10c: --eval_only's loss differs from run A's last eval")
+        # 10d: a corrupted newest step: --resume rolls back to epoch 0.
+        corrupt_checkpoint(os.path.join(a_dir, "lm", "1"))
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            d = train_lm.train(P10_TRAIN + ["--num_epochs", "2", "--model_dir", a_dir, "--resume"])
+        for line in captured.getvalue().splitlines():
+            log(f"10d | {line}")
+        require("checkpoint epoch 1 CORRUPT — rolling back" in captured.getvalue()
+                and "resumed from verified epoch 0" in captured.getvalue(),
+                "10d: no rollback to epoch 0")
+        require(tree_digests(d.state.arrays()) == saved,
+                "10d: the rolled-back, retrained state differs from run A's")
+        del a, d, ev
+        # 10e: cli.generate --greedy from the checkpoint against the library.
+        gen_argv = P10_MODEL + ["--device", "cuda", "--model_dir", a_dir,
+                                "--max_new_tokens", str(P10_NEW)]
+        cfg = TransformerConfig(vocab_size=256, num_layers=12, num_heads=12, head_dim=64,
+                                d_model=768, d_ff=2048)
+        model = restore_lm(cfg, dtype=torch.float32, device=torch.device("cuda"),
+                           model_dir=a_dir)
+        prompt = torch.tensor([list(P10_PROMPT.encode())], device="cuda")
+        zero("K1", "K4")
+        greedy = gen_cli.run(gen_argv + ["--prompt", P10_PROMPT, "--greedy", "--time"])
+        launches = read("K1", "K4")
+        want = generate(model, prompt, max_new_tokens=P10_NEW, temperature=0.0).cpu().numpy()
+        log(f"10e greedy: {greedy.timing}; launches {launches}")
+        require(np.array_equal(greedy.tokens, want), "10e: cli.generate differs from generate")
+        require(launches["K1"] > 0 and launches["K4"] > 0, f"10e: kernel not launched: {launches}")
+        out["greedy"] = {"timing": greedy.timing, "launches": launches,
+                         "profile": device_profile(
+                             torch, lambda: generate(model, prompt, max_new_tokens=P10_NEW,
+                                                     temperature=0.0), "10e decode profile")}
+        # 10f: one beam is greedy; 4 beams with EOS and a length penalty.
+        one = beam_search(model, prompt, max_new_tokens=P10_NEW, num_beams=1).cpu().numpy()
+        require(np.array_equal(one, want), "10f: beam_search with one beam differs from greedy")
+        zero("K1", "K4")
+        beams = gen_cli.run(gen_argv + ["--prompt", P10_PROMPT, "--num_beams", "4", "--eos_id",
+                                        "10", "--length_penalty", "0.6", "--time"])
+        launches = read("K1", "K4")
+        lib = beam_search(model, prompt, max_new_tokens=P10_NEW, num_beams=4, eos_id=10,
+                          length_penalty=0.6).cpu().numpy()
+        log(f"10f beams: one beam equals greedy; 4 beams {beams.timing}; launches {launches}")
+        require(np.array_equal(beams.tokens, lib), "10f: cli.generate's beams differ from the library's")
+        require(launches["K4"] > 0, f"10f: K4 not launched: {launches}")
+        out["beams"] = {"timing": beams.timing, "launches": launches}
+        # 10g: 4 ragged prompts: each row's window equals its solo greedy run.
+        prompts_file = os.path.join(work, "prompts.txt")
+        with open(prompts_file, "w") as f:
+            f.write("\n".join(P10_PROMPTS) + "\n")
+        zero("K1", "K4")
+        ragged = gen_cli.run(gen_argv + ["--prompts_file", prompts_file, "--greedy", "--time"])
+        launches = read("K1", "K4")
+        for text, window in zip(P10_PROMPTS, ragged.windows()):
+            solo = generate(model, torch.tensor([list(text.encode())], device="cuda"),
+                            max_new_tokens=P10_NEW, temperature=0.0)[0].cpu().numpy()
+            require(np.array_equal(window, solo), f"10g: ragged row {text!r} differs from its "
+                                                  "solo run")
+        log(f"10g ragged: {len(P10_PROMPTS)} rows equal their solo greedy runs; "
+            f"{ragged.timing}; launches {launches}")
+        require(launches["K1"] > 0 and launches["K4"] > 0, f"10g: kernel not launched: {launches}")
+        out["ragged"] = {"timing": ragged.timing, "launches": launches}
+        # 10h: int8 weights: the share of new tokens equal to the fp stream's.
+        quant = gen_cli.run(gen_argv + ["--prompt", P10_PROMPT, "--greedy", "--quantize", "int8"])
+        p_len = prompt.shape[1]
+        share = float((quant.tokens[0, p_len:] == want[0, p_len:]).mean())
+        log(f"10h int8: {100 * share:.1f}% of {P10_NEW} new tokens equal the fp stream's "
+            "(reported, no bar)")
+        out["int8_token_match"] = share
+        # 10i: serve_lm --model_dir --selftest: the engine on restored weights.
+        zero("K1", "K4")
+        rc = serve_lm.main(P10_MODEL + ["--device", "cuda", "--model_dir", a_dir, "--selftest",
+                                        "--num_requests", "8"])
+        launches = read("K1", "K4")
+        log(f"10i serve_lm --model_dir --selftest: rc {rc}; launches {launches}")
+        require(rc == 0, f"10i: serve_lm --selftest exited {rc}")
+        require(launches["K4"] > 0, f"10i: K4 not launched: {launches}")
+        out["serve_launches"] = launches
+        log(f"phase 10 numbers [{card}]: checkpoint {nbytes} bytes, save {save_s:.3f}s, hash "
+            f"{hash_s:.3f}s, verified restore {restore_s:.3f}s; decode "
+            f"{greedy.timing['decode_tokens_per_s']:.1f} tokens/s greedy, "
+            f"{beams.timing['positions_per_s']:.1f} positions/s with 4 beams")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -867,6 +1081,9 @@ def main() -> int:
     train_cli()
     log(f"phase 9 train_lm CLI OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    checkpoint = checkpoint_phase(torch, card)
+    log(f"phase 10 checkpoint, resume, generate and serve OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -878,7 +1095,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
-                       "train": train, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "train": train, "checkpoint": checkpoint,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in kernels]

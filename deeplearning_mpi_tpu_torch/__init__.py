@@ -10,17 +10,27 @@ the JAX package so each counterpart is easy to find:
   forward, K2/K3 its backward and the autograd join, K4 flash-decode),
   their nvcc build, and their plain versions;
 - ``ops.loss``               — LM cross-entropy, masked mean, chunked loss;
+- ``ops.quant``              — weight-only int8 (``QuantDense``), host-side
+  int8 KV;
 - ``models.transformer``     — the decoder-only TransformerLM (training and
-  inference);
-- ``models.convert``         — JAX param tree -> ``state_dict``;
-- ``models.generate``        — prefill, decode, sampling, ``generate``;
+  inference, int8 weights);
+- ``models.convert``         — JAX param and optimizer trees -> tensors;
+- ``models.generate``        — prefill, decode, sampling, ragged prompts,
+  ``generate``, ``beam_search``;
 - ``train``                  — train state, train/eval steps, optimizers and
-  LR schedules, the trainer;
+  LR schedules, the trainer, the ``Checkpointer`` (``train.checkpoint``);
+- ``resilience``             — checkpoint digests and manifests, graceful
+  preemption;
 - ``data``                   — LM datasets and the batch loader;
 - ``serving``                — paged KV pool, scheduler, continuous-batching
   engine;
-- ``cli.serve_lm``           — ``--selftest`` trace replay with a parity check;
-- ``cli.train_lm``           — LM training with the JAX trainer's flags.
+- ``utils.config``           — the CLIs' shared restore and sidecar checks;
+- ``cli.train_lm``           — LM training with the JAX trainer's flags,
+  checkpoint, ``--resume`` and ``--eval_only``;
+- ``cli.generate``           — text from a checkpoint (greedy, sampled, beam,
+  ragged batch, int8);
+- ``cli.serve_lm``           — trace replay through the engine, from a
+  checkpoint or a random init, with a parity check.
 
 This package never imports ``jax``, ``flax`` or ``deeplearning_mpi_tpu``.
 Entry points take ``device=`` and default to ``"cuda"``; asking for CUDA on

@@ -1,16 +1,19 @@
-"""Serving self-test: replay a Poisson trace through the engine, check parity.
+"""Serve a Poisson trace through the engine; with ``--selftest``, check parity.
 
-Port of ``deeplearning_mpi_tpu/cli/serve_lm.py``'s ``--selftest``: a seeded
-random-init model serves a synthetic Poisson trace through the
-continuous-batching engine, and every completed stream must equal the
-port's offline greedy ``generate`` of the same prompt token for token —
-co-batched strangers, chunked prefill, paged KV and slot churn must all be
-invisible in the tokens. Reports TTFT (arrival -> first token) and TPOT
+Port of ``deeplearning_mpi_tpu/cli/serve_lm.py``: a model serves a seeded
+synthetic Poisson trace through the continuous-batching engine. The model
+is restored from a ``train_lm`` checkpoint with ``--model_dir`` (a
+params-only restore behind the ``arch.json`` check, as ``cli.generate``
+does), else it is a seeded random init. ``--selftest`` holds every
+completed stream to the port's offline greedy ``generate`` of the same
+prompt token for token — co-batched strangers, chunked prefill, paged KV
+and slot churn must all be invisible in the tokens; without it the
+completions are printed. Reports TTFT (arrival -> first token) and TPOT
 (decode seconds per token after the first).
 
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest            # on the GPU
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu \\
-        --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32
+        --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 [--model_dir DIR]
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from deeplearning_mpi_tpu_torch.utils.config import ema_decay
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,6 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
     model.add_argument("--d_ff", type=int, default=1024)
     model.add_argument("--attention_window", type=int, default=0)
     model.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ckpt = parser.add_argument_group(
+        "checkpoint (model flags MUST match the training run)")
+    ckpt.add_argument("--model_dir", default=None,
+                      help="serve the weights of a train_lm checkpoint under "
+                      "<model_dir>/<model_filename> (default: a random init)")
+    ckpt.add_argument("--model_filename", default="lm")
+    ckpt.add_argument("--epoch", type=int, default=None,
+                      help="checkpoint epoch to serve (default: latest)")
+    ckpt.add_argument("--ema", type=ema_decay, default=0.0,
+                      help="nonzero: serve the EMA weights of an --ema run")
     eng = parser.add_argument_group("engine")
     eng.add_argument("--max_slots", type=int, default=4)
     eng.add_argument("--block_size", type=int, default=16)
@@ -57,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     trace.add_argument("--eos_id", type=int, default=-1, help="token that ends a stream (-1 = off)")
     trace.add_argument("--random_seed", type=int, default=0)
     parser.add_argument("--selftest", action="store_true",
-                        help="random-init model, synthetic trace, parity check "
-                        "against offline greedy decode (the only mode in this slice)")
+                        help="check every stream against offline greedy decode; exit 0 "
+                        "iff all match")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser
 
@@ -136,11 +151,14 @@ def offline_greedy(model, prompt: np.ndarray, max_new: int, eos_id: int | None) 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.selftest:
-        print("only --selftest is supported in this slice", file=sys.stderr)
+    if not args.selftest and args.model_dir is None:
+        print("serve_lm needs --model_dir (a checkpoint to serve) or --selftest",
+              file=sys.stderr)
         return 2
+    from deeplearning_mpi_tpu_torch import resolve_device
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
+    from deeplearning_mpi_tpu_torch.utils.config import restore_lm
 
     eos_id = args.eos_id if args.eos_id >= 0 else None
     cfg = TransformerConfig(
@@ -150,7 +168,16 @@ def main(argv: list[str] | None = None) -> int:
         attention_window=args.attention_window,
     )
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = TransformerLM(cfg, dtype=dtype, device=args.device).init_weights(args.random_seed)
+    if args.model_dir is None:
+        model = TransformerLM(cfg, dtype=dtype, device=args.device).init_weights(args.random_seed)
+    else:
+        try:
+            model = restore_lm(cfg, dtype=dtype, device=resolve_device(args.device),
+                               model_dir=args.model_dir, model_filename=args.model_filename,
+                               epoch=args.epoch, ema=args.ema > 0)
+        except SystemExit as refusal:
+            print(refusal.code, file=sys.stderr)
+            return 1
     engine = ServingEngine(model, EngineConfig(
         max_slots=args.max_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_blocks_per_seq=args.max_blocks_per_seq,
@@ -168,6 +195,12 @@ def main(argv: list[str] | None = None) -> int:
         f"steps, {engine.prefill_chunks} prefill chunks",
         file=sys.stderr,
     )
+    if not args.selftest:
+        for r in reqs:
+            if r.state is RequestState.FINISHED:
+                text = np.asarray(r.generated, np.uint8).tobytes().decode("utf-8", errors="replace")
+                print(f"[{r.rid}] {text!r}")
+        return 0
     bad = [(r.rid, r.state.value, r.shed_reason) for r in reqs
            if r.state is not RequestState.FINISHED]
     if bad:

@@ -1,4 +1,4 @@
-"""Transformer LM training on one device.
+"""Transformer LM training on one device, with checkpoint and resume.
 
 Port of ``deeplearning_mpi_tpu/cli/train_lm.py``: the same model, training
 and data flags (names and defaults), vocab 256, the 90/10 train/eval split
@@ -8,28 +8,33 @@ the JAX CLI's batches. ``--attention flash`` selects
 hands it ``[B, H, S, D]`` views of its projections). Adam with clip 1.0 by
 default.
 
+With ``--model_dir`` the trainer saves the full state (weights, optimizer
+state, step, EMA) every ``--eval_every`` epochs and after the last into
+``<model_dir>/<model_filename>/<epoch>/``, beside an ``arch.json`` sidecar
+that every later start checks (``train/checkpoint.py``). ``--resume``
+continues from the newest step that verifies (a missing or all-corrupt
+history starts fresh); ``--eval_only`` restores it and runs one eval pass
+(no checkpoint is an error). Without ``--model_dir`` nothing is written.
+SIGTERM ends training after the current epoch with a final checkpoint.
+
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --attention flash --dtype bfloat16
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --num_layers 2 \\
         --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 --seq_len 32 --batch_size 4 \\
-        --train_sequences 40 --num_epochs 2
+        --train_sequences 40 --num_epochs 2 --model_dir /tmp/lm [--resume | --eval_only]
 
-Not ported yet: ring and Ulysses attention, ``adafactor``, MoE,
-checkpointing and resume, chaos, guardrails and telemetry.
+Not ported yet: ring and Ulysses attention, MoE, chaos, auto-resume
+(``--max_restarts``), guardrails and telemetry.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 import torch
 
-
-def _ema_decay(value: str) -> float:
-    f = float(value)
-    if not 0.0 <= f < 1.0:
-        raise argparse.ArgumentTypeError(f"--ema must be in [0, 1), got {f} (it is a decay; 0 disables)")
-    return f
+from deeplearning_mpi_tpu_torch.utils.config import ema_decay
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,8 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--warmup_steps", type=int, default=0)
     train.add_argument("--grad_accum", type=int, default=1)
     train.add_argument("--random_seed", type=int, default=0)
-    train.add_argument("--ema", type=_ema_decay, default=0.0)
-    train.add_argument("--eval_every", type=int, default=10)
+    train.add_argument("--ema", type=ema_decay, default=0.0)
+    train.add_argument("--eval_every", type=int, default=10,
+                       help="epochs between evals and checkpoints")
     train.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     model = parser.add_argument_group("model")
     model.add_argument("--seq_len", type=int, default=512)
@@ -65,6 +71,18 @@ def build_parser() -> argparse.ArgumentParser:
     data.add_argument("--text_file", default=None,
                       help="train on this file's bytes (vocab 256); default: synthetic motifs")
     data.add_argument("--train_sequences", type=int, default=512)
+    ckpt = parser.add_argument_group("checkpoint")
+    ckpt.add_argument("--model_dir", default=None,
+                      help="save checkpoints under <model_dir>/<model_filename> "
+                      "(default: none are written)")
+    ckpt.add_argument("--model_filename", default="lm")
+    ckpt.add_argument("--resume", action="store_true",
+                      help="continue from the newest checkpoint that verifies "
+                      "(weights, optimizer state and step: pass the same --optimizer "
+                      "and --ema)")
+    ckpt.add_argument("--eval_only", action="store_true",
+                      help="restore the newest checkpoint that verifies, run one eval "
+                      "pass and exit")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser
 
@@ -82,22 +100,26 @@ class _Slice:
         return self.dataset[self.start + index]
 
 
-def main(argv: list[str] | None = None) -> int:
+def train(argv: list[str] | None = None):
+    """Parse ``argv``, build the run and train (or, with ``--eval_only``,
+    evaluate); returns the ``Trainer``. A refusal (unported option, an
+    architecture mismatch, ``--eval_only`` with no checkpoint) raises
+    ``SystemExit`` with its message."""
     args = build_parser().parse_args(argv)
     if args.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"--attention {args.attention} is not ported yet (sequence-parallel "
             "schedules come with the scale-out slice)"
         )
+    if (args.resume or args.eval_only) and args.model_dir is None:
+        raise SystemExit("--resume and --eval_only need --model_dir")
     from deeplearning_mpi_tpu_torch import resolve_device
     from deeplearning_mpi_tpu_torch.data import ByteTextDataset, Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
-    from deeplearning_mpi_tpu_torch.train import (
-        Trainer,
-        build_lr_schedule,
-        build_optimizer,
-        create_train_state,
-    )
+    from deeplearning_mpi_tpu_torch.resilience import GracefulShutdown, Preempted
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_mpi_tpu_torch.utils import config
 
     device = resolve_device(args.device)
     if args.text_file:
@@ -121,21 +143,55 @@ def main(argv: list[str] | None = None) -> int:
         num_kv_heads=args.num_kv_heads or None, head_dim=args.head_dim,
         d_model=args.d_model, d_ff=args.d_ff, attention_window=args.attention_window,
     )
+    checkpointer = None
+    if args.model_dir is not None:
+        ckpt_dir = Path(args.model_dir) / args.model_filename
+        # Checked at every start: a fresh run into a directory of another
+        # architecture must not re-stamp the sidecar under its epochs.
+        err = config.arch_mismatch_error(cfg, ckpt_dir)
+        if err:
+            raise SystemExit(err)
+        if not args.eval_only:
+            config.save_arch(cfg, ckpt_dir)
+        checkpointer = Checkpointer(ckpt_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
                           return_prehead=args.loss_chunk > 0).init_weights(args.random_seed)
-    lr = build_lr_schedule(args.learning_rate, args.lr_schedule, warmup_steps=args.warmup_steps,
-                           decay_steps=train_loader.steps_per_epoch() * args.num_epochs)
+    lr = config.build_lr(args, train_loader.steps_per_epoch())
     tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay, clip_norm=1.0)
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
+    log = lambda msg: print(msg, flush=True)  # noqa: E731
+    start_epoch = 0
+    if checkpointer is not None:
+        state, start_epoch = config.restore_for_start(args, checkpointer, state, log)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"train_lm: {n_params} params, {len(train_ds)} train / {len(eval_ds)} eval sequences "
           f"of {args.seq_len}, {train_loader.steps_per_epoch()} steps/epoch, "
           f"attention {args.attention}, {args.dtype}, on {device}", flush=True)
     trainer = Trainer(state, "lm", eval_every=args.eval_every, grad_accum=args.grad_accum,
-                      loss_chunk=args.loss_chunk, ema_decay=args.ema,
-                      log=lambda msg: print(msg, flush=True))
-    trainer.fit(train_loader, args.num_epochs, eval_loader=eval_loader)
+                      loss_chunk=args.loss_chunk, ema_decay=args.ema, log=log,
+                      checkpointer=checkpointer)
+    if args.eval_only:
+        trainer.report_eval(trainer.evaluate(eval_loader))
+        return trainer
+    with GracefulShutdown() as shutdown:
+        trainer.shutdown = shutdown
+        try:
+            trainer.fit(train_loader, args.num_epochs, eval_loader=eval_loader,
+                        start_epoch=start_epoch)
+        except Preempted as p:
+            log(f"exiting after preemption ({p})")
+    return trainer
+
+
+def main(argv: list[str] | None = None) -> int:
+    try:
+        train(argv)
+    except SystemExit as refusal:
+        if not isinstance(refusal.code, str):
+            raise
+        print(refusal.code, file=sys.stderr)
+        return 1
     return 0
 
 

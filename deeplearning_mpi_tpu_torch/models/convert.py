@@ -1,12 +1,13 @@
-"""JAX TransformerLM param tree -> this package's ``state_dict``.
+"""JAX TransformerLM param and optimizer trees -> this package's tensors.
 
 The inverse direction of the reference's ``utils/torch_import.py``, for the
-LM: it lets both packages compute the same function on the same weights.
-Input is the flax ``params`` tree with numpy leaves (``jax.device_get`` it
-first — this module never imports JAX). Flax ``Dense`` kernels are
-``[in, out]``; ``nn.Linear``-style weights are ``[out, in]``, so every
-projection is transposed. The tied head has no tensor of its own; an
-untied ``lm_head`` kernel becomes ``lm_head.weight``.
+LM: it lets both packages compute the same function on the same weights,
+and a run trained by the JAX package continue in this one. Input is the
+flax ``params`` tree (or the optax state) with numpy leaves
+(``jax.device_get`` it first — this module never imports JAX). Flax
+``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style weights are
+``[out, in]``, so every projection is transposed. The tied head has no
+tensor of its own; an untied ``lm_head`` kernel becomes ``lm_head.weight``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,20 @@ def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _kernel(x: Any) -> torch.Tensor:
+    """A flax ``[in, out]`` kernel as ``[out, in]`` (a 1-D leaf of an
+    optimizer state's kernel slot, such as an Adafactor factor, as is)."""
+    t = _t(x)
+    return t.T.contiguous() if t.dim() == 2 else t
+
+
+def transposed_from_jax(name: str) -> bool:
+    """Whether the port stores parameter ``name`` as the transpose of the
+    reference's array: every Dense weight (the embedding and the norm
+    scales are stored alike)."""
+    return name.endswith(".weight") and name != "embed.weight"
+
+
 def lm_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax ``TransformerLM`` params (numpy leaves) -> ``state_dict`` for
     :class:`~deeplearning_mpi_tpu_torch.models.transformer.TransformerLM`."""
@@ -34,10 +49,60 @@ def lm_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd[f"{pre}.attn_norm.scale"] = _t(lp["attn_norm"]["scale"])
         sd[f"{pre}.mlp_norm.scale"] = _t(lp["mlp_norm"]["scale"])
         for name in _ATTN:
-            sd[f"{pre}.attn.{name}.weight"] = _t(lp["attn"][name]["kernel"]).T.contiguous()
+            sd[f"{pre}.attn.{name}.weight"] = _kernel(lp["attn"][name]["kernel"])
         for name in _MLP:
-            sd[f"{pre}.mlp.{name}.weight"] = _t(lp["mlp"][name]["kernel"]).T.contiguous()
+            sd[f"{pre}.mlp.{name}.weight"] = _kernel(lp["mlp"][name]["kernel"])
     sd["final_norm.scale"] = _t(params["final_norm"]["scale"])
     if "lm_head" in params:
-        sd["lm_head.weight"] = _t(params["lm_head"]["kernel"]).T.contiguous()
+        sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
     return sd
+
+
+#: The optax state fields each optimizer's port state carries (beside
+#: ``count``), as ``build_optimizer`` in both packages builds them.
+_OPT_FIELDS = {
+    "sgd": ("trace",), "adam": ("mu", "nu"), "adamw": ("mu", "nu"), "lion": ("mu",),
+    "adafactor": ("v_row", "v_col", "v"),
+}
+
+
+def _state_fields(tree: Any, out: dict[str, list]) -> None:
+    """Collect the fields of every optax state (a namedtuple) in a chain's
+    nested tuples."""
+    if hasattr(tree, "_fields"):
+        for name in tree._fields:
+            out.setdefault(name, []).append(getattr(tree, name))
+    elif isinstance(tree, (tuple, list)):
+        for sub in tree:
+            _state_fields(sub, out)
+
+
+def opt_state_from_jax(opt_state: Any, optimizer: str) -> dict[str, Any]:
+    """The reference's optax state for ``build_optimizer(optimizer, ...)``
+    (numpy leaves) -> the port's ``Optimizer`` state.
+
+    Takes Adam's and AdamW's ``mu`` / ``nu``, SGD's ``trace``, Lion's
+    ``mu`` and Adafactor's ``v_row`` / ``v_col`` / ``v`` (each a param
+    tree, converted as :func:`lm_params_from_jax` converts the params; the
+    factors are vectors and keep their order), and one ``count`` for the
+    optimizer's and the schedule's counts, which must agree. SGD at a
+    constant LR keeps no count in optax; the port's, which then feeds
+    nothing, starts at 0.
+    """
+    if optimizer not in _OPT_FIELDS:
+        raise ValueError(f"unknown optimizer '{optimizer}'")
+    fields: dict[str, list] = {}
+    _state_fields(opt_state, fields)
+    counts = {int(np.asarray(c)) for c in fields.get("count", [])}
+    if len(counts) > 1:
+        raise ValueError(f"the optax state holds disagreeing counts {sorted(counts)}")
+    out: dict[str, Any] = {
+        "count": torch.tensor(counts.pop() if counts else 0, dtype=torch.int32)}
+    for name in _OPT_FIELDS[optimizer]:
+        if len(fields.get(name, [])) != 1:
+            raise ValueError(
+                f"expected one '{name}' in the optax state of '{optimizer}', found "
+                f"{len(fields.get(name, []))}"
+            )
+        out[name] = lm_params_from_jax(fields[name][0])
+    return out

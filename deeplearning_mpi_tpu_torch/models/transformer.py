@@ -31,8 +31,13 @@ reference config's ``onehot_embed`` has no counterpart: it changes only how
 the embedding's gradient is computed, never the parameters, so a config
 that sets it converts to the same model.
 
+Inference option: ``quantized=True`` builds every block projection as an
+``ops.quant.QuantDense`` (int8 kernel, per-output scale), loaded from
+``ops.quant.quantize_lm_params`` of a trained state dict; the BHSD
+training layout is refused for it, as in the reference.
+
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
-collection. MoE and quantized projections come in a later slice.
+collection. MoE comes in a later slice.
 """
 
 from __future__ import annotations
@@ -133,6 +138,16 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
+def _dense(quantized: bool, dtype: torch.dtype) -> Callable[[int, int], nn.Module]:
+    """The block projections' constructor, ``(in, out) -> module``: one
+    definition, so Attention and SwiGLU cannot differ in it."""
+    if quantized:
+        from deeplearning_mpi_tpu_torch.ops.quant import QuantDense
+
+        return lambda n_in, n_out: QuantDense(n_in, n_out, dtype)
+    return lambda n_in, n_out: Dense(n_in, n_out, dtype)
+
+
 @dataclasses.dataclass
 class KVCache:
     """Per-layer K/V buffers ``[B, max_len, Hkv, D]`` (zero-initialised:
@@ -163,7 +178,8 @@ class Attention(nn.Module):
     """Multi-head self-attention with RoPE, grouped K/V heads and an
     optional sliding window."""
 
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype) -> None:
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 quantized: bool = False) -> None:
         super().__init__()
         c = config
         if c.num_heads % c.kv_heads:
@@ -172,10 +188,12 @@ class Attention(nn.Module):
             )
         self.num_heads, self.kv_heads, self.head_dim = c.num_heads, c.kv_heads, c.head_dim
         self.window = c.attention_window or None
-        self.q_proj = Dense(c.d_model, c.num_heads * c.head_dim, dtype)
-        self.k_proj = Dense(c.d_model, c.kv_heads * c.head_dim, dtype)
-        self.v_proj = Dense(c.d_model, c.kv_heads * c.head_dim, dtype)
-        self.out_proj = Dense(c.num_heads * c.head_dim, c.d_model, dtype)
+        self.quantized = quantized
+        dense = _dense(quantized, dtype)
+        self.q_proj = dense(c.d_model, c.num_heads * c.head_dim)
+        self.k_proj = dense(c.d_model, c.kv_heads * c.head_dim)
+        self.v_proj = dense(c.d_model, c.kv_heads * c.head_dim)
+        self.out_proj = dense(c.num_heads * c.head_dim, c.d_model)
 
     def project(
         self, x: torch.Tensor, positions: torch.Tensor
@@ -199,6 +217,11 @@ class Attention(nn.Module):
         attn = attention_fn or dense_attention
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
         if getattr(attn, "layout", "bshd") == "bhsd":
+            if self.quantized:
+                raise ValueError(
+                    "quantized attention supports the BSHD path only (the BHSD layout "
+                    "is a training-path optimization; quantization is inference-only)"
+                )
             ctx = attn(*(t.transpose(1, 2) for t in (q, k, v)), causal=True, **self._window_kw())
             return ctx.transpose(1, 2)
         return attn(q, k, v, causal=True, **self._window_kw())
@@ -225,11 +248,13 @@ class Attention(nn.Module):
 class SwiGLU(nn.Module):
     """Gated MLP: ``down(silu(gate(x)) * up(x))``."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype) -> None:
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
+                 quantized: bool = False) -> None:
         super().__init__()
-        self.gate_proj = Dense(d_model, d_ff, dtype)
-        self.up_proj = Dense(d_model, d_ff, dtype)
-        self.down_proj = Dense(d_ff, d_model, dtype)
+        dense = _dense(quantized, dtype)
+        self.gate_proj = dense(d_model, d_ff)
+        self.up_proj = dense(d_model, d_ff)
+        self.down_proj = dense(d_ff, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -238,12 +263,13 @@ class SwiGLU(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block: x + attn(norm(x)); x + mlp(norm(x))."""
 
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype) -> None:
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 quantized: bool = False) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(config.d_model)
-        self.attn = Attention(config, dtype)
+        self.attn = Attention(config, dtype, quantized)
         self.mlp_norm = RMSNorm(config.d_model)
-        self.mlp = SwiGLU(config.d_model, config.d_ff, dtype)
+        self.mlp = SwiGLU(config.d_model, config.d_ff, dtype, quantized)
 
     def forward(self, x, positions, *, cache=None, layer=0, attention_fn=None):
         x = x + self.attn(
@@ -276,12 +302,13 @@ class TransformerLM(nn.Module):
     ``remat`` applies to the full-sequence (training) forward with grad
     enabled; ``return_prehead`` makes that forward return ``(final-norm
     activations, head kernel [d, V])`` for the chunked loss (tied
-    embeddings only)."""
+    embeddings only). ``quantized`` builds the int8 inference model
+    (``ops.quant``)."""
 
     def __init__(
         self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", remat: str = "none",
-        return_prehead: bool = False,
+        return_prehead: bool = False, quantized: bool = False,
     ) -> None:
         super().__init__()
         if remat not in REMAT_POLICIES:
@@ -294,7 +321,8 @@ class TransformerLM(nn.Module):
         self.config, self.dtype = config, dtype
         self.remat, self.return_prehead = remat, return_prehead
         self.embed = nn.Embedding(config.vocab_size, config.d_model)
-        self.layers = nn.ModuleList(Block(config, dtype) for _ in range(config.num_layers))
+        self.layers = nn.ModuleList(Block(config, dtype, quantized)
+                                    for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.d_model)
         self.lm_head = (
             None if config.tied_embeddings

@@ -8,9 +8,9 @@ whatever the input dtype, output in the input dtype, and the finite
 oracle and the port never calls it).
 
 The masked-matmul schedules here are XLA code in the reference, so they are
-plain ``torch.matmul``/``einsum``. The hand-written kernels sit behind
-``use_kernel``: ``ops.kernels.flash_decode`` (K4) for long decode buffers
-and the serving engine's batched decode.
+plain ``torch.matmul``/``einsum``. The hand-written kernel sits behind
+``use_kernel``: ``ops.kernels.flash_decode`` (K4) carries every decode step
+on CUDA, offline and in the serving engine alike.
 """
 
 from __future__ import annotations
@@ -19,9 +19,11 @@ import torch
 
 NEG_INF = -1e30  # large-negative mask value; -inf breaks softmax when a row is fully masked
 
-#: Buffers at or below this length take the one-shot masked path, longer
-#: ones the blockwise walk / K4. The value is the reference's (measured on a
-#: TPU); it has not been re-measured on the H100 yet.
+#: Without the kernel, buffers at or below this length take the one-shot
+#: masked path and longer ones the blockwise walk. The value is the
+#: reference's (measured on a TPU). On the H100 K4 beat the masked path at
+#: every length measured (L 1024-8192, B1/B8, f32/bf16: PERF.md), so CUDA
+#: tensors take K4 at every length.
 DECODE_DENSE_MAX = 4096
 
 
@@ -125,18 +127,19 @@ def decode_attention(
     """One KV-cached decode step over the filled prefix ``0..index``.
 
     ``q`` ``[B, 1, H, D]`` (RoPE applied), buffers ``[B, max_len, Hkv, D]``
-    with ``Hkv`` dividing ``H`` (grouped heads read natively). Two
-    schedules, on the static buffer length: ``max_len <= dense_max`` is one
-    masked grouped matmul over the whole buffer; longer buffers take the
-    flash-decoding walk (``block``-row chunks, online softmax, O(index)
-    reads, starting at the window's first block under ``window``) — or K4
-    when ``use_kernel``. ``use_kernel=None`` means K4 on CUDA and the walk
-    on the CPU (the reference consults a tuning DB; the port has none yet).
+    with ``Hkv`` dividing ``H`` (grouped heads read natively).
+    ``use_kernel`` (default: on CUDA tensors) runs K4, O(index) reads.
+    Otherwise two schedules, on the static buffer length: ``max_len <=
+    dense_max`` is one masked grouped matmul over the whole buffer; longer
+    buffers take the flash-decoding walk (``block``-row chunks, online
+    softmax, starting at the window's first block under ``window``).
     """
     _check_decode_shapes(q, k_buf, "decode_attention")
     length = k_buf.shape[1]
     index = int(index)
-    if length <= dense_max:
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if not use_kernel and length <= dense_max:
         pos = torch.arange(length, device=q.device)
         valid = pos <= index
         if window is not None:
@@ -150,8 +153,6 @@ def decode_attention(
     )
 
     rows = torch.full((q.shape[0],), index, dtype=torch.int32, device=q.device)
-    if use_kernel is None:
-        use_kernel = q.is_cuda
     if use_kernel:
         return flash_decode(q, k_buf, v_buf, rows, window=window)
     return flash_decode_reference(q, k_buf, v_buf, rows, window=window, block=block)

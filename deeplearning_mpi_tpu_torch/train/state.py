@@ -7,6 +7,10 @@ weights outlives the step), the optimizer chain with its state (a dict of
 tensors that the step replaces), and an optional EMA of the parameters.
 The model's attention core rides the state, as the reference's
 ``apply_fn`` carries the flax module's ``attention_fn``.
+
+:meth:`TrainState.arrays` is the checkpoint's view of the state (the
+reference's ``_arrays_only``), and :meth:`TrainState.fill` takes such a
+view back into a template state.
 """
 
 from __future__ import annotations
@@ -41,14 +45,45 @@ class TrainState:
         """The EMA weights when tracked, else the live parameters."""
         return self.params() if self.ema_params is None else self.ema_params
 
+    def arrays(self) -> dict[str, Any]:
+        """What a checkpoint holds: ``step`` (an int32 scalar, as the
+        reference's), ``params``, ``opt_state`` and, only when tracked,
+        ``ema_params`` — so EMA-off checkpoints keep their exact tree."""
+        out: dict[str, Any] = {
+            "step": torch.tensor(self.step, dtype=torch.int32),
+            "params": {n: p.detach() for n, p in self.model.named_parameters()},
+            "opt_state": self.opt_state,
+        }
+        if self.ema_params is not None:
+            out["ema_params"] = self.ema_params
+        return out
+
+    @torch.no_grad()
+    def fill(self, arrays: dict[str, Any]) -> "TrainState":
+        """This state with ``arrays`` (a tree of :meth:`arrays`' form, or a
+        part of one) taken in: the parameters are copied into the model in
+        place; ``opt_state`` and ``ema_params`` replace the template's where
+        given. The caller has checked names, shapes and dtypes."""
+        if "params" in arrays:
+            for n, p in self.model.named_parameters():
+                p.copy_(arrays["params"][n])
+        return dataclasses.replace(
+            self,
+            step=int(arrays["step"]) if "step" in arrays else self.step,
+            opt_state=arrays.get("opt_state", self.opt_state),
+            ema_params=arrays.get("ema_params", self.ema_params),
+        )
+
 
 def create_train_state(
     model: nn.Module, tx: Any, *, attention_fn: Callable | None = None, ema: bool = False,
 ) -> TrainState:
-    """Wrap an initialised model with a fresh optimizer state for ``tx``."""
+    """Wrap an initialised model with a fresh optimizer state for ``tx``
+    (``tx=None``: no optimizer, an empty state — the template of a
+    params-only restore)."""
     params = {n: p.detach() for n, p in model.named_parameters()}
     return TrainState(
-        model=model, tx=tx, opt_state=tx.init(params),
+        model=model, tx=tx, opt_state={} if tx is None else tx.init(params),
         ema_params={n: p.clone() for n, p in params.items()} if ema else None,
         attention_fn=attention_fn,
     )

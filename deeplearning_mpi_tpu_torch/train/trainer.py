@@ -12,17 +12,21 @@ device. What is carried over exactly:
   out;
 - clipping by global norm and the optimizers compute what optax computes
   (``clip_by_global_norm``, ``sgd`` with coupled L2 before the momentum
-  trace, ``adam``, ``adamw`` and ``lion`` with decoupled decay), with the
-  LR schedules as functions of the optimizer's own update count;
+  trace, ``adam``, ``adamw`` and ``lion`` with decoupled decay, and
+  ``adafactor`` with factored second moments), with the LR schedules as
+  functions of the optimizer's own update count;
 - the ``__loss_scale__`` / ``__grad_scale__`` batch keys: the first scales
   the reported and the differentiated loss, the second only the
-  differentiated one.
+  differentiated one;
+- the trainer's cadence: eval and checkpoint every ``eval_every`` epochs,
+  a final eval and save, and a graceful exit (:class:`Preempted`) after a
+  final save when a shutdown was requested.
 
 The step is eager PyTorch: the reference's ``jit`` has no counterpart the
 port needs. The NaN guard selects with ``torch.where`` on the device, so a
 step adds no host sync; the trainer reads its metrics once per epoch.
-Checkpointing, chaos, guardrails, telemetry and AOT warmup are not ported
-yet (ROADMAP), nor ``adafactor`` and the MoE aux loss.
+Not ported yet (ROADMAP): chaos, guardrails, auto-resume, telemetry, AOT
+warmup and the MoE aux loss.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ from typing import Any, Callable, Iterable
 import torch
 from torch.func import functional_call
 
+from deeplearning_mpi_tpu_torch.models.convert import transposed_from_jax
 from deeplearning_mpi_tpu_torch.ops.loss import chunked_lm_loss, lm_cross_entropy
+from deeplearning_mpi_tpu_torch.resilience.preemption import GracefulShutdown, Preempted
 from deeplearning_mpi_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -138,6 +144,65 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 #: optax's defaults, which the reference's ``build_optimizer`` keeps.
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 LION_BETAS = (0.9, 0.99)
+#: ``optax.adafactor``'s: factor only tensors with two dims of at least
+#: 128; second-moment decay ``1 - (count + 1) ** -0.8``; eps added to g**2;
+#: each tensor's update clipped to RMS 1.0 (``clip_by_block_rms``).
+ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 128, 0.8, 1e-30, 1.0
+
+
+def _factored_dims(shape: tuple[int, ...]) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: the two largest axes (second largest,
+    largest; ties in axis order), or None when the second is under 128."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])  # stable, as np.argsort
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return order[-2], order[-1]
+
+
+def _reference_view(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the reference's layout: a Dense weight is ``[out, in]`` here
+    and ``[in, out]`` in flax, and adafactor factors by that layout."""
+    return t.T if t.dim() == 2 and transposed_from_jax(name) else t
+
+
+def _adafactor_init(name: str, p: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``(v_row, v_col, v)``: the row and column factors (in the reference's
+    layout) of a factored tensor, else the full second moment; the unused
+    slots are ``zeros(1)``, as in optax's ``FactoredState``."""
+    ref = _reference_view(name, p)
+    dims = _factored_dims(tuple(ref.shape))
+    one = torch.zeros(1, dtype=p.dtype, device=p.device)
+    if dims is None:
+        return one, one.clone(), torch.zeros_like(p)
+    d1, d0 = dims
+    row = [n for i, n in enumerate(ref.shape) if i != d0]
+    col = [n for i, n in enumerate(ref.shape) if i != d1]
+    return (torch.zeros(row, dtype=p.dtype, device=p.device),
+            torch.zeros(col, dtype=p.dtype, device=p.device), one)
+
+
+def _adafactor_scale(
+    name: str, g: torch.Tensor, v_row: torch.Tensor, v_col: torch.Tensor, v: torch.Tensor,
+    decay: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """optax's ``scale_by_factored_rms`` for one tensor: ``(update, v_row,
+    v_col, v)``, the factored branch computed in the reference's layout."""
+    ref = _reference_view(name, g)
+    dims = _factored_dims(tuple(ref.shape))
+    if dims is None:
+        v = decay * v + (1.0 - decay) * (g * g + ADAFACTOR_EPS)
+        return g * v ** -0.5, v_row, v_col, v
+    d1, d0 = dims
+    g_sqr = ref * ref + ADAFACTOR_EPS
+    v_row = decay * v_row + (1.0 - decay) * g_sqr.mean(dim=d0)
+    v_col = decay * v_col + (1.0 - decay) * g_sqr.mean(dim=d1)
+    reduced_d1 = d1 - 1 if d1 > d0 else d1
+    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+    col_factor = v_col ** -0.5
+    update = ref * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+    return _reference_view(name, update), v_row, v_col, v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +228,10 @@ class Optimizer:
             state["mu"], state["nu"] = zeros(), zeros()
         elif self.name == "lion":
             state["mu"] = zeros()
+        elif self.name == "adafactor":
+            slots = {n: _adafactor_init(n, p) for n, p in params.items()}
+            for i, key in enumerate(("v_row", "v_col", "v")):
+                state[key] = {n: t[i] for n, t in slots.items()}
         return state
 
     def _lr(self, count: torch.Tensor) -> float | torch.Tensor:
@@ -205,6 +274,21 @@ class Optimizer:
                          for n, g in grads.items()}
             new["mu"] = {n: (1 - b2) * g + b2 * state["mu"][n] for n, g in grads.items()}
             direction = {n: u + wd * params[n] for n, u in direction.items()}
+        elif self.name == "adafactor":
+            # chain(scale_by_factored_rms, clip_by_block_rms(1), scale(lr),
+            # [add_decayed_weights(wd)], scale(-1)): the decay is not scaled
+            # by the LR.
+            decay = 1.0 - (state["count"].float() + 1.0) ** -ADAFACTOR_DECAY
+            direction = {}
+            for key in ("v_row", "v_col", "v"):
+                new[key] = {}
+            for n, g in grads.items():
+                u, new["v_row"][n], new["v_col"][n], new["v"][n] = _adafactor_scale(
+                    n, g, state["v_row"][n], state["v_col"][n], state["v"][n], decay)
+                u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIP, min=1.0)
+                u = lr * u
+                direction[n] = u + wd * params[n] if wd else u
+            return {n: -u for n, u in direction.items()}, new
         else:
             raise ValueError(f"unknown optimizer '{self.name}'")
         return {n: -lr * u for n, u in direction.items()}, new
@@ -215,11 +299,12 @@ def build_optimizer(
     weight_decay: float = 0.0, clip_norm: float | None = None,
 ) -> Optimizer:
     """The reference's optimizers (``sgd``: coupled L2 before momentum;
-    ``adam``; ``adamw`` and ``lion``: decoupled decay), each with an
-    optional ``clip_norm`` in front. ``adafactor`` is not ported yet."""
-    if name == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' is not ported yet (ROADMAP slice 2)")
-    if name not in ("sgd", "adam", "adamw", "lion"):
+    ``adam``; ``adamw`` and ``lion``: decoupled decay; ``adafactor`` as
+    ``optax.adafactor(lr, multiply_by_parameter_scale=False,
+    weight_decay_rate=weight_decay or None)``), each with an optional
+    ``clip_norm`` in front. A checkpoint holds the optimizer state, so a
+    resume must name the optimizer the run started with."""
+    if name not in ("sgd", "adam", "adamw", "adafactor", "lion"):
         raise ValueError(f"unknown optimizer '{name}'")
     return Optimizer(name, learning_rate, momentum=momentum, weight_decay=weight_decay,
                      clip_norm=clip_norm)
@@ -358,18 +443,24 @@ def make_eval_step(
 
 
 class Trainer:
-    """The epoch loop: per-epoch mean loss over finite steps, eval every
-    ``eval_every`` epochs and after the last, per-epoch timing."""
+    """The epoch loop: per-epoch mean loss over finite steps, eval and
+    checkpoint every ``eval_every`` epochs and after the last, per-epoch
+    timing. ``checkpointer`` (a ``train.checkpoint.Checkpointer``) saves the
+    state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
+    epoch."""
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
         grad_accum: int = 1, loss_chunk: int = 0, ema_decay: float = 0.0,
-        log: Callable[[str], None] = print,
+        log: Callable[[str], None] = print, checkpointer: Any = None,
+        shutdown: GracefulShutdown | None = None,
     ) -> None:
         self.state = state
         self.task = task
         self.eval_every = eval_every
         self.log = log
+        self.checkpointer = checkpointer
+        self.shutdown = shutdown
         self.train_step = make_train_step(task, grad_accum=grad_accum, loss_chunk=loss_chunk,
                                           ema_decay=ema_decay)
         self.eval_step = make_eval_step(task, loss_chunk=loss_chunk)
@@ -416,20 +507,46 @@ class Trainer:
         means["perplexity"] = math.exp(min(means["loss"], 30.0))
         return means
 
+    def report_eval(self, stats: dict[str, float]) -> None:
+        """Record and log a standalone evaluation (``--eval_only``)."""
+        self.history.append(dict(stats))
+        self.log("Eval-only: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(stats.items())))
+
     def fit(self, train_loader: Any, num_epochs: int, *, eval_loader: Any = None,
             start_epoch: int = 0) -> list[dict[str, float]]:
-        """Train ``num_epochs`` epochs, with the reference's eval cadence."""
-        last_evaled = -1
+        """Train epochs ``start_epoch .. num_epochs - 1`` with the
+        reference's cadence: eval and save every ``eval_every`` epochs, a
+        final eval and save unless the last epoch had them. A requested
+        shutdown saves the epoch just trained and raises :class:`Preempted`."""
+        if start_epoch >= num_epochs:
+            self.log(f"nothing to do: start epoch {start_epoch} >= num_epochs {num_epochs}")
+            return self.history
+        last_evaled = last_saved = -1
         for epoch in range(start_epoch, num_epochs):
             stats = self.run_epoch(train_loader, epoch)
-            if epoch % self.eval_every == 0 and eval_loader is not None:
-                ev = self.evaluate(eval_loader)
-                last_evaled = epoch
-                stats.update({f"eval_{k}": v for k, v in ev.items()})
-                self.log(f"Epoch {epoch} eval: " + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
+            if self.shutdown is not None and self.shutdown.requested():
+                if self.checkpointer is not None:
+                    self.checkpointer.save(self.state, epoch=epoch)
+                self.history.append(stats)
+                self.log(f"shutdown requested: final checkpoint saved at epoch {epoch}, "
+                         "exiting cleanly")
+                raise Preempted(epoch)
+            if epoch % self.eval_every == 0:
+                if eval_loader is not None:
+                    ev = self.evaluate(eval_loader)
+                    last_evaled = epoch
+                    stats.update({f"eval_{k}": v for k, v in ev.items()})
+                    self.log(f"Epoch {epoch} eval: "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
+                if self.checkpointer is not None:
+                    self.checkpointer.save(self.state, epoch=epoch)
+                    last_saved = epoch
             self.history.append(stats)
-        if eval_loader is not None and self.history and last_evaled != num_epochs - 1:
+        final_epoch = num_epochs - 1
+        if eval_loader is not None and last_evaled != final_epoch:
             final = self.evaluate(eval_loader)
             self.history[-1].update({f"eval_{k}": v for k, v in final.items()})
             self.log("Final eval: " + ", ".join(f"{k} {v:.4f}" for k, v in final.items()))
+        if self.checkpointer is not None and last_saved != final_epoch:
+            self.checkpointer.save(self.state, epoch=final_epoch)
         return self.history

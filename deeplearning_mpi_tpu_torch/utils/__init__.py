@@ -1,0 +1,1 @@
+"""CLI helpers shared by the port's entry points."""

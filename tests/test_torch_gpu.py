@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the GPU.
+"""The CUDA kernels against their plain versions, on the GPU; the decode
+paths (ragged prompts, beam search) on the card against the CPU plain run.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -380,3 +381,45 @@ def test_flash_decode_kernel_rejects_unsupported_head_dim(cuda):
     k = torch.randn(2, 64, 2, 76, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         fd.flash_decode(q, k, k, torch.tensor([3, 5], device="cuda"))
+
+
+def _decode_pair():
+    """A small f32 model on the CPU (plain versions) and its copy on the card."""
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                            head_dim=64, d_model=128, d_ff=256)
+    cpu = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    gpu = TransformerLM(cfg, dtype=torch.float32, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("what", ["ragged", "ragged_shared_prefix", "beam", "beam_eos"])
+def test_beam_and_ragged_decode_on_the_card_equal_the_cpu_plain_run(cuda, what):
+    """Ragged generation (every step on K4, the shared prefix on K1) and beam
+    search (K4 at B * W rows, the parents' cache rows gathered each step)
+    give the CPU plain run's tokens."""
+    from deeplearning_mpi_tpu_torch.models.generate import beam_search, generate
+
+    cpu, gpu = _decode_pair()
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(1, 256, (3, 40), generator=g)
+    if what.startswith("ragged"):
+        lens = torch.tensor([40, 17, 29])
+        kw = dict(max_new_tokens=24, temperature=0.0, prompt_lens=lens,
+                  shared_prefix=17 if what.endswith("prefix") else 0)
+        run = lambda m, p: generate(m, p, **kw)  # noqa: E731
+    else:
+        kw = dict(max_new_tokens=16, num_beams=4)
+        if what == "beam_eos":
+            kw.update(eos_id=int(generate(cpu, prompt, max_new_tokens=3, temperature=0.0)[0, -1]),
+                      length_penalty=0.6)
+        run = lambda m, p: beam_search(m, p, **kw)  # noqa: E731
+    want = run(cpu, prompt)
+    fa.flash_attention_cuda.launches = fd.flash_decode_cuda.launches = 0
+    got = run(gpu, prompt.cuda())
+    torch.cuda.synchronize()
+    assert fd.flash_decode_cuda.launches > 0
+    assert (fa.flash_attention_cuda.launches > 0) == (what != "ragged")
+    assert torch.equal(got.cpu(), want)

@@ -3,7 +3,9 @@
 An AST scan of every module of ``deeplearning_mpi_tpu_torch`` and of
 ``chip_smoke.py`` finds no such import; a subprocess with ``jax`` blocked in
 ``sys.modules`` imports the port's serving engine and generation and runs
-one tiny engine step and one train step with flash attention on the CPU.
+one tiny engine step, one train step with flash attention, a checkpoint
+save and verified restore, a beam search and an int8 conversion on the
+CPU, and imports the CLIs.
 """
 
 import ast
@@ -56,6 +58,18 @@ def test_port_runs_with_jax_blocked():
         "batch = next(Loader(SyntheticTokens(4, 32), 4, device='cpu').epoch(0))\n"
         "s, metrics = make_train_step('lm')(s, batch)\n"
         "assert s.step == 1 and float(metrics['finite']) == 1.0\n"
+        "import tempfile\n"
+        "from deeplearning_mpi_tpu_torch.models.generate import beam_search\n"
+        "from deeplearning_mpi_tpu_torch.ops.quant import quantize_lm_params\n"
+        "from deeplearning_mpi_tpu_torch.resilience import tree_digests\n"
+        "from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer\n"
+        "ck = Checkpointer(tempfile.mkdtemp())\n"
+        "ck.save(s, epoch=0)\n"
+        "r, epoch = ck.restore_verified(create_train_state(m, build_optimizer('adam', 1e-3, clip_norm=1.0)))\n"
+        "assert epoch == 0 and tree_digests(r.arrays()) == tree_digests(s.arrays())\n"
+        "assert beam_search(m, torch.arange(1, 6)[None], max_new_tokens=3, num_beams=2).shape == (1, 8)\n"
+        "assert any(k.endswith('.kernel') for k in quantize_lm_params(m.state_dict()))\n"
+        "import deeplearning_mpi_tpu_torch.cli.generate, deeplearning_mpi_tpu_torch.cli.train_lm\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -12,6 +12,9 @@ batch 4, seq 32.
   a gradient element that is itself near 1e-8 into a visible part of lr:
   the largest such difference seen here is 4.1e-5 (lr / 24), the rest stay
   under 1.1e-5.
+- 5 Adafactor steps (factored and full second moments, with and without
+  weight decay) at the same tolerances, and its state through
+  ``opt_state_from_jax``.
 - One step of each added feature against its JAX counterpart, at the
   same tolerances: grad accumulation with a ragged token mask, the chunked
   loss, the NaN skip, the EMA, sgd / adamw / lion, and the LR schedules
@@ -40,7 +43,7 @@ from deeplearning_mpi_tpu.train import make_train_step as jax_make_step
 from deeplearning_mpi_tpu.train.trainer import build_lr_schedule as jax_lr_schedule
 from deeplearning_mpi_tpu.train.trainer import build_optimizer as jax_optimizer
 from deeplearning_mpi_tpu_torch.data import SyntheticTokens
-from deeplearning_mpi_tpu_torch.models.convert import lm_params_from_jax
+from deeplearning_mpi_tpu_torch.models.convert import lm_params_from_jax, opt_state_from_jax
 from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_bhsd
 from deeplearning_mpi_tpu_torch.train import (
@@ -280,3 +283,28 @@ def test_onehot_embed_matches_gather_and_jax():
     jstate, tstate, jl, tl, _, _ = _run(jstate, tstate, _batches(2, seed=11))
     np.testing.assert_allclose(tl, jl, **LOSS_TOL)
     _assert_params_match(jstate.params, tstate.model)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01], ids=["plain", "decay"])
+def test_five_step_adafactor_trajectory_matches_jax(wd):
+    """``optax.adafactor(lr, multiply_by_parameter_scale=False,
+    weight_decay_rate=wd or None)`` behind clip 1.0, 5 steps at f32. d_model
+    and d_ff 128 give factored moments (two dims >= 128): the embedding
+    ``[256, 128]`` and the square SwiGLU weights, whose factors follow the
+    reference's ``[in, out]`` layout; the attention weights and norms keep
+    full second moments. The optimizer state converts with
+    ``opt_state_from_jax`` to the port's."""
+    jstate, tstate = _setup(opt=("adafactor", 1e-3), opt_kw={"weight_decay": wd},
+                            cfg_kw={"d_model": 128, "d_ff": 128})
+    assert tstate.opt_state["v"]["embed.weight"].shape == (1,)
+    assert tstate.opt_state["v_row"]["layers.0.mlp.gate_proj.weight"].shape == (128,)
+    jstate, tstate, jl, tl, _, _ = _run(jstate, tstate, _batches(5, seed=12))
+    np.testing.assert_allclose(tl, jl, **LOSS_TOL)
+    _assert_params_match(jstate.params, tstate.model)
+    want = opt_state_from_jax(jax.device_get(jstate.opt_state), "adafactor")
+    assert int(want["count"]) == int(tstate.opt_state["count"]) == 5
+    for key in ("v_row", "v_col", "v"):
+        assert set(want[key]) == set(tstate.opt_state[key])
+        for n, t in tstate.opt_state[key].items():
+            np.testing.assert_allclose(t.numpy(), want[key][n].numpy(), rtol=1e-4, atol=1e-12,
+                                       err_msg=f"{key} {n}")
