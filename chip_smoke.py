@@ -68,7 +68,22 @@ Phases, each printed on its own line; any failure exits non-zero:
     (g) ``--prompts_file`` with 4 ragged prompts: each row's window equals
     its solo greedy run; (h) ``--quantize int8``: the share of tokens equal
     to the float stream's (no bar); (i) ``cli.serve_lm --model_dir
-    --selftest`` exits 0, K4 launched.
+    --selftest`` exits 0, K4 launched;
+11. the rest of the serving engine on phase 5's model, weights and engine:
+    (a) the prefix cache: 12 requests in 3 groups sharing 256-token prefixes
+    (tails diverging mid-block, 2 repeated prompts), every stream equal to
+    offline greedy, tokens reused and copy-on-write copies above 0, the
+    pool's books balanced after a flush at drain; (b) speculative decoding,
+    ``spec_k`` 4, on phase 5's trace: 2-layer and 12-layer self-drafts,
+    streams equal to offline greedy, proposed = accepted + rolled back, K4
+    launched once a draft layer a draft step (and by the target's offline
+    decode), the 12-layer draft accepting every proposal; (c), while phase
+    10's checkpoint exists: ``cli.serve_lm --model_dir --kv_dtype int8
+    --selftest`` exits 0 at the 0.9 acceptance gate, K4 launched on int8
+    pages; (d) a warmed engine (CUDA graphs) against the eager one, in
+    turns: equal streams, no capture during traffic, K4's counted launches
+    including the replays', TTFT / TPOT and the device-busy share of each;
+    then K4 on int8 K/V timed at phase 6's serving decode shape.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -274,6 +289,24 @@ def decode_close(got, want, atol: float, rtol: float, l2: float) -> tuple[bool, 
 SERVE_PROMPTS, SERVE_NEW = (128, 512, 200, 384, 160, 448, 256, 320), 32
 
 
+#: The engine of phases 5 and 11.
+SERVE_ENGINE = dict(max_slots=8, block_size=16, max_blocks_per_seq=64, num_blocks=320,
+                    prefill_chunk=128)
+
+
+def serve_trace(vocab: int, seed: int) -> list[dict]:
+    """Phase 5's trace: ``SERVE_PROMPTS`` of seeded tokens, Poisson 50/s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    entries, t = [], 0.0
+    for n in SERVE_PROMPTS:
+        t += float(rng.exponential(1.0 / 50.0))
+        entries.append({"arrival": t, "max_new": SERVE_NEW,
+                        "prompt": rng.integers(1, vocab, size=n).astype(np.int32)})
+    return entries
+
+
 def serve_fills() -> list[int]:
     """K4's per-row fill levels at the middle of phase 5's generation."""
     return [n + SERVE_NEW // 2 - 1 for n in SERVE_PROMPTS]
@@ -364,21 +397,12 @@ def serve(torch, seed: int):
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
     from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
-    from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
-    import numpy as np
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
 
     cfg = TransformerConfig()  # the 110M model at full width and depth
     model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
-    rng = np.random.default_rng(seed)
-    entries, t = [], 0.0
-    for n in SERVE_PROMPTS:
-        t += float(rng.exponential(1.0 / 50.0))
-        entries.append({"arrival": t, "max_new": SERVE_NEW,
-                        "prompt": rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)})
-    engine_cfg = EngineConfig(
-        max_slots=8, block_size=16, max_blocks_per_seq=64, num_blocks=320,
-        prefill_chunk=128,
-    )
+    entries = serve_trace(cfg.vocab_size, seed)
+    engine_cfg = EngineConfig(**SERVE_ENGINE)
     engine = ServingEngine(model, engine_cfg)
     flash_attention_cuda.launches = 0
     flash_decode_cuda.launches = 0
@@ -392,21 +416,7 @@ def serve(torch, seed: int):
     log(f"serve: {json.dumps(rep)} | phase {time.perf_counter() - t0:.1f}s | "
         f"launches {launches} | {engine.decode_steps} decode steps, "
         f"{engine.prefill_chunks} prefill chunks")
-    bad = [(r.rid, r.state.value) for r in reqs if r.state is not RequestState.FINISHED]
-    require(not bad, f"serve: requests not finished: {bad}")
-    mismatched = 0
-    for r, expect in zip(reqs, expects):
-        if r.generated == expect:
-            continue
-        mismatched += 1
-        i = next(j for j, (a, b) in enumerate(zip(r.generated, expect)) if a != b)
-        ctx = np.concatenate([r.prompt, np.asarray(r.generated[:i], np.int32)])
-        with torch.no_grad():
-            logits = model(torch.as_tensor(ctx, dtype=torch.long, device="cuda")[None])[0, -1]
-        top2 = torch.topk(logits, 2).values
-        log(f"serve: rid {r.rid} diverges at step {i}: engine {r.generated[i]} offline "
-            f"{expect[i]}; top-2 logit gap there {float(top2[0] - top2[1]):.3e}")
-    require(mismatched == 0, f"serve: {mismatched}/{len(reqs)} streams differ from offline greedy")
+    streams_equal(model, reqs, expects, "serve")
     require(launches["K1"] > 0 and launches["K4"] > 0, f"serve: kernel not launched: {launches}")
     log(f"serve OK: {len(reqs)} streams token-identical to offline greedy")
     profile = profile_replay(torch, ServingEngine(model, engine_cfg), entries)
@@ -859,9 +869,10 @@ P10_PROMPTS = ["A short one.", "Two prompts of another length, both ASCII.",
 P10_NEW = 64
 
 
-def checkpoint_phase(torch, card: str) -> dict:
+def checkpoint_phase(torch, card: str, then=None) -> dict:
     """Train, checkpoint, verify, resume, then generate and serve from the
-    checkpoint, through the port's CLIs at the 110M widths (10a-10i)."""
+    checkpoint, through the port's CLIs at the 110M widths (10a-10i); then
+    ``then(model_dir)`` (phase 11c) while the checkpoint still exists."""
     import contextlib
     import io
     import shutil
@@ -1024,9 +1035,244 @@ def checkpoint_phase(torch, card: str) -> dict:
             f"{hash_s:.3f}s, verified restore {restore_s:.3f}s; decode "
             f"{greedy.timing['decode_tokens_per_s']:.1f} tokens/s greedy, "
             f"{beams.timing['positions_per_s']:.1f} positions/s with 4 beams")
+        if then is not None:
+            out["then"] = then(a_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# -- phase 11 ----------------------------------------------------------------
+def prefix_trace(vocab: int, seed: int) -> list[dict]:
+    """Phase 11a's trace: 12 requests in 3 groups, each group sharing a
+    256-token prefix (16 whole blocks), tails of 16-200 tokens, Poisson
+    50/s, groups interleaved. Four tails start with the first 5-40 tokens of
+    an earlier tail of their group and then diverge, most of them mid-block;
+    the last 2 requests repeat whole earlier prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 11)
+    prefixes = [rng.integers(1, vocab, size=256) for _ in range(3)]
+    tails: list = []
+    # (group, tokens shared with tail k, fresh tokens)
+    plan = [(0, None, 16), (1, None, 40), (2, None, 72), (0, (0, 8), 12), (1, None, 200),
+            (2, (2, 40), 30), (0, None, 120), (1, (1, 5), 100), (2, None, 56),
+            (0, (6, 24), 64)]
+    prompts = []
+    for group, shared, fresh in plan:
+        tail = rng.integers(1, vocab, size=fresh)
+        if shared is not None:
+            tail = np.concatenate([tails[shared[0]][:shared[1]], tail])
+        tails.append(tail)
+        prompts.append(np.concatenate([prefixes[group], tail]).astype(np.int32))
+    prompts += [prompts[1].copy(), prompts[4].copy()]
+    entries, t = [], 0.0
+    for p in prompts:
+        t += float(rng.exponential(1.0 / 50.0))
+        entries.append({"arrival": t, "max_new": SERVE_NEW, "prompt": p})
+    return entries
+
+
+def streams_equal(model, reqs, expects, label: str) -> None:
+    """Every request finished with its expected stream; at a divergence,
+    the model's top-2 logit gap there is printed."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import first_divergence
+    from deeplearning_mpi_tpu_torch.serving import RequestState
+
+    bad = [(r.rid, r.state.value, r.shed_reason) for r in reqs
+           if r.state is not RequestState.FINISHED]
+    require(not bad, f"{label}: requests not finished: {bad}")
+    mismatched = [r for r, expect in zip(reqs, expects) if r.generated != expect]
+    for r, expect in zip(reqs, expects):
+        if r.generated != expect:
+            log(f"{label}: rid {r.rid} diverges at "
+                f"{first_divergence(model, r.prompt, r.generated, expect)}")
+    require(not mismatched, f"{label}: {len(mismatched)}/{len(reqs)} streams differ")
+
+
+def engine_features(torch, seed: int, card: str) -> dict:
+    """Phase 11a, b and d on the 110M model (f32, phase 5's weights and
+    engine): the prefix cache, speculative decoding and warmup."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import latency_report, offline_greedy, replay
+    from deeplearning_mpi_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+        self_draft,
+    )
+    from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+
+    cfg = TransformerConfig()
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+    out: dict = {"card": card}
+
+    def k4_run(engine, entries):
+        torch.cuda.synchronize()
+        flash_decode_cuda.launches = 0
+        reqs, wall_s = replay(engine, entries)
+        torch.cuda.synchronize()
+        return reqs, wall_s, flash_decode_cuda.launches
+
+    # 11a: the prefix cache.
+    t0 = time.perf_counter()
+    entries = prefix_trace(cfg.vocab_size, seed)
+    engine = ServingEngine(model, EngineConfig(**SERVE_ENGINE, prefix_cache=True))
+    reqs, wall_s, k4 = k4_run(engine, entries)
+    expects = [offline_greedy(model, e["prompt"], e["max_new"], None) for e in entries]
+    streams_equal(model, reqs, expects, "11a prefix cache")
+    c = engine.counters
+    cache, pool = engine.prefix_cache, engine.pool
+    pool.check()
+    held = pool.in_use
+    require(held == len(cache.referenced_blocks()),
+            f"11a: {held} blocks in use at drain, the cache references "
+            f"{len(cache.referenced_blocks())}")
+    cache.flush()
+    require(pool.in_use == 0 and pool.total_allocated == pool.total_freed,
+            f"11a: books do not balance after the flush: {pool.in_use} in use, "
+            f"{pool.total_allocated} allocated, {pool.total_freed} freed")
+    prefix = {k: c[k] for k in c if k.startswith("serve_prefix")}
+    prefix.update(tokens_prefilled=sum(e["prompt"].size for e in entries)
+                  - c["serve_prefix_tokens_reused_total"], k4_launches=k4,
+                  latency=latency_report(reqs, wall_s), blocks_cached_at_drain=held)
+    log(f"11a prefix cache: {len(reqs)} streams equal offline greedy; {json.dumps(prefix)}; "
+        f"books balance after the flush | {time.perf_counter() - t0:.1f}s")
+    require(c["serve_prefix_tokens_reused_total"] > 0, "11a: no token reused")
+    require(c["serve_prefix_cow_copies_total"] > 0, "11a: no copy-on-write copy")
+    out["prefix"] = prefix
+
+    # The phase-5 trace's oracle, with the target's own K4 launches.
+    entries = serve_trace(cfg.vocab_size, seed)
+    flash_decode_cuda.launches = 0
+    expects = [offline_greedy(model, e["prompt"], e["max_new"], None) for e in entries]
+    torch.cuda.synchronize()
+    target_k4 = flash_decode_cuda.launches
+    require(target_k4 > 0, "11b: the target's offline decode did not launch K4")
+
+    # 11b: speculative decoding, a 2-layer and a 12-layer self-draft.
+    t0 = time.perf_counter()
+    spec = {"target_offline_k4_launches": target_k4}
+    for layers in (2, cfg.num_layers):
+        engine = ServingEngine(model, EngineConfig(**SERVE_ENGINE, spec_k=4),
+                               draft=self_draft(model, layers))
+        reqs, wall_s, k4 = k4_run(engine, entries)
+        streams_equal(model, reqs, expects, f"11b speculative, {layers}-layer draft")
+        c = engine.counters
+        prop, acc, rb = (c[f"spec_{k}_total"] for k in ("proposed", "accepted", "rollback"))
+        decode_tokens = c["serve_tokens_generated"] - len(reqs)
+        row = {"proposed": prop, "accepted": acc, "rolled_back": rb,
+               "acceptance": acc / prop if prop else None,
+               "verify_steps": c["spec_verify_steps"], "draft_steps": c["spec_draft_steps"],
+               "tokens_per_verify_step": decode_tokens / c["spec_verify_steps"],
+               "k4_launches": k4, "latency": latency_report(reqs, wall_s)}
+        log(f"11b speculative, {layers}-layer draft, spec_k 4: {json.dumps(row)}")
+        require(prop > 0 and prop == acc + rb, f"11b: counters do not reconcile: {row}")
+        require(k4 == c["spec_draft_steps"] * layers,
+                f"11b: {k4} K4 launches, not one a draft layer a draft step")
+        if layers == cfg.num_layers:
+            require(rb == 0 and acc == prop, f"11b: a full self-draft rolled back: {row}")
+        spec[f"draft_{layers}"] = row
+    log(f"11b speculative OK in {time.perf_counter() - t0:.1f}s; the target's offline decode "
+        f"launched K4 {target_k4} times")
+    out["speculative"] = spec
+
+    # 11d: warmup by CUDA-graph capture against the eager engine, in turns
+    # (a drained engine serves the trace again).
+    t0 = time.perf_counter()
+    engines = {}
+    for name in ("unwarmed", "warmed"):
+        engines[name] = ServingEngine(model, EngineConfig(**SERVE_ENGINE))
+    t_warm = time.perf_counter()
+    built = engines["warmed"].warmup()
+    warm: dict = {"unwarmed": [], "warmed": [], "built": built,
+                  "warmup_s": time.perf_counter() - t_warm}
+    log(f"11d warmup: {engines['warmed'].captures} CUDA graphs {built} in "
+        f"{warm['warmup_s']:.2f}s")
+    for name in ("unwarmed", "warmed", "warmed", "unwarmed"):
+        engine = engines[name]
+        captures, steps = engine.captures, engine.decode_steps
+        reqs, wall_s, k4 = k4_run(engine, entries)
+        streams_equal(model, reqs, expects, f"11d {name}")
+        require(engine.captures == captures, "11d: traffic captured a program after warmup")
+        steps = engine.decode_steps - steps
+        require(k4 == steps * cfg.num_layers, f"11d: {k4} K4 launches for {steps} decode steps")
+        rep = latency_report(reqs, wall_s)
+        rep.update(captures=engine.captures, k4_launches=k4, decode_steps=steps)
+        warm[name].append(rep)
+        log(f"11d {name}: {json.dumps(rep)} [{card}]")
+    for name in ("unwarmed", "warmed"):
+        warm[f"profile_{name}"] = device_profile(
+            torch, lambda: replay(engines[name], entries), f"11d profile {name}")
+    log(f"11d warmup OK in {time.perf_counter() - t0:.1f}s")
+    out["warmup"] = warm
+    return out
+
+
+def int8_serve(torch, model_dir: str) -> dict:
+    """Phase 11c: ``cli.serve_lm --model_dir <phase 10's checkpoint>
+    --kv_dtype int8 --selftest`` (the CLI's own trace and engine) at the
+    reference's 0.9 acceptance gate, K4 launched on int8 pages."""
+    from deeplearning_mpi_tpu_torch.cli import serve_lm
+    from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
+
+    t0 = time.perf_counter()
+    flash_decode_cuda.launches = flash_decode_cuda.int8_launches = 0
+    rc = serve_lm.main(P10_MODEL + ["--device", "cuda", "--model_dir", model_dir, "--selftest",
+                                    "--kv_dtype", "int8"])
+    torch.cuda.synchronize()
+    launches = {"K4": flash_decode_cuda.launches, "K4_int8": flash_decode_cuda.int8_launches}
+    log(f"11c serve_lm --kv_dtype int8 --selftest: rc {rc}; launches {launches} (the int8 "
+        f"ones the engine's, the rest its offline oracle's) | {time.perf_counter() - t0:.1f}s")
+    require(rc == 0, f"11c: serve_lm --kv_dtype int8 --selftest exited {rc}")
+    require(launches["K4_int8"] > 0, f"11c: K4 not launched on int8 pages: {launches}")
+    return {"rc": rc, "launches": launches}
+
+
+def time_k4_int8(torch, gen, launches: int, fills, k4_len) -> dict:
+    """K4 on int8 K/V (the engine's scheme) at phase 6's serving decode
+    shape, L2-cold over 8 buffer sets, beside its plain version; no single
+    PyTorch call takes int8 pages with scales, so no library time."""
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.ops.quant import quantize_kv
+
+    B, H, D = len(fills), 12, 64
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda")
+    bufs = []
+    for _ in range(8):
+        (k, ks), (v, vs) = (quantize_kv(torch.randn(B, k4_len, H, D, generator=gen,
+                                                    device="cuda")) for _ in range(2))
+        bufs.append((k, v, ks, vs))
+    index = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    filled = sum(f + 1 for f in fills)
+    nbytes = 2 * filled * H * (D + 4) + 2 * B * H * D * 4
+    flops = 4 * filled * H * D
+
+    def cold(fn):
+        turn = itertools.cycle(bufs)
+        return time_ms(lambda: fn(*next(turn)))
+
+    k, v, ks, vs = bufs[0]
+    row = {
+        "name": "K4 flash_decode (int8 K/V)", "route": "cuda",
+        "source": "deeplearning_mpi_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_decode.py:100",
+        "launches": launches,
+        "max_abs_err": max_err(fd.flash_decode_cuda(q, k, v, index, k_scale=ks, v_scale=vs),
+                               fd.flash_decode_reference(q, k, v, index, k_scale=ks,
+                                                         v_scale=vs)),
+        "ms": cold(lambda k, v, ks, vs: fd.flash_decode_cuda(q, k, v, index, k_scale=ks,
+                                                             v_scale=vs)),
+        "plain_ms": cold(lambda k, v, ks, vs: fd.flash_decode_reference(
+            q, k, v, index, k_scale=ks, v_scale=vs)),
+        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
+        "library_ms": None,
+        "shape": f"B{B} L{k4_len} H{H} Hkv{H} D{D} float32 q, int8 K/V, fills {fills}, L2-cold",
+    }
+    log(f"time {row['name']} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{launches} int8 launches in 11c")
+    return row
 
 
 def main() -> int:
@@ -1081,8 +1327,15 @@ def main() -> int:
     train_cli()
     log(f"phase 9 train_lm CLI OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    checkpoint = checkpoint_phase(torch, card)
-    log(f"phase 10 checkpoint, resume, generate and serve OK in {time.perf_counter() - t0:.1f}s")
+    checkpoint = checkpoint_phase(torch, card, then=lambda model_dir: int8_serve(torch, model_dir))
+    log(f"phase 10 checkpoint, resume, generate and serve, and 11c int8 KV serving OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    features = engine_features(torch, args.seed, card)
+    kernels.append(time_k4_int8(torch, gen, checkpoint["then"]["launches"]["K4_int8"], fills,
+                                k4_len))
+    log(f"phase 11 prefix cache, speculative decoding, int8 KV and warmup OK in "
+        f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
@@ -1095,7 +1348,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
-                       "train": train, "checkpoint": checkpoint,
+                       "train": train, "checkpoint": checkpoint, "features": features,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -36,6 +36,11 @@ Inference option: ``quantized=True`` builds every block projection as an
 ``ops.quant.quantize_lm_params`` of a trained state dict; the BHSD
 training layout is refused for it, as in the reference.
 
+Speculative decoding's drafts: :func:`draft_config` and
+:func:`truncate_lm_params` as in the reference (the latter on the numpy
+param tree ``models.convert`` takes), and :func:`self_draft`, the target's
+first blocks as a model of their own on its device and dtype.
+
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
 collection. MoE comes in a later slice.
 """
@@ -421,3 +426,42 @@ class TransformerLM(nn.Module):
         if self.return_prehead and cache is None:
             return x, self.embed.weight.T
         return self.head(x)
+
+
+def draft_config(config: TransformerConfig, num_layers: int, **overrides) -> TransformerConfig:
+    """A draft-model config derived from a target's: same vocab (draft and
+    target must share a tokenizer), fewer layers, any width knob
+    overridable. The default, depth-only truncation pairs with
+    :func:`truncate_lm_params` / :func:`self_draft` for a "self-draft"
+    made of the target's own weights."""
+    if not 1 <= num_layers <= config.num_layers:
+        raise ValueError(
+            f"draft num_layers must be in [1, {config.num_layers}], got {num_layers}"
+        )
+    return dataclasses.replace(config, num_layers=num_layers, **overrides)
+
+
+def truncate_lm_params(params: dict, num_layers: int) -> dict:
+    """Self-draft params from the reference's param tree (numpy leaves, as
+    ``models.convert.lm_params_from_jax`` takes it): the embedding, the
+    first ``num_layers`` blocks, the final norm and an untied ``lm_head``,
+    referenced, not copied."""
+    if f"layer_{num_layers - 1}" not in params:
+        raise ValueError(f"target params hold fewer than {num_layers} layers")
+    keep = {"embed", "final_norm", "lm_head"} | {f"layer_{i}" for i in range(num_layers)}
+    return {k: v for k, v in params.items() if k in keep}
+
+
+def self_draft(target: TransformerLM, num_layers: int) -> TransformerLM:
+    """The target's embedding, first ``num_layers`` blocks, final norm and
+    head as a :class:`TransformerLM` of :func:`draft_config`'s shape, on
+    the target's device and in its compute dtype. The modules are the
+    target's own (shared, not copied), as :func:`truncate_lm_params` shares
+    the reference's arrays."""
+    draft = TransformerLM(draft_config(target.config, num_layers), dtype=target.dtype,
+                          device="meta")
+    draft.embed = target.embed
+    draft.layers = nn.ModuleList(list(target.layers)[:num_layers])
+    draft.final_norm = target.final_norm
+    draft.lm_head = target.lm_head
+    return draft

@@ -166,6 +166,8 @@ def batched_decode_attention(
     *,
     window: int | None = None,
     use_kernel: bool | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One decode step where every row sits at its OWN fill level.
 
@@ -175,7 +177,9 @@ def batched_decode_attention(
     per-row prefix mask. ``use_kernel=True``: K4
     (:func:`~deeplearning_mpi_tpu_torch.ops.kernels.flash_decode.flash_decode`),
     which takes the per-row index natively and reads O(own index) rows.
-    ``use_kernel=None``: K4 on CUDA, the matmul schedule on the CPU.
+    ``use_kernel=None``: K4 on CUDA, the matmul schedule on the CPU. int8
+    buffers with their ``[B, L, Hkv]`` float32 scales go to K4 only (the
+    matmul schedule takes pages dequantized by the caller).
     """
     _check_decode_shapes(q, k_buf, "batched_decode_attention")
     batch = q.shape[0]
@@ -189,7 +193,10 @@ def batched_decode_attention(
     if use_kernel:
         from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode
 
-        return flash_decode(q, k_buf, v_buf, index, window=window)
+        return flash_decode(q, k_buf, v_buf, index, window=window, k_scale=k_scale,
+                            v_scale=v_scale)
+    if k_scale is not None or v_scale is not None:
+        raise ValueError("int8 K/V with scales take K4 (use_kernel); dequantize them first")
     pos = torch.arange(k_buf.shape[1], device=q.device)
     valid = pos[None, :] <= index[:, None]
     if window is not None:

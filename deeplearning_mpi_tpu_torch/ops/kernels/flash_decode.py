@@ -213,10 +213,15 @@ def flash_decode_cuda(
         err = lib.flash_decode(ctypes.addressof(params), stream)
     _build.check(err, "flash_decode")
     flash_decode_cuda.launches += 1
+    if k_scale is not None:
+        flash_decode_cuda.int8_launches += 1
     return o
 
 
+#: K4 launches, and those of them on int8 K/V (a CUDA graph's replays add
+#: the launches it captured: ``compiler.aot.CapturedProgram``)
 flash_decode_cuda.launches = 0
+flash_decode_cuda.int8_launches = 0
 
 
 def flash_decode(

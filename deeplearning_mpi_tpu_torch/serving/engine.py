@@ -3,9 +3,11 @@
 Port of ``deeplearning_mpi_tpu/serving/engine.py``. Requests arrive and
 finish independently; a host-side loop swaps sequences in and out of
 ``max_slots`` decode rows between steps. Each step: admit queued requests
-into free slots, run one ``prefill_chunk``-wide chunk for every PREFILL
-slot, grow each DECODE slot's KV cover (evicting the oldest under
-pressure), then one batched decode step over every DECODE slot.
+into free slots (adopting cached prefix blocks), copy the partially
+adopted blocks (copy-on-write), run one ``prefill_chunk``-wide chunk for
+every PREFILL slot, grow each DECODE slot's KV cover (evicting the oldest
+under pressure), then one batched decode step over every DECODE slot, or
+with ``spec_k > 0`` one draft propose loop and one verify step.
 
 :class:`PagedForward` computes ``TransformerLM`` numerics over paged block
 tables by reusing the model's own submodules (norms, projections, RoPE,
@@ -18,38 +20,54 @@ view, and attends with ``batched_decode_attention`` — K4 on CUDA
 to its einsum). The pools are updated in place (the reference donates and
 rebinds them).
 
-Greedy-only, dense models only. Not in this slice: speculative decoding,
-the prefix cache, disaggregation, int8 KV pools, tracing, chaos, the
-metrics registry and compile warmup.
+int8 KV pools (``EngineConfig.kv_dtype="int8"``) store ``ops.quant``'s
+scheme: int8 rows plus one float32 scale per (token, head), written in the
+same step. On CUDA the decode step hands K4 the gathered int8 pages and
+their gathered scales (K4 factors the scales out of both dots); elsewhere,
+and in the prefill and verify steps on every device, the gather
+dequantizes, as the reference does. The radix prefix cache
+(``serving/prefix_cache.py``), the draft model (``serving/speculative.py``)
+and the multi-token verify step are the reference's. :meth:`ServingEngine.warmup`
+captures the decode, verify and draft decode steps as CUDA graphs, one per
+gather width (``compiler/aot.py``); the chunked prefill stays eager.
+
+Greedy-only, dense models only. Not in this slice: disaggregation,
+tracing, chaos and the metrics registry (the engine keeps the reference's
+counters in a plain dict, :attr:`ServingEngine.counters`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
+from deeplearning_mpi_tpu_torch.compiler.aot import CapturedProgram, WarmProgram
 from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
 from deeplearning_mpi_tpu_torch.ops.attention import (
+    NEG_INF,
+    _f32_matmul,
     batched_decode_attention,
     dense_attention,
     repeat_kv,
 )
+from deeplearning_mpi_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from deeplearning_mpi_tpu_torch.serving.kv_pool import (
     SCRATCH_BLOCK,
     PagedKVPool,
     init_kv_buffers,
 )
+from deeplearning_mpi_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from deeplearning_mpi_tpu_torch.serving.scheduler import (
     Request,
     RequestState,
     Scheduler,
 )
 
-__all__ = ["EngineConfig", "KVBuffers", "PagedForward", "ServingEngine"]
+__all__ = ["EngineConfig", "KVBuffers", "PagedForward", "ServingEngine", "kv_storage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,17 +90,45 @@ class EngineConfig:
     #: batched decode attention through K4 (True), the masked-matmul
     #: schedule (False), or K4 on CUDA / matmul on CPU (None)
     use_kernel: bool | None = True
+    #: draft proposals verified per sequence per engine step (0 = plain
+    #: decode); ``spec_k > 0`` needs a draft model
+    spec_k: int = 0
     #: decode-batch formation buckets and hold budget (see Scheduler)
     decode_buckets: tuple[int, ...] = ()
     max_hold_steps: int = 4
+    #: KV storage by name: None = the model's compute dtype, ``"int8"`` =
+    #: int8 rows plus float32 scales (lossy: streams are held to an
+    #: acceptance rate, not token identity)
+    kv_dtype: str | None = None
+    #: radix prefix cache with copy-on-write adoption
+    prefix_cache: bool = False
 
     @property
     def max_seq_len(self) -> int:
         return self.max_blocks_per_seq * self.block_size
 
 
+def kv_storage(name: str | None) -> torch.dtype | None:
+    """``EngineConfig.kv_dtype`` as the pools' storage dtype: None (the
+    compute dtype) or ``torch.int8``. Another integer type raises
+    NotImplementedError, as in the reference (the scheme is int8
+    symmetric); any other name ValueError."""
+    if name is None:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if dtype == torch.int8:
+        return dtype
+    if isinstance(dtype, torch.dtype) and not dtype.is_floating_point:
+        raise NotImplementedError(
+            f"integer KV storage supports int8 only, got {name} (ops.quant.quantize_kv "
+            "is an int8 symmetric scheme)"
+        )
+    raise ValueError(f"kv_dtype must be None or 'int8', got {name!r}")
+
+
 class KVBuffers:
-    """Holder for the device KV pools ``(k, v)`` an engine steps over."""
+    """Holder for the device KV pools an engine steps over: ``(k, v)``, plus
+    ``(k_scale, v_scale)`` for int8 storage."""
 
     __slots__ = ("bufs",)
 
@@ -104,29 +150,60 @@ def pow2_bucket(n: int, cap: int | None = None) -> int:
 
 class PagedForward:
     """``TransformerLM`` numerics over paged KV block tables, through the
-    model's own submodules."""
+    model's own submodules. One per model: the engine's for the target,
+    the speculative decoder's for the draft. ``kv_dtype`` is the pools'
+    storage (:func:`kv_storage`: None, the compute dtype, or int8)."""
 
-    def __init__(self, model: TransformerLM, engine: EngineConfig) -> None:
+    def __init__(self, model: TransformerLM, engine: EngineConfig, *,
+                 kv_dtype: torch.dtype | None = None) -> None:
         self.model = model
         self.config = model.config
         self.engine = engine
+        self.quantized = kv_dtype is not None
 
+    # -- paged scatter / gather (the storage format's seam) -----------------
     def _scatter(self, kv, layer: int, bid, off, k, v) -> None:
-        """Write this step's K/V rows (``[N, Hkv, D]``) through the block
-        table at ``layer``, in place."""
-        k_pool, v_pool = kv
-        k_pool[layer, bid, off] = k.to(k_pool.dtype)
-        v_pool[layer, bid, off] = v.to(v_pool.dtype)
+        """Write this step's K/V rows (``[..., Hkv, D]``) through the block
+        table at ``layer``, in place; int8 storage writes the rows' scales
+        in the same step."""
+        if not self.quantized:
+            k_pool, v_pool = kv
+            k_pool[layer, bid, off] = k.to(k_pool.dtype)
+            v_pool[layer, bid, off] = v.to(v_pool.dtype)
+            return
+        k_pool, v_pool, k_scale, v_scale = kv
+        (qk, sk), (qv, sv) = quantize_kv(k), quantize_kv(v)
+        k_pool[layer, bid, off] = qk
+        v_pool[layer, bid, off] = qv
+        k_scale[layer, bid, off] = sk
+        v_scale[layer, bid, off] = sv
 
-    def _gather(self, kv, layer: int, tables: torch.Tensor, rows: int):
-        """Each row's pages in position order: ``[rows, L, Hkv, D]``."""
+    def _gather(self, kv, layer: int, tables: torch.Tensor, rows: int, *, raw: bool = False):
+        """Each row's pages in position order, ``[rows, L, Hkv, D]``, in the
+        compute dtype; int8 storage dequantizes here unless ``raw``, which
+        returns the int8 pages and their ``[rows, L, Hkv]`` scales."""
         c = self.config
-        k_pool, v_pool = kv
         shape = (rows, -1, c.kv_heads, c.head_dim)
-        return k_pool[layer][tables].reshape(shape), v_pool[layer][tables].reshape(shape)
+        if not self.quantized:
+            k_pool, v_pool = kv
+            return k_pool[layer][tables].reshape(shape), v_pool[layer][tables].reshape(shape)
+        k_pool, v_pool, k_scale, v_scale = kv
+        k, v = k_pool[layer][tables].reshape(shape), v_pool[layer][tables].reshape(shape)
+        ks, vs = k_scale[layer][tables].reshape(shape[:3]), v_scale[layer][tables].reshape(shape[:3])
+        if raw:
+            return k, v, ks, vs
+        dtype = self.model.dtype
+        return dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype)
 
+    def copy_block(self, kv, src: int, dst: int) -> None:
+        """Copy every pool's pages of block ``src`` into ``dst``, all layers,
+        scales included, in place: the prefix cache's copy-on-write."""
+        for buf in kv:
+            buf[:, dst] = buf[:, src]
+
+    # -- decode step --------------------------------------------------------
     @torch.no_grad()
-    def decode_step(
+    def decode_logits(
         self,
         kv: tuple[torch.Tensor, ...],
         tables: torch.Tensor,   # [S, MB] int64 block ids (0-padded)
@@ -136,7 +213,10 @@ class PagedForward:
         *,
         use_kernel: bool | None = True,
     ) -> torch.Tensor:
-        """One batched decode step; returns each slot's greedy next token."""
+        """One batched decode step; returns each slot's float32 logits
+        ``[S, V]``. int8 pools reach K4 as int8 pages and scales on CUDA
+        (unless ``use_kernel`` is False); elsewhere they are dequantized in
+        the gather and attended by the masked matmul."""
         model, e = self.model, self.engine
         S, BS = tables.shape[0], e.block_size
         MB = tables.shape[1]
@@ -152,18 +232,34 @@ class PagedForward:
         # Row b attends its own prefix 0..lengths[b]-1; -1 = inactive row.
         idx = torch.where(active, lengths - 1, -1).to(torch.int32)
         window = self.config.attention_window or None
+        raw = self.quantized and tables.is_cuda and use_kernel is not False
+        if self.quantized and not raw:
+            use_kernel = False
         for i, block in enumerate(model.layers):
             q, k, v = block.attn.project(block.attn_norm(x), pos)
             self._scatter(kv, i, bid, off, k[:, 0], v[:, 0])
-            k_seq, v_seq = self._gather(kv, i, tables, S)
-            ctx = batched_decode_attention(
-                q, k_seq, v_seq, idx, window=window, use_kernel=use_kernel
-            )
+            if raw:
+                k_seq, v_seq, k_scale, v_scale = self._gather(kv, i, tables, S, raw=True)
+                ctx = batched_decode_attention(
+                    q, k_seq, v_seq, idx, window=window, use_kernel=True,
+                    k_scale=k_scale, v_scale=v_scale,
+                )
+            else:
+                k_seq, v_seq = self._gather(kv, i, tables, S)
+                ctx = batched_decode_attention(
+                    q, k_seq, v_seq, idx, window=window, use_kernel=use_kernel
+                )
             x = x + block.attn.output(ctx)
             x = x + block.mlp(block.mlp_norm(x))
-        logits = model.head(model.final_norm(x)[:, 0])  # [S, V] f32
+        return model.head(model.final_norm(x)[:, 0])  # [S, V] f32
+
+    def decode_step(self, kv, tables, lengths, tokens, active, *,
+                    use_kernel: bool | None = True) -> torch.Tensor:
+        """One batched decode step; returns each slot's greedy next token."""
+        logits = self.decode_logits(kv, tables, lengths, tokens, active, use_kernel=use_kernel)
         return torch.argmax(logits, dim=-1)
 
+    # -- chunked prefill ----------------------------------------------------
     @torch.no_grad()
     def prefill_chunk(
         self,
@@ -202,10 +298,87 @@ class PagedForward:
         x_last = model.final_norm(x)[0, n_valid - 1]
         return model.head(x_last)
 
+    # -- verify step (speculative decoding) ---------------------------------
+    @torch.no_grad()
+    def verify_step(
+        self,
+        kv: tuple[torch.Tensor, ...],
+        tables: torch.Tensor,   # [S, MB] int64 block ids (0-padded)
+        lengths: torch.Tensor,  # [S] int64 known tokens before this step
+        tokens: torch.Tensor,   # [S, W] int64: last known token + proposals
+        n_live: torch.Tensor,   # [S] int64 fed rows per slot (proposals + 1)
+        active: torch.Tensor,   # [S] bool
+    ) -> torch.Tensor:
+        """One batched multi-token forward over the paged pools: row ``s``
+        feeds ``tokens[s, i]`` at absolute position ``lengths[s] - 1 + i``,
+        writes its K/V there and attends its causal prefix. Returns the
+        greedy tokens ``[S, W]``: ``[s, i]`` is the target's choice for
+        position ``lengths[s] + i``, what a plain decode step would emit
+        after the first ``i`` proposals. The mask is built in absolute
+        coordinates with a per-row offset; scores and softmax are float32,
+        masked to ``NEG_INF``, and an all-masked row is zeroed, as in
+        ``dense_attention``."""
+        model, c, e = self.model, self.config, self.engine
+        S, MB, BS = tables.shape[0], tables.shape[1], e.block_size
+        W = tokens.shape[1]
+        L = MB * BS
+        rep = c.num_heads // c.kv_heads
+        scale = c.head_dim**-0.5
+        x = model.embed_tokens(tokens)  # [S, W, d]
+        offs = torch.arange(W, device=tokens.device)[None]  # [1, W]
+        pos = torch.clamp(lengths - 1, min=0)[:, None] + offs  # [S, W] absolute
+        p = torch.clamp(pos, max=L - 1)
+        row_valid = active[:, None] & (offs < n_live[:, None])  # [S, W]
+        bid = torch.where(row_valid, torch.gather(tables, 1, p // BS), SCRATCH_BLOCK)
+        off = p % BS
+        k_pos = torch.arange(L, device=tokens.device)
+        # [S, 1, W, L]: key j is visible to query i of row s iff j <= pos[s, i].
+        valid = (k_pos[None, None, None, :] <= pos[:, None, :, None]) & row_valid[:, None, :, None]
+        window = c.attention_window or None
+        if window is not None:
+            valid &= pos[:, None, :, None] - k_pos[None, None, None, :] < window
+        any_valid = valid.any(dim=-1, keepdim=True)
+        for i, block in enumerate(model.layers):
+            q, k, v = block.attn.project(block.attn_norm(x), pos)
+            self._scatter(kv, i, bid, off, k, v)
+            k_seq, v_seq = self._gather(kv, i, tables, S)
+            k_seq, v_seq = repeat_kv(k_seq, rep), repeat_kv(v_seq, rep)
+            # [S, H, W, L] scores in f32.
+            scores = _f32_matmul(q.transpose(1, 2), k_seq.permute(0, 2, 3, 1)) * scale
+            scores = torch.where(valid, scores, NEG_INF)
+            weights = torch.where(any_valid, torch.softmax(scores, dim=-1), 0.0)
+            ctx = _f32_matmul(weights.to(v_seq.dtype), v_seq.transpose(1, 2))
+            x = x + block.attn.output(ctx.transpose(1, 2).to(q.dtype))
+            x = x + block.mlp(block.mlp_norm(x))
+        logits = model.head(model.final_norm(x))  # [S, W, V] f32
+        return torch.argmax(logits, dim=-1)
+
+
+#: the reference's engine counters (``serve_*`` and ``spec_*``), kept at 0
+#: until they move
+_COUNTERS = (
+    "serve_requests_submitted", "serve_requests_admitted", "serve_requests_completed",
+    "serve_requests_shed", "serve_tokens_generated", "serve_prefill_chunks",
+    "serve_decode_steps", "serve_requeued_total", "serve_tokens_discarded_total",
+    "serve_decode_held_steps",
+)
+_SPEC_COUNTERS = (
+    "spec_proposed_total", "spec_accepted_total", "spec_rollback_total",
+    "spec_verify_steps", "spec_draft_steps", "spec_degraded_total",
+    "spec_blocks_rolled_back_total",
+)
+
 
 class ServingEngine:
     """Continuous-batching engine over a :class:`TransformerLM` (its device
-    and compute dtype are the engine's). ``clock`` is injectable."""
+    and compute dtype are the engine's). ``clock`` is injectable.
+
+    ``draft`` (required iff ``engine.spec_k > 0``) is the draft model of
+    speculative decoding, a dense ``TransformerLM`` sharing the target's
+    vocab; usually the target's first layers
+    (``models.transformer.self_draft``). ``tenants`` configures the
+    scheduler's per-tenant budgets and priorities.
+    """
 
     def __init__(
         self,
@@ -214,6 +387,8 @@ class ServingEngine:
         *,
         eos_id: Optional[int] = None,
         clock: Callable[[], float] = time.monotonic,
+        draft: TransformerLM | None = None,
+        tenants: dict[str, dict[str, Any]] | None = None,
     ) -> None:
         engine = engine or EngineConfig()
         if engine.num_blocks - 1 < engine.max_blocks_per_seq:
@@ -222,13 +397,26 @@ class ServingEngine:
                 f"max_blocks_per_seq ({engine.max_blocks_per_seq}): a "
                 "maximum-length request could never be admitted"
             )
+        if engine.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {engine.spec_k}")
+        if engine.spec_k > 0 and draft is None:
+            raise ValueError(
+                "spec_k > 0 needs a draft model: pass draft= (models.transformer."
+                "self_draft builds one from the target's own first N layers)"
+            )
+        storage = kv_storage(engine.kv_dtype)
         self.model = model
         self.config = model.config
         self.engine = engine
         self.eos_id = eos_id
         self.device = model.device
         self._clock = clock
-        self.pool = PagedKVPool(engine.num_blocks, engine.block_size)
+        #: the reference's counters by name (see :attr:`counters`)
+        self._counters: dict[str, int] = dict.fromkeys(_COUNTERS, 0)
+        if engine.spec_k > 0:
+            self._counters.update(dict.fromkeys(_SPEC_COUNTERS, 0))
+        self.pool = PagedKVPool(engine.num_blocks, engine.block_size, kv_dtype=storage)
+        self.prefix_cache = RadixPrefixCache(self.pool) if engine.prefix_cache else None
         self.scheduler = Scheduler(
             self.pool,
             max_slots=engine.max_slots,
@@ -236,23 +424,143 @@ class ServingEngine:
             max_queue=engine.max_queue,
             decode_buckets=engine.decode_buckets,
             max_hold_steps=engine.max_hold_steps,
+            prefix_cache=self.prefix_cache,
+            tenants=tenants,
+            counters=self._counters,
         )
         self._kvh = KVBuffers(init_kv_buffers(
             self.config.num_layers, engine.num_blocks, engine.block_size,
-            self.config.kv_heads, self.config.head_dim, model.dtype, self.device,
+            self.config.kv_heads, self.config.head_dim, storage or model.dtype, self.device,
         ))
-        self._fwd = PagedForward(model, engine)
+        self._fwd = PagedForward(model, engine, kv_dtype=storage)
+        self._spec = None
+        if engine.spec_k > 0:
+            from deeplearning_mpi_tpu_torch.serving.speculative import SpeculativeDecoder
+
+            self._spec = SpeculativeDecoder(draft, target_config=self.config, engine=engine,
+                                            kv_dtype=storage)
+        #: brownout stage 2+ suspends speculative drafts (plain decode emits
+        #: the same tokens)
+        self.spec_suspended = False
+        self._decode_fn: Callable[..., torch.Tensor] = self._eager_decode
+        self._verify_fn: Callable[..., torch.Tensor] = self._eager_verify
+        #: programs :meth:`warmup` built (CUDA graphs on the card); traffic
+        #: never adds one
+        self.captures = 0
         self._next_rid = 0
         self.steps = 0
-        self.decode_steps = 0
-        self.prefill_chunks = 0
 
     @property
     def _kv(self) -> tuple[torch.Tensor, ...]:
         return self._kvh.bufs
 
+    @property
+    def counters(self) -> dict[str, int]:
+        """The reference's counters: ``serve_*`` (``serve_shed_total`` by
+        reason from the scheduler), ``spec_*`` with a draft, and the prefix
+        cache's ``serve_prefix_*`` counters and gauges."""
+        out = dict(self._counters)
+        c = self.prefix_cache
+        if c is not None:
+            out.update({
+                "serve_prefix_hits_total": c.hits,
+                "serve_prefix_tokens_reused_total": c.tokens_reused,
+                "serve_prefix_cow_copies_total": c.cow_copies,
+                "serve_prefix_evictions_total": c.evictions,
+                "serve_prefix_nodes": c.num_nodes,
+                "serve_prefix_blocks": c.num_blocks_cached,
+            })
+        return out
+
+    @property
+    def decode_steps(self) -> int:
+        return self._counters["serve_decode_steps"]
+
+    @property
+    def prefill_chunks(self) -> int:
+        return self._counters["serve_prefill_chunks"]
+
+    def _inc(self, name: str, amount: int = 1) -> None:
+        self._counters[name] = self._counters.get(name, 0) + amount
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # -- programs (eager until warmup) ---------------------------------------
+    def _eager_decode(self, tables, lengths, tokens, active) -> torch.Tensor:
+        return self._fwd.decode_step(
+            self._kv, *(self._tensor(a) for a in (tables, lengths, tokens, active)),
+            use_kernel=self.engine.use_kernel,
+        )
+
+    def _eager_verify(self, tables, lengths, tokens, n_live, active) -> torch.Tensor:
+        return self._fwd.verify_step(
+            self._kv, *(self._tensor(a) for a in (tables, lengths, tokens, n_live, active))
+        )
+
+    def _gather_widths(self) -> list[int]:
+        """Every width :meth:`_gather_width` can emit, ascending."""
+        mb = self.engine.max_blocks_per_seq
+        out, w = [], 1
+        while w < mb:
+            out.append(w)
+            w *= 2
+        return out + [mb]
+
+    def warmup(self) -> dict[str, int]:
+        """Build every decode-path program before traffic.
+
+        For each gather width (:meth:`_gather_widths`) this captures the
+        target decode step, and with a draft the verify step and the
+        draft's decode step, as CUDA graphs on one shared graph pool, over
+        static input buffers (tables of that width, lengths, tokens,
+        ``n_live``, active). Each is run once eagerly first, with every row
+        inactive (its writes land in the scratch block). Afterwards a step
+        copies its host arrays into the buffers and replays; a width that
+        was not captured runs eagerly. The chunked prefill stays eager: it
+        takes its ``start`` and ``n_valid`` as Python ints. On the CPU the
+        same buffers are built and each program runs once eagerly, with no
+        capture. Returns the number of programs built by kind."""
+        e, S = self.engine, self.engine.max_slots
+        cuda = self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        def capture(fn, inputs) -> CapturedProgram:
+            self.captures += 1
+            return CapturedProgram(fn, inputs, pool=pool, stream=stream)
+
+        def width(tables, *_):
+            return tables.shape[1]
+
+        slots = (zeros(S), zeros(S), zeros(S, dtype=torch.bool))
+        decode, verify = {}, {}
+        for w in self._gather_widths():
+            decode[w] = capture(
+                lambda t, n, tok, a: self._fwd.decode_step(self._kv, t, n, tok, a,
+                                                           use_kernel=e.use_kernel),
+                (zeros(S, w), *slots),
+            )
+            if self._spec is not None:
+                verify[w] = capture(
+                    lambda t, n, tok, live, a: self._fwd.verify_step(self._kv, t, n, tok, live, a),
+                    (zeros(S, w), zeros(S), zeros(S, e.spec_k + 1), zeros(S),
+                     zeros(S, dtype=torch.bool)),
+                )
+        self._decode_fn = WarmProgram(decode, self._eager_decode, width)
+        built = {"decode": len(decode)}
+        if self._spec is not None:
+            self._verify_fn = WarmProgram(verify, self._eager_verify, width)
+            built["verify"] = len(verify)
+            built["draft_decode"] = self._spec.warmup(
+                {w: (zeros(S, w), *slots) for w in self._gather_widths()}, capture, width,
+            )
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return built
 
     # -- public API ---------------------------------------------------------
     def submit(
@@ -262,6 +570,7 @@ class ServingEngine:
         *,
         deadline: Optional[float] = None,
         arrival: Optional[float] = None,
+        tenant: str = "default",
     ) -> Request:
         """Enqueue one request (or shed it at the door — check
         ``req.state``). ``prompt`` is a 1-D int sequence."""
@@ -273,17 +582,37 @@ class ServingEngine:
             max_new_tokens=max_new_tokens,
             arrival=self._clock() if arrival is None else arrival,
             deadline=deadline,
+            tenant=tenant,
         )
         self._next_rid += 1
-        self.scheduler.submit(req)
+        self._inc("serve_requests_submitted")
+        if not self.scheduler.submit(req):
+            self._inc("serve_requests_shed")
         return req
 
+    def cancel(self, req: Request) -> bool:
+        """Shed ``req`` wherever it lives (the other copy of a hedged
+        request won); False when it already finished or was shed."""
+        if self.scheduler.cancel(req):
+            self._inc("serve_requests_shed")
+            return True
+        return False
+
+    def set_brownout(self, stage: int) -> None:
+        """The overload ladder: stage 1+ sheds the lowest-priority tenants
+        at the door, 2+ also suspends speculative drafts, 3 raises the
+        deadline floor (the door policy is the scheduler's)."""
+        self.scheduler.set_brownout(stage)
+        self.spec_suspended = stage >= 2
+
     def step(self) -> list[Request]:
-        """One engine iteration: shed expired -> admit -> one prefill chunk
-        per PREFILL slot -> grow/evict -> one batched decode step -> retire.
-        Returns the requests that finished this step."""
+        """One engine iteration: shed expired -> admit -> copy-on-write ->
+        one prefill chunk per PREFILL slot -> grow/evict -> one batched
+        decode (or propose + verify) step -> retire. Returns the requests
+        that finished this step."""
         finished: list[Request] = []
         self._phase_admit(self._clock())
+        self._phase_cow()
         self._phase_prefill(finished)
         self._phase_decode(self._phase_grow(), finished)
         self.steps += 1
@@ -300,10 +629,48 @@ class ServingEngine:
                 raise RuntimeError(f"engine did not drain within {max_steps} steps")
         return finished
 
+    def recover(self) -> dict[str, int]:
+        """Crash recovery: requeue every in-flight sequence (it restarts from
+        its prompt, so recovered streams stay token-identical to offline
+        greedy) and rebuild the pool's books from what survives: the prefix
+        cache's pages, which were inserted only after their owner's
+        first-token sync. Pending copy-on-write pins are dropped without a
+        free (the reconcile recounts every reference). The draft's pools
+        need nothing: re-prefill rewrites them through the same tables."""
+        inflight = sorted(self.scheduler.running(), key=lambda r: (r.arrival, r.rid))
+        discarded = sum(len(r.generated) for r in inflight)
+        for req in reversed(inflight):
+            self.scheduler.requeue(req)
+        self.scheduler.clear_pending_cow()
+        live = self.prefix_cache.referenced_blocks() if self.prefix_cache is not None else []
+        stats = self.pool.reconcile(live)
+        self.pool.check()
+        self._inc("serve_requeued_total", len(inflight))
+        self._inc("serve_tokens_discarded_total", discarded)
+        return {"requeued": len(inflight), "tokens_discarded": discarded, **stats}
+
     # -- step phases ---------------------------------------------------------
     def _phase_admit(self, now: float) -> list[Request]:
-        self.scheduler.shed_expired(now)
-        return self.scheduler.admit(now)
+        self._inc("serve_requests_shed", len(self.scheduler.shed_expired(now)))
+        admitted = self.scheduler.admit(now)
+        self._inc("serve_requests_admitted", len(admitted))
+        return admitted
+
+    def _phase_cow(self) -> None:
+        """Copy each partially adopted cached block into its adopter's
+        private block before the adopter's first prefill chunk reads or
+        writes it; the source's pin is dropped either way."""
+        if self.prefix_cache is None:
+            return
+        for src, dst, req in self.scheduler.take_pending_cow():
+            if req.state is RequestState.PREFILL:
+                self._fwd.copy_block(self._kv, src, dst)
+                if self._spec is not None:
+                    # The draft's pools ride the same block tables.
+                    self._spec.copy_block(src, dst)
+                self._record_writes([dst])
+                self.prefix_cache.note_cow()
+            self.pool.free([src])
 
     def _phase_prefill(self, finished: list[Request]) -> None:
         for req in list(self.scheduler.running()):
@@ -312,20 +679,28 @@ class ServingEngine:
 
     def _phase_grow(self) -> list[Request]:
         """Mandatory KV growth for every DECODE slot: feeding a token at
-        position length-1 needs blocks_for(length) blocks before the step."""
+        position length-1 needs blocks_for(length) blocks before the step.
+        With a draft, a pool that cannot cover the verify batch sheds the
+        requester as ``spec_overflow``."""
+        shed_reason = "spec_overflow" if self._spec is not None else "evicted"
         for req in list(self.scheduler.running()):
             if req.state is not RequestState.DECODE:
                 continue
             while len(req.blocks) < self.pool.blocks_for(req.length):
-                if not self.scheduler.grow(req):
+                if not self.scheduler.grow(req, shed_reason=shed_reason):
+                    self._inc("serve_requests_shed")
                     break
         return [r for r in self.scheduler.running() if r.state is RequestState.DECODE]
 
     def _phase_decode(self, decoding: list[Request], finished: list[Request]) -> None:
         if decoding and self.scheduler.hold_decode(len(decoding)):
+            self._inc("serve_decode_held_steps")
             decoding = []
         if decoding:
-            self._plain_decode(decoding, finished)
+            if self._spec is not None and not self.spec_suspended:
+                self._spec_decode(decoding, finished)
+            else:
+                self._plain_decode(decoding, finished)
 
     def _gather_width(self, blocks_held: int) -> int:
         """Block-table width for this step: the power-of-two bucket covering
@@ -345,20 +720,100 @@ class ServingEngine:
             tokens[s] = req.generated[-1]
             active[s] = True
         tables = tables[:, : self._gather_width(max(len(r.blocks) for r in decoding))]
-        next_tok = self._fwd.decode_step(
-            self._kv, self._tensor(tables), self._tensor(lengths),
-            self._tensor(tokens), self._tensor(active), use_kernel=e.use_kernel,
-        )
+        next_tok = self._decode_fn(tables, lengths, tokens, active)
         BS = e.block_size
         self._record_writes({req.blocks[(req.length - 1) // BS] for req in decoding})
-        self.decode_steps += 1
+        self._inc("serve_decode_steps")
         next_np = next_tok.cpu().numpy()  # the one host sync per decode step
         now = self._clock()
         for req in decoding:
             tok = int(next_np[req.slot])
             req.generated.append(tok)
+            self._inc("serve_tokens_generated")
             if self._done(req, tok):
                 self._finish(req, now, finished)
+
+    def _spec_decode(self, decoding: list[Request], finished: list[Request]) -> None:
+        """One speculative iteration: plan each slot's proposal budget
+        (extra KV from the free list only: a speculative tail never evicts
+        a peer), run the draft's propose loop, verify the batch in one step,
+        emit the longest exact-greedy-match prefix plus the target's own
+        next token, and roll surplus tail blocks back to the free list."""
+        e = self.engine
+        K, BS = e.spec_k, e.block_size
+        tables = np.zeros((e.max_slots, e.max_blocks_per_seq), np.int64)
+        lengths = np.zeros((e.max_slots,), np.int64)
+        last = np.zeros((e.max_slots,), np.int64)
+        n_prop = np.zeros((e.max_slots,), np.int64)
+        active = np.zeros((e.max_slots,), bool)
+        for req in decoding:
+            s = req.slot
+            # Never propose past the request's remaining budget.
+            n = min(K, req.max_new_tokens - len(req.generated) - 1)
+            if n > 0:
+                # Verify writes positions length-1 .. length-1+n.
+                need = self.pool.blocks_for(req.length + n) - len(req.blocks)
+                if need > 0:
+                    got = self.pool.alloc(need)
+                    if got is None and self.prefix_cache is not None:
+                        # Unreferenced cache branches go before the budget.
+                        if self.prefix_cache.evict(need - self.pool.available):
+                            got = self.pool.alloc(need)
+                    if got is not None:
+                        req.blocks.extend(got)
+                    else:
+                        n = min(n, len(req.blocks) * BS - req.length)
+                        self._inc("spec_degraded_total")
+            tables[s, : len(req.blocks)] = req.blocks
+            lengths[s] = req.length
+            last[s] = req.generated[-1]
+            n_prop[s] = max(n, 0)
+            active[s] = True
+        tables = tables[:, : self._gather_width(max(len(r.blocks) for r in decoding))]
+        props, draft_steps = self._spec.propose(tables, lengths, last, n_prop, active)
+        self._inc("spec_draft_steps", draft_steps)
+        tokens = np.zeros((e.max_slots, K + 1), np.int64)
+        tokens[:, 0] = last
+        tokens[:, 1:] = props
+        greedy = self._verify_fn(tables, lengths, tokens, n_prop + 1, active)
+        touched: set[int] = set()
+        for req in decoding:
+            n_fed = int(n_prop[req.slot]) + 1
+            lo = (req.length - 1) // BS
+            hi = min((req.length - 1 + n_fed - 1) // BS, len(req.blocks) - 1)
+            touched.update(req.blocks[lo : hi + 1])
+        self._record_writes(touched)
+        self._inc("serve_decode_steps")
+        self._inc("spec_verify_steps")
+        greedy_np = greedy.cpu().numpy()  # [S, W]: the accept loop runs on the host
+        now = self._clock()
+        for req in decoding:
+            s = req.slot
+            n_p = int(n_prop[s])
+            g = greedy_np[s]
+            # g[i] is the target's token after the first i proposals.
+            n = 0
+            while n < n_p and int(props[s, n]) == int(g[n]):
+                n += 1
+            emitted = 0
+            for i in range(n + 1):
+                tok = int(g[i])
+                req.generated.append(tok)
+                self._inc("serve_tokens_generated")
+                if i < n:
+                    emitted += 1
+                if self._done(req, tok):
+                    self._finish(req, now, finished)
+                    break
+            self._inc("spec_proposed_total", n_p)
+            self._inc("spec_accepted_total", emitted)
+            self._inc("spec_rollback_total", n_p - emitted)
+            if req.state is RequestState.DECODE:
+                # Keep the cover the next step's growth would demand; K/V
+                # past the accepted prefix is overwritten before it becomes
+                # causally visible.
+                freed = self.scheduler.shrink(req, self.pool.blocks_for(req.length))
+                self._inc("spec_blocks_rolled_back_total", len(freed))
 
     def _prefill_one(self, req: Request, finished: list[Request]) -> None:
         e = self.engine
@@ -374,7 +829,10 @@ class ServingEngine:
         self._record_writes(
             req.blocks[start // e.block_size : (start + n_valid - 1) // e.block_size + 1]
         )
-        self.prefill_chunks += 1
+        if self._spec is not None:
+            # The draft ingests the same chunk through the same table.
+            self._spec.prefill_chunk(table, chunk, start, n_valid)
+        self._inc("serve_prefill_chunks")
         req.prefilled += n_valid
         if req.prefilled < req.prompt_len:
             return
@@ -383,11 +841,24 @@ class ServingEngine:
         req.state = RequestState.DECODE
         req.generated.append(tok)
         req.t_first_token = self._clock()
+        self._inc("serve_tokens_generated")
+        if self.prefix_cache is not None:
+            # The full prompt blocks are frozen from here on (the request
+            # writes positions >= prompt_len only); the sync above proves
+            # their writes landed. The tail block is indexed at finish.
+            n_full = req.prompt_len // e.block_size
+            if n_full:
+                self.prefix_cache.insert(req.prompt, req.blocks, n_full * e.block_size)
         if self._done(req, tok):
             self._finish(req, req.t_first_token, finished)
 
     def _record_writes(self, blocks: Iterable[int]) -> None:
-        self.pool.record_fill([b for b in blocks if b != SCRATCH_BLOCK])
+        """Log a step's KV writes against the pool's per-block epochs; data
+        and scales move together on int8 pools (``pool.check``)."""
+        blocks = [b for b in blocks if b != SCRATCH_BLOCK]
+        self.pool.record_fill(blocks)
+        if self.pool.quantized:
+            self.pool.record_scale(blocks)
 
     def _done(self, req: Request, tok: int) -> bool:
         if self.eos_id is not None and tok == self.eos_id:
@@ -395,5 +866,10 @@ class ServingEngine:
         return len(req.generated) >= req.max_new_tokens
 
     def _finish(self, req: Request, now: float, finished: list[Request]) -> None:
+        if self.prefix_cache is not None and req.prompt_len % self.engine.block_size:
+            # The prompt's tail block is frozen only now; index it before the
+            # release drops the request's own reference.
+            self.prefix_cache.insert(req.prompt, req.blocks, req.prompt_len)
         self.scheduler.finish(req, now)
         finished.append(req)
+        self._inc("serve_requests_completed")

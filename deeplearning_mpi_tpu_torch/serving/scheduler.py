@@ -1,8 +1,8 @@
 """Continuous-batching scheduler: admission, deadlines, eviction.
 
 A copy of ``deeplearning_mpi_tpu/serving/scheduler.py`` (pure host-side
-Python) importing this package's ``kv_pool``; the metrics registry hooks
-are left out.
+Python) importing this package's ``kv_pool``; the registry's shed counters
+go to a plain dict (``counters``) under the reference's names.
 
 The batching model the offline CLI uses — collect a batch, run it to
 completion, collect the next — leaves decode slots idle from the moment
@@ -64,7 +64,14 @@ import numpy as np
 
 from deeplearning_mpi_tpu_torch.serving.kv_pool import PagedKVPool
 
-__all__ = ["Request", "RequestState", "Scheduler"]
+__all__ = ["Request", "RequestState", "Scheduler", "labeled"]
+
+
+def labeled(name: str, **labels: str) -> str:
+    """The reference registry's labeled counter name, ``name{k="v",...}``
+    (keys sorted)."""
+    inner = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+    return f"{name}{{{inner}}}"
 
 
 class RequestState(enum.Enum):
@@ -159,6 +166,7 @@ class Scheduler:
         prefix_cache: Any = None,
         tenants: dict[str, dict[str, Any]] | None = None,
         brownout_min_deadline_s: float = 0.25,
+        counters: dict[str, int] | None = None,
     ) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -175,6 +183,11 @@ class Scheduler:
         self.slots: list[Optional[Request]] = [None] * max_slots
         self.shed_count = 0
         self.evicted_count = 0
+        #: ``serve_shed_total`` (plain and by reason) and, for door policy,
+        #: ``serve_tenant_shed_total`` by tenant; the engine passes its own
+        #: counters dict
+        self.counters = counters if counters is not None else {}
+        self.counters.setdefault("serve_shed_total", 0)
         #: optional RadixPrefixCache (serving/prefix_cache.py) consulted at
         #: admission; shared with the engine, and in the disaggregated
         #: topology with the sibling role's scheduler.
@@ -546,3 +559,8 @@ class Scheduler:
         req.state = RequestState.SHED
         req.shed_reason = reason
         self.shed_count += 1
+        names = ["serve_shed_total", labeled("serve_shed_total", reason=reason)]
+        if reason in ("tenant_budget", "brownout"):
+            names.append(labeled("serve_tenant_shed_total", tenant=req.tenant))
+        for name in names:
+            self.counters[name] = self.counters.get(name, 0) + 1

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the GPU; the decode
-paths (ragged prompts, beam search) on the card against the CPU plain run.
+paths (ragged prompts, beam search) on the card against the CPU plain run;
+the serving engine's CUDA graphs against its eager steps, and its int8 KV
+decode (K4 on int8 pages) against the CPU plain path.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -423,3 +425,112 @@ def test_beam_and_ragged_decode_on_the_card_equal_the_cpu_plain_run(cuda, what):
     assert fd.flash_decode_cuda.launches > 0
     assert (fa.flash_attention_cuda.launches > 0) == (what != "ragged")
     assert torch.equal(got.cpu(), want)
+
+
+def _paged_pair(kv_dtype=None):
+    """``_decode_pair``'s models with a ``PagedForward`` each and seeded
+    pools (int8 pools: ``ops.quant``'s scheme) on both devices, with the
+    tables, lengths, tokens and active rows of one decode step."""
+    from deeplearning_mpi_tpu_torch.ops.quant import quantize_kv
+    from deeplearning_mpi_tpu_torch.serving.engine import EngineConfig, PagedForward
+    from deeplearning_mpi_tpu_torch.serving.kv_pool import init_kv_buffers
+
+    cpu, gpu = _decode_pair()
+    e = EngineConfig(max_slots=4, block_size=16, num_blocks=40, max_blocks_per_seq=8,
+                     kv_dtype=kv_dtype)
+    storage = torch.int8 if kv_dtype else torch.float32
+    c = cpu.config
+    g = torch.Generator().manual_seed(3)
+    kv = init_kv_buffers(c.num_layers, e.num_blocks, e.block_size, c.kv_heads, c.head_dim,
+                         storage, "cpu")
+    rows = [torch.randn(kv[0].shape, generator=g) for _ in range(2)]
+    if kv_dtype:
+        (kv[0][:], kv[2][:]), (kv[1][:], kv[3][:]) = (quantize_kv(r) for r in rows)
+    else:
+        kv[0][:], kv[1][:] = rows
+    step = (torch.randperm(39, generator=g)[:32].reshape(4, 8) + 1,
+            torch.tensor([100, 17, 128, 61]), torch.randint(1, 256, (4,), generator=g),
+            torch.tensor([True, True, False, True]))
+    sides = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        sides[name] = (PagedForward(model, e, kv_dtype=storage if kv_dtype else None),
+                       tuple(t.to(name) for t in kv), tuple(t.to(name) for t in step))
+    return sides
+
+
+@pytest.mark.parametrize("width", [2, 8])
+def test_graphed_decode_step_equals_eager_bit_for_bit(cuda, width):
+    """One decode step captured as a CUDA graph at a gather width (the
+    engine's warmup) gives the eager step's logits bit for bit, and K4's
+    counted launches include the replay's (one a layer)."""
+    from deeplearning_mpi_tpu_torch.compiler.aot import CapturedProgram
+
+    fwd, kv, (tables, lengths, tokens, active) = _paged_pair()["cuda"]
+    tables, lengths = tables[:, :width].contiguous(), torch.clamp(lengths, max=width * 16)
+    args = (tables, lengths, tokens, active)
+    eager = fwd.decode_logits(kv, *args)
+    layers = fwd.config.num_layers
+    before = fd.flash_decode_cuda.launches
+    prog = CapturedProgram(lambda *a: fwd.decode_logits(kv, *a), args,
+                           pool=torch.cuda.graph_pool_handle())
+    assert fd.flash_decode_cuda.launches == before + layers  # the eager warm run only
+    assert prog.graph is not None
+    assert prog.launches == {(fd.flash_decode_cuda, "launches"): layers}
+    got = prog(*(t.cpu().numpy() for t in args)).clone()
+    again = prog(*args).clone()
+    torch.cuda.synchronize()
+    assert fd.flash_decode_cuda.launches == before + 3 * layers
+    assert torch.equal(got, eager) and torch.equal(again, eager)
+
+
+def test_int8_engine_decode_on_the_card_equals_the_cpu_plain_path(cuda):
+    """int8 pools: the card hands K4 the int8 pages and their scales; the
+    CPU dequantizes in the gather and runs the masked matmul. Logits within
+    1e-4 (absolute, f32; K4 and the matmul round differently), the same
+    greedy tokens, one int8 K4 launch a layer."""
+    sides = _paged_pair(kv_dtype="int8")
+    fwd, kv, args = sides["cpu"]
+    want = fwd.decode_logits(kv, *args)
+    fwd, kv, args = sides["cuda"]
+    before = fd.flash_decode_cuda.int8_launches
+    got = fwd.decode_logits(kv, *args)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_cuda.int8_launches == before + fwd.config.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+
+
+@pytest.mark.parametrize("mode", ["plain", "speculative_int8_prefix"])
+def test_warmed_engine_on_the_card_equals_the_eager_engine(cuda, mode):
+    """The engine warmed by CUDA-graph capture serves the streams of the
+    unwarmed engine and of the CPU engine; traffic captures nothing."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.transformer import self_draft
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+
+    cpu, gpu = _decode_pair()
+    kw = dict(spec_k=3, kv_dtype="int8", prefix_cache=True) if mode != "plain" else {}
+    e = EngineConfig(max_slots=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                     prefill_chunk=32, **kw)
+    rng = np.random.default_rng(0)
+    pre = rng.integers(1, 256, size=40)
+    prompts = [np.concatenate([pre, rng.integers(1, 256, size=n)]) for n in (3, 30, 61, 9, 17)]
+    streams = []
+    for model, warm in ((cpu, False), (gpu, False), (gpu, True)):
+        engine = ServingEngine(model, e, draft=self_draft(model, 1) if kw else None)
+        if warm:
+            engine.warmup()
+        captures = engine.captures
+        fd.flash_decode_cuda.launches = 0
+        reqs = [engine.submit(p, 12) for p in prompts]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        assert engine.captures == captures
+        if model is gpu:
+            assert fd.flash_decode_cuda.launches > 0
+        engine.pool.check()
+        streams.append([r.generated for r in reqs])
+    assert streams[1] == streams[2]
+    if mode == "plain":
+        assert streams[0] == streams[1]

@@ -5,7 +5,8 @@ An AST scan of every module of ``deeplearning_mpi_tpu_torch`` and of
 ``sys.modules`` imports the port's serving engine and generation and runs
 one tiny engine step, one train step with flash attention, a checkpoint
 save and verified restore, a beam search and an int8 conversion on the
-CPU, and imports the CLIs.
+CPU, then a warmed engine with a draft, int8 KV pools and the prefix
+cache, and imports the CLIs.
 """
 
 import ast
@@ -69,6 +70,12 @@ def test_port_runs_with_jax_blocked():
         "assert epoch == 0 and tree_digests(r.arrays()) == tree_digests(s.arrays())\n"
         "assert beam_search(m, torch.arange(1, 6)[None], max_new_tokens=3, num_beams=2).shape == (1, 8)\n"
         "assert any(k.endswith('.kernel') for k in quantize_lm_params(m.state_dict()))\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import self_draft\n"
+        "e = ServingEngine(m, EngineConfig(spec_k=2, kv_dtype='int8', prefix_cache=True), draft=self_draft(m, 1))\n"
+        "e.warmup()\n"
+        "r = e.submit(np.arange(1, 6, dtype=np.int32), 3)\n"
+        "e.run_until_idle()\n"
+        "assert r.generated and e.counters['spec_proposed_total'] > 0\n"
         "import deeplearning_mpi_tpu_torch.cli.generate, deeplearning_mpi_tpu_torch.cli.train_lm\n"
         "print('ok')\n"
     )
