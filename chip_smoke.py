@@ -83,7 +83,30 @@ Phases, each printed on its own line; any failure exits non-zero:
     pages; (d) a warmed engine (CUDA graphs) against the eager one, in
     turns: equal streams, no capture during traffic, K4's counted launches
     including the replays', TTFT / TPOT and the device-busy share of each;
-    then K4 on int8 K/V timed at phase 6's serving decode shape.
+    then K4 on int8 K/V timed at phase 6's serving decode shape;
+12. the original workloads, in a temporary directory under ``build/``, each
+    CLI joining NCCL at world size 1 through a file store there: (a)
+    ``cli.hello_world`` (broadcast, single ring shift, round trip,
+    all-reduce); (b) ``cli.train_resnet --synthetic``: ResNet-18 (imagenet
+    stem, 10 classes, 11,181,642 parameters), global batch 128, SGD 0.1 /
+    0.9 / 1e-5, 2048 samples for 2 epochs (32 steps), float32 then bf16;
+    (c) ``cli.train_unet --synthetic``: the reference's UNet at full width,
+    256x256, batch 16, Adam 1e-4 with clip 1.0, BCE, 160 samples (8 steps
+    an epoch after the 20% split) for 2 epochs, float32 then bf16. Bars for
+    each: every loss finite, the mean of the last three below the first
+    (memorisation of a synthetic set), exactly one gradient all-reduce per
+    optimizer step (``collectives.counts``), and, in float32, the card's
+    step-1 loss within 1e-4 (relative) of a CPU copy's on the same weights
+    and batch (ResNet B8, UNet B4, TF32 off) and every gradient within 1e-4
+    relative L2 (the ResNet's in float32; the UNet's in float64, its
+    float32 ones reported: a pre-activation near a ReLU's kink lands on
+    opposite sides on the two devices). Reported: step median over steps
+    3-end, images/s, MFU (the reference's FLOP counts over 67 TFLOP/s f32
+    or 989 bf16), peak memory, eval accuracy / Dice, one profiled step's
+    busy share and top device ops; (d) the float32 ResNet's checkpoint
+    restored verified: ``tree_digests`` equal to the trained state's,
+    ``batch_stats`` included, and ``--eval_only`` reports the last eval's
+    accuracy.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -1275,6 +1298,308 @@ def time_k4_int8(torch, gen, launches: int, fills, k4_len) -> dict:
     return row
 
 
+# -- phase 12 ----------------------------------------------------------------
+#: The reference's analytic FLOP counts (``telemetry/flops.py``), copied:
+#: the port has no telemetry package yet.
+RESNET_STAGES = {"resnet18": ((2, 2, 2, 2), False), "resnet34": ((3, 4, 6, 3), False),
+                 "resnet50": ((3, 4, 6, 3), True), "resnet101": ((3, 4, 23, 3), True),
+                 "resnet152": ((3, 8, 36, 3), True)}
+
+
+def _conv_flops(k: int, cin: int, cout: int, oh: float, ow: float) -> float:
+    return 2.0 * k * k * cin * cout * oh * ow
+
+
+def resnet_train_flops(arch: str, batch: int, image_size: int = 32, *, num_classes: int = 10,
+                       stem: str = "cifar") -> float:
+    """3x the forward FLOPs of one ResNet batch: stem, the stages' Basic or
+    Bottleneck blocks with their projections, the head."""
+    stages, bottleneck = RESNET_STAGES[arch]
+    s = float(image_size)
+    flops = 0.0
+    cin = 3
+    if stem == "imagenet":
+        s /= 2
+        flops += _conv_flops(7, cin, 64, s, s)
+        s /= 2
+    else:
+        flops += _conv_flops(3, cin, 64, s, s)
+    cin = 64
+    for stage_idx, num_blocks in enumerate(stages):
+        width = 64 * (2 ** stage_idx)
+        for block_idx in range(num_blocks):
+            stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
+            s_out = s / stride
+            if bottleneck:
+                cout = width * 4
+                flops += _conv_flops(1, cin, width, s_out, s_out)
+                flops += _conv_flops(3, width, width, s_out, s_out)
+                flops += _conv_flops(1, width, cout, s_out, s_out)
+            else:
+                cout = width
+                flops += _conv_flops(3, cin, width, s_out, s_out)
+                flops += _conv_flops(3, width, cout, s_out, s_out)
+            if stride != 1 or cin != cout:
+                flops += _conv_flops(1, cin, cout, s_out, s_out)
+            cin, s = cout, s_out
+    flops += 2.0 * cin * num_classes
+    return 3.0 * batch * flops
+
+
+def unet_train_flops(batch: int, image_size: int, *, features=(64, 128, 256, 512),
+                     in_channels: int = 1, out_channels: int = 2, dim: int = 2) -> float:
+    """3x the forward FLOPs of one UNet batch: the encoder's DoubleConvs,
+    the bottleneck, the decoder's transposed convs and DoubleConvs, the head."""
+    def conv(k_vol: float, cin: int, cout: int, vox: float) -> float:
+        return 2.0 * k_vol * cin * cout * vox
+
+    k3, kt = 3.0 ** dim, 2.0 ** dim
+    size = float(image_size)
+    vox = size ** dim
+    flops, cin, enc_vox = 0.0, in_channels, []
+    for f in features:
+        flops += conv(k3, cin, f, vox) + conv(k3, f, f, vox)
+        enc_vox.append(vox)
+        cin = f
+        size /= 2
+        vox = size ** dim
+    bott = features[-1] * 2
+    flops += conv(k3, cin, bott, vox) + conv(k3, bott, bott, vox)
+    cin = bott
+    for f, up_vox in zip(reversed(features), reversed(enc_vox)):
+        flops += conv(kt, cin, f, up_vox)
+        flops += conv(k3, 2 * f, f, up_vox) + conv(k3, f, f, up_vox)
+        cin = f
+    flops += conv(1.0, cin, out_channels, enc_vox[0])
+    return 3.0 * batch * flops
+
+
+#: Phase 12's workloads: the JAX CLIs' flags at the reference's widths and
+#: per-process batches, synthetic data, 2 epochs each.
+P12_RESNET = ["--synthetic", "--arch", "resnet18", "--stem", "imagenet", "--batch_size", "128",
+              "--learning_rate", "0.1", "--train_samples", "2048", "--num_epochs", "2"]
+P12_UNET = ["--synthetic", "--image_size", "256", "--batch_size", "16", "--learning_rate", "1e-4",
+            "--train_samples", "160", "--num_epochs", "2", "--loss", "bce"]
+
+
+def _as_float64(model):
+    """A float64 copy of a CNN of the port (each layer computes in its
+    ``dtype``)."""
+    import copy
+
+    import torch
+
+    model = copy.deepcopy(model).double()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return model
+
+
+def _card_vs_cpu(torch, task: str, run, batch_rows: int, dtypes=("float32",)) -> dict:
+    """Step-1 loss and every parameter gradient of the card's model (train
+    mode, BatchNorm over the live NCCL group) against a copy on the CPU, on
+    the same weights and the first ``batch_rows`` rows of the first batch,
+    in each of ``dtypes`` (TF32 off): relative errors."""
+    import copy
+
+    from deeplearning_mpi_tpu_torch.models.norm import set_group
+    from deeplearning_mpi_tpu_torch.train.trainer import _INPUTS, _loss_fn
+
+    batch = next(iter(run.train_loader.epoch(0)))
+    batch = {k: v[:batch_rows] for k, v in batch.items()}
+    loss_fn = _loss_fn(task)
+    names = [n for n, _ in run.trainer.state.model.named_parameters()]
+    report = {"rows": batch_rows}
+    for dtype in dtypes:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = run.trainer.state.model
+            model = (copy.deepcopy(model) if dtype == "float32" else _as_float64(model)).to(dev)
+            model.train()
+            set_group(model, run.trainer.group if dev == "cuda" else None)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            x = b[_INPUTS[task]].to(getattr(torch, dtype))
+            loss = loss_fn(model(x), b)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[dev] = (loss.detach().double().cpu(), [g.detach().double().cpu() for g in grads])
+        rel = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+               for n, a, b in zip(names, out["cuda"][1], out["cpu"][1])}
+        worst = max(rel, key=rel.get)
+        report[dtype] = {
+            "loss_card": float(out["cuda"][0]), "loss_cpu": float(out["cpu"][0]),
+            "loss_rel": float((out["cuda"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs()),
+            "worst_grad": worst, "worst_grad_rel": rel[worst],
+            "median_grad_rel": sorted(rel.values())[len(rel) // 2], "tensors": len(rel)}
+    return report
+
+
+def train_workload(torch, card: str, cli, flags: list[str], *, task: str, dtype: str,
+                   flops_per_step: float, rdzv: str, model_dir: str | None, check_rows: int,
+                   metric: str, grad_bar_dtype: str = "float32") -> dict:
+    """One of 12b / 12c: the CLI's run built over NCCL at world size 1,
+    every step timed (synchronised), the gradient mean counted, one step
+    profiled; the bars of phase 12. The card-vs-CPU step holds the loss in
+    float32 and the gradients in ``grad_bar_dtype`` to 1e-4 (relative);
+    float32 gradients are reported either way."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.resilience import tree_digests
+    from deeplearning_mpi_tpu_torch.runtime import collectives
+    from deeplearning_mpi_tpu_torch.utils import config
+
+    argv = flags + ["--device", "cuda", "--dtype", dtype, "--coordinator", f"file://{rdzv}",
+                    "--num_processes", "1", "--process_id", "0"]
+    if model_dir is not None:
+        argv += ["--model_dir", model_dir]
+    run = cli.build(argv)
+    label = f"12{'b' if task == 'classification' else 'c'} {cli.__name__.split('.')[-1]} {dtype}"
+    out = {"dtype": dtype, "card": card}
+    if dtype == "float32":
+        dtypes = tuple(dict.fromkeys(("float32", grad_bar_dtype)))
+        out["card_vs_cpu"] = check = _card_vs_cpu(torch, task, run, check_rows, dtypes)
+        for dt in dtypes:
+            c = check[dt]
+            bar = "tol 1e-4" if dt == grad_bar_dtype else "reported, no bar"
+            log(f"{label}: card vs CPU step 1 (B{check_rows}, {dt}, TF32 off): loss "
+                f"{c['loss_card']:.8f} / {c['loss_cpu']:.8f} (rel {c['loss_rel']:.2e}); gradients "
+                f"relative L2 max {c['worst_grad_rel']:.2e} ({c['worst_grad']}), median "
+                f"{c['median_grad_rel']:.2e} over {c['tensors']} tensors ({bar})")
+        require(check["float32"]["loss_rel"] <= 1e-4,
+                f"{label}: the card's step-1 loss differs from the CPU's: {check}")
+        require(check[grad_bar_dtype]["worst_grad_rel"] <= 1e-4,
+                f"{label}: the card's {grad_bar_dtype} gradients differ from the CPU's: {check}")
+    trainer = run.trainer
+    inner = trainer.train_step
+    times, losses = [], []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+
+    trainer.train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    collectives.counts.clear()
+    t0 = time.perf_counter()
+    config.execute(run)
+    wall = time.perf_counter() - t0
+    grad_means = collectives.counts["all_reduce_mean"]
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = len(times)
+    step_s = sorted(times[2:])[len(times[2:]) // 2]
+    batch = run.train_loader.batch_size
+    ev = trainer.history[-1]
+    out.update({"losses": losses, "step_times_s": times, "step_s_median": step_s,
+                "images_per_s": batch / step_s, "model_flops_per_step": flops_per_step,
+                "mfu": flops_per_step / step_s / PEAK_FLOPS[dtype], "peak_memory_above_start": peak,
+                "grad_all_reduce_calls": grad_means, "steps": steps, "wall_s": wall,
+                "eval": {k: v for k, v in ev.items() if k.startswith("eval_")}})
+    log(f"{label} [{card}]: losses {[round(x, 4) for x in losses]}")
+    log(f"{label} [{card}]: step median {1e3 * step_s:.2f} ms (steps 3-{steps}), "
+        f"{out['images_per_s']:.1f} images/s, MFU {100 * out['mfu']:.3f}% of "
+        f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s ({flops_per_step:.4e} model FLOPs a step), "
+        f"peak memory {peak / 2**30:.2f} GiB above the start, eval {metric} "
+        f"{ev.get('eval_' + metric, float('nan')):.4f}, {grad_means} gradient all-reduces in "
+        f"{steps} steps")
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    require(sum(losses[-3:]) / 3 < losses[0], f"{label}: loss did not fall: {losses}")
+    require(grad_means == steps, f"{label}: {grad_means} gradient all-reduces in {steps} steps")
+    require(("eval_" + metric) in ev, f"{label}: no eval {metric} in {ev}")
+    out["final_digests"] = tree_digests(trainer.state.arrays())
+    last = next(iter(run.train_loader.epoch(0)))
+    out["profile"] = device_profile(torch, lambda: inner(trainer.state, last),
+                                    f"{label} [{card}] profile (one step)")
+    out["run"] = run
+    return out
+
+
+def original_workloads(torch, card: str) -> dict:
+    """Phase 12: hello_world over NCCL, ResNet-18 and the UNet trained through
+    their CLIs over NCCL at world size 1 (f32, then bf16), and the ResNet's
+    checkpoint restored verified and evaluated again (12a-12d)."""
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import hello_world, train_resnet, train_unet
+    from deeplearning_mpi_tpu_torch.resilience import tree_digests
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+    from deeplearning_mpi_tpu_torch.train import create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase12-", dir=os.path.join(ROOT, "build"))
+    out: dict = {"card": card}
+    try:
+        # 12a: the transport checks over NCCL, world size 1.
+        t0 = time.perf_counter()
+        res = hello_world.run(["--device", "cuda", "--coordinator",
+                               f"file://{os.path.join(work, 'hello')}", "--num_processes", "1",
+                               "--process_id", "0"])
+        log(f"12a hello_world over NCCL: {res} in {time.perf_counter() - t0:.1f}s")
+        require(res.ok, f"12a: hello_world failed: {res}")
+        out["hello_world"] = {"ok": res.ok, "n_devices": res.n_devices}
+
+        model_dir = os.path.join(work, "resnet")
+        rn_flops = resnet_train_flops("resnet18", 128, 32, stem="imagenet")
+        un_flops = unet_train_flops(16, 256, in_channels=3, out_channels=1)
+        for dtype in ("float32", "bfloat16"):
+            r = train_workload(torch, card, train_resnet, P12_RESNET, task="classification",
+                               dtype=dtype, flops_per_step=rn_flops,
+                               rdzv=os.path.join(work, f"rn-{dtype}"),
+                               model_dir=model_dir if dtype == "float32" else None,
+                               check_rows=8, metric="accuracy")
+            run = r.pop("run")
+            if dtype != "float32":
+                r.pop("final_digests")
+            if dtype == "float32":
+                # 12d: save, verified restore, --eval_only.
+                n_params = sum(p.numel() for p in run.trainer.state.model.parameters())
+                require(n_params == 11_181_642, f"12b: ResNet-18 has {n_params} parameters")
+                ck = Checkpointer(os.path.join(model_dir, "resnet_distributed"))
+                template = create_train_state(
+                    train_resnet.build_model(run.args, "cuda"), run.trainer.state.tx)
+                restored, epoch = ck.restore_verified(template)
+                same = tree_digests(restored.arrays()) == r.pop("final_digests")
+                ev = train_resnet.train(
+                    P12_RESNET + ["--device", "cuda", "--model_dir", model_dir, "--eval_only",
+                                  "--coordinator", f"file://{os.path.join(work, 'eval')}",
+                                  "--num_processes", "1", "--process_id", "0"]).history[-1]
+                want = r["eval"]["eval_accuracy"]
+                log(f"12d checkpoint: restored verified epoch {epoch}, tree_digests equal "
+                    f"(batch_stats included: {'batch_stats' in restored.arrays()}): {same}; "
+                    f"--eval_only accuracy {ev['accuracy']:.4f} against the last eval's "
+                    f"{want:.4f}")
+                require(same and "batch_stats" in restored.arrays(),
+                        "12d: the restored state's digests differ from the trained state's")
+                require(ev["accuracy"] == want, f"12d: --eval_only accuracy {ev['accuracy']} "
+                        f"!= the last eval's {want}")
+                out["checkpoint"] = {"epoch": epoch, "digests_equal": same,
+                                     "eval_only_accuracy": ev["accuracy"],
+                                     "last_eval_accuracy": want}
+            bootstrap.shutdown()
+            out[f"resnet18_{dtype}"] = r
+        for dtype in ("float32", "bfloat16"):
+            u = train_workload(torch, card, train_unet, P12_UNET, task="segmentation",
+                               dtype=dtype, flops_per_step=un_flops,
+                               rdzv=os.path.join(work, f"un-{dtype}"), model_dir=None,
+                               check_rows=4, metric="dice", grad_bar_dtype="float64")
+            u.pop("run")
+            u.pop("final_digests")
+            bootstrap.shutdown()
+            out[f"unet_{dtype}"] = u
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -1337,6 +1662,10 @@ def main() -> int:
     log(f"phase 11 prefix cache, speculative decoding, int8 KV and warmup OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    workloads = original_workloads(torch, card)
+    log(f"phase 12 hello_world, ResNet-18 and UNet training over NCCL, checkpoint OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -1349,6 +1678,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
+                       "workloads": workloads,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

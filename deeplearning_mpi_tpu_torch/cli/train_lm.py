@@ -116,8 +116,7 @@ def train(argv: list[str] | None = None):
     from deeplearning_mpi_tpu_torch import resolve_device
     from deeplearning_mpi_tpu_torch.data import ByteTextDataset, Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
-    from deeplearning_mpi_tpu_torch.resilience import GracefulShutdown, Preempted
-    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+    from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
     from deeplearning_mpi_tpu_torch.utils import config
 
@@ -157,8 +156,7 @@ def train(argv: list[str] | None = None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
                           return_prehead=args.loss_chunk > 0).init_weights(args.random_seed)
-    lr = config.build_lr(args, train_loader.steps_per_epoch())
-    tx = build_optimizer(args.optimizer, lr, weight_decay=args.weight_decay, clip_norm=1.0)
+    tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=1.0)
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
     log = lambda msg: print(msg, flush=True)  # noqa: E731
     start_epoch = 0
@@ -171,17 +169,7 @@ def train(argv: list[str] | None = None):
     trainer = Trainer(state, "lm", eval_every=args.eval_every, grad_accum=args.grad_accum,
                       loss_chunk=args.loss_chunk, ema_decay=args.ema, log=log,
                       checkpointer=checkpointer)
-    if args.eval_only:
-        trainer.report_eval(trainer.evaluate(eval_loader))
-        return trainer
-    with GracefulShutdown() as shutdown:
-        trainer.shutdown = shutdown
-        try:
-            trainer.fit(train_loader, args.num_epochs, eval_loader=eval_loader,
-                        start_epoch=start_epoch)
-        except Preempted as p:
-            log(f"exiting after preemption ({p})")
-    return trainer
+    return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,13 +1,15 @@
-"""JAX TransformerLM param and optimizer trees -> this package's tensors.
+"""JAX param and optimizer trees -> this package's tensors.
 
-The inverse direction of the reference's ``utils/torch_import.py``, for the
-LM: it lets both packages compute the same function on the same weights,
-and a run trained by the JAX package continue in this one. Input is the
-flax ``params`` tree (or the optax state) with numpy leaves
-(``jax.device_get`` it first — this module never imports JAX). Flax
-``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style weights are
-``[out, in]``, so every projection is transposed. The tied head has no
-tensor of its own; an untied ``lm_head`` kernel becomes ``lm_head.weight``.
+The inverse direction of the reference's ``utils/torch_import.py``: it lets
+both packages compute the same function on the same weights, and a run
+trained by the JAX package continue in this one. Input is the flax tree
+(or the optax state) with numpy leaves (``jax.device_get`` it first — this
+module never imports JAX).
+
+The LM: flax ``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style
+weights are ``[out, in]``, so every projection is transposed. The tied
+head has no tensor of its own; an untied ``lm_head`` kernel becomes
+``lm_head.weight``. The CNNs (:func:`cnn_variables_from_jax`): see there.
 """
 
 from __future__ import annotations
@@ -105,4 +107,57 @@ def opt_state_from_jax(opt_state: Any, optimizer: str) -> dict[str, Any]:
                 f"{len(fields.get(name, []))}"
             )
         out[name] = lm_params_from_jax(fields[name][0])
+    return out
+
+
+def _cnn_leaf(module: str, leaf: str, x: Any) -> tuple[str, torch.Tensor]:
+    """One flax leaf of a CNN as ``(torch leaf name, tensor)``, its dtype
+    kept."""
+    t = torch.from_numpy(np.array(x))
+    if module.startswith("BatchNorm"):
+        return {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}[leaf], t
+    if leaf == "bias":
+        return "bias", t
+    if module.startswith("Dense"):
+        return "weight", t.T.contiguous()
+    nd = t.dim() - 2
+    if module.startswith("ConvTranspose"):
+        # flax's transposed conv runs its kernel unflipped over the dilated
+        # input; torch's is the gradient of a conv, which flips it.
+        return "weight", t.flip(list(range(nd))).permute(nd, nd + 1, *range(nd)).contiguous()
+    return "weight", t.permute(nd + 1, nd, *range(nd)).contiguous()
+
+
+def _walk(tree: Mapping[str, Any], path: tuple[str, ...], out: dict[str, torch.Tensor]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk(value, (*path, key), out)
+            continue
+        if not path:
+            raise ValueError(f"leaf {key!r} outside any module")
+        name, t = _cnn_leaf(path[-1], key, value)
+        full = ".".join((*path, name))
+        if full in out:
+            raise ValueError(f"two flax leaves map to {full}")
+        out[full] = t
+
+
+def cnn_variables_from_jax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """Flax ResNet / UNet ``params`` and ``batch_stats`` (numpy leaves) ->
+    ``state_dict`` of the port's model of the same configuration (its
+    modules carry the flax names).
+
+    Conv kernels ``[*k, in, out]`` -> ``[out, in, *k]`` (2-D and 3-D);
+    ConvTranspose kernels flipped on every spatial axis, then ``[in, out,
+    *k]``; Dense kernels transposed; BatchNorm ``scale`` / ``bias`` ->
+    ``weight`` / ``bias`` and ``mean`` / ``var`` -> the running buffers.
+    Every flax leaf becomes exactly one tensor of the leaf's dtype;
+    ``load_state_dict(strict=True)`` then checks that every parameter and
+    buffer is filled. The same mapping takes a gradient tree.
+    """
+    out: dict[str, torch.Tensor] = {}
+    _walk(params, (), out)
+    _walk(batch_stats or {}, (), out)
     return out

@@ -1,9 +1,8 @@
-"""Loss functions of the LM training path.
+"""Loss functions of the LM, classification and segmentation trainers.
 
-Port of ``deeplearning_mpi_tpu/ops/loss.py`` (the parts the LM and
-classification trainers use). Every loss is computed in float32 whatever
-the input dtype: the model runs bf16 matmuls, but the log-softmax and the
-reductions need f32 accumulation.
+Port of ``deeplearning_mpi_tpu/ops/loss.py``. Every loss is computed in
+float32 whatever the input dtype: the model runs bf16 matmuls, but the
+log-softmax and the reductions need f32 accumulation.
 """
 
 from __future__ import annotations
@@ -34,6 +33,40 @@ def softmax_cross_entropy(
     """Mean softmax cross-entropy with integer labels; ``where`` ([B],
     1 = real example) excludes wrap-padded eval rows."""
     return masked_mean(_token_nll(logits, labels), where)
+
+
+def bce_per_image(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-image mean binary cross-entropy on logits, shape ``[B]``:
+    ``max(x, 0) - x*y + log1p(exp(-|x|))``, the stable form."""
+    logits, targets = logits.float(), targets.float()
+    per_elem = torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return per_elem.mean(dim=tuple(range(1, per_elem.dim())))
+
+
+def sigmoid_binary_cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, where: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean binary cross-entropy on logits (``BCEWithLogitsLoss``); ``where``
+    ([B], 1 = real example) excludes wrap-padded eval rows."""
+    return masked_mean(bce_per_image(logits, targets), where)
+
+
+def dice_per_image(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-8) -> torch.Tensor:
+    """Per-image soft Dice loss (1 - soft Dice of the sigmoid), shape ``[B]``."""
+    probs = torch.sigmoid(logits.float())
+    targets = targets.float()
+    axes = tuple(range(1, logits.dim()))
+    intersection = (probs * targets).sum(dim=axes)
+    union = probs.sum(dim=axes) + targets.sum(dim=axes)
+    return 1.0 - (2.0 * intersection + eps) / (union + eps)
+
+
+def dice_loss(
+    logits: torch.Tensor, targets: torch.Tensor, where: torch.Tensor | None = None, *,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Soft Dice loss averaged over the batch; ``where`` as above."""
+    return masked_mean(dice_per_image(logits, targets, eps=eps), where)
 
 
 def lm_cross_entropy(

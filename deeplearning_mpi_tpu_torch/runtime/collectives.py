@@ -1,0 +1,165 @@
+"""Collectives over the process group, on tensors or dicts of tensors.
+
+Port of ``deeplearning_mpi_tpu/runtime/collectives.py``. The reference's
+are XLA collectives named by a mesh axis inside ``shard_map``; these are
+``torch.distributed`` calls over a process group (``None``: the world),
+NCCL on the card and gloo on the CPU. Each returns new tensors and leaves
+its input as it was; a dict is handled leaf by leaf, one collective a leaf.
+
+======================  =====================================================
+reference (XLA)         here (torch.distributed)
+======================  =====================================================
+``all_reduce_sum``      ``all_reduce`` SUM
+``all_reduce_mean``     ``all_reduce`` SUM, divided by the group's size
+``all_gather``          ``all_gather``, concatenated along ``axis``
+``reduce_scatter``      ``reduce_scatter`` (gloo has none: all-reduce, then
+                        this rank's block — the same function)
+``ring_shift``          ``batch_isend_irecv`` to ``rank + offset``
+``broadcast_from``      ``broadcast``
+======================  =====================================================
+
+:func:`all_reduce_sum_autograd` is the one with a backward (it all-reduces
+the gradient): BatchNorm's global-batch moments go through it.
+``counts`` counts the calls of each function (not the leaves), so a caller
+can check how often a path communicated.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+Tree = Any
+
+#: Calls of each collective since the last reset (``counts.clear()``).
+counts: collections.Counter[str] = collections.Counter()
+
+
+def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Tree) -> Tree:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def axis_size(group: dist.ProcessGroup | None = None) -> int:
+    """The group's size — the reference's ``axis_size``."""
+    return dist.get_world_size(group)
+
+
+def _global(group: dist.ProcessGroup | None, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def all_reduce_sum(tree: Tree, group: dist.ProcessGroup | None = None) -> Tree:
+    """Sum across the group."""
+    counts["all_reduce_sum"] += 1
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    return _map(fn, tree)
+
+
+def all_reduce_mean(tree: Tree, group: dist.ProcessGroup | None = None) -> Tree:
+    """Mean across the group: the data-parallel gradient (DDP's average)."""
+    counts["all_reduce_mean"] += 1
+    n = dist.get_world_size(group)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out / n
+
+    return _map(fn, tree)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum_autograd(x: torch.Tensor, group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    """Sum across the group, differentiable (what
+    ``torch.distributed.nn.functional.all_reduce`` computes): the backward
+    all-reduces the incoming gradient, so a term that every rank's loss
+    reads through the sum gets the sum of their gradients."""
+    counts["all_reduce_sum_autograd"] += 1
+    return _AllReduceSum.apply(x, group)
+
+
+def all_gather(tree: Tree, group: dist.ProcessGroup | None = None, *, axis: int = 0) -> Tree:
+    """Every rank's value, concatenated along ``axis`` in rank order."""
+    counts["all_gather"] += 1
+    n = dist.get_world_size(group)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=axis)
+
+    return _map(fn, tree)
+
+
+def reduce_scatter(tree: Tree, group: dist.ProcessGroup | None = None, *, axis: int = 0) -> Tree:
+    """Sum across the group, then keep this rank's block of ``axis`` (which
+    the group's size must divide)."""
+    counts["reduce_scatter"] += 1
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    gloo = dist.get_backend(group) == "gloo"
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[axis] % n:
+            raise ValueError(f"reduce_scatter: axis {axis} of {tuple(x.shape)} not divisible "
+                             f"by the group's {n} ranks")
+        if gloo:
+            total = x.clone()
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+            return total.chunk(n, dim=axis)[rank].contiguous()
+        blocks = [b.contiguous() for b in x.chunk(n, dim=axis)]
+        out = torch.empty_like(blocks[0])
+        dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    return _map(fn, tree)
+
+
+def ring_shift(x: torch.Tensor, group: dist.ProcessGroup | None = None, *,
+               offset: int = 1) -> torch.Tensor:
+    """Send this rank's value ``offset`` steps around the ring (negative:
+    backward) and receive from the opposite neighbour."""
+    counts["ring_shift"] += 1
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    if offset % n == 0:
+        return x.clone()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, _global(group, (rank + offset) % n), group),
+           dist.P2POp(dist.irecv, out, _global(group, (rank - offset) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def broadcast_from(x: torch.Tensor, src: int = 0,
+                   group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    """Every rank receives rank ``src``'s value (``src`` is a rank of the
+    group)."""
+    counts["broadcast_from"] += 1
+    out = x.clone().contiguous()
+    dist.broadcast(out, src=_global(group, src), group=group)
+    return out

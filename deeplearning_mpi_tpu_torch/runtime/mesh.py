@@ -1,0 +1,116 @@
+"""The device mesh: five named axes over the process group.
+
+Port of ``deeplearning_mpi_tpu/runtime/mesh.py``. The axis names and
+``MeshSpec.resolve``'s arithmetic and errors are the reference's;
+:func:`create_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
+with those names (one process a device). In this slice only ``data`` may
+exceed 1: the schedules that shard along the other axes (tensor, pipeline,
+expert, sequence parallelism) are ROADMAP Queue 1 item 8. The reference's
+``order_devices_for_mesh`` (multi-slice TPU placement) has no counterpart
+on GPUs.
+
+The data axis is the reference's ``batch_sharding``: a global batch of
+``B`` rows is cut into ``data`` contiguous blocks, and the process at data
+coordinate ``r`` holds rows ``[r*B/n, (r+1)*B/n)`` (:func:`batch_rows`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+AXIS_DATA = "data"
+AXIS_PIPE = "pipe"
+AXIS_EXPERT = "expert"
+AXIS_SEQ = "seq"
+AXIS_MODEL = "model"
+
+#: All mesh axes, outermost first (the reference's order).
+MESH_AXES = (AXIS_DATA, AXIS_PIPE, AXIS_EXPERT, AXIS_SEQ, AXIS_MODEL)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Requested parallelism degrees. ``data=-1`` means "all remaining devices"."""
+
+    data: int = -1
+    pipe: int = 1
+    expert: int = 1
+    seq: int = 1
+    model: int = 1
+
+    def resolve(self, n_devices: int) -> tuple[int, int, int, int, int]:
+        fixed = self.pipe * self.expert * self.seq * self.model
+        data = self.data
+        if data == -1:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"device count {n_devices} not divisible by "
+                    f"pipe*expert*seq*model={fixed}"
+                )
+            data = n_devices // fixed
+        total = data * fixed
+        if total != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.pipe}x{self.expert}x{self.seq}x{self.model}"
+                f" = {total} != device count {n_devices}"
+            )
+        return (data, self.pipe, self.expert, self.seq, self.model)
+
+
+def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "cuda") -> DeviceMesh:
+    """The canonical 5-axis mesh over the live process group.
+
+    With no spec every process is on ``data`` (the original repo's DDP
+    world). ``device`` is the mesh's device type (``cuda`` for NCCL,
+    ``cpu`` for gloo). Raises without a live group, and for any axis but
+    ``data`` above 1 (ROADMAP Queue 1 item 8).
+    """
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh needs a live process group (runtime.bootstrap.init "
+                           "with a coordinator)")
+    spec = spec or MeshSpec()
+    shape = spec.resolve(dist.get_world_size())
+    wide = [f"{a}={n}" for a, n in zip(MESH_AXES[1:], shape[1:]) if n != 1]
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {', '.join(wide)}: only the data axis may exceed 1 in the port so far "
+            "(tensor, pipeline, expert and sequence parallelism are ROADMAP Queue 1 item 8)"
+        )
+    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
+
+
+def data_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
+    """The process group of the data axis (None: no mesh, one process)."""
+    return None if mesh is None else mesh.get_group(AXIS_DATA)
+
+
+def data_size(mesh: DeviceMesh | None) -> int:
+    """The data-parallel degree (1: no mesh)."""
+    return 1 if mesh is None else mesh.size(MESH_AXES.index(AXIS_DATA))
+
+
+def data_rank(mesh: DeviceMesh | None) -> int:
+    """This process's coordinate on the data axis (0: no mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(AXIS_DATA)
+
+
+def local_batch_size(global_batch_size: int, mesh: DeviceMesh | None) -> int:
+    """Rows of a global batch this process supplies: ``global / data``."""
+    n_data = data_size(mesh)
+    if global_batch_size % n_data != 0:
+        raise ValueError(
+            f"global batch {global_batch_size} not divisible by data-parallel "
+            f"degree {n_data}"
+        )
+    return global_batch_size // n_data
+
+
+def batch_rows(global_batch_size: int, mesh: DeviceMesh | None) -> tuple[int, int]:
+    """This process's rows ``[start, stop)`` of every global batch."""
+    local = local_batch_size(global_batch_size, mesh)
+    r = data_rank(mesh)
+    return r * local, (r + 1) * local

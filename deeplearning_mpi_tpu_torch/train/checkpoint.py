@@ -3,8 +3,8 @@
 Port of ``deeplearning_mpi_tpu/train/checkpoint.py``'s ``Checkpointer``
 without orbax: each saved epoch is a directory ``<dir>/<epoch>/`` holding
 one ``torch.save`` file per top-level key of :meth:`TrainState.arrays`
-(``params.pt``, ``opt_state.pt``, ``step.pt`` and, only when tracked,
-``ema_params.pt``), on the reference's protocol:
+(``params.pt``, ``opt_state.pt``, ``step.pt`` and, only when present,
+``batch_stats.pt`` and ``ema_params.pt``), on the reference's protocol:
 
 - **Atomic steps.** A step is written into a temporary sibling, every file
   fsynced, and renamed into place with ``os.replace``: a kill mid-save
@@ -30,8 +30,14 @@ state to the host and writes it before it returns, so the next step's
 in-place update cannot reach this epoch's files (the reference's async
 serializer had to barrier for the same reason).
 
-Not ported: ``restore_elastic`` (it waits for the runtime slice: a restore
-onto another world size) and the chaos hook.
+Under data parallelism every rank holds the same replicated state: with a
+live process group rank 0 alone writes (and pins, prunes, rolls back) and
+every rank waits at a barrier after a save, so no rank reads a step before
+it is whole. Every rank restores from the shared directory. A state's
+tensors do not depend on the world size, so a save restores on any world
+(:meth:`Checkpointer.restore_elastic`).
+
+Not ported: the chaos hook.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from pathlib import Path
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from deeplearning_mpi_tpu_torch.resilience.integrity import (
     CheckpointCorruption,
@@ -55,7 +62,7 @@ from deeplearning_mpi_tpu_torch.resilience.integrity import (
 from deeplearning_mpi_tpu_torch.train.state import TrainState
 
 #: the top-level keys of :meth:`TrainState.arrays`, one file each.
-KEYS = ("step", "params", "opt_state", "ema_params")
+KEYS = ("step", "params", "opt_state", "batch_stats", "ema_params")
 
 
 class CheckpointMismatch(ValueError):
@@ -96,6 +103,16 @@ def _check_like(template: Any, loaded: Any, path: str) -> None:
         )
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a live group, or a lone process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _fsync_dir(path: Path) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -130,12 +147,20 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def _delete(self, epoch: int) -> None:
+        if not _writer():
+            return
         shutil.rmtree(self.step_dir(epoch), ignore_errors=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, state: TrainState, *, epoch: int) -> None:
         """Write ``state`` as epoch ``epoch``: temp dir, fsync, rename, then
-        the manifest; pin it if it re-hashes clean; prune."""
+        the manifest; pin it if it re-hashes clean; prune. With a live
+        group rank 0 writes and every rank waits for it."""
+        if _writer():
+            self._write(state, epoch)
+        _barrier()
+
+    def _write(self, state: TrainState, epoch: int) -> None:
         arrays = _to_host(state.arrays())
         tmp = self.directory / f"tmp-{epoch}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -184,6 +209,8 @@ class Checkpointer:
         return data
 
     def _pin(self, epoch: int) -> None:
+        if not _writer():
+            return
         atomic_write_json(self._pin_path(), {"epoch": epoch, "generation": self._generation or 0})
 
     def last_good_epoch(self) -> int | None:
@@ -208,6 +235,8 @@ class Checkpointer:
 
     def _prune_manifests(self, *, keep_also: int | None = None) -> None:
         """Drop the manifests of retired steps (the pin's stays)."""
+        if not _writer():
+            return
         keep = set(self.all_steps())
         if keep_also is not None:
             keep.add(keep_also)
@@ -290,6 +319,16 @@ class Checkpointer:
             f"no checkpoint under {self.directory} survived verification (tried epochs {steps})"
         )
 
+    def restore_elastic(self, template: TrainState) -> tuple[TrainState, int]:
+        """:meth:`restore_verified` onto a template for ANOTHER world size
+        than the one that saved; ``(state, epoch)``. Under replicated data
+        parallelism no tensor's shape depends on the world (the reference
+        re-shards each leaf as it reads; here there is nothing to re-shard),
+        and the loader's global order is a function of ``(seed, epoch)``
+        alone, so the resumed world sees the global batches a clean run at
+        its size would."""
+        return self.restore_verified(template)
+
     def rollback_to_last_good(self, template: TrainState) -> tuple[TrainState, int]:
         """Restore the pinned last-known-good step, DELETE every younger
         step and bump the anti-rollback generation; returns ``(state,
@@ -335,8 +374,9 @@ class Checkpointer:
         return self._restore(self._resolve_epoch(epoch), template)
 
     def restore_params_only(self, template: TrainState, *, epoch: int | None = None) -> TrainState:
-        """Restore the weights (``params``, ``step`` and, when the template
-        tracks one, ``ema_params``) WITHOUT opening the optimizer state's
+        """Restore the weights (``params``, ``step``, the BatchNorm
+        ``batch_stats`` of a CNN and, when the template tracks one,
+        ``ema_params``) WITHOUT opening the optimizer state's
         file, so serving needs no optimizer at all.
 
         The EMA guard holds in BOTH directions, against the step's files,
@@ -356,4 +396,5 @@ class Checkpointer:
                 "checkpoint carries EMA weights (trained with --ema) but the restore "
                 "template has none — pass --ema to serve the averaged weights"
             )
-        return template.fill(self._load(epoch, template, ("step", "params", "ema_params")))
+        return template.fill(self._load(epoch, template,
+                                        ("step", "params", "batch_stats", "ema_params")))

@@ -10,7 +10,10 @@ The model's attention core rides the state, as the reference's
 
 :meth:`TrainState.arrays` is the checkpoint's view of the state (the
 reference's ``_arrays_only``), and :meth:`TrainState.fill` takes such a
-view back into a template state.
+view back into a template state. A model with buffers (the CNNs'
+BatchNorm running statistics) carries them as ``batch_stats``, the
+reference's collection of that name; the train step advances them in
+place.
 """
 
 from __future__ import annotations
@@ -45,15 +48,23 @@ class TrainState:
         """The EMA weights when tracked, else the live parameters."""
         return self.params() if self.ema_params is None else self.ema_params
 
+    def batch_stats(self) -> dict[str, torch.Tensor]:
+        """The model's buffers (BatchNorm running statistics); empty for the LM."""
+        return {n: b.detach() for n, b in self.model.named_buffers()}
+
     def arrays(self) -> dict[str, Any]:
         """What a checkpoint holds: ``step`` (an int32 scalar, as the
-        reference's), ``params``, ``opt_state`` and, only when tracked,
-        ``ema_params`` — so EMA-off checkpoints keep their exact tree."""
+        reference's), ``params``, ``opt_state`` and, only when present,
+        ``batch_stats`` and ``ema_params`` — so the LM's and EMA-off
+        checkpoints keep their exact tree."""
         out: dict[str, Any] = {
             "step": torch.tensor(self.step, dtype=torch.int32),
             "params": {n: p.detach() for n, p in self.model.named_parameters()},
             "opt_state": self.opt_state,
         }
+        stats = self.batch_stats()
+        if stats:
+            out["batch_stats"] = stats
         if self.ema_params is not None:
             out["ema_params"] = self.ema_params
         return out
@@ -63,10 +74,14 @@ class TrainState:
         """This state with ``arrays`` (a tree of :meth:`arrays`' form, or a
         part of one) taken in: the parameters are copied into the model in
         place; ``opt_state`` and ``ema_params`` replace the template's where
-        given. The caller has checked names, shapes and dtypes."""
+        given; ``batch_stats`` is copied into the buffers. The caller has
+        checked names, shapes and dtypes."""
         if "params" in arrays:
             for n, p in self.model.named_parameters():
                 p.copy_(arrays["params"][n])
+        if "batch_stats" in arrays:
+            for n, b in self.model.named_buffers():
+                b.copy_(arrays["batch_stats"][n])
         return dataclasses.replace(
             self,
             step=int(arrays["step"]) if "step" in arrays else self.step,

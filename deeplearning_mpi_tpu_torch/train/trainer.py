@@ -1,15 +1,17 @@
 """Train/eval step factories, the optimizers and LR schedules, the trainer.
 
-Port of ``deeplearning_mpi_tpu/train/trainer.py`` for the LM task, single
-device. What is carried over exactly:
+Port of ``deeplearning_mpi_tpu/train/trainer.py`` for the ``lm``,
+``classification`` and ``segmentation`` tasks. What is carried over exactly:
 
-- the loss is the masked mean over valid tokens; ``grad_accum`` chunks are
-  combined by their valid-token weight, so the result equals the
-  full-batch mean even under a ragged token mask;
+- the loss is the masked mean over valid rows (tokens for the LM);
+  ``grad_accum`` chunks are combined by their valid-token weight, so the
+  result equals the full-batch mean even under a ragged token mask; under
+  BatchNorm each chunk normalises over its own rows and the running
+  statistics advance once a chunk;
 - a non-finite loss (or, with ``guard_metrics``, a non-finite gradient
-  norm) skips the update: parameters, optimizer state and EMA stay as they
-  were while ``step`` still advances, and the epoch mean leaves the step
-  out;
+  norm) skips the update: parameters, BatchNorm statistics, optimizer state
+  and EMA stay as they were while ``step`` still advances, and the epoch
+  mean leaves the step out;
 - clipping by global norm and the optimizers compute what optax computes
   (``clip_by_global_norm``, ``sgd`` with coupled L2 before the momentum
   trace, ``adam``, ``adamw`` and ``lion`` with decoupled decay, and
@@ -20,7 +22,23 @@ device. What is carried over exactly:
   differentiated one;
 - the trainer's cadence: eval and checkpoint every ``eval_every`` epochs,
   a final eval and save, and a graceful exit (:class:`Preempted`) after a
-  final save when a shutdown was requested.
+  final save when a shutdown was requested; eval reports ``accuracy`` or
+  ``dice`` weighted by the valid rows.
+
+**Data parallelism** (``group``: the mesh's data-axis process group) is the
+reference's global-batch semantics over one process a device: each rank
+feeds its rows of the global batch, BatchNorm sums its moments across the
+group (``models/norm.py``), and right after ``torch.autograd.grad`` the
+gradients and the loss go through ONE ``all_reduce_mean`` over a flat
+bucket. So every rank applies the same update, and the NaN guard, which
+reads the all-reduced loss, skips on every rank when one rank's shard is
+non-finite: the replicas never diverge. DDP does not fit this step: it does
+not support ``torch.autograd.grad``, and its buffer broadcast and local
+BatchNorm statistics contradict the reference's global batch. Under
+``grad_accum`` with a group, chunk ``i`` is every rank's ``i``-th share of
+its rows (the reference's is a contiguous block of the global rows), so
+BatchNorm's per-chunk statistics, and through them the update, differ from
+the reference's there; without BatchNorm the two agree.
 
 The step is eager PyTorch: the reference's ``jit`` has no counterpart the
 port needs. The NaN guard selects with ``torch.where`` on the device, so a
@@ -40,11 +58,22 @@ import torch
 from torch.func import functional_call
 
 from deeplearning_mpi_tpu_torch.models.convert import transposed_from_jax
-from deeplearning_mpi_tpu_torch.ops.loss import chunked_lm_loss, lm_cross_entropy
+from deeplearning_mpi_tpu_torch.models.norm import set_group
+from deeplearning_mpi_tpu_torch.ops.loss import (
+    chunked_lm_loss,
+    dice_loss,
+    lm_cross_entropy,
+    sigmoid_binary_cross_entropy,
+    softmax_cross_entropy,
+)
+from deeplearning_mpi_tpu_torch.ops.metrics import dice_score, top1_accuracy
 from deeplearning_mpi_tpu_torch.resilience.preemption import GracefulShutdown, Preempted
+from deeplearning_mpi_tpu_torch.runtime import collectives
 from deeplearning_mpi_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
+#: batch key holding the model input, per task.
+_INPUTS = {"classification": "image", "segmentation": "image", "lm": "tokens"}
 #: count (a tensor of optimizer updates so far) -> learning rate (a tensor)
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -75,12 +104,25 @@ def _lm_loss_chunked(chunk_size: int) -> Callable[..., torch.Tensor]:
     return fn
 
 
-def _loss_fn(task: str, loss_chunk: int) -> Callable[..., torch.Tensor]:
-    if task != "lm":
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet: the port's trainer runs the LM task"
-        )
-    return _lm_loss_chunked(loss_chunk) if loss_chunk > 0 else _lm_loss
+def _loss_fn(task: str, loss_chunk: int = 0, seg_loss: str = "bce") -> Callable[..., torch.Tensor]:
+    """The task's loss ``(outputs, batch, where=None)``; ``where`` ([B]
+    validity) excludes wrap-padded eval rows. ``seg_loss``: ``bce`` (the
+    original repo's), ``dice`` or ``bce_dice`` (their sum), on the UNet's
+    ``[..., 0]`` logits."""
+    if task == "lm":
+        return _lm_loss_chunked(loss_chunk) if loss_chunk > 0 else _lm_loss
+    if task == "classification":
+        return lambda logits, batch, where=None: softmax_cross_entropy(
+            logits, batch["label"], where)
+    if task == "segmentation":
+        terms = {"bce": (sigmoid_binary_cross_entropy,), "dice": (dice_loss,),
+                 "bce_dice": (sigmoid_binary_cross_entropy, dice_loss)}
+        if seg_loss not in terms:
+            raise ValueError(f"unknown seg_loss '{seg_loss}'")
+        fns = terms[seg_loss]
+        return lambda logits, batch, where=None: sum(
+            fn(logits[..., 0], batch["mask"], where) for fn in fns)
+    raise ValueError(f"unknown task '{task}'")
 
 
 # -- LR schedules ---------------------------------------------------------------
@@ -311,46 +353,71 @@ def build_optimizer(
 
 
 # -- steps ----------------------------------------------------------------------
-def _forward(state: TrainState, tokens: torch.Tensor, params: dict | None = None):
-    kw = {"attention_fn": state.attention_fn}
+def _forward(state: TrainState, task: str, x: torch.Tensor, params: dict | None = None):
+    kw = {"attention_fn": state.attention_fn} if task == "lm" else {}
     if params is None:
-        return state.model(tokens, **kw)
-    return functional_call(state.model, params, (tokens,), kw)
+        return state.model(x, **kw)
+    return functional_call(state.model, params, (x,), kw)
+
+
+def _mean_over_group(grads: list[torch.Tensor], loss: torch.Tensor,
+                     group) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """The data-parallel mean of the gradients and the loss: one
+    ``all_reduce_mean`` over a flat float32 bucket."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+    flat = collectives.all_reduce_mean(flat, group)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset: offset + g.numel()].view_as(g).to(g.dtype))
+        offset += g.numel()
+    return out, flat[-1].to(loss.dtype)
 
 
 def make_train_step(
-    task: str, *, grad_accum: int = 1, loss_chunk: int = 0, ema_decay: float = 0.0,
-    guard_metrics: bool = False,
+    task: str, *, grad_accum: int = 1, loss_chunk: int = 0, seg_loss: str = "bce",
+    ema_decay: float = 0.0, guard_metrics: bool = False, group: Any = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict[str, torch.Tensor]]]:
-    """Build the optimizer step for a task (``"lm"``).
+    """Build the optimizer step for a task (``lm``, ``classification``,
+    ``segmentation``).
 
     ``grad_accum > 1`` splits the batch into that many equal chunks, each
     weighted by its valid-token count over the full batch's, and runs one
     update. ``loss_chunk > 0`` takes the chunked head+loss (pair with
-    ``TransformerLM(return_prehead=True)``). ``ema_decay > 0`` advances the
-    state's EMA after each accepted update (``ema = d*ema + (1-d)*params``).
+    ``TransformerLM(return_prehead=True)``). ``seg_loss`` picks the
+    segmentation objective. ``ema_decay > 0`` advances the state's EMA
+    after each accepted update (``ema = d*ema + (1-d)*params``).
     ``guard_metrics`` adds the gradient global norm to the metrics and to
-    the finite guard. Metrics are device scalars: ``loss``, ``finite``
-    (1.0 or 0.0) and, with ``guard_metrics``, ``grad_norm``.
+    the finite guard. ``group`` (a process group, or None for one process)
+    makes the step data-parallel (module docstring): BatchNorm spans the
+    group and the gradients and loss are averaged over it. Metrics are
+    device scalars: ``loss``, ``finite`` (1.0 or 0.0) and, with
+    ``guard_metrics``, ``grad_norm``.
     """
-    loss_fn = _loss_fn(task, loss_chunk)
+    loss_fn = _loss_fn(task, loss_chunk, seg_loss)
+    input_key = _INPUTS[task]
 
     def chunk_weight(chunk: Batch) -> torch.Tensor:
         # The chunk loss's own denominator: the cross-chunk weighted mean
-        # then reproduces the full-batch mean.
-        mask = chunk.get("mask")
+        # then reproduces the full-batch mean. Only the LM can be ragged.
+        mask = chunk.get("mask") if task == "lm" else None
         if mask is not None:
             return mask[:, 1:].float().sum()
-        return torch.ones((), device=chunk["tokens"].device)
+        return torch.ones((), device=chunk[input_key].device)
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, dict[str, torch.Tensor]]:
         batch = dict(batch)
         loss_scale = batch.pop("__loss_scale__", None)
         grad_scale = batch.pop("__grad_scale__", None)
-        names, params = zip(*state.model.named_parameters())
+        model = state.model
+        model.train()
+        set_group(model, group)
+        names, params = zip(*model.named_parameters())
+        # BatchNorm advances its statistics in the forward; a skipped step
+        # puts them back.
+        stats_before = {n: b.clone() for n, b in model.named_buffers()}
 
         def loss_and_grads(chunk: Batch, data_scale=None):
-            outputs = _forward(state, chunk["tokens"])
+            outputs = _forward(state, task, chunk[input_key])
             loss = loss_fn(outputs, chunk)
             if loss_scale is not None:
                 loss = loss * loss_scale
@@ -370,7 +437,7 @@ def make_train_step(
                         f"batch dim of batch[{key!r}] (shape {tuple(x.shape)}) not "
                         f"divisible by grad_accum={grad_accum}"
                     )
-            if batch.get("mask") is not None:
+            if task == "lm" and batch.get("mask") is not None:
                 w_total = torch.clamp(chunk_weight(batch), min=1.0)
             else:
                 w_total = float(grad_accum)
@@ -381,6 +448,8 @@ def make_train_step(
                 c_loss, c_grads = loss_and_grads(chunk, data_scale=w)
                 loss = loss + w * c_loss
                 grads = c_grads if grads is None else [a + b for a, b in zip(grads, c_grads)]
+        if group is not None:
+            grads, loss = _mean_over_group(grads, loss, group)
 
         with torch.no_grad():
             grads = dict(zip(names, grads))
@@ -390,10 +459,13 @@ def make_train_step(
             finite = torch.isfinite(loss)
             if grad_norm is not None:
                 finite = finite & torch.isfinite(grad_norm)
-            # NaN/Inf guard: keep the old parameters, optimizer state and EMA.
+            # NaN/Inf guard: keep the old parameters, statistics, optimizer
+            # state and EMA.
             keep = lambda new, cur: torch.where(finite, new, cur)  # noqa: E731
             for n in names:
                 old[n].copy_(keep(old[n] + updates[n], old[n]))
+            for n, b in model.named_buffers():
+                b.copy_(keep(b, stats_before[n]))
             opt_state = _tree_map2(keep, new_opt, state.opt_state)
             ema = state.ema_params
             if ema_decay:
@@ -421,23 +493,30 @@ def _tree_map2(fn, a, b):
 
 
 def make_eval_step(
-    task: str, *, loss_chunk: int = 0,
+    task: str, *, loss_chunk: int = 0, seg_loss: str = "bce",
 ) -> Callable[[TrainState, Batch], dict[str, torch.Tensor]]:
-    """The eval step: loss on one batch with the EMA weights when tracked.
-    Wrap-padded rows (``__valid__`` 0) are excluded; ``weight`` is the
-    count of real rows, for the caller's weighted mean."""
-    loss_fn = _loss_fn(task, loss_chunk)
+    """The eval step: loss and the task's metric (``accuracy``; ``dice`` of
+    the sigmoid > 0.5 masks) on one batch, with the EMA weights when
+    tracked and the running BatchNorm statistics. Wrap-padded rows
+    (``__valid__`` 0) are excluded; ``weight`` is the count of real rows,
+    for the caller's weighted mean."""
+    loss_fn = _loss_fn(task, loss_chunk, seg_loss)
+    input_key = _INPUTS[task]
 
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
-        params = None if state.ema_params is None else state.ema_params
-        outputs = _forward(state, batch["tokens"], params)
+        state.model.eval()
+        outputs = _forward(state, task, batch[input_key], state.ema_params)
         valid = batch.get("__valid__")
-        return {
-            "loss": loss_fn(outputs, batch, valid),
-            "weight": (valid.sum() if valid is not None
-                       else torch.tensor(float(batch["tokens"].shape[0]))),
-        }
+        metrics = {"loss": loss_fn(outputs, batch, valid)}
+        if task == "classification":
+            metrics["accuracy"] = top1_accuracy(outputs, batch["label"], valid)
+        elif task == "segmentation":
+            pred = (torch.sigmoid(outputs[..., 0]) > 0.5).float()
+            metrics["dice"] = dice_score(pred, batch["mask"], valid)
+        metrics["weight"] = (valid.sum() if valid is not None
+                             else torch.tensor(float(batch[input_key].shape[0])))
+        return metrics
 
     return step
 
@@ -447,13 +526,14 @@ class Trainer:
     checkpoint every ``eval_every`` epochs and after the last, per-epoch
     timing. ``checkpointer`` (a ``train.checkpoint.Checkpointer``) saves the
     state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
-    epoch."""
+    epoch. ``group`` makes the steps data-parallel; eval then averages over
+    every rank's rows."""
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
-        grad_accum: int = 1, loss_chunk: int = 0, ema_decay: float = 0.0,
-        log: Callable[[str], None] = print, checkpointer: Any = None,
-        shutdown: GracefulShutdown | None = None,
+        grad_accum: int = 1, loss_chunk: int = 0, seg_loss: str = "bce",
+        ema_decay: float = 0.0, log: Callable[[str], None] = print, checkpointer: Any = None,
+        shutdown: GracefulShutdown | None = None, group: Any = None,
     ) -> None:
         self.state = state
         self.task = task
@@ -461,9 +541,11 @@ class Trainer:
         self.log = log
         self.checkpointer = checkpointer
         self.shutdown = shutdown
+        self.group = group
+        self.world = 1 if group is None else collectives.axis_size(group)
         self.train_step = make_train_step(task, grad_accum=grad_accum, loss_chunk=loss_chunk,
-                                          ema_decay=ema_decay)
-        self.eval_step = make_eval_step(task, loss_chunk=loss_chunk)
+                                          seg_loss=seg_loss, ema_decay=ema_decay, group=group)
+        self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss)
         self.history: list[dict[str, float]] = []
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
@@ -477,7 +559,7 @@ class Trainer:
             loss_sum = contrib if loss_sum is None else loss_sum + contrib
             finite_sum = metrics["finite"] if finite_sum is None else finite_sum + metrics["finite"]
             n_batches += 1
-            sequences += batch["tokens"].shape[0]
+            sequences += batch[_INPUTS[self.task]].shape[0] * self.world
         if not n_batches:
             raise ValueError("empty epoch — dataset smaller than one batch")
         n_finite = float(finite_sum)  # one host sync per epoch
@@ -487,12 +569,14 @@ class Trainer:
                  "images_per_s": sequences / duration, "steps": n_batches}
         if n_finite < n_batches:
             self.log(f"Epoch {epoch}: skipped {n_batches - int(n_finite)} non-finite loss batch(es)")
+        unit = "sequences" if self.task == "lm" else "images"
         self.log(f"Epoch {epoch}: loss {mean_loss:.4f}, {duration:.1f}s, "
-                 f"{stats['images_per_s']:.1f} sequences/s")
+                 f"{stats['images_per_s']:.1f} {unit}/s")
         return stats
 
     def evaluate(self, loader: Any) -> dict[str, float]:
-        """Weighted mean of the eval metrics over the loader; perplexity."""
+        """Weighted mean of the eval metrics over the loader (over every
+        rank's rows, with a group); perplexity for the LM."""
         sums: dict[str, torch.Tensor] = {}
         weight = None
         for batch in loader.epoch(0):
@@ -501,10 +585,18 @@ class Trainer:
             for k, v in metrics.items():
                 sums[k] = sums[k] + v * w if k in sums else v * w
             weight = w if weight is None else weight + w
-        if weight is None or not float(weight):
+        if weight is None:
+            raise ValueError("empty eval loader")
+        if self.group is not None:
+            keys = sorted(sums)
+            total = collectives.all_reduce_sum(
+                torch.stack([sums[k].float() for k in keys] + [weight.float()]), self.group)
+            sums, weight = dict(zip(keys, total[:-1])), total[-1]
+        if not float(weight):
             raise ValueError("empty eval loader")
         means = {k: float(v) / float(weight) for k, v in sums.items()}
-        means["perplexity"] = math.exp(min(means["loss"], 30.0))
+        if self.task == "lm":
+            means["perplexity"] = math.exp(min(means["loss"], 30.0))
         return means
 
     def report_eval(self, stats: dict[str, float]) -> None:

@@ -1,5 +1,7 @@
 """Shared CLI helpers: the ``--ema`` type, the architecture sidecar, the LR
-flags, the ``--resume`` / ``--eval_only`` restore and the inference restore.
+flags, the ``--resume`` / ``--eval_only`` restore and the inference restore;
+for the data-parallel trainers the topology and training flags, the
+runtime set-up and the local launcher (``--nproc``).
 
 The port's copy of the parts of ``deeplearning_mpi_tpu/utils/config.py``
 its CLIs use, with the reference's contracts: ``arch.json`` beside the
@@ -7,6 +9,8 @@ checkpoint refuses a tree-invisible architecture mismatch (a forgotten
 ``--attention_window`` changes no tensor shape) at every start;
 ``--eval_only`` is resume-or-die; ``--resume`` is lenient about a missing
 or an all-corrupt history, and restores the newest step that verifies.
+A flag of a layer the port does not have yet refuses to run and names its
+ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -14,7 +18,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pickle
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
 from pathlib import Path
 from typing import Any, Callable
 
@@ -75,6 +85,17 @@ def build_lr(args: argparse.Namespace, steps_per_epoch: int) -> Any:
                              decay_steps=steps_per_epoch * args.num_epochs)
 
 
+def build_optimizer_from_flags(args: argparse.Namespace, train_loader: Any, *,
+                               momentum: float = 0.9, clip_norm: float | None = None) -> Any:
+    """``--optimizer``, ``--weight_decay`` and the LR flags as the
+    trainers' optimizer, scheduled over the loader's steps."""
+    from deeplearning_mpi_tpu_torch.train.trainer import build_optimizer
+
+    return build_optimizer(args.optimizer, build_lr(args, train_loader.steps_per_epoch()),
+                           momentum=momentum, weight_decay=args.weight_decay,
+                           clip_norm=clip_norm)
+
+
 def restore_for_start(
     args: argparse.Namespace, checkpointer: Any, state: Any, log: Callable[[str], None],
 ) -> tuple[Any, int]:
@@ -132,3 +153,240 @@ def restore_lm(
             for n, p in model.named_parameters():
                 p.copy_(state.ema_params[n])
     return model
+
+
+# -- the data-parallel trainers' flags ---------------------------------------
+#: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
+UNPORTED_FLAGS = {
+    "tp": (1, "Queue 1 item 8 (tensor parallelism)"),
+    "pp": (1, "Queue 1 item 8 (pipeline parallelism)"),
+    "sp": (1, "Queue 1 item 8 (sequence parallelism)"),
+    "ep": (1, "Queue 1 item 8 (expert parallelism)"),
+    "zero": (False, "Queue 1 item 8 (ZeRO-1)"),
+    "zero_overlap": (False, "Queue 1 item 8 (ZeRO-1)"),
+    "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
+    "profile_dir": (None, "Queue 1 item 9 (telemetry)"),
+    "metrics_dir": (None, "Queue 1 item 9 (telemetry)"),
+    "log_dir": (None, "Queue 1 item 9 (telemetry: the run log)"),
+    "debug_nans": (False, "Queue 1 item 9 (telemetry)"),
+    "chaos": (None, "Queue 1 item 10 (chaos)"),
+    "guardrails": (False, "Queue 1 item 10 (numerics guardrails)"),
+    "digest_every": (0, "Queue 1 item 10 (numerics guardrails)"),
+    "max_restarts": (0, "Queue 1 item 10 (auto-resume)"),
+    "num_workers": (None, "Queue 1 item 7's leftovers (the loader's fetch threads)"),
+}
+
+
+def add_topology_flags(parser: argparse.ArgumentParser) -> None:
+    """The reference's topology flags (``--coordinator`` as ``host:port`` or
+    an ``init_method`` URL such as ``file:///tmp/rdzv``) plus the port's
+    ``--device`` and ``--nproc`` (spawn that many local processes)."""
+    group = parser.add_argument_group("topology")
+    group.add_argument("--coordinator", default=None,
+                       help="rendezvous: host:port or an init_method URL (tcp://, file://)")
+    group.add_argument("--num_processes", type=int, default=None, help="world size")
+    group.add_argument("--process_id", type=int, default=None, help="this process's rank")
+    group.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="cuda: NCCL, one card a process; cpu: gloo")
+    group.add_argument("--nproc", type=int, default=1,
+                       help="spawn this many local processes, joined through a file store")
+    group.add_argument("--dp", type=int, default=-1,
+                       help="data-parallel degree (-1: every process)")
+    for flag in ("tp", "pp", "sp", "ep"):
+        group.add_argument(f"--{flag}", type=int, default=1, help="not ported yet")
+    group.add_argument("--zero", action="store_true", help="not ported yet")
+    group.add_argument("--zero_overlap", action="store_true", help="not ported yet")
+    group.add_argument("--tuned_step", default=None, help="not ported yet")
+
+
+def add_training_flags(
+    parser: argparse.ArgumentParser, *, num_epochs: int, batch_size: int, learning_rate: float,
+    random_seed: int, model_filename: str, optimizer: str = "adam", weight_decay: float = 0.0,
+) -> None:
+    """The reference's training flags, names and defaults (``--batch_size``
+    is the GLOBAL batch). Without ``--model_dir`` nothing is written."""
+    group = parser.add_argument_group("training")
+    group.add_argument("--num_epochs", type=int, default=num_epochs)
+    group.add_argument("--batch_size", type=int, default=batch_size, help="GLOBAL batch size")
+    group.add_argument("--learning_rate", type=float, default=learning_rate)
+    group.add_argument("--optimizer", default=optimizer,
+                       choices=("sgd", "adam", "adamw", "adafactor", "lion"))
+    group.add_argument("--weight_decay", type=float, default=weight_decay)
+    group.add_argument("--lr_schedule", default="constant", choices=("constant", "cosine", "linear"))
+    group.add_argument("--warmup_steps", type=int, default=0)
+    group.add_argument("--grad_accum", type=int, default=1)
+    group.add_argument("--random_seed", type=int, default=random_seed)
+    group.add_argument("--ema", type=ema_decay, default=0.0)
+    group.add_argument("--model_dir", default=None,
+                       help="save checkpoints under <model_dir>/<model_filename> "
+                       "(default: none are written)")
+    group.add_argument("--model_filename", default=model_filename)
+    group.add_argument("--resume", action="store_true")
+    group.add_argument("--eval_only", action="store_true")
+    group.add_argument("--keep_checkpoints", type=int, default=3)
+    group.add_argument("--eval_every", type=int, default=10)
+    group.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    for flag in ("profile_dir", "metrics_dir", "log_dir", "chaos"):
+        group.add_argument(f"--{flag}", default=None, help="not ported yet")
+    for flag in ("debug_nans", "guardrails"):
+        group.add_argument(f"--{flag}", action="store_true", help="not ported yet")
+    for flag in ("digest_every", "max_restarts"):
+        group.add_argument(f"--{flag}", type=int, default=0, help="not ported yet")
+    group.add_argument("--num_workers", type=int, default=None, help="not ported yet")
+
+
+def reject_unported(args: argparse.Namespace) -> None:
+    """Refuse (``SystemExit``) any flag of a layer the port lacks."""
+    for flag, (off, item) in UNPORTED_FLAGS.items():
+        if getattr(args, flag, off) != off:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP {item})")
+    if (args.resume or args.eval_only) and args.model_dir is None:
+        raise SystemExit("--resume and --eval_only need --model_dir")
+
+
+def setup_runtime(args: argparse.Namespace):
+    """``bootstrap.init`` from the topology flags, then the mesh when a
+    group is live; returns ``(topology, mesh, data group)`` (mesh and group
+    None for one process without a coordinator)."""
+    import torch.distributed as dist
+
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+    from deeplearning_mpi_tpu_torch.runtime.mesh import MeshSpec, create_mesh, data_group
+
+    topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
+                          device=args.device)
+    if not dist.is_initialized():
+        if args.dp not in (-1, 1):
+            raise SystemExit(f"--dp {args.dp} needs {args.dp} processes")
+        return topo, None, None
+    mesh = create_mesh(MeshSpec(data=args.dp), device=topo.device.type)
+    return topo, mesh, data_group(mesh)
+
+
+def _without_flag(argv: list[str], flag: str) -> list[str]:
+    out, skip = [], False
+    for arg in argv:
+        if skip:
+            skip = False
+        elif arg == flag:
+            skip = True
+        elif not arg.startswith(flag + "="):
+            out.append(arg)
+    return out
+
+
+def launch_local(module: str, argv: list[str], nproc: int) -> int:
+    """Run ``python -m module argv`` as ``nproc`` local processes joined
+    through a file store in a fresh temporary directory (no port), as
+    torchrun would: rank ``r`` gets ``--process_id r`` and ``LOCAL_RANK=r``.
+    Waits for all; if one fails the others are stopped. Returns the worst
+    exit code."""
+    if any(a == "--coordinator" or a.startswith("--coordinator=") for a in argv):
+        raise SystemExit("--nproc spawns its own rendezvous; drop --coordinator")
+    rdzv = tempfile.mkdtemp(prefix="dmt-rdzv-")
+    child = _without_flag(argv, "--nproc") + [
+        "--coordinator", f"file://{rdzv}/store", "--num_processes", str(nproc)]
+    procs = [subprocess.Popen([sys.executable, "-m", module, *child, "--process_id", str(r)],
+                              env={**os.environ, "LOCAL_RANK": str(r)})
+             for r in range(nproc)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    return max(abs(p.returncode) for p in procs)
+
+
+@dataclasses.dataclass
+class Run:
+    """A data-parallel training run, built and not yet run."""
+
+    args: argparse.Namespace
+    trainer: Any
+    train_loader: Any
+    eval_loader: Any
+    start_epoch: int
+
+
+def coordinator_log(topo: Any) -> Callable[[str], None]:
+    """Print (flushed) on rank 0; the other ranks stay quiet."""
+    if topo.is_coordinator:
+        return lambda msg: print(msg, flush=True)
+    return lambda msg: None
+
+
+def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
+              model: Any, tx: Any, train_loader: Any, eval_loader: Any,
+              seg_loss: str = "bce") -> Run:
+    """The train state, the checkpointer (with ``--model_dir``), the
+    ``--resume`` / ``--eval_only`` restore and the :class:`Trainer`."""
+    from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+
+    log = coordinator_log(topo)
+    state = create_train_state(model, tx, ema=args.ema > 0)
+    checkpointer, start_epoch = None, 0
+    if args.model_dir is not None:
+        checkpointer = Checkpointer(Path(args.model_dir) / args.model_filename,
+                                    max_to_keep=args.keep_checkpoints)
+        state, start_epoch = restore_for_start(args, checkpointer, state, log)
+    trainer = Trainer(state, task, eval_every=args.eval_every, grad_accum=args.grad_accum,
+                      seg_loss=seg_loss, ema_decay=args.ema, log=log, checkpointer=checkpointer,
+                      group=group)
+    return Run(args, trainer, train_loader, eval_loader, start_epoch)
+
+
+def execute(run: Run) -> Any:
+    """Train (or, with ``--eval_only``, evaluate once); returns the
+    trainer. SIGTERM ends training after the current epoch with a final
+    checkpoint."""
+    from deeplearning_mpi_tpu_torch.resilience import GracefulShutdown, Preempted
+
+    trainer, args = run.trainer, run.args
+    if args.eval_only:
+        trainer.report_eval(trainer.evaluate(run.eval_loader))
+        return trainer
+    with GracefulShutdown() as shutdown:
+        trainer.shutdown = shutdown
+        try:
+            trainer.fit(run.train_loader, args.num_epochs, eval_loader=run.eval_loader,
+                        start_epoch=run.start_epoch)
+        except Preempted as p:
+            trainer.log(f"exiting after preemption ({p})")
+    return trainer
+
+
+def cli_main(module: str, parser: argparse.ArgumentParser, train: Callable[[list[str]], Any],
+             argv: list[str] | None) -> int:
+    """The data-parallel CLIs' ``main``: refuse unported flags, spawn
+    ``--nproc`` local processes, or run ``train(argv)`` here and leave the
+    group after it. A refusal prints its message and returns 1."""
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        args = parser.parse_args(argv)
+        reject_unported(args)
+        if args.nproc > 1:
+            return launch_local(module, argv, args.nproc)
+        try:
+            train(argv)
+        finally:
+            bootstrap.shutdown()
+    except SystemExit as refusal:
+        if not isinstance(refusal.code, str):
+            raise
+        print(refusal.code, file=sys.stderr)
+        return 1
+    return 0

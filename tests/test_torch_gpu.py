@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the GPU; the decode
 paths (ragged prompts, beam search) on the card against the CPU plain run;
 the serving engine's CUDA graphs against its eager steps, and its int8 KV
-decode (K4 on int8 pages) against the CPU plain path.
+decode (K4 on int8 pages) against the CPU plain path; the CNN train steps
+(cuDNN, TF32 off) against the CPU's, and over NCCL at world size 1 against
+no group.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -534,3 +536,105 @@ def test_warmed_engine_on_the_card_equals_the_eager_engine(cuda, mode):
     assert streams[1] == streams[2]
     if mode == "plain":
         assert streams[0] == streams[1]
+
+
+def _cnn_step(model, batch, task):
+    """Loss and parameter gradients of one train-mode step."""
+    from deeplearning_mpi_tpu_torch.train.trainer import _INPUTS, _loss_fn
+
+    model.train()
+    loss = _loss_fn(task)(model(batch[_INPUTS[task]]), batch)
+    return loss.detach().double().cpu(), [g.double().cpu() for g in torch.autograd.grad(
+        loss, list(model.parameters()))]
+
+
+def _worst_rel(got, want):
+    return max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(got, want))
+
+
+def test_resnet18_step_on_card_equals_cpu(cuda):
+    """Phase 12b's check: full-width ResNet-18 (imagenet stem), B8, float32
+    with TF32 off: the loss and every gradient within 1e-4 (relative L2) of
+    the CPU's on the same weights and batch."""
+    import copy
+
+    from deeplearning_mpi_tpu_torch.models import resnet18
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = resnet18(device="cpu").init_weights(0)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=gen),
+             "label": torch.randint(0, 10, (8,), generator=gen)}
+    want = _cnn_step(cpu, batch, "classification")
+    got = _cnn_step(copy.deepcopy(cpu).cuda(), {k: v.cuda() for k, v in batch.items()},
+                    "classification")
+    assert float((got[0] - want[0]).abs() / want[0]) <= 1e-4
+    assert _worst_rel(got[1], want[1]) <= 1e-4
+
+
+def test_unet_step_on_card_equals_cpu_in_float64(cuda):
+    """The full-width UNet, B2 at 64x64, float64 on both: every gradient
+    within 1e-4 (in float32 a pre-activation within ~1e-5 of a ReLU's kink
+    lands on opposite sides now and then, which moves the deepest layers'
+    gradients by ~1e-3 whatever the conv algorithm; phase 12c reports it)."""
+    from deeplearning_mpi_tpu_torch.models import UNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    batch = {"image": torch.rand(2, 64, 64, 3, generator=gen, dtype=torch.float64),
+             "mask": (torch.rand(2, 64, 64, generator=gen) > 0.5).double()}
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = UNet(dtype=torch.float64, device="cpu").init_weights(3).double().to(dev)
+        out.append(_cnn_step(model, {k: v.to(dev) for k, v in batch.items()}, "segmentation"))
+    assert float((out[1][0] - out[0][0]).abs() / out[0][0]) <= 1e-6
+    assert _worst_rel(out[1][1], out[0][1]) <= 1e-4
+
+
+def test_nccl_world_one_step_equals_no_group(cuda, tmp_path):
+    """Over NCCL at world size 1 (a file store) the data-parallel step —
+    BatchNorm's all-reduced moments, the flat gradient mean — equals the
+    step without a group bit for bit, and runs one gradient all-reduce."""
+    import copy
+
+    from deeplearning_mpi_tpu_torch.models import resnet18
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap, collectives
+    from deeplearning_mpi_tpu_torch.runtime.hello_world import run_hello_world
+    from deeplearning_mpi_tpu_torch.runtime.mesh import create_mesh, data_group
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    model = resnet18(num_filters=16, device="cuda").init_weights(0)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=gen).cuda(),
+             "label": torch.randint(0, 10, (8,), generator=gen).cuda()}
+    tx = build_optimizer("sgd", 0.1, momentum=0.9, weight_decay=1e-5)
+    bootstrap.init(f"file://{tmp_path / 'store'}", 1, 0, "cuda", timeout_s=60)
+    try:
+        assert run_hello_world().ok
+        group = data_group(create_mesh(device="cuda"))
+        states = [create_train_state(copy.deepcopy(model), tx) for _ in range(2)]
+        collectives.counts.clear()
+        for i, g in enumerate((group, None)):
+            states[i], _ = make_train_step("classification", group=g)(states[i], batch)
+        assert collectives.counts["all_reduce_mean"] == 1
+    finally:
+        bootstrap.shutdown()
+    for (n, a), b in zip(states[0].model.state_dict().items(), states[1].model.state_dict().values()):
+        assert torch.equal(a, b), n
+
+
+def test_nccl_ranks_train_like_one_card(cuda, tmp_path):
+    """Every card of the machine a rank over NCCL (``tests/test_torch_runtime.py``'s
+    float64 worker, which runs over gloo there): the transport checks, then
+    3 float64 ResNet steps within 1e-7 of one card on the global batch, the
+    replicas bitwise equal. Skips with fewer than two cards."""
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: NCCL refuses two ranks on one device")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import test_torch_runtime as rt
+
+    rt.check_ranks_train_like_one_process(rt.spawn(tmp_path, n, "w_train_f64", "cuda"), n,
+                                          "cuda")

@@ -6,7 +6,9 @@ An AST scan of every module of ``deeplearning_mpi_tpu_torch`` and of
 one tiny engine step, one train step with flash attention, a checkpoint
 save and verified restore, a beam search and an int8 conversion on the
 CPU, then a warmed engine with a draft, int8 KV pools and the prefix
-cache, and imports the CLIs.
+cache, and imports the CLIs; and one that runs the original workloads'
+path: hello_world over gloo, a CNN train and eval step on the CIFAR loader,
+and the CNN CLIs' imports.
 """
 
 import ast
@@ -77,6 +79,38 @@ def test_port_runs_with_jax_blocked():
         "e.run_until_idle()\n"
         "assert r.generated and e.counters['spec_proposed_total'] > 0\n"
         "import deeplearning_mpi_tpu_torch.cli.generate, deeplearning_mpi_tpu_torch.cli.train_lm\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_original_workloads_run_with_jax_blocked(tmp_path):
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from deeplearning_mpi_tpu_torch.runtime import bootstrap\n"
+        "from deeplearning_mpi_tpu_torch.runtime.hello_world import run_hello_world\n"
+        "from deeplearning_mpi_tpu_torch.runtime.mesh import create_mesh, data_group\n"
+        f"bootstrap.init('file://{tmp_path}/store', 1, 0, 'cpu', timeout_s=60)\n"
+        "assert run_hello_world().ok\n"
+        "group = data_group(create_mesh(device='cpu'))\n"
+        "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticCIFAR10\n"
+        "from deeplearning_mpi_tpu_torch.data.cifar10 import train_transform\n"
+        "from deeplearning_mpi_tpu_torch.models import get_model\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_eval_step, make_train_step\n"
+        "m = get_model('resnet18', num_filters=8, device='cpu').init_weights(0)\n"
+        "s = create_train_state(m, build_optimizer('sgd', 0.1, weight_decay=1e-5))\n"
+        "batch = next(Loader(SyntheticCIFAR10(8), 8, transform=train_transform, device='cpu').epoch(0))\n"
+        "s, metrics = make_train_step('classification', group=group)(s, batch)\n"
+        "assert s.step == 1 and float(metrics['finite']) == 1.0 and 'batch_stats' in s.arrays()\n"
+        "assert 'accuracy' in make_eval_step('classification')(s, batch)\n"
+        "bootstrap.shutdown()\n"
+        "import deeplearning_mpi_tpu_torch.cli.train_resnet, deeplearning_mpi_tpu_torch.cli.train_unet\n"
+        "import deeplearning_mpi_tpu_torch.cli.hello_world, deeplearning_mpi_tpu_torch.cli.download\n"
         "print('ok')\n"
     )
     out = subprocess.run(
