@@ -106,7 +106,35 @@ Phases, each printed on its own line; any failure exits non-zero:
     busy share and top device ops; (d) the float32 ResNet's checkpoint
     restored verified: ``tree_digests`` equal to the trained state's,
     ``batch_stats`` included, and ``--eval_only`` reports the last eval's
-    accuracy.
+    accuracy;
+13. the Mixture-of-Experts LM: ``TransformerConfig()`` at full width and
+    depth with 8 routed experts of d_ff 2048 in every block (top 2,
+    capacity factor 1.25, token choice). (a) 6 steps through
+    ``make_train_step`` in bf16 with ``flash_attention_bhsd``, B8 S2048,
+    Adam 3e-4 with clip 1.0, ``aux_weight`` 0.01, on 16 seeded sequences
+    (vocab 32000): every loss finite and the last three below the first
+    (memorisation), the load-balance loss finite and positive at every
+    step, ``moe_dropped_frac`` reported, K1/K2/K3 each launched exactly 12
+    times a step; the step median over steps 3-6, tokens/s, MFU counting
+    the router and the 2 active experts, peak memory and one profiled step
+    (busy share, top device ops, the MoE layer's forward stages), then two
+    steps on uniformly random tokens (their dropped fraction and step
+    time beside the motif steps'); (b) card
+    against CPU at 2 layers, float32 (TF32 off), B1 S256, one seed's
+    weights: every layer's dispatch mask equal, the step-1 loss within 1e-4
+    relative and every gradient (router and expert stacks included) within
+    1e-4 relative L2; (c) in a temporary directory under ``build/``,
+    ``cli.train_lm --moe_experts 8`` at phase 10's shape with
+    ``--model_dir`` exits 0 and logs ``moe_dropped_frac``;
+    ``--moe_routing expert_choice`` exits 2 without
+    ``--allow_acausal_routing`` and 0 with it; ``cli.generate --moe_experts
+    8 --greedy`` on the checkpoint is token-identical to ``generate`` on
+    the restored model, K4 launched once a layer for each prompt position
+    of the stepwise prefill and each new token after the first, K1 never;
+    ``cli.serve_lm --moe_experts 8`` is refused with the reference's
+    reason; (d) ``cli.train_lm --ep 1`` over NCCL at world size 1 (2
+    layers at full width): the expert axis's wiring only, since NCCL
+    refuses two ranks on one card.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -472,7 +500,12 @@ def device_profile(torch, fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # Device events, less the device-side spans of ``record_function``
+    # ranges (the MoE layer's ``moe/*``): a span covers the gaps between its
+    # kernels, which are not device work.
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("moe/")]
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
         busy_us += max(0.0, stop - max(start, end))
@@ -492,10 +525,20 @@ def device_profile(torch, fn, label: str) -> dict:
                 entry = port.setdefault(kernel, [0.0, 0])
                 entry[0] += ms
                 entry[1] += calls
+    # The MoE layer's forward stages (its ``moe/*`` ranges on the host): device
+    # ms of the kernels each launched.
+    stages: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe/"):
+            entry = stages.setdefault(e.name, [0.0, 0])
+            entry[0] += getattr(e, "device_time_total", 0.0) / 1e3
+            entry[1] += 1
     summary = {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
                "busy_share": busy_us / 1e6 / wall_s, "device_events": len(device),
                "top": [{"name": n, "device_ms": ms, "calls": c} for n, (ms, c) in top],
-               "port": {k: {"device_ms": ms, "calls": c} for k, (ms, c) in sorted(port.items())}}
+               "port": {k: {"device_ms": ms, "calls": c} for k, (ms, c) in sorted(port.items())},
+               "stages": {k: {"device_ms": ms, "calls": c}
+                          for k, (ms, c) in sorted(stages.items())}}
     require(len(device) > 0, f"{label}: no device events traced")
     log(f"{label}: wall {wall_s:.4f}s, device busy {busy_us / 1e6:.4f}s "
         f"({100 * summary['busy_share']:.2f}%), {len(device)} device events")
@@ -503,6 +546,9 @@ def device_profile(torch, fn, label: str) -> dict:
         log(f"{label}: {t['device_ms']:9.3f} ms {t['calls']:6d} x {t['name'][:110]}")
     for k, t in summary["port"].items():
         log(f"{label}: the port's {k}: {t['device_ms']:.3f} ms in {t['calls']} launches")
+    for k, t in summary["stages"].items():
+        log(f"{label}: forward range {k}: {t['device_ms']:.3f} ms of device time in "
+            f"{t['calls']} calls")
     return summary
 
 
@@ -699,9 +745,15 @@ def lm_train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step, the reference's count
     (``telemetry/flops.py``): 3x the forward's matmuls — per token and block
     2*d*(H+2*Hkv)*Dh for q/k/v, 2*H*Dh*d out, 4*(S/2)*H*Dh causal attention,
-    6*d*d_ff SwiGLU; plus the 2*d*V head per token."""
+    6*d*d_ff SwiGLU (an MoE block: the 2*d*E router and the top_k ACTIVE
+    experts' 6*d*d_ff each, not the dispatch and combine contractions);
+    plus the 2*d*V head per token."""
     d, hd, kvd = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-    per_block = 2 * d * hd + 4 * d * kvd + 2 * hd * d + 4 * (seq / 2) * hd + 6 * d * cfg.d_ff
+    per_block = 2 * d * hd + 4 * d * kvd + 2 * hd * d + 4 * (seq / 2) * hd
+    if cfg.moe_experts:
+        per_block += 2 * d * cfg.moe_experts + cfg.moe_top_k * 6 * d * cfg.d_ff
+    else:
+        per_block += 6 * d * cfg.d_ff
     return 3.0 * batch * seq * (cfg.num_layers * per_block + 2 * d * cfg.vocab_size)
 
 
@@ -1600,6 +1652,274 @@ def original_workloads(torch, card: str) -> dict:
     return out
 
 
+# -- phase 13 ----------------------------------------------------------------
+#: Phase 13's model flags: the 110M widths (phase 10's) with 8 routed experts,
+#: top 2, in every block (capacity factor 1.25, token choice: the defaults).
+P13_MODEL = P10_MODEL + ["--moe_experts", "8", "--moe_top_k", "2"]
+#: Its CLI training: phase 10's shape (seq 2048, batch 8, flash in bf16, 24
+#: sequences: 2 steps an epoch).
+P13_TRAIN = P13_MODEL + ["--device", "cuda", "--attention", "flash", "--dtype", "bfloat16",
+                         "--seq_len", "2048", "--batch_size", "8", "--train_sequences", "24",
+                         "--num_epochs", "1"]
+P13_NEW = 32
+MOE_AUX_WEIGHT = 0.01
+
+
+def moe_config(**kw):
+    """``TransformerConfig()`` with 8 experts, top 2, capacity factor 1.25,
+    token choice."""
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25, **kw)
+
+
+def moe_train(torch, seed: int) -> dict:
+    """13a: the MoE LM at full width and depth, bf16, flash attention, B8
+    S2048, Adam 3e-4 with clip 1.0, ``aux_weight`` 0.01: 6 steps (3 epochs
+    of 2 batches of 16 seeded sequences) through ``make_train_step``."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.train import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = moe_config()
+    B, S, steps = 8, 2048, 6
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    loader = Loader(SyntheticTokens(2 * B, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=True, seed=seed, device="cuda")
+    batches = [b for epoch in range(steps // 2) for b in loader.epoch(epoch)]
+    state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                               attention_fn=fa.flash_attention_bhsd)
+    step = make_train_step("lm", aux_weight=MOE_AUX_WEIGHT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"K1": fa.flash_attention_cuda, "K2": fa.flash_attention_bwd_dq_cuda,
+               "K3": fa.flash_attention_bwd_dkv_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    losses, aux, drop, times = [], [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["moe_aux_loss"]))
+        drop.append(float(metrics["moe_dropped_frac"]))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[2:])[len(times[2:]) // 2]
+    flops = lm_train_flops(cfg, B, S)
+    result = {"params": n_params, "losses": losses, "aux": aux, "dropped_frac": drop,
+              "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
+              "model_flops_per_step": flops, "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+              "max_memory_allocated": peak, "launches": launches}
+    log(f"13a moe train: {n_params} params, losses {[round(x, 4) for x in losses]}, aux "
+        f"{[round(x, 4) for x in aux]}, moe_dropped_frac {[round(x, 4) for x in drop]}")
+    log(f"13a moe train: step median {1e3 * step_s:.2f} ms (steps 3-6), "
+        f"{result['tokens_per_s']:.0f} tokens/s, MFU {100 * result['mfu']:.2f}% of 989 TFLOP/s "
+        f"({flops:.4e} model FLOPs a step: router and the 2 active experts), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, launches {launches}")
+    require(all(np.isfinite(losses)), f"13a: non-finite loss {losses}")
+    require(sum(losses[-3:]) / 3 < losses[0], f"13a: loss did not fall: {losses}")
+    require(all(np.isfinite(a) and a > 0 for a in aux), f"13a: balance loss {aux}")
+    require(len(drop) == steps and all(0.0 <= d <= 1.0 for d in drop),
+            f"13a: moe_dropped_frac {drop}")
+    require(all(n == 12 * steps for n in launches.values()),
+            f"13a: expected {12 * steps} launches of each kernel, got {launches}")
+    result["profile"] = device_profile(
+        torch, lambda: step(state, batches[-1]), "13a moe train profile (one step)")
+    # The motifs route equal tokens alike; uniformly random tokens drop far
+    # fewer claims. The dense dispatch's shapes are fixed by capacity, so
+    # the step time should not move: two more steps on such a batch.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                                    dtype=batches[0]["tokens"].dtype)}
+    rand_times, rand_drop = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, metrics = step(state, rand)
+        torch.cuda.synchronize()
+        rand_times.append(time.perf_counter() - t0)
+        rand_drop.append(float(metrics["moe_dropped_frac"]))
+    result["random_tokens"] = {"dropped_frac": rand_drop, "step_times_s": rand_times}
+    log(f"13a moe train, random tokens: moe_dropped_frac {[round(x, 4) for x in rand_drop]}, "
+        f"second step {1e3 * rand_times[-1]:.2f} ms (motif median {1e3 * step_s:.2f} ms)")
+    require(all(np.isfinite(rand_drop)), f"13a: random-token steps {rand_drop}")
+    return result
+
+
+def moe_card_vs_cpu(torch, seed: int) -> dict:
+    """13b: the same widths at 2 layers, float32 (TF32 off), B1 S256, one
+    seed's weights on the card and on the CPU: the routing (every layer's
+    dispatch mask) equal, the step-1 loss within 1e-4 relative, every
+    gradient (router and expert stacks included) within 1e-4 relative L2."""
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models import moe
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+
+    cfg = moe_config(num_layers=2)
+    S = 256
+    cpu = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(seed)
+    card = TransformerLM(cfg, dtype=torch.float32, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(SyntheticTokens(1, S, vocab_size=cfg.vocab_size,
+                                              seed=seed)[0]["tokens"][None]).long()
+    out = {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        x = tokens.to(name)
+        inputs = []
+        hooks = [layer.mlp.register_forward_hook(lambda m, a, o: inputs.append(a[0].detach()))
+                 for layer in model.layers]
+        with moe.collecting(model) as sown:
+            logits = model(x, attention_fn=fa.flash_attention_bhsd)
+        for h in hooks:
+            h.remove()
+        loss = lm_cross_entropy(logits, x) + MOE_AUX_WEIGHT * moe.collect_aux_loss(sown)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        masks = []
+        with torch.no_grad():
+            for layer, h in zip(model.layers, inputs):
+                probs = torch.softmax(layer.mlp.router(h.float()), dim=-1)
+                combine = layer.mlp._token_choice(probs, layer.mlp.capacity(S))[0]
+                masks.append((combine > 0).cpu())
+        out[name] = (float(loss.detach()), {n: g.double().cpu() for n, g in zip(names, grads)},
+                     masks)
+    routing_equal = [bool(torch.equal(a, b)) for a, b in zip(out["cuda"][2], out["cpu"][2])]
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rel = {n: float((g - out["cpu"][1][n]).norm() / out["cpu"][1][n].norm().clamp(min=1e-30))
+           for n, g in out["cuda"][1].items()}
+    worst = max(rel, key=rel.get)
+    first_bad = next((n for n in rel if rel[n] > 1e-4), None)
+    report = {"routing_equal": routing_equal, "loss_card": out["cuda"][0],
+              "loss_cpu": out["cpu"][0], "loss_rel": loss_rel, "worst_grad": worst,
+              "worst_grad_rel": rel[worst], "median_grad_rel": sorted(rel.values())[len(rel) // 2],
+              "tensors": len(rel), "first_over_bar": first_bad,
+              "dispatch_slots": [int(m.sum()) for m in out["cpu"][2]]}
+    log(f"13b card vs CPU (f32, TF32 off, 2 layers, B1 S{S}): routing equal per layer "
+        f"{routing_equal} ({report['dispatch_slots']} slots taken), loss {out['cuda'][0]:.6f} "
+        f"vs {out['cpu'][0]:.6f} (rel {loss_rel:.3e}), gradients rel L2 worst {rel[worst]:.3e} "
+        f"({worst}), median {report['median_grad_rel']:.3e} over {len(rel)} tensors; first "
+        f"over 1e-4: {first_bad}")
+    require(all(routing_equal), f"13b: routing differs on the card: {routing_equal}")
+    require(loss_rel <= 1e-4, f"13b: loss rel {loss_rel}")
+    require(first_bad is None, f"13b: gradients differ from layer {first_bad} on: "
+            f"{rel[first_bad] if first_bad else 0}")
+    return report
+
+
+def moe_clis(torch, card: str) -> dict:
+    """13c: the MoE CLIs at the 110M widths in a temporary directory under
+    ``build/``; 13d: ``--ep 1`` over NCCL at world size 1 (the wiring only:
+    one card cannot hold two expert ranks)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import generate as gen_cli
+    from deeplearning_mpi_tpu_torch.cli import serve_lm, train_lm
+    from deeplearning_mpi_tpu_torch.models.generate import generate
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+    from deeplearning_mpi_tpu_torch.utils.config import restore_lm
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase13-", dir=os.path.join(ROOT, "build"))
+    out: dict = {"card": card}
+
+    def cli(main, argv):
+        buf, err = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        return rc, buf.getvalue(), err.getvalue()
+
+    try:
+        model_dir = os.path.join(work, "moe")
+        t0 = time.perf_counter()
+        rc, text, err = cli(train_lm.main, P13_TRAIN + ["--model_dir", model_dir])
+        log(f"13c train_lm --moe_experts 8: exit {rc} in {time.perf_counter() - t0:.1f}s")
+        require(rc == 0 and "moe_dropped_frac" in text, f"13c: train_lm exited {rc}: {err[-2000:]}")
+        rc, _, err = cli(train_lm.main, P13_TRAIN + ["--moe_routing", "expert_choice"])
+        log(f"13c --moe_routing expert_choice without --allow_acausal_routing: exit {rc}")
+        require(rc == 2 and "--allow_acausal_routing" in err, f"13c: expert choice exited {rc}")
+        t0 = time.perf_counter()
+        rc, text, err = cli(train_lm.main, P13_TRAIN + ["--moe_routing", "expert_choice",
+                                                        "--allow_acausal_routing"])
+        log(f"13c expert choice with the acknowledgement: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f}s")
+        require(rc == 0 and "moe_dropped_frac" in text, f"13c: expert choice exited {rc}: "
+                f"{err[-2000:]}")
+
+        for fn in (fa.flash_attention_cuda, fd.flash_decode_cuda):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = gen_cli.run(P13_MODEL + ["--device", "cuda", "--model_dir", model_dir,
+                                       "--prompt", P10_PROMPT, "--max_new_tokens",
+                                       str(P13_NEW), "--greedy"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = {"K1": fa.flash_attention_cuda.launches, "K4": fd.flash_decode_cuda.launches}
+        cfg = moe_config(vocab_size=256)
+        model = restore_lm(cfg, dtype=torch.float32, device=torch.device("cuda"),
+                           model_dir=model_dir)
+        prompt = torch.tensor([list(P10_PROMPT.encode())], device="cuda")
+        want = generate(model, prompt, max_new_tokens=P13_NEW, temperature=0.0).cpu().numpy()
+        p_len = prompt.shape[1]
+        expect_k4 = cfg.num_layers * (p_len + P13_NEW - 1)
+        same = bool((res.tokens == want).all())
+        log(f"13c generate --moe_experts 8 --greedy: {p_len}-token prompt + {P13_NEW} new in "
+            f"{gen_s:.1f}s, token-identical to the library: {same}; launches {launches} "
+            f"(K4 expected {expect_k4}: one a layer for each prompt position of the stepwise "
+            f"prefill and each new token after the first; K1 none)")
+        require(same, "13c: cli.generate differs from the library's generate")
+        require(launches == {"K1": 0, "K4": expect_k4}, f"13c: launches {launches}")
+        out["generate"] = {"tokens_equal": same, "launches": launches, "seconds": gen_s,
+                           "prompt_len": p_len, "new": P13_NEW}
+        rc, _, err = cli(serve_lm.main, P10_MODEL + ["--moe_experts", "8", "--device", "cuda",
+                                                     "--model_dir", model_dir, "--selftest"])
+        log(f"13c serve_lm --moe_experts 8: exit {rc}: {err.strip()}")
+        require(rc == 1 and "dense-MLP only" in err, f"13c: serve_lm exited {rc}")
+
+        # 13d: --ep over NCCL at world size 1 (2 layers at full width).
+        t0 = time.perf_counter()
+        ep = P13_TRAIN + ["--num_layers", "2", "--ep", "1", "--dp", "1", "--coordinator",
+                          f"file://{os.path.join(work, 'ep-rdzv')}", "--num_processes", "1",
+                          "--process_id", "0"]
+        rc, text, err = cli(train_lm.main, ep)
+        log(f"13d train_lm --ep 1 over NCCL at world size 1 (the wiring only: NCCL refuses "
+            f"two expert ranks on one card): exit {rc} in {time.perf_counter() - t0:.1f}s")
+        require(rc == 0 and "nccl" in text, f"13d: exited {rc}: {err[-2000:]}")
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def moe_phase(torch, card: str, seed: int) -> dict:
+    """Phase 13: the MoE LM (13a-13d)."""
+    out = {"train": moe_train(torch, seed)}
+    out["card_vs_cpu"] = moe_card_vs_cpu(torch, seed)
+    out.update(moe_clis(torch, card))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -1666,6 +1986,11 @@ def main() -> int:
     log(f"phase 12 hello_world, ResNet-18 and UNet training over NCCL, checkpoint OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, card, args.seed)
+    log(f"phase 13 MoE LM (train, card vs CPU, CLIs, --ep over NCCL) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -1678,7 +2003,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
-                       "workloads": workloads,
+                       "workloads": workloads, "moe": moe,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

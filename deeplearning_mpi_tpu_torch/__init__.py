@@ -20,12 +20,17 @@ the JAX package so each counterpart is easy to find:
   UNet with flax's numerics (``models.layers``: SAME padding, compute
   dtype; ``models.norm``: BatchNorm, global-batch under data parallelism);
   ``models.get_model``;
+- ``models.moe``             — the routed Mixture-of-Experts MLP (token /
+  expert choice, the load-balance loss, the dropped fraction);
+- ``parallel.expert_parallel`` — the experts sharded over the mesh's expert
+  axis and the collectives that join them;
 - ``models.convert``         — JAX param, optimizer and CNN variable trees
   -> tensors;
 - ``models.generate``        — prefill, decode, sampling, ragged prompts,
   ``generate``, ``beam_search``;
 - ``runtime``                — ``torch.distributed`` bootstrap (NCCL on the
-  card, gloo on the CPU), the 5-axis mesh, collectives, hello_world;
+  card, gloo on the CPU), the 5-axis mesh (data and expert axes),
+  collectives, hello_world;
 - ``train``                  — train state (with BatchNorm statistics),
   train/eval steps for the LM, classification and segmentation,
   data-parallel over a process group, optimizers and LR schedules, the
@@ -39,8 +44,8 @@ the JAX package so each counterpart is easy to find:
   engine;
 - ``utils.config``           — the CLIs' shared flags, restore and sidecar
   checks, runtime set-up and local launcher (``--nproc``);
-- ``cli.train_lm``           — LM training with the JAX trainer's flags,
-  checkpoint, ``--resume`` and ``--eval_only``;
+- ``cli.train_lm``           — LM training (dense or MoE, ``--dp`` x ``--ep``)
+  with the JAX trainer's flags, checkpoint, ``--resume`` and ``--eval_only``;
 - ``cli.generate``           — text from a checkpoint (greedy, sampled, beam,
   ragged batch, int8);
 - ``cli.serve_lm``           — trace replay through the engine, from a

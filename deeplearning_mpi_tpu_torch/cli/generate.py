@@ -8,7 +8,9 @@ KV-cached path (``models/generate.py``): K1 prefills and K4 decodes on the
 card. ``--prompts_file`` decodes one prompt per line as one ragged batch
 (the shared prefix ``min(lengths)`` prefilled in one forward), one output
 line per prompt; ``--num_beams N > 1`` runs beam search on one prompt;
-``--quantize int8`` converts the block weights after restore.
+``--quantize int8`` converts the block weights after restore (dense models
+only). An MoE checkpoint (``--moe_experts``) prefills stepwise, every
+prompt position a decode step (K4 on the card).
 
     python -m deeplearning_mpi_tpu_torch.cli.generate --model_dir /tmp/lm \\
         --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \\
@@ -46,6 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     model.add_argument("--d_model", type=int, default=256)
     model.add_argument("--d_ff", type=int, default=1024)
     model.add_argument("--attention_window", type=int, default=0)
+    model.add_argument("--moe_experts", type=int, default=0,
+                       help="0 = dense SwiGLU MLP; N: the routed MoE of the training run")
+    model.add_argument("--moe_top_k", type=int, default=2)
+    model.add_argument("--moe_routing", default="token_choice",
+                       choices=("token_choice", "expert_choice"))
     model.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                        help="compute dtype (the checkpoint's weights are float32)")
     parser.add_argument("--model_dir", required=True)
@@ -104,6 +111,9 @@ class Generated:
 
 def _argv_error(args) -> str | None:
     """The argv checks, made before any restore."""
+    if args.quantize == "int8" and args.moe_experts > 0:
+        return ("--quantize int8 supports single-device dense models (not --tp or "
+                "--moe_experts yet)")
     eos_id = args.eos_id if args.eos_id >= 0 else None
     if eos_id is not None and eos_id > 255:
         return (f"--eos_id {eos_id} is outside the byte vocab (0-255) — it could never be "
@@ -144,6 +154,7 @@ def load_model(args, device: torch.device):
         vocab_size=256, num_layers=args.num_layers, num_heads=args.num_heads,
         num_kv_heads=args.num_kv_heads or None, head_dim=args.head_dim,
         d_model=args.d_model, d_ff=args.d_ff, attention_window=args.attention_window,
+        moe_experts=args.moe_experts, moe_top_k=args.moe_top_k, moe_routing=args.moe_routing,
     )
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = restore_lm(cfg, dtype=dtype, device=device, model_dir=args.model_dir,

@@ -55,6 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     model.add_argument("--d_model", type=int, default=256)
     model.add_argument("--d_ff", type=int, default=1024)
     model.add_argument("--attention_window", type=int, default=0)
+    model.add_argument("--moe_experts", type=int, default=0,
+                       help="accepted to be refused: serving is dense-MLP only")
+    model.add_argument("--moe_top_k", type=int, default=2)
+    model.add_argument("--moe_routing", default="token_choice",
+                       choices=("token_choice", "expert_choice"))
     model.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ckpt = parser.add_argument_group(
         "checkpoint (model flags MUST match the training run)")
@@ -201,6 +206,12 @@ def main(argv: list[str] | None = None) -> int:
         print("serve_lm needs --model_dir (a checkpoint to serve) or --selftest",
               file=sys.stderr)
         return 2
+    if args.moe_experts > 0:
+        # The engine would raise anyway, but before the restore.
+        print("serving is dense-MLP only: MoE capacity routing makes a token's output "
+              "depend on co-batched strangers, breaking the engine's request-independence "
+              "contract", file=sys.stderr)
+        return 1
     if args.spec_k and args.draft_layers < 1:
         print("--spec_k needs a draft model: pass --draft_layers N (the target's first N "
               "layers)", file=sys.stderr)

@@ -1,4 +1,4 @@
-"""Transformer LM training on one device, with checkpoint and resume.
+"""Transformer LM training, dense or MoE, with checkpoint and resume.
 
 Port of ``deeplearning_mpi_tpu/cli/train_lm.py``: the same model, training
 and data flags (names and defaults), vocab 256, the 90/10 train/eval split
@@ -7,6 +7,17 @@ the JAX CLI's batches. ``--attention flash`` selects
 ``flash_attention_bhsd`` (K1 forward, K2/K3 backward on CUDA; the model
 hands it ``[B, H, S, D]`` views of its projections). Adam with clip 1.0 by
 default.
+
+``--moe_experts N`` trains the routed MoE LM (``--moe_top_k``,
+``--moe_routing``; ``--moe_aux_weight`` weighs the load-balance loss, 0.01
+by default) and logs the epoch's ``moe_dropped_frac``. ``expert_choice``
+routing ranks the whole sequence, so it leaks future tokens into a causal
+LM: the parser refuses it without ``--allow_acausal_routing``.
+
+One process a device, as the data-parallel CLIs (``utils.config``'s
+topology flags, ``--nproc N`` local processes): ``--dp`` ranks split each
+global batch, and ``--ep`` ranks of one data coordinate split the experts
+(``parallel/expert_parallel.py``); rank 0 logs and writes.
 
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
@@ -21,9 +32,13 @@ SIGTERM ends training after the current epoch with a final checkpoint.
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --num_layers 2 \\
         --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 --seq_len 32 --batch_size 4 \\
         --train_sequences 40 --num_epochs 2 --model_dir /tmp/lm [--resume | --eval_only]
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --dp 2 --ep 2 \
+        --moe_experts 4 --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \
+        --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
-Not ported yet: ring and Ulysses attention, MoE, chaos, auto-resume
-(``--max_restarts``), guardrails and telemetry.
+Not ported yet: ring and Ulysses attention, tensor / pipeline / sequence
+parallelism and ZeRO (refused), chaos, auto-resume (``--max_restarts``),
+guardrails and telemetry.
 """
 
 from __future__ import annotations
@@ -34,11 +49,15 @@ from pathlib import Path
 
 import torch
 
+from deeplearning_mpi_tpu_torch.utils import config
 from deeplearning_mpi_tpu_torch.utils.config import ema_decay
+
+MODULE = "deeplearning_mpi_tpu_torch.cli.train_lm"
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="train_lm", description=__doc__.split("\n")[0])
+    config.add_topology_flags(parser)
     train = parser.add_argument_group("training")
     train.add_argument("--num_epochs", type=int, default=10)
     train.add_argument("--batch_size", type=int, default=32)
@@ -67,6 +86,17 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=("none", "dots", "full"))
     model.add_argument("--attention", default="dense", choices=("dense", "flash", "ring", "ulysses"))
     model.add_argument("--loss_chunk", type=int, default=0)
+    model.add_argument("--moe_experts", type=int, default=0,
+                       help="0 = dense SwiGLU MLP; N swaps in a routed MoE MLP per block")
+    model.add_argument("--moe_top_k", type=int, default=2)
+    model.add_argument("--moe_routing", default="token_choice",
+                       choices=("token_choice", "expert_choice"),
+                       help="token_choice = top-k + balance aux loss; expert_choice = each "
+                       "expert takes its top-C tokens (routing sees the whole sequence)")
+    model.add_argument("--moe_aux_weight", type=float, default=0.01)
+    model.add_argument("--allow_acausal_routing", action="store_true",
+                       help="acknowledge that --moe_routing expert_choice leaks future "
+                       "tokens into this causal LM's training")
     data = parser.add_argument_group("data")
     data.add_argument("--text_file", default=None,
                       help="train on this file's bytes (vocab 256); default: synthetic motifs")
@@ -83,8 +113,22 @@ def build_parser() -> argparse.ArgumentParser:
     ckpt.add_argument("--eval_only", action="store_true",
                       help="restore the newest checkpoint that verifies, run one eval "
                       "pass and exit")
-    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser
+
+
+def parse(argv: list[str] | None):
+    """Parse ``argv``; an acausal routing without its acknowledgement is a
+    parser error (exit 2), as in the reference."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if (args.moe_experts > 0 and args.moe_routing == "expert_choice"
+            and not args.allow_acausal_routing):
+        parser.error(
+            "--moe_routing expert_choice leaks future tokens into causal LM training "
+            "(routing ranks the whole sequence) and routes differently under KV-cached "
+            "decode. Pass --allow_acausal_routing to proceed anyway, or use "
+            "--moe_routing token_choice.")
+    return args
 
 
 class _Slice:
@@ -101,26 +145,28 @@ class _Slice:
 
 
 def train(argv: list[str] | None = None):
-    """Parse ``argv``, build the run and train (or, with ``--eval_only``,
-    evaluate); returns the ``Trainer``. A refusal (unported option, an
-    architecture mismatch, ``--eval_only`` with no checkpoint) raises
-    ``SystemExit`` with its message."""
-    args = build_parser().parse_args(argv)
+    """Parse ``argv``, join the group, build the run and train (or, with
+    ``--eval_only``, evaluate); returns the ``Trainer``. A refusal
+    (unported option, an architecture mismatch, ``--eval_only`` with no
+    checkpoint) raises ``SystemExit`` with its message."""
+    args = parse(argv)
     if args.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"--attention {args.attention} is not ported yet (sequence-parallel "
             "schedules come with the scale-out slice)"
         )
-    if (args.resume or args.eval_only) and args.model_dir is None:
-        raise SystemExit("--resume and --eval_only need --model_dir")
-    from deeplearning_mpi_tpu_torch import resolve_device
+    config.reject_unported(args)
+    if args.ep > 1 and not args.moe_experts:
+        raise SystemExit("--ep > 1 shards MoE experts: it needs --moe_experts")
     from deeplearning_mpi_tpu_torch.data import ByteTextDataset, Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size, expert_shards
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
-    from deeplearning_mpi_tpu_torch.utils import config
 
-    device = resolve_device(args.device)
+    topo, mesh, group = config.setup_runtime(args)
+    device = topo.device
+    log = config.coordinator_log(topo)
     if args.text_file:
         dataset = ByteTextDataset(args.text_file, args.seq_len)
     else:
@@ -128,9 +174,11 @@ def train(argv: list[str] | None = None):
     n_eval = max(1, len(dataset) // 10)
     train_ds = _Slice(dataset, 0, len(dataset) - n_eval)
     eval_ds = _Slice(dataset, len(dataset) - n_eval, len(dataset))
+    ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          device=device)
-    eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False, device=device)
+                          grad_accum=args.grad_accum, device=device, **ranks)
+    eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
+                         device=device, **ranks)
 
     attention_fn = None
     if args.attention == "flash":
@@ -141,6 +189,7 @@ def train(argv: list[str] | None = None):
         vocab_size=256, num_layers=args.num_layers, num_heads=args.num_heads,
         num_kv_heads=args.num_kv_heads or None, head_dim=args.head_dim,
         d_model=args.d_model, d_ff=args.d_ff, attention_window=args.attention_window,
+        moe_experts=args.moe_experts, moe_top_k=args.moe_top_k, moe_routing=args.moe_routing,
     )
     checkpointer = None
     if args.model_dir is not None:
@@ -150,37 +199,34 @@ def train(argv: list[str] | None = None):
         err = config.arch_mismatch_error(cfg, ckpt_dir)
         if err:
             raise SystemExit(err)
-        if not args.eval_only:
+        if not args.eval_only and topo.is_coordinator:
             config.save_arch(cfg, ckpt_dir)
         checkpointer = Checkpointer(ckpt_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
-                          return_prehead=args.loss_chunk > 0).init_weights(args.random_seed)
+                          return_prehead=args.loss_chunk > 0,
+                          expert_shards=expert_shards(mesh)).init_weights(args.random_seed)
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=1.0)
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
-    log = lambda msg: print(msg, flush=True)  # noqa: E731
     start_epoch = 0
     if checkpointer is not None:
         state, start_epoch = config.restore_for_start(args, checkpointer, state, log)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"train_lm: {n_params} params, {len(train_ds)} train / {len(eval_ds)} eval sequences "
-          f"of {args.seq_len}, {train_loader.steps_per_epoch()} steps/epoch, "
-          f"attention {args.attention}, {args.dtype}, on {device}", flush=True)
-    trainer = Trainer(state, "lm", eval_every=args.eval_every, grad_accum=args.grad_accum,
-                      loss_chunk=args.loss_chunk, ema_decay=args.ema, log=log,
-                      checkpointer=checkpointer)
+    moe = (f", MoE {args.moe_experts} experts top-{args.moe_top_k} {args.moe_routing} over "
+           f"--ep {args.ep}" if args.moe_experts else "")
+    log(f"train_lm: {n_params} params on this process{moe}, {len(train_ds)} train / "
+        f"{len(eval_ds)} eval sequences of {args.seq_len}, {train_loader.steps_per_epoch()} "
+        f"steps/epoch, attention {args.attention}, {args.dtype}, on {device}, "
+        f"{topo.num_processes} process(es) ({topo.backend or 'no group'})")
+    trainer = Trainer(state, "lm", eval_every=args.eval_every,
+                      aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
+                      grad_accum=args.grad_accum, loss_chunk=args.loss_chunk,
+                      ema_decay=args.ema, log=log, checkpointer=checkpointer, group=group)
     return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
 
 
 def main(argv: list[str] | None = None) -> int:
-    try:
-        train(argv)
-    except SystemExit as refusal:
-        if not isinstance(refusal.code, str):
-            raise
-        print(refusal.code, file=sys.stderr)
-        return 1
-    return 0
+    return config.cli_main(MODULE, parse, train, argv)
 
 
 if __name__ == "__main__":

@@ -84,7 +84,8 @@ def build(argv: list[str] | None = None) -> config.Run:
         eval_ds = CIFAR10(args.data_dir, train=False)
     ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          transform=train_transform, device=device, **ranks)
+                          transform=train_transform, device=device,
+                          grad_accum=args.grad_accum, **ranks)
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
                          transform=eval_transform, device=device, **ranks)
     model = build_model(args, device)
@@ -106,8 +107,8 @@ def train(argv: list[str] | None = None):
 
 
 def main(argv: list[str] | None = None) -> int:
-    return config.cli_main("deeplearning_mpi_tpu_torch.cli.train_resnet", build_parser(), train,
-                           argv)
+    return config.cli_main("deeplearning_mpi_tpu_torch.cli.train_resnet",
+                           build_parser().parse_args, train, argv)
 
 
 if __name__ == "__main__":

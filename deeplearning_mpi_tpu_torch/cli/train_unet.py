@@ -106,7 +106,7 @@ def build(argv: list[str] | None = None) -> config.Run:
     train_ds, eval_ds = _Subset(full, order[n_val:]), _Subset(full, order[:n_val])
     ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          device=device, **ranks)
+                          device=device, grad_accum=args.grad_accum, **ranks)
     # drop_last=False: a small validation set wrap-pads to one full batch.
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
                          device=device, **ranks)
@@ -131,8 +131,8 @@ def train(argv: list[str] | None = None):
 
 
 def main(argv: list[str] | None = None) -> int:
-    return config.cli_main("deeplearning_mpi_tpu_torch.cli.train_unet", build_parser(), train,
-                           argv)
+    return config.cli_main("deeplearning_mpi_tpu_torch.cli.train_unet",
+                           build_parser().parse_args, train, argv)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ trained by the JAX package continue in this one. Input is the flax tree
 module never imports JAX).
 
 The LM: flax ``Dense`` kernels are ``[in, out]``; ``nn.Linear``-style
-weights are ``[out, in]``, so every projection is transposed. The tied
+weights are ``[out, in]``, so every projection (and an MoE block's
+``router``) is transposed, while the expert stacks ``experts_*`` keep
+their ``[E, in, out]`` layout. The tied
 head has no tensor of its own; an untied ``lm_head`` kernel becomes
 ``lm_head.weight``. The CNNs (:func:`cnn_variables_from_jax`): see there.
 """
@@ -21,6 +23,7 @@ import torch
 
 _ATTN = ("q_proj", "k_proj", "v_proj", "out_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+_EXPERTS = ("experts_gate", "experts_up", "experts_down")
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -52,6 +55,11 @@ def lm_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd[f"{pre}.mlp_norm.scale"] = _t(lp["mlp_norm"]["scale"])
         for name in _ATTN:
             sd[f"{pre}.attn.{name}.weight"] = _kernel(lp["attn"][name]["kernel"])
+        if "router" in lp["mlp"]:
+            sd[f"{pre}.mlp.router.weight"] = _kernel(lp["mlp"]["router"]["kernel"])
+            for name in _EXPERTS:
+                sd[f"{pre}.mlp.{name}"] = _t(lp["mlp"][name])
+            continue
         for name in _MLP:
             sd[f"{pre}.mlp.{name}.weight"] = _kernel(lp["mlp"][name]["kernel"])
     sd["final_norm.scale"] = _t(params["final_norm"]["scale"])

@@ -12,14 +12,22 @@ Ragged prompts (``prompt_lens``) feed each row's prompt one position at a
 time and switch to its own samples at its own length; ``shared_prefix``
 prefills the positions every row shares in one batched forward first.
 :func:`beam_search` folds the beams into the batch (``B * W`` rows of one
-cache, each step's survivors gathering their parents' cache rows). The
-reference's MoE stepwise prefill waits for the port's MoE model.
+cache, each step's survivors gathering their parents' cache rows).
+
+An MoE model (``moe_experts > 0``) prefills stepwise, as the reference
+does: one batched forward would route the whole prompt through the experts
+at once, and capacity contention between prompt positions can drop tokens
+the position-by-position decode walk keeps. So every caller of
+:func:`prefill` (greedy, ``shared_prefix``, beam seeding) fills the cache
+with single-token decode steps at positions ``0..P-1`` (K4 on CUDA, never
+K1).
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeplearning_mpi_tpu_torch.models.moe import top_k as _top_k
 from deeplearning_mpi_tpu_torch.models.transformer import KVCache, TransformerLM
 
 
@@ -76,9 +84,12 @@ def prefill(
     attention_fn=None, last_logits_only: bool = True,
 ) -> tuple[KVCache, torch.Tensor]:
     """Fill a fresh ``total_len`` KV cache with ``prompt`` ``[B, P]`` in one
-    forward. Returns ``(cache, logits)``: the last position's ``[B, V]``
-    logits (the head runs on that row only), or all ``[B, P, V]`` with
-    ``last_logits_only=False``."""
+    forward (an MoE model: :func:`_prefill_stepwise`). Returns ``(cache,
+    logits)``: the last position's ``[B, V]`` logits (the head runs on that
+    row only), or all ``[B, P, V]`` with ``last_logits_only=False``."""
+    if model.config.moe_experts > 0:
+        return _prefill_stepwise(model, prompt, total_len=total_len,
+                                 last_logits_only=last_logits_only)
     if attention_fn is None:
         attention_fn = _prefill_attention_fn(prompt.device)
     cache = KVCache.empty(
@@ -88,6 +99,20 @@ def prefill(
     if last_logits_only:
         return cache, model.head(x[:, -1])
     return cache, model.head(x)
+
+
+@torch.no_grad()
+def _prefill_stepwise(
+    model: TransformerLM, prompt: torch.Tensor, *, total_len: int, last_logits_only: bool = True,
+) -> tuple[KVCache, torch.Tensor]:
+    """The MoE prefill: :func:`prefill`'s contract, the cache filled by
+    single-token decode steps at positions ``0..P-1``, so each position is
+    routed as the decode walk routes it."""
+    cache = KVCache.empty(model.config, prompt.shape[0], total_len, model.dtype, prompt.device)
+    logits = [model(prompt[:, i:i + 1], cache=cache)[:, 0] for i in range(prompt.shape[1])]
+    if last_logits_only:
+        return cache, logits[-1]
+    return cache, torch.stack(logits, dim=1)
 
 
 def first_token(
@@ -210,13 +235,6 @@ def _generate_ragged(
             done = done | sampled_eos
         prev = nxt
     return torch.cat([prompt[:, :start], torch.stack(consumed, dim=1)], dim=1)
-
-
-def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: ties go to the lower index
-    (``torch.topk`` promises no order among ties)."""
-    values, index = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], index[..., :k]
 
 
 @torch.no_grad()

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from deeplearning_mpi_tpu_torch.models.moe import MoEMLP
 from deeplearning_mpi_tpu_torch.runtime.collectives import all_reduce_sum_autograd
 
 _state = threading.local()
@@ -122,8 +123,9 @@ class BatchNorm(nn.Module):
 
 
 def set_group(model: nn.Module, group: dist.ProcessGroup | None) -> None:
-    """Bind every :class:`BatchNorm` of ``model`` to ``group`` (None: the
-    statistics of this process's batch)."""
+    """Bind every module of ``model`` whose result spans the global batch,
+    :class:`BatchNorm`'s moments and ``MoEMLP``'s load-balance loss, to the
+    data-parallel ``group`` (None: this process's batch)."""
     for module in model.modules():
-        if isinstance(module, BatchNorm):
+        if isinstance(module, (BatchNorm, MoEMLP)):
             module.group = group

@@ -41,8 +41,15 @@ Speculative decoding's drafts: :func:`draft_config` and
 param tree ``models.convert`` takes), and :func:`self_draft`, the target's
 first blocks as a model of their own on its device and dtype.
 
+Mixture of experts: ``moe_experts > 0`` swaps every block's SwiGLU for
+a routed ``models.moe.MoEMLP`` (top-k or expert-choice routing, fixed
+capacity; its load-balance loss and dropped fraction are read through
+``models.moe.collecting``). ``expert_shards`` keeps only this process's
+experts (``parallel/expert_parallel.py``). An MoE model has no int8 or
+draft counterpart, as in the reference.
+
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
-collection. MoE comes in a later slice.
+collection.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from torch.utils.checkpoint import (
 )
 
 from deeplearning_mpi_tpu_torch import resolve_device
+from deeplearning_mpi_tpu_torch.models.moe import mlp_from_config
 from deeplearning_mpi_tpu_torch.ops.attention import (
     decode_attention,
     dense_attention,
@@ -90,6 +98,14 @@ class TransformerConfig:
     #: sliding-window attention (0 = unlimited); a model property honoured
     #: by the full-sequence, prefill and decode paths alike.
     attention_window: int = 0
+    #: routed MoE MLP in every block (0 = dense SwiGLU); the load-balance
+    #: loss weight is a trainer knob, not a model field.
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    #: 'token_choice' (top-k + balance loss) or 'expert_choice' (each
+    #: expert takes its top-C tokens; routing sees the whole sequence).
+    moe_routing: str = "token_choice"
 
     @property
     def kv_heads(self) -> int:
@@ -101,6 +117,10 @@ class TransformerConfig:
             vocab_size=256, num_layers=2, num_heads=4, head_dim=8,
             d_model=32, d_ff=64,
         )
+
+    @staticmethod
+    def tiny_moe(num_experts: int = 4) -> "TransformerConfig":
+        return dataclasses.replace(TransformerConfig.tiny(), moe_experts=num_experts)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0) -> torch.Tensor:
@@ -117,7 +137,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm, f32 accumulation, learned scale."""
+    """Root-mean-square norm, f32 accumulation (f64 for f64 input), learned scale."""
 
     def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
@@ -125,7 +145,7 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         normed = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
         return (normed * self.scale).to(x.dtype)
 
@@ -266,15 +286,19 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block: x + attn(norm(x)); x + mlp(norm(x))."""
+    """Pre-norm transformer block: x + attn(norm(x)); x + mlp(norm(x)). The
+    MLP is routed (``models.moe.MoEMLP``) when ``config.moe_experts > 0``."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 quantized: bool = False) -> None:
+                 quantized: bool = False, expert_shards=None) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(config.d_model)
         self.attn = Attention(config, dtype, quantized)
         self.mlp_norm = RMSNorm(config.d_model)
-        self.mlp = SwiGLU(config.d_model, config.d_ff, dtype, quantized)
+        if config.moe_experts > 0:
+            self.mlp = mlp_from_config(config, config.d_model, config.d_ff, dtype, expert_shards)
+        else:
+            self.mlp = SwiGLU(config.d_model, config.d_ff, dtype, quantized)
 
     def forward(self, x, positions, *, cache=None, layer=0, attention_fn=None):
         x = x + self.attn(
@@ -308,14 +332,18 @@ class TransformerLM(nn.Module):
     enabled; ``return_prehead`` makes that forward return ``(final-norm
     activations, head kernel [d, V])`` for the chunked loss (tied
     embeddings only). ``quantized`` builds the int8 inference model
-    (``ops.quant``)."""
+    (``ops.quant``); ``expert_shards`` (``parallel.expert_parallel``) keeps
+    this process's share of an MoE model's experts."""
 
     def __init__(
         self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", remat: str = "none",
-        return_prehead: bool = False, quantized: bool = False,
+        return_prehead: bool = False, quantized: bool = False, expert_shards=None,
     ) -> None:
         super().__init__()
+        if config.moe_experts > 0 and quantized:
+            raise ValueError("--quantize int8 supports single-device dense models "
+                             "(not --tp or --moe_experts yet)")
         if remat not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat!r} (expected one of {REMAT_POLICIES})")
         if return_prehead and not config.tied_embeddings:
@@ -325,8 +353,9 @@ class TransformerLM(nn.Module):
             )
         self.config, self.dtype = config, dtype
         self.remat, self.return_prehead = remat, return_prehead
+        self.expert_shards = expert_shards if config.moe_experts > 0 else None
         self.embed = nn.Embedding(config.vocab_size, config.d_model)
-        self.layers = nn.ModuleList(Block(config, dtype, quantized)
+        self.layers = nn.ModuleList(Block(config, dtype, quantized, self.expert_shards)
                                     for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.d_model)
         self.lm_head = (
@@ -342,19 +371,30 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "TransformerLM":
         """Seeded random init with the reference's distributions (embedding
-        normal(0.02), projections LeCun truncated normal, norms ones),
-        drawn on the CPU so every device gets the same weights."""
+        normal(0.02), projections and router LeCun truncated normal, norms
+        ones), drawn on the CPU so every device gets the same weights. An
+        expert stack is drawn whole, ``[E, in, out]``, and this process
+        keeps its slice, so every expert sharding holds the same model."""
+        from deeplearning_mpi_tpu_torch.parallel.expert_parallel import is_expert_leaf
+
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
-            host = torch.empty(p.shape)
+            expert = is_expert_leaf(name, p)
+            shape = (self.config.moe_experts, *p.shape[1:]) if expert else p.shape
+            host = torch.empty(shape)
             if name.endswith("scale"):
                 host.fill_(1.0)
             elif name == "embed.weight":
                 host.normal_(0.0, 0.02, generator=gen)
             else:
-                # Dense weight [out, in]: fan_in is the input width.
-                std = 1.0 / math.sqrt(p.shape[1]) / 0.87962566103423978
+                # Dense weight [out, in]: fan_in is the input width. An expert
+                # stack [E, in, out]: flax counts the leading E as receptive
+                # field, so fan_in is E * in.
+                fan_in = shape[0] * shape[1] if expert else shape[1]
+                std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(host, std=std, a=-2 * std, b=2 * std, generator=gen)
+            if expert and self.expert_shards is not None:
+                host = self.expert_shards.local(host)
             p.copy_(host)
         return self
 
@@ -374,13 +414,13 @@ class TransformerLM(nn.Module):
                           attention_fn=attention_fn, **kw)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final-norm activations -> float32 logits (tied: ``x @ E^T`` in
-        the compute dtype, as flax ``Embed.attend``)."""
+        """Final-norm activations -> float32 logits (float64 in a float64
+        model; tied: ``x @ E^T`` in the compute dtype, as flax ``Embed.attend``)."""
         if self.lm_head is None:
             logits = x.to(self.dtype) @ self.embed.weight.to(self.dtype).T
         else:
             logits = self.lm_head(x)
-        return logits.float()
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def forward(
         self,
@@ -438,6 +478,8 @@ def draft_config(config: TransformerConfig, num_layers: int, **overrides) -> Tra
         raise ValueError(
             f"draft num_layers must be in [1, {config.num_layers}], got {num_layers}"
         )
+    if config.moe_experts > 0:
+        raise ValueError("draft models must be dense (no MoE)")
     return dataclasses.replace(config, num_layers=num_layers, **overrides)
 
 

@@ -37,8 +37,10 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matmul with float32 accumulation and result (the reference's
-    ``preferred_element_type=float32``): bf16 products are exact in f32."""
-    return torch.matmul(a.float(), b.float())
+    ``preferred_element_type=float32``): bf16 products are exact in f32.
+    Float64 operands stay float64."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    return torch.matmul(a.to(acc), b.to(acc))
 
 
 def dense_attention(

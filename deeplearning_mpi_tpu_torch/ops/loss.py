@@ -13,8 +13,10 @@ from torch.utils.checkpoint import checkpoint
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-element negative log-likelihood, f32 log-softmax over the last axis."""
-    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    """Per-element negative log-likelihood, f32 (f64 for f64 logits)
+    log-softmax over the last axis."""
+    log_probs = torch.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)),
+                                  dim=-1)
     return -torch.gather(log_probs, -1, labels.long()[..., None])[..., 0]
 
 

@@ -3,15 +3,18 @@
 Port of ``deeplearning_mpi_tpu/runtime/mesh.py``. The axis names and
 ``MeshSpec.resolve``'s arithmetic and errors are the reference's;
 :func:`create_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
-with those names (one process a device). In this slice only ``data`` may
-exceed 1: the schedules that shard along the other axes (tensor, pipeline,
-expert, sequence parallelism) are ROADMAP Queue 1 item 8. The reference's
+with those names (one process a device). ``data`` and ``expert`` may exceed
+1: the schedules that shard along the other axes (tensor, pipeline and
+sequence parallelism) are ROADMAP Queue 1 item 8. The reference's
 ``order_devices_for_mesh`` (multi-slice TPU placement) has no counterpart
 on GPUs.
 
 The data axis is the reference's ``batch_sharding``: a global batch of
 ``B`` rows is cut into ``data`` contiguous blocks, and the process at data
 coordinate ``r`` holds rows ``[r*B/n, (r+1)*B/n)`` (:func:`batch_rows`).
+Tokens are replicated over ``expert``, as in the reference: the processes
+of one expert group share a data coordinate and feed the same rows, and
+each holds its share of the MoE experts (:func:`expert_shards`).
 """
 
 from __future__ import annotations
@@ -67,18 +70,19 @@ def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "c
     With no spec every process is on ``data`` (the original repo's DDP
     world). ``device`` is the mesh's device type (``cuda`` for NCCL,
     ``cpu`` for gloo). Raises without a live group, and for any axis but
-    ``data`` above 1 (ROADMAP Queue 1 item 8).
+    ``data`` and ``expert`` above 1 (ROADMAP Queue 1 item 8).
     """
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a live process group (runtime.bootstrap.init "
                            "with a coordinator)")
     spec = spec or MeshSpec()
     shape = spec.resolve(dist.get_world_size())
-    wide = [f"{a}={n}" for a, n in zip(MESH_AXES[1:], shape[1:]) if n != 1]
+    wide = [f"{a}={n}" for a, n in zip(MESH_AXES, shape)
+            if n != 1 and a not in (AXIS_DATA, AXIS_EXPERT)]
     if wide:
         raise NotImplementedError(
-            f"mesh axes {', '.join(wide)}: only the data axis may exceed 1 in the port so far "
-            "(tensor, pipeline, expert and sequence parallelism are ROADMAP Queue 1 item 8)"
+            f"mesh axes {', '.join(wide)}: only the data and expert axes may exceed 1 in the "
+            "port so far (tensor, pipeline and sequence parallelism are ROADMAP Queue 1 item 8)"
         )
     return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
 
@@ -96,6 +100,20 @@ def data_size(mesh: DeviceMesh | None) -> int:
 def data_rank(mesh: DeviceMesh | None) -> int:
     """This process's coordinate on the data axis (0: no mesh)."""
     return 0 if mesh is None else mesh.get_local_rank(AXIS_DATA)
+
+
+def expert_shards(mesh: DeviceMesh | None):
+    """This process's share of the MoE experts along the expert axis
+    (``parallel.expert_parallel.ExpertShards``); None without a mesh or at
+    expert size 1."""
+    from deeplearning_mpi_tpu_torch.parallel.expert_parallel import ExpertShards
+
+    if mesh is None:
+        return None
+    size = mesh.size(MESH_AXES.index(AXIS_EXPERT))
+    if size == 1:
+        return None
+    return ExpertShards(mesh.get_group(AXIS_EXPERT), size, mesh.get_local_rank(AXIS_EXPERT))
 
 
 def local_batch_size(global_batch_size: int, mesh: DeviceMesh | None) -> int:

@@ -391,6 +391,11 @@ class ServingEngine:
         tenants: dict[str, dict[str, Any]] | None = None,
     ) -> None:
         engine = engine or EngineConfig()
+        if model.config.moe_experts > 0:
+            raise NotImplementedError(
+                "serving engine is dense-MLP only: MoE capacity routing makes a token's "
+                "output depend on co-batched strangers, which breaks the engine's "
+                "request-independence contract")
         if engine.num_blocks - 1 < engine.max_blocks_per_seq:
             raise ValueError(
                 f"pool capacity ({engine.num_blocks - 1} blocks) below "

@@ -33,9 +33,13 @@ serializer had to barrier for the same reason).
 Under data parallelism every rank holds the same replicated state: with a
 live process group rank 0 alone writes (and pins, prunes, rolls back) and
 every rank waits at a barrier after a save, so no rank reads a step before
-it is whole. Every rank restores from the shared directory. A state's
-tensors do not depend on the world size, so a save restores on any world
-(:meth:`Checkpointer.restore_elastic`).
+it is whole. Every rank restores from the shared directory. Under expert
+parallelism rank 0 holds only its experts: every rank gathers the full
+expert stacks (parameters, moments, EMA; ``TrainState.arrays``) before rank
+0 writes, and a restore keeps each rank's slice, so the files, their
+digests and the manifests are those of the whole model. A state's tensors
+do not depend on the world size or the expert sharding, so a save restores
+on any (:meth:`Checkpointer.restore_elastic`).
 
 Not ported: the chaos hook.
 """
@@ -155,13 +159,15 @@ class Checkpointer:
     def save(self, state: TrainState, *, epoch: int) -> None:
         """Write ``state`` as epoch ``epoch``: temp dir, fsync, rename, then
         the manifest; pin it if it re-hashes clean; prune. With a live
-        group rank 0 writes and every rank waits for it."""
+        group rank 0 writes and every rank waits for it (after every rank
+        gathered its expert stacks, when they are sharded)."""
+        arrays = state.arrays()
         if _writer():
-            self._write(state, epoch)
+            self._write(arrays, epoch)
         _barrier()
 
-    def _write(self, state: TrainState, epoch: int) -> None:
-        arrays = _to_host(state.arrays())
+    def _write(self, arrays: dict[str, Any], epoch: int) -> None:
+        arrays = _to_host(arrays)
         tmp = self.directory / f"tmp-{epoch}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
@@ -321,12 +327,12 @@ class Checkpointer:
 
     def restore_elastic(self, template: TrainState) -> tuple[TrainState, int]:
         """:meth:`restore_verified` onto a template for ANOTHER world size
-        than the one that saved; ``(state, epoch)``. Under replicated data
-        parallelism no tensor's shape depends on the world (the reference
-        re-shards each leaf as it reads; here there is nothing to re-shard),
-        and the loader's global order is a function of ``(seed, epoch)``
-        alone, so the resumed world sees the global batches a clean run at
-        its size would."""
+        or expert sharding than the one that saved; ``(state, epoch)``. No
+        saved tensor's shape depends on either (the reference re-shards each
+        leaf as it reads; here the template keeps its slice of each expert
+        stack), and the loader's global order is a function of ``(seed,
+        epoch)`` alone, so the resumed world sees the global batches a clean
+        run at its size would."""
         return self.restore_verified(template)
 
     def rollback_to_last_good(self, template: TrainState) -> tuple[TrainState, int]:

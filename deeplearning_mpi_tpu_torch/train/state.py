@@ -14,6 +14,13 @@ view back into a template state. A model with buffers (the CNNs'
 BatchNorm running statistics) carries them as ``batch_stats``, the
 reference's collection of that name; the train step advances them in
 place.
+
+Under expert parallelism (the model's ``expert_shards``) a process holds
+its slice of every expert stack and of the stacks' optimizer moments and
+EMA: :meth:`TrainState.arrays` gathers the full stacks (a collective over
+the expert group, so every rank calls it) and :meth:`TrainState.fill`
+takes full stacks and keeps this rank's slice. A checkpoint is thus the
+same tree at every expert sharding.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+
+from deeplearning_mpi_tpu_torch.parallel.expert_parallel import map_expert_leaves
 
 
 @dataclasses.dataclass
@@ -52,11 +61,17 @@ class TrainState:
         """The model's buffers (BatchNorm running statistics); empty for the LM."""
         return {n: b.detach() for n, b in self.model.named_buffers()}
 
+    @property
+    def expert_shards(self) -> Any:
+        """The model's expert sharding (None: every expert is here)."""
+        return getattr(self.model, "expert_shards", None)
+
     def arrays(self) -> dict[str, Any]:
         """What a checkpoint holds: ``step`` (an int32 scalar, as the
         reference's), ``params``, ``opt_state`` and, only when present,
         ``batch_stats`` and ``ema_params`` — so the LM's and EMA-off
-        checkpoints keep their exact tree."""
+        checkpoints keep their exact tree. Expert stacks are gathered whole
+        (module docstring)."""
         out: dict[str, Any] = {
             "step": torch.tensor(self.step, dtype=torch.int32),
             "params": {n: p.detach() for n, p in self.model.named_parameters()},
@@ -67,6 +82,9 @@ class TrainState:
             out["batch_stats"] = stats
         if self.ema_params is not None:
             out["ema_params"] = self.ema_params
+        shards = self.expert_shards
+        if shards is not None:
+            out = {k: map_expert_leaves(shards.gather, v) for k, v in out.items()}
         return out
 
     @torch.no_grad()
@@ -74,8 +92,13 @@ class TrainState:
         """This state with ``arrays`` (a tree of :meth:`arrays`' form, or a
         part of one) taken in: the parameters are copied into the model in
         place; ``opt_state`` and ``ema_params`` replace the template's where
-        given; ``batch_stats`` is copied into the buffers. The caller has
-        checked names, shapes and dtypes."""
+        given; ``batch_stats`` is copied into the buffers. Full expert stacks
+        are cut to this rank's slice. The caller has checked names, shapes
+        and dtypes."""
+        shards = self.expert_shards
+        if shards is not None:
+            arrays = {k: map_expert_leaves(lambda t: shards.local(t).clone(), v)
+                      for k, v in arrays.items()}
         if "params" in arrays:
             for n, p in self.model.named_parameters():
                 p.copy_(arrays["params"][n])

@@ -20,6 +20,14 @@ Port of ``deeplearning_mpi_tpu/train/trainer.py`` for the ``lm``,
 - the ``__loss_scale__`` / ``__grad_scale__`` batch keys: the first scales
   the reported and the differentiated loss, the second only the
   differentiated one;
+- the MoE load-balance loss (``models.moe``): ``aux_weight`` times it is
+  added to the differentiated total only; under ``grad_accum`` with the
+  weight ``aux_weight / grad_accum`` a chunk while the data loss keeps its
+  token weights; the ``moe_dropped_frac`` metric, the mean over chunks of
+  the routed layers' mean, only when a routed layer ran, and its epoch
+  mean in the trainer. The port also reports ``moe_aux_loss``, the
+  load-balance loss before its weight (the mean over chunks), when the
+  routing sows one;
 - the trainer's cadence: eval and checkpoint every ``eval_every`` epochs,
   a final eval and save, and a graceful exit (:class:`Preempted`) after a
   final save when a shutdown was requested; eval reports ``accuracy`` or
@@ -29,27 +37,36 @@ Port of ``deeplearning_mpi_tpu/train/trainer.py`` for the ``lm``,
 reference's global-batch semantics over one process a device: each rank
 feeds its rows of the global batch, BatchNorm sums its moments across the
 group (``models/norm.py``), and right after ``torch.autograd.grad`` the
-gradients and the loss go through ONE ``all_reduce_mean`` over a flat
-bucket. So every rank applies the same update, and the NaN guard, which
-reads the all-reduced loss, skips on every rank when one rank's shard is
-non-finite: the replicas never diverge. DDP does not fit this step: it does
-not support ``torch.autograd.grad``, and its buffer broadcast and local
-BatchNorm statistics contradict the reference's global batch. Under
-``grad_accum`` with a group, chunk ``i`` is every rank's ``i``-th share of
-its rows (the reference's is a contiguous block of the global rows), so
-BatchNorm's per-chunk statistics, and through them the update, differ from
-the reference's there; without BatchNorm the two agree.
+gradients and the loss (and the MoE dropped fraction) go through ONE
+``all_reduce_mean`` over a flat bucket. So every rank applies the same
+update, and the NaN guard, which reads the all-reduced loss, skips on every
+rank when one rank's shard is non-finite: the replicas never diverge. DDP
+does not fit this step: it does not support ``torch.autograd.grad``, and
+its buffer broadcast and local BatchNorm statistics contradict the
+reference's global batch. Under ``grad_accum`` the loader hands each rank
+its share of each of the reference's contiguous global chunks
+(``data/loader.py``), so ``x.chunk(grad_accum)[i]`` here is this rank's
+part of the reference's chunk ``i``, and BatchNorm's chunk statistics and
+the MoE load-balance loss (averaged over the group inside the forward) are
+the global chunk's.
+
+**Expert parallelism** (the model's ``expert_shards``): a rank holds its
+share of the experts and the rest replicated; the gradient mean stays one
+flat all-reduce over the DATA group, expert slices included (no gradient
+is averaged over the expert group), and the global norm of the clip and of
+``grad_norm`` sums the expert slices' squares over the expert group.
 
 The step is eager PyTorch: the reference's ``jit`` has no counterpart the
 port needs. The NaN guard selects with ``torch.where`` on the device, so a
 step adds no host sync; the trainer reads its metrics once per epoch.
-Not ported yet (ROADMAP): chaos, guardrails, auto-resume, telemetry, AOT
-warmup and the MoE aux loss.
+Not ported yet (ROADMAP): chaos, guardrails, auto-resume, telemetry and AOT
+warmup.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Callable, Iterable
@@ -58,6 +75,11 @@ import torch
 from torch.func import functional_call
 
 from deeplearning_mpi_tpu_torch.models.convert import transposed_from_jax
+from deeplearning_mpi_tpu_torch.models.moe import (
+    collect_aux_loss,
+    collect_dropped_fraction,
+    collecting,
+)
 from deeplearning_mpi_tpu_torch.models.norm import set_group
 from deeplearning_mpi_tpu_torch.ops.loss import (
     chunked_lm_loss,
@@ -183,6 +205,12 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def _model_norm(grads: dict[str, torch.Tensor], shards: Any) -> torch.Tensor:
+    """:func:`global_norm` of the whole model: with expert ``shards``, every
+    rank's expert slices count."""
+    return global_norm(grads.values()) if shards is None else shards.global_norm(grads)
+
+
 #: optax's defaults, which the reference's ``build_optimizer`` keeps.
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 LION_BETAS = (0.9, 0.99)
@@ -283,10 +311,17 @@ class Optimizer:
 
     def update(
         self, grads: dict[str, torch.Tensor], state: dict[str, Any],
-        params: dict[str, torch.Tensor],
+        params: dict[str, torch.Tensor], *, shards: Any = None,
     ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+        """``shards`` (``parallel.expert_parallel.ExpertShards``): the
+        expert leaves are this rank's slices, and the clip's global norm
+        spans every rank's."""
+        if shards is not None and self.name == "adafactor":
+            raise NotImplementedError(
+                "adafactor under expert parallelism is not ported yet (its factored "
+                "moments and block RMS span the whole expert stack)")
         if self.clip_norm is not None:
-            g_norm = global_norm(grads.values())
+            g_norm = _model_norm(grads, shards)
             keep = g_norm < self.clip_norm
             grads = {n: torch.where(keep, g, (g / g_norm) * self.clip_norm)
                      for n, g in grads.items()}
@@ -360,29 +395,35 @@ def _forward(state: TrainState, task: str, x: torch.Tensor, params: dict | None 
     return functional_call(state.model, params, (x,), kw)
 
 
-def _mean_over_group(grads: list[torch.Tensor], loss: torch.Tensor,
-                     group) -> tuple[list[torch.Tensor], torch.Tensor]:
-    """The data-parallel mean of the gradients and the loss: one
-    ``all_reduce_mean`` over a flat float32 bucket."""
-    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+def _mean_over_group(grads: list[torch.Tensor], scalars: list[torch.Tensor],
+                     group) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """The data-parallel mean of the gradients and the scalars (the loss,
+    the MoE dropped fraction): one ``all_reduce_mean`` over a flat float32
+    bucket (float64 for float64 gradients)."""
+    acc = functools.reduce(torch.promote_types, [g.dtype for g in grads], torch.float32)
+    flat = torch.cat([g.reshape(-1).to(acc) for g in grads]
+                     + [x.reshape(1).to(acc) for x in scalars])
     flat = collectives.all_reduce_mean(flat, group)
     out, offset = [], 0
     for g in grads:
         out.append(flat[offset: offset + g.numel()].view_as(g).to(g.dtype))
         offset += g.numel()
-    return out, flat[-1].to(loss.dtype)
+    tail = flat[offset:]
+    return out, [tail[i].to(x.dtype) for i, x in enumerate(scalars)]
 
 
 def make_train_step(
-    task: str, *, grad_accum: int = 1, loss_chunk: int = 0, seg_loss: str = "bce",
-    ema_decay: float = 0.0, guard_metrics: bool = False, group: Any = None,
+    task: str, *, aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0,
+    seg_loss: str = "bce", ema_decay: float = 0.0, guard_metrics: bool = False,
+    group: Any = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict[str, torch.Tensor]]]:
     """Build the optimizer step for a task (``lm``, ``classification``,
     ``segmentation``).
 
     ``grad_accum > 1`` splits the batch into that many equal chunks, each
     weighted by its valid-token count over the full batch's, and runs one
-    update. ``loss_chunk > 0`` takes the chunked head+loss (pair with
+    update. ``aux_weight`` scales the MoE load-balance loss into the
+    differentiated total. ``loss_chunk > 0`` takes the chunked head+loss (pair with
     ``TransformerLM(return_prehead=True)``). ``seg_loss`` picks the
     segmentation objective. ``ema_decay > 0`` advances the state's EMA
     after each accepted update (``ema = d*ema + (1-d)*params``).
@@ -390,8 +431,10 @@ def make_train_step(
     the finite guard. ``group`` (a process group, or None for one process)
     makes the step data-parallel (module docstring): BatchNorm spans the
     group and the gradients and loss are averaged over it. Metrics are
-    device scalars: ``loss``, ``finite`` (1.0 or 0.0) and, with
-    ``guard_metrics``, ``grad_norm``.
+    device scalars: ``loss``, ``finite`` (1.0 or 0.0), with
+    ``guard_metrics`` ``grad_norm``, ``moe_dropped_frac`` when the model
+    has routed layers and ``moe_aux_loss`` when they sow a balance loss
+    (module docstring).
     """
     loss_fn = _loss_fn(task, loss_chunk, seg_loss)
     input_key = _INPUTS[task]
@@ -411,25 +454,33 @@ def make_train_step(
         model = state.model
         model.train()
         set_group(model, group)
+        shards = state.expert_shards
         names, params = zip(*model.named_parameters())
         # BatchNorm advances its statistics in the forward; a skipped step
         # puts them back.
         stats_before = {n: b.clone() for n, b in model.named_buffers()}
 
-        def loss_and_grads(chunk: Batch, data_scale=None):
-            outputs = _forward(state, task, chunk[input_key])
-            loss = loss_fn(outputs, chunk)
-            if loss_scale is not None:
-                loss = loss * loss_scale
-            total = loss if data_scale is None else data_scale * loss
-            if grad_scale is not None:
-                total = total * grad_scale
-            grads = torch.autograd.grad(total, params, allow_unused=True)
+        def loss_and_grads(chunk: Batch, data_scale=None, aux_scale=None):
+            # The routed layers keep sowing through the backward: under remat
+            # it reruns each block, which must record what its first run did.
+            with collecting(model) as sown:
+                outputs = _forward(state, task, chunk[input_key])
+                aux = collect_aux_loss(sown) if sown.aux else None
+                drop = collect_dropped_fraction(sown)
+                loss = loss_fn(outputs, chunk)
+                if loss_scale is not None:
+                    loss = loss * loss_scale
+                total = loss if data_scale is None else data_scale * loss
+                if aux_weight and aux is not None:
+                    total = total + (aux_weight if aux_scale is None else aux_scale) * aux
+                if grad_scale is not None:
+                    total = total * grad_scale
+                grads = torch.autograd.grad(total, params, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-            return loss.detach(), grads
+            return loss.detach(), grads, drop, None if aux is None else aux.detach()
 
         if grad_accum == 1:
-            loss, grads = loss_and_grads(batch)
+            loss, grads, drop, aux = loss_and_grads(batch)
         else:
             for key, x in batch.items():
                 if x.shape[0] % grad_accum:
@@ -441,21 +492,29 @@ def make_train_step(
                 w_total = torch.clamp(chunk_weight(batch), min=1.0)
             else:
                 w_total = float(grad_accum)
-            loss, grads = 0.0, None
+            loss, grads, drop, aux = 0.0, None, None, None
             for i in range(grad_accum):
                 chunk = {k: x.chunk(grad_accum)[i] for k, x in batch.items()}
                 w = chunk_weight(chunk) / w_total
-                c_loss, c_grads = loss_and_grads(chunk, data_scale=w)
+                c_loss, c_grads, c_drop, c_aux = loss_and_grads(
+                    chunk, data_scale=w, aux_scale=aux_weight / grad_accum)
                 loss = loss + w * c_loss
                 grads = c_grads if grads is None else [a + b for a, b in zip(grads, c_grads)]
+                # Equal chunk shares: these cover every routed token.
+                if c_drop is not None:
+                    drop = c_drop / grad_accum if drop is None else drop + c_drop / grad_accum
+                if c_aux is not None:
+                    aux = c_aux / grad_accum if aux is None else aux + c_aux / grad_accum
         if group is not None:
-            grads, loss = _mean_over_group(grads, loss, group)
+            grads, scalars = _mean_over_group(grads, [loss] + ([] if drop is None else [drop]),
+                                              group)
+            loss, drop = scalars[0], (None if drop is None else scalars[1])
 
         with torch.no_grad():
             grads = dict(zip(names, grads))
             old = {n: p.detach() for n, p in zip(names, params)}
-            updates, new_opt = state.tx.update(grads, state.opt_state, old)
-            grad_norm = global_norm(grads.values()) if guard_metrics else None
+            updates, new_opt = state.tx.update(grads, state.opt_state, old, shards=shards)
+            grad_norm = _model_norm(grads, shards) if guard_metrics else None
             finite = torch.isfinite(loss)
             if grad_norm is not None:
                 finite = finite & torch.isfinite(grad_norm)
@@ -479,6 +538,10 @@ def make_train_step(
         metrics = {"loss": loss, "finite": finite.float()}
         if grad_norm is not None:
             metrics["grad_norm"] = grad_norm
+        if drop is not None:
+            metrics["moe_dropped_frac"] = drop
+        if aux is not None:
+            metrics["moe_aux_loss"] = aux
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state,
                                    ema_params=ema), metrics
 
@@ -527,11 +590,12 @@ class Trainer:
     timing. ``checkpointer`` (a ``train.checkpoint.Checkpointer``) saves the
     state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
     epoch. ``group`` makes the steps data-parallel; eval then averages over
-    every rank's rows."""
+    every rank's rows. ``aux_weight`` weighs the MoE load-balance loss."""
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
-        grad_accum: int = 1, loss_chunk: int = 0, seg_loss: str = "bce",
+        aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0,
+        seg_loss: str = "bce",
         ema_decay: float = 0.0, log: Callable[[str], None] = print, checkpointer: Any = None,
         shutdown: GracefulShutdown | None = None, group: Any = None,
     ) -> None:
@@ -543,21 +607,26 @@ class Trainer:
         self.shutdown = shutdown
         self.group = group
         self.world = 1 if group is None else collectives.axis_size(group)
-        self.train_step = make_train_step(task, grad_accum=grad_accum, loss_chunk=loss_chunk,
-                                          seg_loss=seg_loss, ema_decay=ema_decay, group=group)
+        self.train_step = make_train_step(task, aux_weight=aux_weight, grad_accum=grad_accum,
+                                          loss_chunk=loss_chunk, seg_loss=seg_loss,
+                                          ema_decay=ema_decay, group=group)
         self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss)
         self.history: list[dict[str, float]] = []
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
-        """One training epoch; the mean loss leaves non-finite steps out."""
+        """One training epoch; the mean loss leaves non-finite steps out. An
+        MoE model's epoch mean ``moe_dropped_frac`` covers every step."""
         t0 = time.perf_counter()
-        loss_sum = finite_sum = None
+        loss_sum = finite_sum = drop_sum = None
         n_batches = sequences = 0
         for batch in loader.epoch(epoch):
             self.state, metrics = self.train_step(self.state, batch)
             contrib = torch.where(metrics["finite"] > 0, metrics["loss"], 0.0)  # NaN*0 is NaN
             loss_sum = contrib if loss_sum is None else loss_sum + contrib
             finite_sum = metrics["finite"] if finite_sum is None else finite_sum + metrics["finite"]
+            if "moe_dropped_frac" in metrics:
+                d = metrics["moe_dropped_frac"]
+                drop_sum = d if drop_sum is None else drop_sum + d
             n_batches += 1
             sequences += batch[_INPUTS[self.task]].shape[0] * self.world
         if not n_batches:
@@ -572,6 +641,9 @@ class Trainer:
         unit = "sequences" if self.task == "lm" else "images"
         self.log(f"Epoch {epoch}: loss {mean_loss:.4f}, {duration:.1f}s, "
                  f"{stats['images_per_s']:.1f} {unit}/s")
+        if drop_sum is not None:
+            stats["moe_dropped_frac"] = float(drop_sum) / n_batches
+            self.log(f"Epoch {epoch}: moe_dropped_frac {stats['moe_dropped_frac']:.4f}")
         return stats
 
     def evaluate(self, loader: Any) -> dict[str, float]:

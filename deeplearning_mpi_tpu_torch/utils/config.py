@@ -161,7 +161,6 @@ UNPORTED_FLAGS = {
     "tp": (1, "Queue 1 item 8 (tensor parallelism)"),
     "pp": (1, "Queue 1 item 8 (pipeline parallelism)"),
     "sp": (1, "Queue 1 item 8 (sequence parallelism)"),
-    "ep": (1, "Queue 1 item 8 (expert parallelism)"),
     "zero": (False, "Queue 1 item 8 (ZeRO-1)"),
     "zero_overlap": (False, "Queue 1 item 8 (ZeRO-1)"),
     "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
@@ -192,7 +191,10 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
                        help="spawn this many local processes, joined through a file store")
     group.add_argument("--dp", type=int, default=-1,
                        help="data-parallel degree (-1: every process)")
-    for flag in ("tp", "pp", "sp", "ep"):
+    group.add_argument("--ep", type=int, default=1,
+                       help="expert-parallel degree: the MoE experts split over this many "
+                       "processes of one data coordinate")
+    for flag in ("tp", "pp", "sp"):
         group.add_argument(f"--{flag}", type=int, default=1, help="not ported yet")
     group.add_argument("--zero", action="store_true", help="not ported yet")
     group.add_argument("--zero_overlap", action="store_true", help="not ported yet")
@@ -256,10 +258,11 @@ def setup_runtime(args: argparse.Namespace):
     topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
                           device=args.device)
     if not dist.is_initialized():
-        if args.dp not in (-1, 1):
-            raise SystemExit(f"--dp {args.dp} needs {args.dp} processes")
+        if args.dp not in (-1, 1) or args.ep != 1:
+            raise SystemExit(f"--dp {args.dp} --ep {args.ep} needs "
+                             f"{max(args.dp, 1) * args.ep} processes")
         return topo, None, None
-    mesh = create_mesh(MeshSpec(data=args.dp), device=topo.device.type)
+    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep), device=topo.device.type)
     return topo, mesh, data_group(mesh)
 
 
@@ -367,8 +370,8 @@ def execute(run: Run) -> Any:
     return trainer
 
 
-def cli_main(module: str, parser: argparse.ArgumentParser, train: Callable[[list[str]], Any],
-             argv: list[str] | None) -> int:
+def cli_main(module: str, parse: Callable[[list[str]], argparse.Namespace],
+             train: Callable[[list[str]], Any], argv: list[str] | None) -> int:
     """The data-parallel CLIs' ``main``: refuse unported flags, spawn
     ``--nproc`` local processes, or run ``train(argv)`` here and leave the
     group after it. A refusal prints its message and returns 1."""
@@ -376,7 +379,7 @@ def cli_main(module: str, parser: argparse.ArgumentParser, train: Callable[[list
 
     argv = sys.argv[1:] if argv is None else list(argv)
     try:
-        args = parser.parse_args(argv)
+        args = parse(argv)
         reject_unported(args)
         if args.nproc > 1:
             return launch_local(module, argv, args.nproc)

@@ -151,6 +151,25 @@ def test_loader_rank_rows_match_the_reference(n, drop_last):
         Loader(ds, 6, num_replicas=4, device="cpu")
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_loader_accum_chunks_match_the_reference(n):
+    """Under grad_accum 2 the ranks' chunk-i rows, concatenated, are the
+    reference's global chunk i after the transform: each row keeps the
+    augmentation draw of its row in the JAX process's contiguous block."""
+    ds = cifar.SyntheticCIFAR10(22, seed=1)
+    procs = [_jax_process_batches(ds, 8, n, p, drop_last=True,
+                                  transform=jax_cifar.train_transform) for p in range(n)]
+    ranks = [[b for epoch in (0, 1) for b in Loader(
+        ds, 8, shuffle=True, seed=11, transform=cifar.train_transform, num_replicas=n,
+        rank=r, grad_accum=2, device="cpu").epoch(epoch)] for r in range(n)]
+    for step in range(len(procs[0])):
+        for k in procs[0][step]:
+            whole = np.concatenate([procs[p][step][k] for p in range(n)])
+            for i, want in enumerate(np.split(whole, 2)):
+                got = torch.cat([ranks[r][step][k].chunk(2)[i] for r in range(n)])
+                np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{k} chunk {i}")
+
+
 def test_loader_ranks_tile_the_global_batch():
     """Without a transform, the ranks' rows concatenate to the one-process
     global batch."""

@@ -638,3 +638,74 @@ def test_nccl_ranks_train_like_one_card(cuda, tmp_path):
 
     rt.check_ranks_train_like_one_process(rt.spawn(tmp_path, n, "w_train_f64", "cuda"), n,
                                           "cuda")
+
+
+@pytest.fixture(scope="module")
+def expert_parallel_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``tests/torch_moe_ranks.py``'s
+    :data:`CUDA_LAYOUTS` on the MoE LM at 2 layers of full width (8
+    experts, top 2), TF32 off, and one card's run of the global batch in
+    float32 and in float64. Skips with fewer than four cards."""
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: dp 2 x ep 2, one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_moe_ranks as ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    tmp_path = tmp_path_factory.mktemp("expert_parallel")
+    cfg = TransformerConfig(num_layers=2, moe_experts=8, moe_top_k=2)
+    full = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    ds = SyntheticTokens(4, 256, vocab_size=cfg.vocab_size, seed=0)
+    tokens = torch.stack([torch.from_numpy(ds[i]["tokens"]) for i in range(4)])
+    torch.save({"cfg": cfg, "moe_sd": full.state_dict(), "tokens": tokens},
+               tmp_path / "inputs.pt")
+    spawned = ranks.spawn(tmp_path, 4, ranks.worker_cuda)
+    one = {dtype: ranks.moe_case(cfg, full.state_dict(), tokens, device="cuda", dtype=dtype)
+           for dtype in (torch.float32, torch.float64)}
+    # one card's own float32 noise: the same global batch with its rows in
+    # another order (the same sums, associated differently).
+    twin = ranks.moe_case(cfg, full.state_dict(), tokens[[1, 0, 3, 2]], device="cuda")
+    return ranks, spawned, one, twin
+
+
+def test_nccl_expert_parallel_matches_one_card(expert_parallel_runs):
+    """``dp 2 x ep 2`` in float32 against one card on the global batch: the
+    load-balance loss, one step's loss, every gradient and the parameters
+    after one Adam step (expert stacks gathered) within 1e-6 relative L2,
+    the replicas of every non-expert parameter bitwise equal across the
+    ranks. It prints the worst errors beside those of ``dp 4`` and ``ep 4``
+    on the same cards and one card's own float32 noise (rows reordered)."""
+    ranks, spawned, one, twin = expert_parallel_runs
+    results = [res["dp2_ep2"] for res in spawned]
+    worst = ranks.relative_errors(results, one[torch.float32])
+    print("worst relative errors:", worst[:12])
+    for layout in ("dp4", "ep4"):
+        print(f"{layout}:", ranks.relative_errors([res[layout] for res in spawned],
+                                                  one[torch.float32])[:4])
+    noise = sorted(((ranks.relative_error(twin[key][n], t), key, n) for key in ("grads", "params")
+                    for n, t in one[torch.float32][key].items()), reverse=True)
+    print("one card, rows reordered:", noise[:6])
+    over = [(k, e) for k, e in worst if e > 1e-6]
+    replicas = ranks.differing_replicas(results)
+    assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-6: {over[:20]}; "
+                                       f"replicas differing: {replicas}")
+
+
+def test_nccl_expert_parallel_f64_matches_one_card(expert_parallel_runs):
+    """The same ``dp 2 x ep 2`` step in float64 (parameters and compute)
+    against one card in float64 within 1e-7 relative, where float32's own
+    noise (~1e-6) cannot hide a fault in the expert group's collectives;
+    the non-expert replicas bitwise equal."""
+    ranks, spawned, one, _ = expert_parallel_runs
+    results = [res["dp2_ep2_f64"] for res in spawned]
+    worst = ranks.relative_errors(results, one[torch.float64])
+    print("float64 worst relative errors:", worst[:12])
+    over = [(k, e) for k, e in worst if e > 1e-7]
+    replicas = ranks.differing_replicas(results)
+    assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-7: {over[:20]}; "
+                                       f"replicas differing: {replicas}")

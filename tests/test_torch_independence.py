@@ -8,7 +8,8 @@ save and verified restore, a beam search and an int8 conversion on the
 CPU, then a warmed engine with a draft, int8 KV pools and the prefix
 cache, and imports the CLIs; and one that runs the original workloads'
 path: hello_world over gloo, a CNN train and eval step on the CIFAR loader,
-and the CNN CLIs' imports.
+and the CNN CLIs' imports; and one that runs the MoE LM's path (an
+expert-sharded step over gloo, its checkpoint, stepwise MoE generation).
 """
 
 import ast
@@ -111,6 +112,49 @@ def test_original_workloads_run_with_jax_blocked(tmp_path):
         "bootstrap.shutdown()\n"
         "import deeplearning_mpi_tpu_torch.cli.train_resnet, deeplearning_mpi_tpu_torch.cli.train_unet\n"
         "import deeplearning_mpi_tpu_torch.cli.hello_world, deeplearning_mpi_tpu_torch.cli.download\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_moe_path_runs_with_jax_blocked(tmp_path):
+    """The MoE LM's path with jax blocked: an expert-sharded train step over
+    gloo at world size 1, the checkpoint's gathered stacks restored, the
+    stepwise MoE generation, and the MoE modules' imports."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import tempfile, torch\n"
+        "from deeplearning_mpi_tpu_torch.runtime import bootstrap\n"
+        "from deeplearning_mpi_tpu_torch.runtime.mesh import MeshSpec, create_mesh, data_group\n"
+        f"bootstrap.init('file://{tmp_path}/store', 1, 0, 'cpu', timeout_s=60)\n"
+        "mesh = create_mesh(MeshSpec(data=1, expert=1), device='cpu')\n"
+        "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens\n"
+        "from deeplearning_mpi_tpu_torch.models.generate import generate\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
+        "from deeplearning_mpi_tpu_torch.parallel.expert_parallel import ExpertShards\n"
+        "from deeplearning_mpi_tpu_torch.resilience import tree_digests\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step\n"
+        "from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer\n"
+        "shards = ExpertShards(mesh.get_group('expert'), 1, 0)\n"
+        "m = TransformerLM(TransformerConfig.tiny_moe(), dtype=torch.float32, device='cpu',\n"
+        "                  expert_shards=shards).init_weights(0)\n"
+        "s = create_train_state(m, build_optimizer('adam', 1e-3, clip_norm=1.0))\n"
+        "batch = next(Loader(SyntheticTokens(4, 16), 4, grad_accum=2, device='cpu').epoch(0))\n"
+        "step = make_train_step('lm', aux_weight=0.01, grad_accum=2, group=data_group(mesh))\n"
+        "s, metrics = step(s, batch)\n"
+        "assert s.step == 1 and 'moe_dropped_frac' in metrics and 'moe_aux_loss' in metrics\n"
+        "ck = Checkpointer(tempfile.mkdtemp())\n"
+        "ck.save(s, epoch=0)\n"
+        "r, _ = ck.restore_verified(create_train_state(m, build_optimizer('adam', 1e-3)))\n"
+        "assert tree_digests(r.arrays()) == tree_digests(s.arrays())\n"
+        "assert generate(m, torch.arange(1, 6)[None], max_new_tokens=3, temperature=0.0).shape == (1, 8)\n"
+        "bootstrap.shutdown()\n"
+        "import deeplearning_mpi_tpu_torch.models.moe, deeplearning_mpi_tpu_torch.cli.serve_lm\n"
         "print('ok')\n"
     )
     out = subprocess.run(
