@@ -134,7 +134,30 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``cli.serve_lm --moe_experts 8`` is refused with the reference's
     reason; (d) ``cli.train_lm --ep 1`` over NCCL at world size 1 (2
     layers at full width): the expert axis's wiring only, since NCCL
-    refuses two ranks on one card.
+    refuses two ranks on one card;
+14. sequence parallelism, bf16 at full width on one card through the
+    one-process form of the schedules (``sp=4``: the ranks' steps in
+    lockstep, since NCCL refuses two ranks on one card). (a) At B2 S8192 H12
+    D64 (S_l 2048): the kernel ring (K1 each rotation with a float32 output
+    and the lse, K2/K3 with the global lse and float32 gradients) causal,
+    with window 512 (2 rotations), with GQA Hkv 4, non-causal, and in
+    float32; Ulysses causal and with GQA Hkv 4. Each output and dq/dk/dv
+    held to ``FWD_TOL`` / ``GRAD_TOL`` against the same schedule on the
+    plain versions of K1-K3 and against one K1 / K2+K3 call over the whole
+    sequence (with the schedule's rounding points), and a second run
+    bit-identical. (b) The 110M ``TransformerConfig()`` at B2 S8192, Adam
+    3e-4 with clip 1.0, with the ring as its attention fn against the same
+    weights with ``flash_attention_bhsd`` over the whole sequence: step-1
+    gradients within 5e-2 relative L2 per tensor, 4 steps of each with
+    every loss finite and K1/K2/K3 launched exactly 120 times a step each
+    for the ring (12 layers x (1+2+3+4) live blocks) and 12 for flash; step
+    median, tokens/s, peak memory and one profiled step of each, no bar.
+    (c) ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over NCCL
+    at world size 1 (2 layers, seq 4096: the wiring only) exit 0 with K1
+    launched; ``--sp 2 --moe_experts 8`` exits 1 with its refusal. Then
+    K1/K2/K3 timed at the ring's past-block call (B2 S2048 H12 D64 bf16,
+    non-causal, float32 output / gradients) beside their plain versions and
+    SDPA's non-causal forward / backward.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -1920,6 +1943,347 @@ def moe_phase(torch, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 14 ----------------------------------------------------------------
+#: Phase 14's attention shape: bf16 B2 S8192 H12 D64 over a ring of 4
+#: (S_l 2048), one card, the one-process form of the schedules.
+P14_B, P14_S, P14_H, P14_D, P14_SP = 2, 8192, 12, 64, 4
+#: 14a's cases: (name, dtype, kv heads, causal, window).
+P14_CASES = [("bf16 causal", "bfloat16", 12, True, None),
+             ("bf16 window512", "bfloat16", 12, True, 512),
+             ("bf16 GQA Hkv4", "bfloat16", 4, True, None),
+             ("bf16 full", "bfloat16", 12, False, None),
+             ("f32 causal", "float32", 12, True, None)]
+
+
+def _plain_flash_fn(torch):
+    """An autograd Function over the plain versions of K1 (forward, with the
+    lse) and K2/K3 (backward): Ulysses' inner, held against the kernels."""
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            o, lse = fa.flash_attention_reference(q, k, v, causal=causal, window=window,
+                                                  return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.kw = dict(causal=causal, window=window)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*fa.flash_attention_bwd_reference(q, k, v, o, do.to(o.dtype), lse, **ctx.kw),
+                    None, None)
+
+    return lambda q, k, v, causal=True, window=None: PlainFlash.apply(q, k, v, causal, window)
+
+
+def _attention_and_grads(torch, fn, q, k, v, do):
+    """``fn``'s output and ``(dq, dk, dv)`` for the output gradient ``do``."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    return [out.detach(), *grads]
+
+
+def _whole_sequence(torch, q, k, v, do, causal, window, grad_dtype):
+    """One K1 call and one K2/K3 pair over the whole sequence, grouped K/V
+    repeated and dK/dV group-summed back, with the schedule's rounding
+    points: the ring's kernels give float32 gradients that are summed and
+    then cast once (``grad_dtype`` float32); Ulysses' inner gives q's dtype
+    a head, which its repeat's backward then sums (``grad_dtype`` None).
+    Under GQA the second rounds each head's dK/dV before a sum that may
+    cancel, so only a reference with the same rounding can hold it
+    element by element."""
+    from deeplearning_mpi_tpu_torch.ops.attention import repeat_kv
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = repeat_kv(k, rep), repeat_kv(v, rep)
+    o, lse = fa.flash_attention(q, kr, vr, causal=causal, window=window, return_lse=True)
+    grads = fa.flash_attention_bwd(q, kr, vr, o, do, lse, causal=causal, window=window,
+                                   grad_dtype=grad_dtype)
+    dq, dk, dv = (g.float().reshape(*g.shape[:2], -1, rep, g.shape[-1]).sum(3)
+                  if i and rep > 1 else g for i, g in enumerate(grads))
+    return [o, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)]
+
+
+def seq_attention(torch, gen) -> dict:
+    """14a: the one-process ring (kernel inner) and Ulysses over ``sp`` 4 at
+    B2 S8192 H12 D64, each case's output and gradients held to
+    ``FWD_TOL`` / ``GRAD_TOL`` against the same schedule on the plain
+    versions of K1-K3 and against one K1 / K2+K3 call over the whole
+    sequence; a second run bit-identical."""
+    from deeplearning_mpi_tpu_torch.parallel import make_ring_attention_fn, make_ulysses_attention_fn
+    from deeplearning_mpi_tpu_torch.parallel import ring_flash
+
+    B, S, H, D, sp = P14_B, P14_S, P14_H, P14_D, P14_SP
+    plain_inner = _plain_flash_fn(torch)
+    schedules = {
+        "ring": (make_ring_attention_fn(sp=sp), make_ring_attention_fn(sp=sp,
+                                                                       kernels=ring_flash.PLAIN)),
+        "ulysses": (make_ulysses_attention_fn(sp=sp),
+                    make_ulysses_attention_fn(sp=sp, inner=plain_inner)),
+    }
+    out = {}
+    for name, dtype_name, hkv, causal, window in P14_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, S, hkv, D, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+        kw = {"causal": causal} | ({"window": window} if window else {})
+        for sched, (kernel_fn, plain_fn) in schedules.items():
+            if sched == "ulysses" and name not in ("bf16 causal", "bf16 GQA Hkv4"):
+                continue
+            whole = _whole_sequence(torch, q, k, v, do, causal, window,
+                                    torch.float32 if sched == "ring" else None)
+            run = lambda fn: _attention_and_grads(torch, lambda *t: fn(*t, **kw), q, k, v, do)  # noqa: E731
+            got, again = run(kernel_fn), run(kernel_fn)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"14a {sched} {name}: a second run differs")
+            plain = run(plain_fn)
+            errs = []
+            for ref_name, ref in (("plain", plain), ("whole", whole)):
+                for label, g, r, tol in zip(("out", "dq", "dk", "dv"), got, ref,
+                                            (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+                    atol, rtol, l2 = tol[dtype_name]
+                    require(g.dtype == r.dtype and g.shape == r.shape,
+                            f"14a {sched} {name}: {label} {g.dtype}{tuple(g.shape)} vs {ref_name} "
+                            f"{r.dtype}{tuple(r.shape)}")
+                    require(bool(torch.isfinite(g).all()), f"14a {sched} {name}: non-finite {label}")
+                    ok, err, rel = grads_close(g, r, atol, rtol, l2)
+                    errs.append({"vs": ref_name, "tensor": label, "max_abs_err": err, "rel_l2": rel})
+                    require(ok, f"14a {sched} {name}: {label} vs {ref_name}: max abs err {err}, "
+                            f"rel L2 {rel} (bound atol {atol:g} + rtol {rtol:g}, rel L2 {l2:g})")
+            out[f"{sched} {name}"] = errs
+            worst = {r: max(e["rel_l2"] for e in errs if e["vs"] == r) for r in ("plain", "whole")}
+            log(f"14a {sched} sp {sp} {name} B{B} S{S} H{H} Hkv{hkv} D{D}: out, dq, dk, dv within "
+                f"FWD_TOL / GRAD_TOL of the plain schedule (worst rel L2 {worst['plain']:.3e}) "
+                f"and of one whole-sequence K1 / K2+K3 call ({worst['whole']:.3e}); "
+                f"bit-identical on a second run")
+            del got, again, plain, whole
+    return out
+
+
+def seq_train(torch, seed: int) -> dict:
+    """14b: the 110M ``TransformerConfig()`` at B2 S8192, bf16, Adam 3e-4
+    with clip 1.0, with the one-process ring over ``sp`` 4 as its attention
+    fn, against the same weights with ``flash_attention_bhsd`` over the
+    whole sequence: step-1 gradients, then 4 steps of each through
+    ``make_train_step`` (launch counts, step times, memory, one profiled
+    step each)."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel import make_ring_attention_fn
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    cfg = TransformerConfig()
+    B, S, steps = P14_B, P14_S, 4
+    ds = SyntheticTokens(B * steps, S, vocab_size=cfg.vocab_size, seed=seed)
+    rows = np.stack([ds[i]["tokens"] for i in range(B * steps)])
+    batches = [{"tokens": torch.from_numpy(rows[i * B:(i + 1) * B]).cuda()} for i in range(steps)]
+    fns = {"ring": make_ring_attention_fn(sp=P14_SP), "flash": fa.flash_attention_bhsd}
+    kernels = {"K1": fa.flash_attention_cuda, "K2": fa.flash_attention_bwd_dq_cuda,
+               "K3": fa.flash_attention_bwd_dkv_cuda}
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def grads(attention_fn):
+        model.zero_grad(set_to_none=True)
+        tokens = batches[0]["tokens"]
+        lm_cross_entropy(model(tokens, attention_fn=attention_fn), tokens).backward()
+        return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    g_ring, g_flash = grads(fns["ring"]), grads(fns["flash"])
+    model.zero_grad(set_to_none=True)
+    rel = {n: float((g_ring[n] - g_flash[n]).norm() / g_flash[n].norm().clamp(min=1e-30))
+           for n in g_flash}
+    worst = max(rel, key=rel.get)
+    log(f"14b ring vs flash step-1 grads (B{B} S{S}, {len(rel)} tensors): relative L2 error max "
+        f"{rel[worst]:.3e} ({worst}), median {sorted(rel.values())[len(rel) // 2]:.3e} (tol 5e-2)")
+    require(rel[worst] <= 5e-2, f"14b: ring grads differ from flash: {worst} {rel[worst]}")
+    del g_ring, g_flash
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst}
+    expect = {"ring": 12 * sum(range(1, P14_SP + 1)), "flash": 12}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                   attention_fn=fn)
+        step = make_train_step("lm")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        losses, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = {k: fn_.launches for k, fn_ in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        res = {"losses": losses, "step_times_s": times, "step_s_median": step_s,
+               "tokens_per_s": B * S / step_s, "max_memory_allocated": peak,
+               "launches": launches}
+        log(f"14b {name}: losses {[round(x, 4) for x in losses]}, step median "
+            f"{1e3 * step_s:.2f} ms (steps 2-{steps}), {res['tokens_per_s']:.0f} tokens/s, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB, launches {launches} "
+            f"(expected {expect[name]} a step each)")
+        require(all(np.isfinite(losses)), f"14b {name}: non-finite loss {losses}")
+        require(all(n == expect[name] * steps for n in launches.values()),
+                f"14b {name}: expected {expect[name] * steps} launches of each kernel, got "
+                f"{launches}")
+        res["profile"] = device_profile(torch, lambda: step(state, batches[-1]),
+                                        f"14b {name} profile (one step)")
+        result[name] = res
+    return result
+
+
+def seq_clis(torch, card: str) -> dict:
+    """14c: ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over
+    NCCL at world size 1 (2 layers at the 110M widths, seq 4096; the wiring
+    only, as 13d), and ``--sp 2 --moe_experts 8`` refused."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase14-", dir=os.path.join(ROOT, "build"))
+    flags = P10_MODEL[2:] + ["--num_layers", "2", "--device", "cuda", "--dtype", "bfloat16",
+                             "--seq_len", "4096", "--batch_size", "2", "--train_sequences", "8",
+                             "--num_epochs", "1"]
+    out: dict = {"card": card}
+
+    def cli(argv):
+        buf, err = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = train_lm.main(argv)
+        except SystemExit as e:
+            rc = e.code
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        return rc, buf.getvalue(), err.getvalue()
+
+    try:
+        for attention in ("ring", "ulysses"):
+            fa.flash_attention_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc, text, err = cli(flags + ["--sp", "1", "--attention", attention, "--coordinator",
+                                         f"file://{os.path.join(work, attention + '-rdzv')}",
+                                         "--num_processes", "1", "--process_id", "0"])
+            k1 = fa.flash_attention_cuda.launches
+            log(f"14c train_lm --sp 1 --attention {attention} over NCCL at world size 1 (the "
+                f"wiring only: NCCL refuses two ranks on one card): exit {rc} in "
+                f"{time.perf_counter() - t0:.1f}s, K1 launched {k1} times")
+            require(rc == 0 and "nccl" in text and k1 > 0, f"14c {attention}: exited {rc}, K1 "
+                    f"{k1}: {err[-2000:]}")
+            out[attention] = {"rc": rc, "K1": k1}
+        rc, _, err = cli(flags + ["--sp", "2", "--attention", "ring", "--moe_experts", "8"])
+        log(f"14c --sp 2 --moe_experts 8: exit {rc}: {err.strip()}")
+        require(rc == 1 and "ROADMAP" in err, f"14c: --sp with --moe_experts exited {rc}")
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def time_seq(torch, gen, launches) -> list[dict]:
+    """K1, K2 and K3 at the ring's past-block call (bf16 B2 S2048 H12 D64,
+    ``causal=False``; K1 with a float32 output and the lse, K2/K3 with the
+    global lse and output and float32 gradients), beside their plain
+    versions and SDPA's non-causal forward / backward (the port never calls
+    SDPA); ``launches``: 14b's ring run."""
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, H, S, D = P14_B, P14_H, P14_S // P14_SP, P14_D
+    pairs = B * H * S * S
+    tensor = B * H * S * D * 2  # one bf16 [B, S, H, D] tensor
+    rowvec = B * H * S * 4
+    shape = f"B{B} S{S} H{H} D{D} bf16 full (the ring's past block)"
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    fwd = dict(causal=False, window=None, shift=0, return_lse=True, out_dtype=torch.float32,
+               layout="bshd")
+    o32, lse = fa.flash_attention_cuda(q, k, v, **fwd)
+    want, _ = fa.flash_attention_reference(q, k, v, **fwd)
+    o = o32.bfloat16()
+    bwd = dict(causal=False, window=None, shift=0, grad_dtype=torch.float32, layout="bshd")
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **bwd)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **bwd)
+    gwant = fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **bwd)
+    sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(*sdpa))
+    leaves = [t.detach().requires_grad_() for t in sdpa]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do.transpose(1, 2),
+                                                   retain_graph=True))
+    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, do, lse, **bwd),
+                        iters=3, warmup=1)
+    rows = []
+
+    def row(name, source, replaces, fn, flops, nbytes, **fields):
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+        rows.append({
+            "name": name, "route": "cuda", "source": f"deeplearning_mpi_tpu_torch/csrc/{source}",
+            "replaces": f"deeplearning_mpi_tpu/ops/pallas/flash_attention.py:{replaces}",
+            "ms": time_ms(fn), "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "shape": shape, **fields,
+        })
+
+    row("K1 flash_attention_fwd (ring block: full, f32 out, lse)", "flash_attention_fwd.cu", 110,
+        lambda: fa.flash_attention_cuda(q, k, v, **fwd), 4 * D * pairs,
+        3 * tensor + 2 * tensor + rowvec, launches=launches["K1"], max_abs_err=max_err(o32, want),
+        plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v, **fwd), iters=3, warmup=1),
+        library_ms=sdpa_fwd)
+    row("K2 flash_attention_bwd_dq (ring block: full, global lse, f32 grads)",
+        "flash_attention_bwd.cu", 338,
+        lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **bwd), 6 * D * pairs,
+        5 * tensor + rowvec + 2 * tensor + rowvec, launches=launches["K2"],
+        max_abs_err=max_err(dq, gwant[0]), plain_ms=plain_bwd, library_ms=sdpa_bwd)
+    row("K3 flash_attention_bwd_dkv (ring block: full, global lse, f32 grads)",
+        "flash_attention_bwd.cu", 386,
+        lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **bwd),
+        8 * D * pairs, 4 * tensor + 2 * rowvec + 4 * tensor, launches=launches["K3"],
+        max_abs_err=max(max_err(dk, gwant[1]), max_err(dv, gwant[2])), plain_ms=plain_bwd,
+        library_ms=sdpa_bwd)
+    for r in rows:
+        log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {'forward' if r['name'].startswith('K1') else 'backward'}"
+            f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['launches']} launches in 14b's ring run, max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
+def seq_phase(torch, card: str, gen, seed: int) -> dict:
+    """Phase 14: sequence parallelism (14a-14c) and the ring's kernel rows."""
+    out = {"attention": seq_attention(torch, gen)}
+    torch.cuda.empty_cache()
+    out["train"] = seq_train(torch, seed)
+    torch.cuda.empty_cache()
+    out.update(seq_clis(torch, card))
+    out["kernels"] = time_seq(torch, gen, out["train"]["ring"]["launches"])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -1991,6 +2355,12 @@ def main() -> int:
     log(f"phase 13 MoE LM (train, card vs CPU, CLIs, --ep over NCCL) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    seq = seq_phase(torch, card, gen, args.seed)
+    kernels.extend(seq["kernels"])
+    log(f"phase 14 sequence parallelism (ring and Ulysses at S8192, the 110M model over a ring "
+        f"of 4, the --sp CLIs) OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -2003,7 +2373,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
-                       "workloads": workloads, "moe": moe,
+                       "workloads": workloads, "moe": moe, "seq": seq,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

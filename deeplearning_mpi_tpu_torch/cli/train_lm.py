@@ -19,6 +19,15 @@ topology flags, ``--nproc N`` local processes): ``--dp`` ranks split each
 global batch, and ``--ep`` ranks of one data coordinate split the experts
 (``parallel/expert_parallel.py``); rank 0 logs and writes.
 
+``--attention ring`` / ``ulysses`` select the sequence-parallel schedules
+(``parallel/``) over the mesh's seq group: ``--sp N`` processes of a data
+coordinate load the same rows and each runs its ``S/N`` slice of them
+through the model, gradients summed over the seq group and averaged over
+data. On CUDA the ring runs K1 a rotation forward and K2/K3 backward
+(``parallel.ring_flash``) and Ulysses K1 on whole sequences; on the CPU both
+take their plain inners. ``--sp`` with ``--moe_experts`` or ``--ep`` is
+refused (ROADMAP Queue 1 item 8).
+
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
 ``<model_dir>/<model_filename>/<epoch>/``, beside an ``arch.json`` sidecar
@@ -35,10 +44,12 @@ SIGTERM ends training after the current epoch with a final checkpoint.
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --dp 2 --ep 2 \
         --moe_experts 4 --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \
         --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --sp 4 \
+        --attention ring --num_layers 2 --num_heads 4 --head_dim 8 --d_model 32 --d_ff 64 \
+        --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
-Not ported yet: ring and Ulysses attention, tensor / pipeline / sequence
-parallelism and ZeRO (refused), chaos, auto-resume (``--max_restarts``),
-guardrails and telemetry.
+Not ported yet: tensor / pipeline parallelism and ZeRO (refused), chaos,
+auto-resume (``--max_restarts``), guardrails and telemetry.
 """
 
 from __future__ import annotations
@@ -150,17 +161,17 @@ def train(argv: list[str] | None = None):
     (unported option, an architecture mismatch, ``--eval_only`` with no
     checkpoint) raises ``SystemExit`` with its message."""
     args = parse(argv)
-    if args.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"--attention {args.attention} is not ported yet (sequence-parallel "
-            "schedules come with the scale-out slice)"
-        )
     config.reject_unported(args)
     if args.ep > 1 and not args.moe_experts:
         raise SystemExit("--ep > 1 shards MoE experts: it needs --moe_experts")
     from deeplearning_mpi_tpu_torch.data import ByteTextDataset, Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
-    from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size, expert_shards
+    from deeplearning_mpi_tpu_torch.runtime.mesh import (
+        data_rank,
+        data_size,
+        expert_shards,
+        seq_shards,
+    )
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
 
@@ -185,6 +196,15 @@ def train(argv: list[str] | None = None):
         from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_bhsd
 
         attention_fn = flash_attention_bhsd
+    elif args.attention in ("ring", "ulysses"):
+        from deeplearning_mpi_tpu_torch.parallel import (
+            make_ring_attention_fn,
+            make_ulysses_attention_fn,
+        )
+
+        make = make_ring_attention_fn if args.attention == "ring" else make_ulysses_attention_fn
+        # Without a group: one process, a ring of one.
+        attention_fn = make(mesh) if mesh is not None else make(sp=1)
     cfg = TransformerConfig(
         vocab_size=256, num_layers=args.num_layers, num_heads=args.num_heads,
         num_kv_heads=args.num_kv_heads or None, head_dim=args.head_dim,
@@ -216,12 +236,13 @@ def train(argv: list[str] | None = None):
            f"--ep {args.ep}" if args.moe_experts else "")
     log(f"train_lm: {n_params} params on this process{moe}, {len(train_ds)} train / "
         f"{len(eval_ds)} eval sequences of {args.seq_len}, {train_loader.steps_per_epoch()} "
-        f"steps/epoch, attention {args.attention}, {args.dtype}, on {device}, "
+        f"steps/epoch, attention {args.attention} (--sp {args.sp}), {args.dtype}, on {device}, "
         f"{topo.num_processes} process(es) ({topo.backend or 'no group'})")
     trainer = Trainer(state, "lm", eval_every=args.eval_every,
                       aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
                       grad_accum=args.grad_accum, loss_chunk=args.loss_chunk,
-                      ema_decay=args.ema, log=log, checkpointer=checkpointer, group=group)
+                      ema_decay=args.ema, log=log, checkpointer=checkpointer, group=group,
+                      seq=seq_shards(mesh))
     return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
 
 

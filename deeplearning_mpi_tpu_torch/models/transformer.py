@@ -17,7 +17,12 @@ Three modes, chosen by the arguments of :meth:`TransformerLM.forward`:
 - decode (one token): K/V appended at ``cache.index`` and attended over
   the filled prefix with ``decode_attention``.
 
-An ``attention_fn`` carrying ``.layout == "bhsd"`` (the port's
+An ``attention_fn`` marked ``gqa_native`` (the sequence-parallel
+schedules of ``parallel/``) gets the grouped K/V, as in the reference
+(``attention_fn_accepts_gqa``); any other gets them repeated to the query
+heads. Under sequence parallelism the model runs one shard of the sequence,
+its global ``positions`` given (RoPE), and the schedule attends across the
+shards. An ``attention_fn`` carrying ``.layout == "bhsd"`` (the port's
 ``flash_attention_bhsd``) is called on ``[B, H, S, D]`` views of the
 projections and its context viewed back: its kernels read element strides,
 so the views cost no copy (the reference projects straight into that layout,
@@ -240,6 +245,10 @@ class Attention(nn.Module):
     def full(self, q, k, v, attention_fn: AttentionFn | None) -> torch.Tensor:
         rep = self.num_heads // self.kv_heads
         attn = attention_fn or dense_attention
+        if getattr(attn, "gqa_native", False):
+            # The sequence-parallel schedules take GROUPED K/V: they move
+            # Hkv heads and repeat after the hop.
+            return attn(q, k, v, causal=True, **self._window_kw())
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
         if getattr(attn, "layout", "bshd") == "bhsd":
             if self.quantized:

@@ -80,6 +80,23 @@ def lm_cross_entropy(
     return masked_mean(nll, None if mask is None else mask[:, 1:])
 
 
+def lm_cross_entropy_slice(
+    logits: torch.Tensor, tokens: torch.Tensor, start: int, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """A sequence slice's share of :func:`lm_cross_entropy` on whole rows:
+    ``logits`` ``[B, S_l, V]`` are those of positions ``start ..
+    start+S_l-1`` of ``tokens`` ``[B, S]``; each predicts the next token of
+    the whole row (none for the row's last position). The sum of the nll
+    over the slice's valid targets is divided by the whole rows' count of
+    valid targets, so the slices' shares add up to the whole rows' loss."""
+    targets = tokens[:, start + 1:start + logits.shape[1] + 1]
+    nll = _token_nll(logits[:, :targets.shape[1]], targets)
+    if mask is None:
+        return nll.sum() / max(tokens.shape[0] * (tokens.shape[1] - 1), 1)
+    w = mask[:, 1:].float()
+    return (nll * w[:, start:start + targets.shape[1]]).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 def _chunk_nll_sum(
     x_c: torch.Tensor, kernel: torch.Tensor, labels_c: torch.Tensor, w_c: torch.Tensor
 ) -> torch.Tensor:

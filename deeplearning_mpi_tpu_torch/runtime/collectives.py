@@ -15,11 +15,17 @@ reference (XLA)         here (torch.distributed)
 ``reduce_scatter``      ``reduce_scatter`` (gloo has none: all-reduce, then
                         this rank's block — the same function)
 ``ring_shift``          ``batch_isend_irecv`` to ``rank + offset``
+``ppermute`` (a ring)   :func:`ring_shift_autograd` (backward: ``-offset``)
+``all_to_all`` (tiled)  :func:`all_to_all_autograd` (backward: the
+                        inverse all-to-all)
 ``broadcast_from``      ``broadcast``
 ======================  =====================================================
 
-:func:`all_reduce_sum_autograd` is the one with a backward (it all-reduces
-the gradient): BatchNorm's global-batch moments go through it.
+The ``_autograd`` functions have a backward: :func:`all_reduce_sum_autograd`
+all-reduces the gradient (BatchNorm's global-batch moments go through it),
+:func:`ring_shift_autograd` sends it back the other way round the ring (the
+plain ring attention's rotations) and :func:`all_to_all_autograd` undoes
+its own exchange (Ulysses attention).
 ``counts`` counts the calls of each function (not the leaves), so a caller
 can check how often a path communicated.
 """
@@ -143,6 +149,10 @@ def ring_shift(x: torch.Tensor, group: dist.ProcessGroup | None = None, *,
     """Send this rank's value ``offset`` steps around the ring (negative:
     backward) and receive from the opposite neighbour."""
     counts["ring_shift"] += 1
+    return _ring_shift(x, group, offset)
+
+
+def _ring_shift(x: torch.Tensor, group, offset: int) -> torch.Tensor:
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     if offset % n == 0:
         return x.clone()
@@ -153,6 +163,62 @@ def ring_shift(x: torch.Tensor, group: dist.ProcessGroup | None = None, *,
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, offset: int) -> torch.Tensor:
+        ctx.group, ctx.offset = group, offset
+        return _ring_shift(x, group, offset)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _ring_shift(grad, ctx.group, -ctx.offset), None, None
+
+
+def ring_shift_autograd(x: torch.Tensor, group: dist.ProcessGroup | None = None, *,
+                        offset: int = 1) -> torch.Tensor:
+    """:func:`ring_shift`, differentiable: the gradient of the received value
+    goes back to the rank that sent it (a shift by ``-offset``), as the
+    transpose of ``lax.ppermute`` does."""
+    counts["ring_shift_autograd"] += 1
+    return _RingShift.apply(x, group, offset)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} not divisible by "
+                         f"the group's {n} ranks")
+    if n == 1:
+        return x.clone()
+    blocks = [b.contiguous() for b in x.chunk(n, dim=split_axis)]
+    parts = [torch.empty_like(blocks[0]) for _ in range(n)]
+    dist.all_to_all(parts, blocks, group=group)
+    return torch.cat(parts, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+        ctx.args = group, split_axis, concat_axis
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(grad, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all_autograd(x: torch.Tensor, group: dist.ProcessGroup | None = None, *,
+                        split_axis: int, concat_axis: int) -> torch.Tensor:
+    """The tiled ``lax.all_to_all``, differentiable: cut ``split_axis`` into
+    one block a rank, send block ``j`` to rank ``j``, and concatenate the
+    blocks received along ``concat_axis`` in rank order. The backward is the
+    inverse exchange (split the gradient along ``concat_axis``, gather it
+    along ``split_axis``)."""
+    counts["all_to_all_autograd"] += 1
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 def broadcast_from(x: torch.Tensor, src: int = 0,

@@ -3,9 +3,9 @@
 Port of ``deeplearning_mpi_tpu/runtime/mesh.py``. The axis names and
 ``MeshSpec.resolve``'s arithmetic and errors are the reference's;
 :func:`create_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
-with those names (one process a device). ``data`` and ``expert`` may exceed
-1: the schedules that shard along the other axes (tensor, pipeline and
-sequence parallelism) are ROADMAP Queue 1 item 8. The reference's
+with those names (one process a device). ``data``, ``expert`` and ``seq``
+may exceed 1: the schedules that shard along the other axes (tensor and
+pipeline parallelism) are ROADMAP Queue 1 item 8. The reference's
 ``order_devices_for_mesh`` (multi-slice TPU placement) has no counterpart
 on GPUs.
 
@@ -14,7 +14,13 @@ The data axis is the reference's ``batch_sharding``: a global batch of
 coordinate ``r`` holds rows ``[r*B/n, (r+1)*B/n)`` (:func:`batch_rows`).
 Tokens are replicated over ``expert``, as in the reference: the processes
 of one expert group share a data coordinate and feed the same rows, and
-each holds its share of the MoE experts (:func:`expert_shards`).
+each holds its share of the MoE experts (:func:`expert_shards`). Rows are
+replicated over ``seq`` as well (the reference's ``batch_sharding`` splits
+the batch over ``data`` only): every process of a seq group loads the same
+whole rows and keeps its ``S / seq`` slice of the sequence through the
+model (``parallel.seq_common.SeqShards``). A parameter replica is shared by
+the processes of one data x seq plane (:func:`replica_group`): their
+gradients are summed over ``seq`` and averaged over ``data``.
 """
 
 from __future__ import annotations
@@ -69,8 +75,8 @@ def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "c
 
     With no spec every process is on ``data`` (the original repo's DDP
     world). ``device`` is the mesh's device type (``cuda`` for NCCL,
-    ``cpu`` for gloo). Raises without a live group, and for any axis but
-    ``data`` and ``expert`` above 1 (ROADMAP Queue 1 item 8).
+    ``cpu`` for gloo). Raises without a live group, and for the ``pipe`` or
+    ``model`` axis above 1 (ROADMAP Queue 1 item 8).
     """
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a live process group (runtime.bootstrap.init "
@@ -78,11 +84,11 @@ def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "c
     spec = spec or MeshSpec()
     shape = spec.resolve(dist.get_world_size())
     wide = [f"{a}={n}" for a, n in zip(MESH_AXES, shape)
-            if n != 1 and a not in (AXIS_DATA, AXIS_EXPERT)]
+            if n != 1 and a not in (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ)]
     if wide:
         raise NotImplementedError(
-            f"mesh axes {', '.join(wide)}: only the data and expert axes may exceed 1 in the "
-            "port so far (tensor, pipeline and sequence parallelism are ROADMAP Queue 1 item 8)"
+            f"mesh axes {', '.join(wide)}: only the data, expert and seq axes may exceed 1 in "
+            "the port so far (tensor and pipeline parallelism are ROADMAP Queue 1 item 8)"
         )
     return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
 
@@ -100,6 +106,50 @@ def data_size(mesh: DeviceMesh | None) -> int:
 def data_rank(mesh: DeviceMesh | None) -> int:
     """This process's coordinate on the data axis (0: no mesh)."""
     return 0 if mesh is None else mesh.get_local_rank(AXIS_DATA)
+
+
+def seq_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
+    """The process group of the seq axis (None: no mesh, one process)."""
+    return None if mesh is None else mesh.get_group(AXIS_SEQ)
+
+
+def seq_size(mesh: DeviceMesh | None) -> int:
+    """The sequence-parallel degree (1: no mesh)."""
+    return 1 if mesh is None else mesh.size(MESH_AXES.index(AXIS_SEQ))
+
+
+def seq_rank(mesh: DeviceMesh | None) -> int:
+    """This process's coordinate on the seq axis (0: no mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(AXIS_SEQ)
+
+
+def replica_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
+    """The processes that share this process's parameter replica: its data x
+    seq plane of the mesh (the same expert, pipe and model coordinates). The
+    data group itself when ``seq`` is 1. Built from the mesh's coordinates:
+    one ``dist.new_group`` a plane, every process taking part in each (the
+    call is collective), once a mesh: the group is kept on the mesh."""
+    if mesh is None or seq_size(mesh) == 1:
+        return data_group(mesh)
+    if getattr(mesh, "_replica_group", None) is None:
+        planes = mesh.mesh.permute(1, 2, 4, 0, 3).reshape(-1, data_size(mesh) * seq_size(mesh))
+        for plane in planes.tolist():
+            group = dist.new_group(plane)
+            if dist.get_rank() in plane:
+                mesh._replica_group = group
+    return mesh._replica_group
+
+
+def seq_shards(mesh: DeviceMesh | None):
+    """This process's place on the seq axis for the train step
+    (``parallel.seq_common.SeqShards``); None without a mesh or at seq
+    size 1."""
+    from deeplearning_mpi_tpu_torch.parallel.seq_common import SeqShards
+
+    if seq_size(mesh) == 1:
+        return None
+    return SeqShards(seq_group(mesh), seq_size(mesh), seq_rank(mesh), replica_group(mesh),
+                     data_size(mesh))
 
 
 def expert_shards(mesh: DeviceMesh | None):

@@ -50,6 +50,20 @@ part of the reference's chunk ``i``, and BatchNorm's chunk statistics and
 the MoE load-balance loss (averaged over the group inside the forward) are
 the global chunk's.
 
+**Sequence parallelism** (``seq``: a ``parallel.seq_common.SeqShards``,
+the LM only): every rank of a seq group holds the same whole rows and runs
+its ``S / n`` slice through the model at its global positions, the
+attention fn (ring or Ulysses) attending across the group. Its loss is its
+slice's share of the whole rows' next-token loss (the last position of a
+slice predicts the first token of the next; the denominator counts the
+whole rows' targets), so the shares add up to the reference's loss. The
+parameters are replicated over ``seq`` and each rank's gradient is its
+tokens' share: gradients and loss are SUMMED over seq and averaged over
+data, one ``all_reduce_sum`` of the flat bucket over the replica group
+(``runtime.mesh.replica_group``, data x seq) divided by the data size.
+Eval sums the loss shares over the seq group. Under remat the forward, and
+so the ring's rotations and kernel launches, run again in the backward.
+
 **Expert parallelism** (the model's ``expert_shards``): a rank holds its
 share of the experts and the rest replicated; the gradient mean stays one
 flat all-reduce over the DATA group, expert slices included (no gradient
@@ -126,11 +140,19 @@ def _lm_loss_chunked(chunk_size: int) -> Callable[..., torch.Tensor]:
     return fn
 
 
-def _loss_fn(task: str, loss_chunk: int = 0, seg_loss: str = "bce") -> Callable[..., torch.Tensor]:
+def _loss_fn(task: str, loss_chunk: int = 0, seg_loss: str = "bce",
+             seq: Any = None) -> Callable[..., torch.Tensor]:
     """The task's loss ``(outputs, batch, where=None)``; ``where`` ([B]
     validity) excludes wrap-padded eval rows. ``seg_loss``: ``bce`` (the
     original repo's), ``dice`` or ``bce_dice`` (their sum), on the UNet's
-    ``[..., 0]`` logits."""
+    ``[..., 0]`` logits. ``seq``: the LM loss is this sequence shard's share."""
+    if seq is not None:
+        if task != "lm" or loss_chunk > 0:
+            raise NotImplementedError(
+                "sequence parallelism shards the LM's dense loss only (not the chunked loss "
+                "or another task)")
+        return lambda logits, batch, where=None: seq.lm_loss(logits, batch["tokens"],
+                                                             _lm_mask(batch, where))
     if task == "lm":
         return _lm_loss_chunked(loss_chunk) if loss_chunk > 0 else _lm_loss
     if task == "classification":
@@ -388,22 +410,31 @@ def build_optimizer(
 
 
 # -- steps ----------------------------------------------------------------------
-def _forward(state: TrainState, task: str, x: torch.Tensor, params: dict | None = None):
+def _forward(state: TrainState, task: str, x: torch.Tensor, params: dict | None = None,
+             seq: Any = None):
     kw = {"attention_fn": state.attention_fn} if task == "lm" else {}
+    args = (x,)
+    if seq is not None:  # this rank's slice of the rows, at its positions
+        args = seq.inputs(x)
     if params is None:
-        return state.model(x, **kw)
-    return functional_call(state.model, params, (x,), kw)
+        return state.model(*args, **kw)
+    return functional_call(state.model, params, args, kw)
 
 
 def _mean_over_group(grads: list[torch.Tensor], scalars: list[torch.Tensor],
-                     group) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+                     group, seq: Any = None) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The data-parallel mean of the gradients and the scalars (the loss,
     the MoE dropped fraction): one ``all_reduce_mean`` over a flat float32
-    bucket (float64 for float64 gradients)."""
+    bucket (float64 for float64 gradients). With ``seq``: summed over the
+    seq axis and averaged over data, one ``all_reduce_sum`` over the replica
+    group divided by the data size."""
     acc = functools.reduce(torch.promote_types, [g.dtype for g in grads], torch.float32)
     flat = torch.cat([g.reshape(-1).to(acc) for g in grads]
                      + [x.reshape(1).to(acc) for x in scalars])
-    flat = collectives.all_reduce_mean(flat, group)
+    if seq is None:
+        flat = collectives.all_reduce_mean(flat, group)
+    else:
+        flat = collectives.all_reduce_sum(flat, seq.replica) / seq.data_size
     out, offset = [], 0
     for g in grads:
         out.append(flat[offset: offset + g.numel()].view_as(g).to(g.dtype))
@@ -415,7 +446,7 @@ def _mean_over_group(grads: list[torch.Tensor], scalars: list[torch.Tensor],
 def make_train_step(
     task: str, *, aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0,
     seg_loss: str = "bce", ema_decay: float = 0.0, guard_metrics: bool = False,
-    group: Any = None,
+    group: Any = None, seq: Any = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict[str, torch.Tensor]]]:
     """Build the optimizer step for a task (``lm``, ``classification``,
     ``segmentation``).
@@ -430,13 +461,15 @@ def make_train_step(
     ``guard_metrics`` adds the gradient global norm to the metrics and to
     the finite guard. ``group`` (a process group, or None for one process)
     makes the step data-parallel (module docstring): BatchNorm spans the
-    group and the gradients and loss are averaged over it. Metrics are
+    group and the gradients and loss are averaged over it. ``seq`` (a
+    ``parallel.seq_common.SeqShards``) shards the LM's sequence over its
+    group (module docstring). Metrics are
     device scalars: ``loss``, ``finite`` (1.0 or 0.0), with
     ``guard_metrics`` ``grad_norm``, ``moe_dropped_frac`` when the model
     has routed layers and ``moe_aux_loss`` when they sow a balance loss
     (module docstring).
     """
-    loss_fn = _loss_fn(task, loss_chunk, seg_loss)
+    loss_fn = _loss_fn(task, loss_chunk, seg_loss, seq)
     input_key = _INPUTS[task]
 
     def chunk_weight(chunk: Batch) -> torch.Tensor:
@@ -464,7 +497,7 @@ def make_train_step(
             # The routed layers keep sowing through the backward: under remat
             # it reruns each block, which must record what its first run did.
             with collecting(model) as sown:
-                outputs = _forward(state, task, chunk[input_key])
+                outputs = _forward(state, task, chunk[input_key], seq=seq)
                 aux = collect_aux_loss(sown) if sown.aux else None
                 drop = collect_dropped_fraction(sown)
                 loss = loss_fn(outputs, chunk)
@@ -505,9 +538,9 @@ def make_train_step(
                     drop = c_drop / grad_accum if drop is None else drop + c_drop / grad_accum
                 if c_aux is not None:
                     aux = c_aux / grad_accum if aux is None else aux + c_aux / grad_accum
-        if group is not None:
+        if group is not None or seq is not None:
             grads, scalars = _mean_over_group(grads, [loss] + ([] if drop is None else [drop]),
-                                              group)
+                                              group, seq)
             loss, drop = scalars[0], (None if drop is None else scalars[1])
 
         with torch.no_grad():
@@ -556,22 +589,24 @@ def _tree_map2(fn, a, b):
 
 
 def make_eval_step(
-    task: str, *, loss_chunk: int = 0, seg_loss: str = "bce",
+    task: str, *, loss_chunk: int = 0, seg_loss: str = "bce", seq: Any = None,
 ) -> Callable[[TrainState, Batch], dict[str, torch.Tensor]]:
     """The eval step: loss and the task's metric (``accuracy``; ``dice`` of
     the sigmoid > 0.5 masks) on one batch, with the EMA weights when
     tracked and the running BatchNorm statistics. Wrap-padded rows
     (``__valid__`` 0) are excluded; ``weight`` is the count of real rows,
-    for the caller's weighted mean."""
-    loss_fn = _loss_fn(task, loss_chunk, seg_loss)
+    for the caller's weighted mean. ``seq``: the loss shares of the seq
+    group summed, so every rank of it reports the rows' loss."""
+    loss_fn = _loss_fn(task, loss_chunk, seg_loss, seq)
     input_key = _INPUTS[task]
 
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
         state.model.eval()
-        outputs = _forward(state, task, batch[input_key], state.ema_params)
+        outputs = _forward(state, task, batch[input_key], state.ema_params, seq)
         valid = batch.get("__valid__")
-        metrics = {"loss": loss_fn(outputs, batch, valid)}
+        loss = loss_fn(outputs, batch, valid)
+        metrics = {"loss": loss if seq is None else seq.sum(loss)}
         if task == "classification":
             metrics["accuracy"] = top1_accuracy(outputs, batch["label"], valid)
         elif task == "segmentation":
@@ -590,14 +625,15 @@ class Trainer:
     timing. ``checkpointer`` (a ``train.checkpoint.Checkpointer``) saves the
     state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
     epoch. ``group`` makes the steps data-parallel; eval then averages over
-    every rank's rows. ``aux_weight`` weighs the MoE load-balance loss."""
+    every rank's rows. ``seq`` shards the LM's sequence (``make_train_step``).
+    ``aux_weight`` weighs the MoE load-balance loss."""
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
         aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0,
         seg_loss: str = "bce",
         ema_decay: float = 0.0, log: Callable[[str], None] = print, checkpointer: Any = None,
-        shutdown: GracefulShutdown | None = None, group: Any = None,
+        shutdown: GracefulShutdown | None = None, group: Any = None, seq: Any = None,
     ) -> None:
         self.state = state
         self.task = task
@@ -609,8 +645,8 @@ class Trainer:
         self.world = 1 if group is None else collectives.axis_size(group)
         self.train_step = make_train_step(task, aux_weight=aux_weight, grad_accum=grad_accum,
                                           loss_chunk=loss_chunk, seg_loss=seg_loss,
-                                          ema_decay=ema_decay, group=group)
-        self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss)
+                                          ema_decay=ema_decay, group=group, seq=seq)
+        self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss, seq=seq)
         self.history: list[dict[str, float]] = []
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:

@@ -160,7 +160,6 @@ def restore_lm(
 UNPORTED_FLAGS = {
     "tp": (1, "Queue 1 item 8 (tensor parallelism)"),
     "pp": (1, "Queue 1 item 8 (pipeline parallelism)"),
-    "sp": (1, "Queue 1 item 8 (sequence parallelism)"),
     "zero": (False, "Queue 1 item 8 (ZeRO-1)"),
     "zero_overlap": (False, "Queue 1 item 8 (ZeRO-1)"),
     "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
@@ -194,7 +193,10 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--ep", type=int, default=1,
                        help="expert-parallel degree: the MoE experts split over this many "
                        "processes of one data coordinate")
-    for flag in ("tp", "pp", "sp"):
+    group.add_argument("--sp", type=int, default=1,
+                       help="sequence-parallel degree: each process of a seq group runs its "
+                       "S/sp slice of the same rows (train_lm --attention ring|ulysses)")
+    for flag in ("tp", "pp"):
         group.add_argument(f"--{flag}", type=int, default=1, help="not ported yet")
     group.add_argument("--zero", action="store_true", help="not ported yet")
     group.add_argument("--zero_overlap", action="store_true", help="not ported yet")
@@ -238,18 +240,33 @@ def add_training_flags(
 
 
 def reject_unported(args: argparse.Namespace) -> None:
-    """Refuse (``SystemExit``) any flag of a layer the port lacks."""
+    """Refuse (``SystemExit``) any flag of a layer the port lacks, and
+    ``--sp`` where nothing shards the sequence."""
     for flag, (off, item) in UNPORTED_FLAGS.items():
         if getattr(args, flag, off) != off:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP {item})")
+    sp = getattr(args, "sp", 1)
+    if sp < 1:
+        raise SystemExit(f"--sp must be >= 1, got {sp}")
+    if sp > 1:
+        if getattr(args, "attention", None) not in ("ring", "ulysses"):
+            raise SystemExit(f"--sp {sp} shards the LM's sequence: it needs train_lm's "
+                             "--attention ring or ulysses")
+        if getattr(args, "moe_experts", 0) or getattr(args, "ep", 1) != 1:
+            raise SystemExit("--sp with --moe_experts or --ep is not ported yet (ROADMAP Queue 1 "
+                             "item 8: MoE under sequence parallelism, whose balance loss and "
+                             "expert-choice routing need the seq group)")
+        if getattr(args, "loss_chunk", 0) > 0:
+            raise SystemExit("--sp with --loss_chunk is not ported yet (ROADMAP Queue 1 item 8: "
+                             "the chunked loss over sequence shards)")
     if (args.resume or args.eval_only) and args.model_dir is None:
         raise SystemExit("--resume and --eval_only need --model_dir")
 
 
 def setup_runtime(args: argparse.Namespace):
-    """``bootstrap.init`` from the topology flags, then the mesh when a
-    group is live; returns ``(topology, mesh, data group)`` (mesh and group
-    None for one process without a coordinator)."""
+    """``bootstrap.init`` from the topology flags, then the mesh (data x
+    expert x seq) when a group is live; returns ``(topology, mesh, data
+    group)`` (mesh and group None for one process without a coordinator)."""
     import torch.distributed as dist
 
     from deeplearning_mpi_tpu_torch.runtime import bootstrap
@@ -257,12 +274,13 @@ def setup_runtime(args: argparse.Namespace):
 
     topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
                           device=args.device)
+    sp = getattr(args, "sp", 1)
     if not dist.is_initialized():
-        if args.dp not in (-1, 1) or args.ep != 1:
-            raise SystemExit(f"--dp {args.dp} --ep {args.ep} needs "
-                             f"{max(args.dp, 1) * args.ep} processes")
+        if args.dp not in (-1, 1) or args.ep != 1 or sp != 1:
+            raise SystemExit(f"--dp {args.dp} --ep {args.ep} --sp {sp} needs "
+                             f"{max(args.dp, 1) * args.ep * sp} processes")
         return topo, None, None
-    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep), device=topo.device.type)
+    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep, seq=sp), device=topo.device.type)
     return topo, mesh, data_group(mesh)
 
 

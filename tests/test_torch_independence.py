@@ -8,8 +8,10 @@ save and verified restore, a beam search and an int8 conversion on the
 CPU, then a warmed engine with a draft, int8 KV pools and the prefix
 cache, and imports the CLIs; and one that runs the original workloads'
 path: hello_world over gloo, a CNN train and eval step on the CIFAR loader,
-and the CNN CLIs' imports; and one that runs the MoE LM's path (an
-expert-sharded step over gloo, its checkpoint, stepwise MoE generation).
+and the CNN CLIs' imports; one that runs the MoE LM's path (an
+expert-sharded step over gloo, its checkpoint, stepwise MoE generation);
+and one that runs the sequence-parallel path (the one-process ring and
+Ulysses, an LM step under a seq mesh over gloo).
 """
 
 import ast
@@ -155,6 +157,44 @@ def test_moe_path_runs_with_jax_blocked(tmp_path):
         "assert generate(m, torch.arange(1, 6)[None], max_new_tokens=3, temperature=0.0).shape == (1, 8)\n"
         "bootstrap.shutdown()\n"
         "import deeplearning_mpi_tpu_torch.models.moe, deeplearning_mpi_tpu_torch.cli.serve_lm\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_sequence_parallel_path_runs_with_jax_blocked(tmp_path):
+    """The sequence-parallel path with jax blocked: the one-process ring
+    (both inners) and Ulysses, and an LM train step under a seq mesh over
+    gloo at world size 1, with the ``parallel`` modules' imports."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from deeplearning_mpi_tpu_torch.parallel import make_ring_attention_fn, make_ulysses_attention_fn\n"
+        "from deeplearning_mpi_tpu_torch.parallel import seq_common, ring_flash\n"
+        "q, k, v = (torch.randn(2, 16, 4, 8) for _ in range(3))\n"
+        "outs = [make_ring_attention_fn(sp=4, flash=f)(q, k, v) for f in (True, False)]\n"
+        "outs.append(make_ulysses_attention_fn(sp=4)(q, k, v))\n"
+        "assert all(torch.allclose(o, outs[0], atol=1e-5) for o in outs)\n"
+        "from deeplearning_mpi_tpu_torch.runtime import bootstrap\n"
+        "from deeplearning_mpi_tpu_torch.runtime.mesh import MeshSpec, create_mesh, data_group, seq_shards\n"
+        f"bootstrap.init('file://{tmp_path}/store', 1, 0, 'cpu', timeout_s=60)\n"
+        "mesh = create_mesh(MeshSpec(data=1, seq=1), device='cpu')\n"
+        "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step\n"
+        "m = TransformerLM(TransformerConfig.tiny(), dtype=torch.float32, device='cpu').init_weights(0)\n"
+        "s = create_train_state(m, build_optimizer('adam', 1e-3, clip_norm=1.0),\n"
+        "                       attention_fn=make_ring_attention_fn(mesh))\n"
+        "batch = next(Loader(SyntheticTokens(4, 16), 4, device='cpu').epoch(0))\n"
+        "step = make_train_step('lm', group=data_group(mesh), seq=seq_shards(mesh))\n"
+        "s, metrics = step(s, batch)\n"
+        "assert s.step == 1 and float(metrics['finite']) == 1.0\n"
+        "bootstrap.shutdown()\n"
         "print('ok')\n"
     )
     out = subprocess.run(

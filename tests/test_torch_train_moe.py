@@ -332,3 +332,26 @@ def test_batchnorm_grad_accum_chunks_equal_the_jax_step(spawned, rank):
     assert set(got["batch_stats"]) == set(stats)
     for n, t in got["batch_stats"].items():
         np.testing.assert_allclose(t.numpy(), stats[n].numpy(), atol=1e-7, rtol=1e-7, err_msg=n)
+
+
+def test_split_batch_rule_holds_and_rejects_the_unsummed_router(spawned):
+    """``torch_moe_ranks.split_batch_rule``, the float32 bar of the four-card
+    ``dp 2 x ep 2`` check (``tests/test_torch_gpu.py``), on 4 gloo ranks
+    against ``dp 4`` from the same spawn: ``dp 2 x ep 2``'s gradients meet
+    it, and the copy of the layer that does not sum the router
+    probabilities' gradient over the expert group fails it, on the router
+    among others. The parameters after one Adam step are reported, not
+    held, here: at these widths ``dp 4``'s worst is 3e-8 (the first Adam
+    step sends almost every element lr * sign(g), whatever the noise), and
+    the expert stacks' near-zero gradients, which Adam divides by their own
+    size, put ``dp 2 x ep 2`` at 2.7e-7."""
+    dp4 = [res["dp4"] for res in spawned["ranks"]]
+    over, bars = ranks.split_batch_rule([res["dp2_ep2"] for res in spawned["ranks"]], dp4,
+                                        spawned["one"])
+    wrong, _ = ranks.split_batch_rule([res["dp2_ep2_unsummed"] for res in spawned["ranks"]], dp4,
+                                      spawned["one"])
+    print("bars", bars, "over", over[:4], "wrong", wrong[:4])
+    grads_over = [(k, e) for k, e in over if k[1] == "grads"]
+    assert not grads_over, f"{len(grads_over)} over {bars['grads']}: {grads_over[:10]}"
+    wrong_grads = [k[2] for k, _ in wrong if k[1] == "grads"]
+    assert any("router" in n for n in wrong_grads), wrong[:10]

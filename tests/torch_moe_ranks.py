@@ -4,11 +4,14 @@ Imports torch and the port only (the ranks never load JAX): the parent
 test computes the one-process and JAX references and asserts. Every rank
 runs every case in order, so the collectives line up:
 
-- the MoE LM as ``dp 2 x ep 2`` and as ``ep 4``: the logits of the rank's
-  rows, the global load-balance loss, the step's gradients (the data mean,
-  expert stacks gathered), one Adam step's loss, dropped fraction and
-  parameters; the ``dp 2 x ep 2`` state is checkpointed and the ``ep 4``
-  ranks restore it; ``dp 2 x ep 2`` again in float64;
+- the MoE LM as ``dp 2 x ep 2``, as ``ep 4`` and as ``dp 4`` (no expert
+  group): the logits of the rank's rows, the global load-balance loss, the
+  step's gradients (the data mean, expert stacks gathered), one Adam step's
+  loss, dropped fraction and parameters; the ``dp 2 x ep 2`` state is
+  checkpointed and the ``ep 4`` ranks restore it; ``dp 2 x ep 2`` again in
+  float64, and once more with a wrong copy of the layer that does not sum
+  the router probabilities' gradient over the expert group (the negative
+  control of :func:`split_batch_rule`);
 - a small ResNet with BatchNorm under ``grad_accum`` 2 on ranks 0-1 (a
   2-rank subgroup), rows from the loader.
 
@@ -24,8 +27,10 @@ import pathlib
 import numpy as np
 import torch
 
-LAYOUTS = {"dp2_ep2": (2, 2), "ep4": (1, 4)}
+LAYOUTS = {"dp2_ep2": (2, 2), "ep4": (1, 4), "dp4": (4, 1)}
 AUX_WEIGHT = 0.01
+#: :func:`split_batch_rule`'s factor over the pure data-parallel noise.
+SPLIT_BATCH_FACTOR = 2.0
 
 
 class GradProbe:
@@ -161,6 +166,10 @@ def worker(rank: int, world: int, store: str, out_dir: str) -> None:
     results["dp2_ep2_f64"] = moe_case(inputs["cfg"], inputs["moe_sd"], inputs["tokens"],
                                       create_mesh(MeshSpec(data=2, expert=2), device="cpu"),
                                       dtype=torch.float64)
+    with router_probs_not_summed(inputs["cfg"].moe_experts):
+        results["dp2_ep2_unsummed"] = moe_case(
+            inputs["cfg"], inputs["moe_sd"], inputs["tokens"],
+            create_mesh(MeshSpec(data=2, expert=2), device="cpu"))
     sub = dist.new_group([0, 1])
     if rank < 2:
         results["bn"] = bn_case(inputs["bn_sd"], inputs["images"], inputs["labels"], sub,
@@ -194,6 +203,48 @@ def worker_cuda(rank: int, world: int, store: str, out_dir: str) -> None:
                                  device="cuda", dtype=dtype)
     torch.save(results, out_dir / f"rank{rank}.pt")
     bootstrap.shutdown()
+
+
+class router_probs_not_summed:
+    """The wrong copy of the MoE layer: the router probabilities enter the
+    rank's experts without ``copy_to_experts``, so their gradient misses
+    the other ranks' experts (the activations ``x`` still get theirs)."""
+
+    def __init__(self, num_experts: int) -> None:
+        self.num_experts = num_experts
+
+    def __enter__(self):
+        from deeplearning_mpi_tpu_torch.models import moe
+
+        self.right = moe.copy_to_experts
+        moe.copy_to_experts = lambda x, group: (x if x.shape[-1] == self.num_experts
+                                                else self.right(x, group))
+
+    def __exit__(self, *exc):
+        from deeplearning_mpi_tpu_torch.models import moe
+
+        moe.copy_to_experts = self.right
+
+
+def split_batch_rule(results: list[dict], baseline: list[dict], one: dict,
+                     factor: float = SPLIT_BATCH_FACTOR) -> tuple[list, dict]:
+    """The float32 bar for a step whose batch is split over ranks: each
+    gradient and each parameter after the step of ``results`` within
+    ``factor`` times the worst relative L2 error, against ``one`` (one
+    process on the global batch), of the same class (``grads``, ``params``)
+    in ``baseline``, the same step as pure data parallelism over as many
+    ranks in the same spawn. Splitting the batch associates float32 sums
+    differently, by an amount the step itself sets; a layout that adds no
+    error of its own stays near that figure. Returns the tensors over their
+    bar, worst first, and the bars."""
+    bars = {key: factor * max(relative_error(got[key][n], t) for got in baseline
+                              for n, t in one[key].items())
+            for key in ("grads", "params")}
+    over = sorted((((r, key, n), e) for r, got in enumerate(results) for key, bar in bars.items()
+                   for n, t in one[key].items()
+                   if (e := relative_error(got[key][n], t)) > bar),
+                  key=lambda kv: kv[1], reverse=True)
+    return over, bars
 
 
 def relative_error(a: torch.Tensor, b: torch.Tensor) -> float:
