@@ -11,13 +11,15 @@ Phases, each printed on its own line; any failure exits non-zero:
 3. K1 (flash-attention forward) against its plain PyTorch version at the 110M
    widths: bf16 B8 S2048 H12 D64 causal, window 512 (both layouts) and
    window 300, the train step's call (BHSD views of BSHD storage, with the
-   lse), a ragged B2 S2000, D128 at S2048, f32 S512, S 127 / 128 / 129, head
-   dims 8 / 24 / 128, and the shift / lse / f32-output options; each output
+   lse; also at a tp-4 rank's H3), a ragged B2 S2000, D128 at S2048, f32
+   S512, S 127 / 128 / 129, head dims 8 / 24 / 128, and the shift / lse /
+   f32-output options; each output
    held element by element and in relative L2 (``FWD_TOL``), the lse to
    1e-4, and a second launch on the same inputs bit-identical;
 4. K4 (flash-decode) against its plain version: B8, L1024 and L8192, H12, D64,
    Hkv 12 and 4, per-row fill levels including -1, 0 and L-1, windows, int8
-   K/V; the serving shape with phase 6's fills, head dims 8 / 24 / 128, a
+   K/V; the serving shape with phase 6's fills, a tp-4 rank's H3 Hkv3
+   (float32, those fills and seeded ones), head dims 8 / 24 / 128, a
    ragged L1000, fills on a split boundary of the kernel and either side of
    it, a window shorter than one split and one starting mid-split; each
    batch row of each output held element by element and in relative L2
@@ -38,7 +40,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    and 4) and ``decode_attention``'s dense schedule against K4 at B1 / B8,
    L 1024-8192, float32 and bf16 (``DECODE_DENSE_MAX``);
 7. K2 and K3 (flash-attention backward) against their plain version: bf16
-   B8 S2048 H12 D64 causal and window 512 in both layouts, a ragged B2 S2000
+   B8 S2048 H12 D64 causal and window 512 in both layouts, causal at a tp-4
+   rank's H3 (BHSD, as phase 15 calls them), a ragged B2 S2000
    and a window of 300 (not a multiple of the kernels' 128-row blocks), f32
    S512, head dims 8 / 24 / 128, ragged S, and shift with window and float32
    grads; each gradient held element by element and in relative L2
@@ -157,7 +160,24 @@ Phases, each printed on its own line; any failure exits non-zero:
     launched; ``--sp 2 --moe_experts 8`` exits 1 with its refusal. Then
     K1/K2/K3 timed at the ring's past-block call (B2 S2048 H12 D64 bf16,
     non-causal, float32 output / gradients) beside their plain versions and
-    SDPA's non-causal forward / backward.
+    SDPA's non-causal forward / backward;
+15. tensor parallelism on one card through the one-process form
+    (``LockstepTP``: the ranks in lockstep, since NCCL refuses two ranks on
+    one card). (a) The 110M ``TransformerConfig()`` in bf16 at B8 S2048
+    with flash, sharded over tp 4 (3 heads a rank), from phase 8's weights
+    and batches: step-1 gradients gathered whole within 5e-2 relative L2
+    per tensor of the unsharded flash step's, then 6 Adam steps (3e-4,
+    clip 1.0) with every loss finite and K1/K2/K3 launched exactly 48
+    times a step each (12 layers x 4 ranks); step median, tokens/s, peak
+    memory and one profiled step, no bar. (b) ``TP_SHAPE`` under tp 2,
+    float32 with TF32 off: the card's loss and step-1 gradients within
+    1e-4 of the CPU's. (c) The 110M model in float32 (phase 5's weights)
+    under tp 4: greedy generation token-identical to the unsharded model,
+    K1 launched 48 times for the prefill and K4 48 times a decode step. (d)
+    ``cli.train_lm --tp 1 --zero_overlap`` over NCCL at world size 1 (the
+    wiring only) exits 0 and logs the reference's fallback reason ("no
+    data parallelism"). Then K1/K2/K3 timed at the train step's shape at
+    H3 and K4 at B8 L1024 H3 Hkv3, beside their plain versions and SDPA.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -283,6 +303,9 @@ def check_k1(torch, gen) -> None:
         # BSHD storage, as the model passes them in training.
         ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd"),
         ("bf16 causal bhsd views lse", 8, 2048, 12, 64, bf16, {"return_lse": True}, "views"),
+        # The same call at a tp-4 rank's local heads (phase 15's training).
+        (f"bf16 causal bhsd views lse H{12 // P15_TP} (tp {P15_TP} rank)", 8, 2048, 12 // P15_TP,
+         64, bf16, {"return_lse": True}, "views"),
         ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd"),
         ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd"),
         ("bf16 window300", 8, 2048, 12, 64, bf16, {"window": 300}, "bshd"),
@@ -402,6 +425,13 @@ def k4_cases(split: int) -> list[tuple]:
     ]
     cases.append(("serving shape L1024 Hkv12 float32", 8, 1024, 12, 12, 64, f32, None, False,
                   serve_fills()))
+    # A tp-4 rank's local heads (phase 15's generation), at phase 5's fills
+    # and at seeded ones.
+    h = 12 // P15_TP
+    for fills in (serve_fills(), None):
+        cases.append((f"tp {P15_TP} rank L1024 H{h} Hkv{h} float32 fills "
+                      f"{'serving' if fills else 'seeded'}", 8, 1024, h, h, 64, f32, None, False,
+                      fills))
     for D in (8, 24, 128):
         for dt in (f32, bf16):
             cases.append((f"D{D} L1024 Hkv4 {str(dt)[6:]}", 8, 1024, 12, 4, D, dt, None, False, None))
@@ -576,11 +606,54 @@ def device_profile(torch, fn, label: str) -> dict:
 
 
 # -- phase 6 -----------------------------------------------------------------
+def k4_row(torch, gen, launches: int, fills, k4_len: int, heads: int = 12,
+           name: str = "K4 flash_decode") -> dict:
+    """K4's row at ``fills`` over an ``[B, k4_len, heads, 64]`` float32
+    cache: L2-cold (8 buffer pairs in turn) and warm, beside its plain
+    version and SDPA with the fill mask."""
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+
+    B, H, D = len(fills), heads, 64
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda")
+    bufs = [(torch.randn(B, k4_len, H, D, generator=gen, device="cuda"),
+             torch.randn(B, k4_len, H, D, generator=gen, device="cuda")) for _ in range(8)]
+    index = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    filled = sum(f + 1 for f in fills)
+    nbytes = (2 * filled * H * D + 2 * B * H * D) * 4
+    flops = 4 * filled * H * D
+    pos = torch.arange(k4_len, device="cuda")
+    mask = (pos[None, :] <= index[:, None].long())[:, None, None, :]
+    sdpa = [(kb.transpose(1, 2), vb.transpose(1, 2)) for kb, vb in bufs]
+    qs = q.transpose(1, 2)
+
+    def cold(fn, pairs):
+        turn = itertools.cycle(pairs)
+        return time_ms(lambda: fn(*next(turn)))
+
+    return {
+        "name": name, "route": "cuda",
+        "source": "deeplearning_mpi_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_decode.py:100",
+        "launches": launches,
+        "max_abs_err": max_err(fd.flash_decode_cuda(q, *bufs[0], index),
+                               fd.flash_decode_reference(q, *bufs[0], index)),
+        "ms": cold(lambda kb, vb: fd.flash_decode_cuda(q, kb, vb, index), bufs),
+        "warm_ms": time_ms(lambda: fd.flash_decode_cuda(q, *bufs[0], index)),
+        "plain_ms": cold(lambda kb, vb: fd.flash_decode_reference(q, kb, vb, index), bufs),
+        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
+        "library_ms": cold(lambda ks, vs: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                           sdpa),
+        "shape": f"B{B} L{k4_len} H{H} Hkv{H} D{D} float32 fills {fills}, L2-cold",
+    }
+
+
 def time_kernels(torch, gen, launches, k1_shape, fills, k4_len) -> list[dict]:
     import torch.nn.functional as F
 
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
-    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
 
     rows = []
     # K1 at the offline prefill shape: one prompt, causal, float32.
@@ -609,41 +682,7 @@ def time_kernels(torch, gen, launches, k1_shape, fills, k4_len) -> list[dict]:
     # L2-cold: 8 buffer pairs in turn (126 MB of filled rows a round, the L2
     # holds 50), as the engine's 12 layers each read their own cache; warm
     # (one pair, its 15.7 MB read from L2) beside it.
-    B, H, D = len(fills), 12, 64
-    q = torch.randn(B, 1, H, D, generator=gen, device="cuda")
-    bufs = [(torch.randn(B, k4_len, H, D, generator=gen, device="cuda"),
-             torch.randn(B, k4_len, H, D, generator=gen, device="cuda")) for _ in range(8)]
-    index = torch.tensor(fills, dtype=torch.int32, device="cuda")
-    filled = sum(f + 1 for f in fills)
-    nbytes = (2 * filled * H * D + 2 * B * H * D) * 4
-    flops = 4 * filled * H * D
-    pos = torch.arange(k4_len, device="cuda")
-    mask = (pos[None, :] <= index[:, None].long())[:, None, None, :]
-    sdpa = [(kb.transpose(1, 2), vb.transpose(1, 2)) for kb, vb in bufs]
-    qs = q.transpose(1, 2)
-
-    def cold(fn, pairs):
-        turn = itertools.cycle(pairs)
-        return time_ms(lambda: fn(*next(turn)))
-
-    k4 = {
-        "name": "K4 flash_decode", "route": "cuda",
-        "source": "deeplearning_mpi_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_decode.py:100",
-        "launches": launches["K4"],
-        "max_abs_err": max_err(fd.flash_decode_cuda(q, *bufs[0], index),
-                               fd.flash_decode_reference(q, *bufs[0], index)),
-        "ms": cold(lambda kb, vb: fd.flash_decode_cuda(q, kb, vb, index), bufs),
-        "warm_ms": time_ms(lambda: fd.flash_decode_cuda(q, *bufs[0], index)),
-        "plain_ms": cold(lambda kb, vb: fd.flash_decode_reference(q, kb, vb, index), bufs),
-        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
-        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
-        "library_ms": cold(lambda ks, vs: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
-                           sdpa),
-        "shape": f"B{B} L{k4_len} H{H} Hkv{H} D{D} float32 fills {fills}, L2-cold",
-    }
-    del bufs, sdpa
-    rows.append(k4)
+    rows.append(k4_row(torch, gen, launches["K4"], fills, k4_len))
     for r in rows:
         warm = f" (warm {r['warm_ms']:.4f})" if "warm_ms" in r else ""
         log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms{warm}, plain "
@@ -722,6 +761,8 @@ def check_k2k3(torch, gen) -> None:
         # (name, B, S, H, D, input dtype, kwargs, layout); bound GRAD_TOL[dtype]
         ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd"),
         ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd"),
+        (f"bf16 causal bhsd H{12 // P15_TP} (tp {P15_TP} rank)", 8, 2048, 12 // P15_TP, 64, bf16,
+         {}, "bhsd"),
         ("bf16 window512", 8, 2048, 12, 64, bf16, {"window": 512}, "bshd"),
         ("bf16 window512 bhsd", 8, 2048, 12, 64, bf16, {"window": 512}, "bhsd"),
         ("bf16 causal ragged S2000", 2, 2000, 12, 64, bf16, {}, "bshd"),
@@ -879,8 +920,9 @@ def train_cli() -> None:
     require(rc == 0, f"train_lm CLI exited {rc}")
 
 
-def time_training(torch, gen, launches) -> list[dict]:
-    """K1, K2 and K3 at the phase-8 shape (bf16 B8 S2048 H12 D64 causal).
+def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8") -> list[dict]:
+    """K1, K2 and K3 at the phase-8 shape (bf16 B8 S2048 H12 D64 causal;
+    ``heads``: a tensor-parallel rank's local heads, phase 15).
     K1 as the train step calls it (BHSD views of BSHD storage, with the lse)
     beside the forward of ``F.scaled_dot_product_attention``; K2 and K3 on
     BHSD tensors beside the plain backward and SDPA's backward (the pair's
@@ -890,11 +932,12 @@ def time_training(torch, gen, launches) -> list[dict]:
 
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, H, S, D = 8, 12, 2048, 64
+    B, H, S, D = 8, heads, 2048, 64
     pairs = B * H * S * (S + 1) // 2
     tensor = B * H * S * D * 2  # one bf16 [B, H, S, D] tensor
     rowvec = B * H * S * 4  # one float32 [B, H, S] vector
     rows = []
+    tag = "" if heads == 12 else f", tp {12 // heads} local heads"
 
     def row(name, source, replaces, fn, flops, nbytes, **fields):
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
@@ -911,7 +954,7 @@ def time_training(torch, gen, launches) -> list[dict]:
     fwd = dict(causal=True, window=None, shift=0, return_lse=True, out_dtype=None, layout="bhsd")
     o, _ = fa.flash_attention_cuda(*views, **fwd)
     want, _ = fa.flash_attention_reference(*views, **fwd)
-    row("K1 flash_attention_fwd (bf16 train)", "flash_attention_fwd.cu", 110,
+    row(f"K1 flash_attention_fwd (bf16 train{tag})", "flash_attention_fwd.cu", 110,
         lambda: fa.flash_attention_cuda(*views, **fwd), 4 * D * pairs, 4 * tensor + rowvec,
         launches=launches["K1"], max_abs_err=max_err(o, want),
         plain_ms=time_ms(lambda: fa.flash_attention_reference(*views, **fwd), iters=3, warmup=1),
@@ -934,11 +977,11 @@ def time_training(torch, gen, launches) -> list[dict]:
     sdpa_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
     shared = dict(plain_ms=plain_ms, library_ms=sdpa_ms,
                   shape=f"B{B} S{S} H{H} D{D} bf16 causal bhsd")
-    row("K2 flash_attention_bwd_dq", "flash_attention_bwd.cu", 338,
+    row(f"K2 flash_attention_bwd_dq{tag}", "flash_attention_bwd.cu", 338,
         lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **kw),
         6 * D * pairs, 6 * tensor + rowvec, launches=launches["K2"],
         max_abs_err=max_err(dq, want[0]), **shared)
-    row("K3 flash_attention_bwd_dkv", "flash_attention_bwd.cu", 386,
+    row(f"K3 flash_attention_bwd_dkv{tag}", "flash_attention_bwd.cu", 386,
         lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **kw),
         8 * D * pairs, 6 * tensor + 2 * rowvec, launches=launches["K3"],
         max_abs_err=max(max_err(dk, want[1]), max_err(dv, want[2])), **shared)
@@ -947,7 +990,7 @@ def time_training(torch, gen, launches) -> list[dict]:
         sdpa = "sdpa forward" if r["name"].startswith("K1") else "sdpa backward (dq+dk+dv)"
         log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, {plain} "
             f"{r['plain_ms']:.4f} ms, {sdpa} {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} launches in phase 8")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} launches in {where}")
     return rows
 
 
@@ -2284,6 +2327,249 @@ def seq_phase(torch, card: str, gen, seed: int) -> dict:
     return out
 
 
+# -- phase 15 ----------------------------------------------------------------
+#: Phase 15's tensor-parallel degree: 12 heads, 3 a rank.
+P15_TP = 4
+#: ``tests/test_generate_cli.py``'s ``TP_SHAPE`` at vocab 256 (15b).
+P15_SMALL = dict(vocab_size=256, num_layers=2, num_heads=4, head_dim=16, d_model=32, d_ff=64)
+
+
+def _kernel_counts(fa, fd=None) -> dict:
+    counts = {"K1": fa.flash_attention_cuda.launches, "K2": fa.flash_attention_bwd_dq_cuda.launches,
+              "K3": fa.flash_attention_bwd_dkv_cuda.launches}
+    if fd is not None:
+        counts["K4"] = fd.flash_decode_cuda.launches
+    return counts
+
+
+def _zero_counts(fa, fd=None) -> None:
+    for fn in (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+               fa.flash_attention_bwd_dkv_cuda) + (() if fd is None else (fd.flash_decode_cuda,)):
+        fn.launches = 0
+
+
+def tp_train(torch, seed: int) -> dict:
+    """15a: the 110M ``TransformerConfig()`` in bf16 at B8 S2048 with flash,
+    sharded over ``LockstepTP(4)`` on this card (the ranks in lockstep: NCCL
+    refuses two ranks on one card), from phase 8's weights and batches:
+    step-1 gradients (gathered) against the unsharded flash step's within
+    5e-2 relative L2 per tensor, then 6 Adam steps (3e-4, clip 1.0) with
+    every loss finite and K1/K2/K3 launched 48 times a step each (12 layers
+    x 4 ranks, at H3); step median, tokens/s, busy share, peak memory."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    cfg = TransformerConfig()
+    B, S, steps = 8, 2048, 6
+    loader = Loader(SyntheticTokens(2 * B, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=True, seed=seed, device="cuda")
+    batches = [b for epoch in range(steps // 2) for b in loader.epoch(epoch)]
+    one = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda",
+                          tp=LockstepTP(P15_TP, "cuda")).init_weights(seed)
+    whole = model.full_state_dict()
+    require(all(torch.equal(whole[n], p) for n, p in one.state_dict().items()),
+            "15a: the sharded model does not hold phase 8's weights")
+    del whole
+    n_local = sum(p.numel() for n, p in model.named_parameters() if ".shards.0." in n or
+                  ".shards." not in n)
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        tokens = batches[0]["tokens"]
+        lm_cross_entropy(m(tokens, attention_fn=fa.flash_attention_bhsd), tokens).backward()
+        g = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return g if m.tp_layout is None else m.tp_layout.gather(g)
+
+    g_one = grads(one)
+    del one
+    g_tp = grads(model)
+    rel = {n: float((g_tp[n] - g.float()).norm() / g.norm().clamp(min=1e-30))
+           for n, g in g_one.items()}
+    worst = max(rel, key=rel.get)
+    log(f"15a tp {P15_TP} vs unsharded flash step-1 grads (B{B} S{S}, {len(rel)} tensors): "
+        f"relative L2 error max {rel[worst]:.3e} ({worst}), median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e} (tol 5e-2); a rank holds {n_local} of "
+        f"{sum(g.numel() for g in g_one.values())} parameters")
+    require(rel[worst] <= 5e-2, f"15a: tp grads differ from the unsharded step: {worst} "
+            f"{rel[worst]}")
+    del g_one, g_tp
+    torch.cuda.empty_cache()
+    state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                               attention_fn=fa.flash_attention_bhsd)
+    step = make_train_step("lm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = _kernel_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    expect = 12 * P15_TP
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "losses": losses,
+              "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
+              "max_memory_allocated": peak, "launches": launches, "params_a_rank": n_local}
+    log(f"15a tp {P15_TP}: losses {[round(x, 4) for x in losses]}, step median "
+        f"{1e3 * step_s:.2f} ms (steps 2-{steps}), {result['tokens_per_s']:.0f} tokens/s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, launches {launches} (expected {expect} "
+        f"a step each)")
+    require(all(np.isfinite(losses)), f"15a: non-finite loss {losses}")
+    require(all(n == expect * steps for n in launches.values()),
+            f"15a: expected {expect * steps} launches of each kernel, got {launches}")
+    result["profile"] = device_profile(torch, lambda: step(state, batches[-1]),
+                                       "15a profile (one tp step)")
+    return result
+
+
+def tp_card_vs_cpu(torch, seed: int) -> dict:
+    """15b: ``TP_SHAPE`` under ``LockstepTP(2)``, float32 with TF32 off, the
+    same weights and batch (B8 S32) on the card (K1-K3 at H2) and on the CPU
+    (their plain versions): the loss within 1e-4 relative and every step-1
+    gradient within 1e-4 relative L2."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
+    cfg = TransformerConfig(**P15_SMALL)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (8, 32)))
+
+    def run(device):
+        m = TransformerLM(cfg, dtype=torch.float32, device=device,
+                          tp=LockstepTP(2, device)).init_weights(seed)
+        t = tokens.to(device)
+        loss = lm_cross_entropy(m(t, attention_fn=fa.flash_attention_bhsd), t)
+        names, params = zip(*m.named_parameters())
+        g = m.tp_layout.gather(dict(zip(names, torch.autograd.grad(loss, params))))
+        return float(loss.detach()), {n: x.cpu().double() for n, x in g.items()}
+
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = run("cuda"), run("cpu")
+    rel = {n: float((g_gpu[n] - g).norm() / g.norm().clamp(min=1e-30)) for n, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    log(f"15b tp 2 card vs CPU (TP_SHAPE, float32, TF32 off): loss {loss_gpu:.6f} vs "
+        f"{loss_cpu:.6f} ({loss_rel:.2e}), worst gradient {rel[worst]:.3e} ({worst}) (tol 1e-4)")
+    require(loss_rel <= 1e-4 and rel[worst] <= 1e-4,
+            f"15b: card differs from CPU: loss {loss_rel}, {worst} {rel[worst]}")
+    return {"loss_rel": loss_rel, "grads_rel_l2_max": rel[worst], "grads_worst": worst}
+
+
+def tp_generate(torch, seed: int) -> dict:
+    """15c: the 110M ``TransformerConfig()`` in float32 (phase 5's weights)
+    under ``LockstepTP(4)`` on this card: greedy generation of 2 prompts of
+    64 tokens, 16 new, token-identical to the unsharded model; K1 launched
+    4 x 12 times for the prefill and K4 4 x 12 times a decode step."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.generate import generate
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
+    cfg = TransformerConfig()
+    new = 16
+    prompt = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 64))).cuda()
+    one = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+    want = generate(one, prompt, max_new_tokens=new, temperature=0.0)
+    del one
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda",
+                          tp=LockstepTP(P15_TP, "cuda")).init_weights(seed)
+    _zero_counts(fa, fd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate(model, prompt, max_new_tokens=new, temperature=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _kernel_counts(fa, fd)
+    expect = {"K1": 12 * P15_TP, "K4": 12 * P15_TP * (new - 1)}
+    same = bool(torch.equal(got, want))
+    log(f"15c tp {P15_TP} greedy generation (f32, B2, 64 + {new} tokens): token-identical to "
+        f"tp 1: {same}, {seconds:.3f}s, K1 {launches['K1']} (expected {expect['K1']}), K4 "
+        f"{launches['K4']} (expected {expect['K4']})")
+    require(same, f"15c: tp {P15_TP} tokens {got.tolist()} differ from tp 1's {want.tolist()}")
+    require(launches["K1"] == expect["K1"] and launches["K4"] == expect["K4"],
+            f"15c: launches {launches}, expected {expect}")
+    return {"token_identical": same, "seconds": seconds, "launches": launches,
+            "decode_steps": 2 * (new - 1)}
+
+
+def tp_zero_cli(torch, card: str) -> dict:
+    """15d: ``cli.train_lm --tp 1 --zero_overlap`` over NCCL at world size 1
+    (2 layers at the 110M widths, seq 1024): the wiring only, as 13d and
+    14c; it runs and logs the reference's fallback reason."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase15-", dir=os.path.join(ROOT, "build"))
+    flags = P10_MODEL[2:] + ["--num_layers", "2", "--device", "cuda", "--dtype", "bfloat16",
+                             "--attention", "flash", "--seq_len", "1024", "--batch_size", "2",
+                             "--train_sequences", "8", "--num_epochs", "1", "--tp", "1",
+                             "--zero_overlap", "--coordinator",
+                             f"file://{os.path.join(work, 'rdzv')}", "--num_processes", "1",
+                             "--process_id", "0"]
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = train_lm.main(flags)
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    fell_back = "no data parallelism" in text and "falling back" in text
+    log(f"15d train_lm --tp 1 --zero_overlap over NCCL at world size 1 ({card}): exit {rc} in "
+        f"{time.perf_counter() - t0:.1f}s, fallback logged: {fell_back}")
+    require(rc == 0 and "nccl" in text and fell_back,
+            f"15d: exited {rc}, fallback {fell_back}: {err.getvalue()[-2000:]}")
+    return {"rc": rc, "fallback_logged": fell_back}
+
+
+def tp_phase(torch, card: str, gen, seed: int) -> dict:
+    """Phase 15: tensor parallelism (15a-15c), the ZeRO-1 wiring (15d) and
+    the kernel rows at a tp-4 rank's local heads."""
+    out = {"train": tp_train(torch, seed)}
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = tp_card_vs_cpu(torch, seed)
+    out["generate"] = tp_generate(torch, seed)
+    torch.cuda.empty_cache()
+    out["zero_cli"] = tp_zero_cli(torch, card)
+    heads = 12 // P15_TP
+    out["kernels"] = time_training(torch, gen, out["train"]["launches"], heads=heads,
+                                   where="15a (6 steps)")
+    k4 = k4_row(torch, gen, out["generate"]["launches"]["K4"], serve_fills(), 1024, heads=heads,
+                name=f"K4 flash_decode (tp {P15_TP} local heads)")
+    log(f"time {k4['name']} [{k4['shape']}]: kernel {k4['ms']:.4f} ms (warm "
+        f"{k4['warm_ms']:.4f}), plain {k4['plain_ms']:.4f} ms, sdpa {k4['library_ms']:.4f} ms, "
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), {k4['launches']} launches in 15c")
+    out["kernels"].append(k4)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -2361,6 +2647,12 @@ def main() -> int:
     log(f"phase 14 sequence parallelism (ring and Ulysses at S8192, the 110M model over a ring "
         f"of 4, the --sp CLIs) OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp = tp_phase(torch, card, gen, args.seed)
+    kernels.extend(tp["kernels"])
+    log(f"phase 15 tensor parallelism (the 110M model over tp 4 in bf16, card vs CPU, greedy "
+        f"generation at tp 4, --zero_overlap over NCCL) OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -2373,7 +2665,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
-                       "workloads": workloads, "moe": moe, "seq": seq,
+                       "workloads": workloads, "moe": moe, "seq": seq, "tp": tp,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,14 +10,18 @@ card. ``--prompts_file`` decodes one prompt per line as one ragged batch
 line per prompt; ``--num_beams N > 1`` runs beam search on one prompt;
 ``--quantize int8`` converts the block weights after restore (dense models
 only). An MoE checkpoint (``--moe_experts``) prefills stepwise, every
-prompt position a decode step (K4 on the card).
+prompt position a decode step (K4 on the card). ``--tp N`` decodes the
+Megatron-sharded model in one process (``parallel.tensor_parallel``'s
+``LockstepTP``): shard ``i`` on ``cuda:i`` (every shard on the CPU with
+``--device cpu``), K1 and K4 per rank at its local heads; fewer visible
+cards than ``N`` is refused, as is ``--quantize int8`` with it.
 
     python -m deeplearning_mpi_tpu_torch.cli.generate --model_dir /tmp/lm \\
         --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \\
         --prompt "ab" --max_new_tokens 8 --greedy [--device cpu]
 
 Model-shape flags must match the training run: the checkpoint stores
-tensors, not the architecture. Not ported yet: ``--tp``.
+tensors, not the architecture.
 """
 
 from __future__ import annotations
@@ -90,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                      "uniform sampling splits prefill from decode tokens/s, beam and "
                      "ragged runs report stepped positions/s")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree: the Megatron-sharded model in one "
+                        "process, shard i on cuda:i")
     return parser
 
 
@@ -111,7 +118,9 @@ class Generated:
 
 def _argv_error(args) -> str | None:
     """The argv checks, made before any restore."""
-    if args.quantize == "int8" and args.moe_experts > 0:
+    if args.tp < 1:
+        return f"--tp must be >= 1, got {args.tp}"
+    if args.quantize == "int8" and (args.tp > 1 or args.moe_experts > 0):
         return ("--quantize int8 supports single-device dense models (not --tp or "
                 "--moe_experts yet)")
     eos_id = args.eos_id if args.eos_id >= 0 else None
@@ -144,9 +153,26 @@ def _read_prompts(path: str) -> list[str]:
     return lines
 
 
+def tp_ranks(args, device: torch.device):
+    """``--tp``'s ``LockstepTP`` (None at 1): shard ``i`` on ``cuda:i``, or
+    every shard on the CPU; refused when fewer cards are visible, as the
+    reference refuses fewer devices (never several shards on one card)."""
+    if args.tp == 1:
+        return None
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
+    if device.type == "cpu":
+        return LockstepTP(args.tp, "cpu")
+    have = torch.cuda.device_count()
+    if have < args.tp:
+        raise SystemExit(f"--tp {args.tp} needs {args.tp} devices, have {have}: one shard a card "
+                         "(--device cpu puts every shard on the CPU)")
+    return LockstepTP(args.tp, [torch.device("cuda", i) for i in range(args.tp)])
+
+
 def load_model(args, device: torch.device):
-    """The restored model (``utils.config.restore_lm``), int8 with
-    ``--quantize int8``; refusals raise ``SystemExit``."""
+    """The restored model (``utils.config.restore_lm``), sharded with
+    ``--tp``, int8 with ``--quantize int8``; refusals raise ``SystemExit``."""
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.utils.config import restore_lm
 
@@ -158,7 +184,8 @@ def load_model(args, device: torch.device):
     )
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = restore_lm(cfg, dtype=dtype, device=device, model_dir=args.model_dir,
-                       model_filename=args.model_filename, epoch=args.epoch, ema=args.ema > 0)
+                       model_filename=args.model_filename, epoch=args.epoch, ema=args.ema > 0,
+                       tp=tp_ranks(args, device))
     if args.quantize == "int8":
         from deeplearning_mpi_tpu_torch.ops.quant import quantize_lm_params
 

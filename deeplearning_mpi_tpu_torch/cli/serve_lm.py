@@ -113,6 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="check every stream against offline greedy decode; exit 0 "
                         "iff all match")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--tp", type=int, default=1,
+                        help="refused above 1: tensor-parallel replicas need the fleet")
     return parser
 
 
@@ -206,6 +208,10 @@ def main(argv: list[str] | None = None) -> int:
         print("serve_lm needs --model_dir (a checkpoint to serve) or --selftest",
               file=sys.stderr)
         return 2
+    if args.tp > 1:
+        print("--tp > 1 shards replica processes; it requires --replicas > 1 (the serving "
+              "fleet is not ported yet: ROADMAP Queue 1 item 10)", file=sys.stderr)
+        return 1
     if args.moe_experts > 0:
         # The engine would raise anyway, but before the restore.
         print("serving is dense-MLP only: MoE capacity routing makes a token's output "

@@ -28,6 +28,17 @@ data. On CUDA the ring runs K1 a rotation forward and K2/K3 backward
 take their plain inners. ``--sp`` with ``--moe_experts`` or ``--ep`` is
 refused (ROADMAP Queue 1 item 8).
 
+``--tp N`` shards the model over the mesh's model axis, the process-group
+form of ``parallel/tensor_parallel.py``: ``N`` processes of a data
+coordinate load the same rows and each holds its shards of the Megatron
+pairs (H/N heads, d_ff/N) and of the embedding; on the card K1-K3 run at
+the local heads. ``--dp M --tp N`` takes ``M * N`` processes. ``--zero``
+keeps each rank's slice of the optimizer moments over the data group and
+``--zero_overlap`` runs the bucketed ZeRO-1 schedule (``parallel/zero.py``;
+with ``--tp``, or without data parallelism, it falls back to ``--zero``
+and logs why). ``--tp`` refuses ``--moe_experts`` / ``--ep``, ``--sp``,
+adafactor and widths it does not divide (ROADMAP Queue 1 item 8.5).
+
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
 ``<model_dir>/<model_filename>/<epoch>/``, beside an ``arch.json`` sidecar
@@ -47,8 +58,11 @@ SIGTERM ends training after the current epoch with a final checkpoint.
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --sp 4 \
         --attention ring --num_layers 2 --num_heads 4 --head_dim 8 --d_model 32 --d_ff 64 \
         --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --dp 2 --tp 2 \
+        --zero --num_layers 2 --num_heads 4 --head_dim 16 --d_model 32 --d_ff 64 \
+        --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
-Not ported yet: tensor / pipeline parallelism and ZeRO (refused), chaos,
+Not ported yet: pipeline parallelism (refused), chaos,
 auto-resume (``--max_restarts``), guardrails and telemetry.
 """
 
@@ -171,6 +185,7 @@ def train(argv: list[str] | None = None):
         data_size,
         expert_shards,
         seq_shards,
+        tp_shards,
     )
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
@@ -223,9 +238,12 @@ def train(argv: list[str] | None = None):
             config.save_arch(cfg, ckpt_dir)
         checkpointer = Checkpointer(ckpt_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
-                          return_prehead=args.loss_chunk > 0,
-                          expert_shards=expert_shards(mesh)).init_weights(args.random_seed)
+    try:
+        model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
+                              return_prehead=args.loss_chunk > 0, expert_shards=expert_shards(mesh),
+                              tp=tp_shards(mesh, device)).init_weights(args.random_seed)
+    except ValueError as e:  # a width the tensor-parallel rule would split unevenly
+        raise SystemExit(str(e)) from e
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=1.0)
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
     start_epoch = 0
@@ -236,13 +254,15 @@ def train(argv: list[str] | None = None):
            f"--ep {args.ep}" if args.moe_experts else "")
     log(f"train_lm: {n_params} params on this process{moe}, {len(train_ds)} train / "
         f"{len(eval_ds)} eval sequences of {args.seq_len}, {train_loader.steps_per_epoch()} "
-        f"steps/epoch, attention {args.attention} (--sp {args.sp}), {args.dtype}, on {device}, "
-        f"{topo.num_processes} process(es) ({topo.backend or 'no group'})")
+        f"steps/epoch, attention {args.attention} (--sp {args.sp}), --tp {args.tp}"
+        f"{' --zero_overlap' if args.zero_overlap else ' --zero' if args.zero else ''}, "
+        f"{args.dtype}, on {device}, {topo.num_processes} process(es) "
+        f"({topo.backend or 'no group'})")
     trainer = Trainer(state, "lm", eval_every=args.eval_every,
                       aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
                       grad_accum=args.grad_accum, loss_chunk=args.loss_chunk,
                       ema_decay=args.ema, log=log, checkpointer=checkpointer, group=group,
-                      seq=seq_shards(mesh))
+                      seq=seq_shards(mesh), zero=args.zero, zero_overlap=args.zero_overlap)
     return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
 
 

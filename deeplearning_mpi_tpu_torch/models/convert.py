@@ -44,9 +44,15 @@ def transposed_from_jax(name: str) -> bool:
     return name.endswith(".weight") and name != "embed.weight"
 
 
-def lm_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def lm_params_from_jax(params: Mapping[str, Any], model: Any = None) -> dict[str, torch.Tensor]:
     """Flax ``TransformerLM`` params (numpy leaves) -> ``state_dict`` for
-    :class:`~deeplearning_mpi_tpu_torch.models.transformer.TransformerLM`."""
+    :class:`~deeplearning_mpi_tpu_torch.models.transformer.TransformerLM`;
+    for a tensor-parallel ``model``, its shards of each leaf
+    (``parallel.tensor_parallel.shard_state_dict``)."""
+    if model is not None:
+        from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import shard_state_dict
+
+        return shard_state_dict(lm_params_from_jax(params), model)
     sd = {"embed.weight": _t(params["embed"]["embedding"])}
     n_layers = sum(1 for name in params if name.startswith("layer_"))
     for i in range(n_layers):

@@ -14,6 +14,10 @@ prefills the positions every row shares in one batched forward first.
 :func:`beam_search` folds the beams into the batch (``B * W`` rows of one
 cache, each step's survivors gathering their parents' cache rows).
 
+A tensor-parallel model (``models.transformer``'s ``tp``) runs every path
+at its ranks' local heads: K1 per rank for the prefill, K4 per rank for
+each decode step.
+
 An MoE model (``moe_experts > 0``) prefills stepwise, as the reference
 does: one batched forward would route the whole prompt through the experts
 at once, and capacity contention between prompt positions can drop tokens
@@ -92,9 +96,7 @@ def prefill(
                                  last_logits_only=last_logits_only)
     if attention_fn is None:
         attention_fn = _prefill_attention_fn(prompt.device)
-    cache = KVCache.empty(
-        model.config, prompt.shape[0], total_len, model.dtype, prompt.device
-    )
+    cache = model.new_cache(prompt.shape[0], total_len, prompt.device)
     x = model(prompt, cache=cache, attention_fn=attention_fn, return_hidden=True)
     if last_logits_only:
         return cache, model.head(x[:, -1])
@@ -108,7 +110,7 @@ def _prefill_stepwise(
     """The MoE prefill: :func:`prefill`'s contract, the cache filled by
     single-token decode steps at positions ``0..P-1``, so each position is
     routed as the decode walk routes it."""
-    cache = KVCache.empty(model.config, prompt.shape[0], total_len, model.dtype, prompt.device)
+    cache = model.new_cache(prompt.shape[0], total_len, prompt.device)
     logits = [model(prompt[:, i:i + 1], cache=cache)[:, 0] for i in range(prompt.shape[1])]
     if last_logits_only:
         return cache, logits[-1]
@@ -216,7 +218,7 @@ def _generate_ragged(
         prev, done = first_token(logits, generator, eos_id=eos_id, **sample)
         done = done & (plens == start)
     else:
-        cache = KVCache.empty(model.config, batch, total, model.dtype, prompt.device)
+        cache = model.new_cache(batch, total, prompt.device)
         prev = torch.zeros(batch, dtype=torch.int32, device=prompt.device)
         done = torch.zeros(batch, dtype=torch.bool, device=prompt.device)
     prev = prev.to(prompt.dtype)
@@ -267,8 +269,7 @@ def beam_search(
     total, beams, device = prompt_len + max_new_tokens, num_beams, prompt.device
     neg = -1e30
     cache_b, last_logits = prefill(model, prompt, total_len=total)
-    cache = KVCache(k=[x.repeat_interleave(beams, 0) for x in cache_b.k],
-                    v=[x.repeat_interleave(beams, 0) for x in cache_b.v], index=cache_b.index)
+    cache = cache_b.map(lambda x: x.repeat_interleave(beams, 0))
     logp0 = torch.log_softmax(last_logits.float(), dim=-1)
     vocab = logp0.shape[-1]
     seed = torch.full((batch, beams, vocab), neg, device=device)
@@ -301,8 +302,9 @@ def beam_search(
             lengths = torch.gather(lengths, 1, parent) + (~parent_fin).to(torch.int32)
             finished = parent_fin | (tok == eos_id)
         flat = (row_base + parent).reshape(-1)
-        cache.k = [x.index_select(0, flat) for x in cache.k]
-        cache.v = [x.index_select(0, flat) for x in cache.v]
+        # A batch-dim gather: under tensor parallelism each rank's heads
+        # follow their rows, the head split untouched.
+        cache = cache.map(lambda x: x.index_select(0, flat.to(x.device)))
         parents.append(parent)
     # Survivors reorder every step: walk each final beam's ancestry back,
     # mapping the beam into the earlier frame before reading its token.

@@ -53,6 +53,16 @@ capacity; its load-balance loss and dropped fraction are read through
 experts (``parallel/expert_parallel.py``). An MoE model has no int8 or
 draft counterpart, as in the reference.
 
+Tensor parallelism: ``tp`` (``parallel.tensor_parallel.GroupTP`` or
+``LockstepTP``) shards the model by the reference's rule: each block's
+attention and SwiGLU become Megatron pairs (``TPPair``: the plain modules
+at H/tp, Hkv/tp heads and d_ff/tp, one all-reduce each), the embedding (and
+an untied head) is stored as its shards and gathered whole once a forward,
+and the norms are replicated. The attention core, K1-K3 on the card, runs
+at the rank's local heads; the :class:`KVCache` holds each rank's Hkv/tp
+heads (:meth:`TransformerLM.new_cache`). A tensor-parallel model has no
+int8, MoE or draft counterpart.
+
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
 collection.
 """
@@ -182,26 +192,46 @@ def _dense(quantized: bool, dtype: torch.dtype) -> Callable[[int, int], nn.Modul
 class KVCache:
     """Per-layer K/V buffers ``[B, max_len, Hkv, D]`` (zero-initialised:
     the dense decode path reads every row, and 0 x NaN is NaN) plus the
-    number of filled positions ``index``."""
+    number of filled positions ``index``. Under tensor parallelism a
+    layer's entry is the list of each rank's ``[B, max_len, Hkv/tp, D]``
+    buffer, on the rank's device (:meth:`rank` gives rank ``i`` its own)."""
 
-    k: list[torch.Tensor]
-    v: list[torch.Tensor]
+    k: list
+    v: list
     index: int = 0
 
     @staticmethod
     def empty(
         config: TransformerConfig, batch: int, max_len: int,
-        dtype: torch.dtype, device: torch.device | str,
+        dtype: torch.dtype, device: torch.device | str, tp=None,
     ) -> "KVCache":
-        shape = (batch, max_len, config.kv_heads, config.head_dim)
-        return KVCache(
-            k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.num_layers)],
-            v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(config.num_layers)],
-        )
+        """A zero cache; with ``tp`` each rank's heads on each rank's device."""
+        if tp is None:
+            shape = (batch, max_len, config.kv_heads, config.head_dim)
+            zeros = lambda: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+        else:
+            shape = (batch, max_len, config.kv_heads // tp.size, config.head_dim)
+            zeros = lambda: [torch.zeros(shape, dtype=dtype, device=d)  # noqa: E731
+                             for d in tp.devices]
+        return KVCache(k=[zeros() for _ in range(config.num_layers)],
+                       v=[zeros() for _ in range(config.num_layers)])
 
     @property
     def max_len(self) -> int:
-        return self.k[0].shape[1]
+        k = self.k[0]
+        return (k[0] if isinstance(k, list) else k).shape[1]
+
+    def rank(self, i: int) -> "KVCache":
+        """Rank ``i``'s buffers of a tensor-parallel cache (the same tensors,
+        written in place; the index read, not advanced)."""
+        return KVCache(k=[x[i] for x in self.k], v=[x[i] for x in self.v], index=self.index)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "KVCache":
+        """A cache of ``fn`` of every buffer (a batch-dim op: beam search's
+        fan-out and reorder); the index kept."""
+        leaf = lambda x: [fn(t) for t in x] if isinstance(x, list) else fn(x)  # noqa: E731
+        return KVCache(k=[leaf(x) for x in self.k], v=[leaf(x) for x in self.v],
+                       index=self.index)
 
 
 class Attention(nn.Module):
@@ -299,13 +329,23 @@ class Block(nn.Module):
     MLP is routed (``models.moe.MoEMLP``) when ``config.moe_experts > 0``."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 quantized: bool = False, expert_shards=None) -> None:
+                 quantized: bool = False, expert_shards=None, tp=None, tp_plan=None) -> None:
         super().__init__()
+        if tp_plan is not None:
+            from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import TPPair
         self.attn_norm = RMSNorm(config.d_model)
-        self.attn = Attention(config, dtype, quantized)
+        if tp_plan is not None and tp_plan.attention:
+            local = dataclasses.replace(config, num_heads=config.num_heads // tp.size,
+                                        num_kv_heads=config.kv_heads // tp.size)
+            self.attn = TPPair([Attention(local, dtype) for _ in tp.ranks], tp)
+        else:
+            self.attn = Attention(config, dtype, quantized)
         self.mlp_norm = RMSNorm(config.d_model)
         if config.moe_experts > 0:
             self.mlp = mlp_from_config(config, config.d_model, config.d_ff, dtype, expert_shards)
+        elif tp_plan is not None and tp_plan.mlp:
+            self.mlp = TPPair([SwiGLU(config.d_model, config.d_ff // tp.size, dtype)
+                               for _ in tp.ranks], tp)
         else:
             self.mlp = SwiGLU(config.d_model, config.d_ff, dtype, quantized)
 
@@ -342,15 +382,19 @@ class TransformerLM(nn.Module):
     activations, head kernel [d, V])`` for the chunked loss (tied
     embeddings only). ``quantized`` builds the int8 inference model
     (``ops.quant``); ``expert_shards`` (``parallel.expert_parallel``) keeps
-    this process's share of an MoE model's experts."""
+    this process's share of an MoE model's experts; ``tp``
+    (``parallel.tensor_parallel``) shards the model over a model group, or
+    over all its ranks in this process, on ``tp.devices`` (``device`` is
+    then ignored)."""
 
     def __init__(
         self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", remat: str = "none",
-        return_prehead: bool = False, quantized: bool = False, expert_shards=None,
+        return_prehead: bool = False, quantized: bool = False, expert_shards=None, tp=None,
     ) -> None:
         super().__init__()
-        if config.moe_experts > 0 and quantized:
+        tp = tp if tp is not None and tp.size > 1 else None
+        if quantized and (config.moe_experts > 0 or tp is not None):
             raise ValueError("--quantize int8 supports single-device dense models "
                              "(not --tp or --moe_experts yet)")
         if remat not in REMAT_POLICIES:
@@ -360,22 +404,44 @@ class TransformerLM(nn.Module):
                 "return_prehead requires tied_embeddings (the chunked loss "
                 "takes the embedding as the head kernel)"
             )
+        plan = None
+        if tp is not None:
+            from deeplearning_mpi_tpu_torch.parallel import tensor_parallel
+
+            plan = tensor_parallel.plan(config, tp.size)
+            device = tp.devices[0]
         self.config, self.dtype = config, dtype
         self.remat, self.return_prehead = remat, return_prehead
         self.expert_shards = expert_shards if config.moe_experts > 0 else None
-        self.embed = nn.Embedding(config.vocab_size, config.d_model)
-        self.layers = nn.ModuleList(Block(config, dtype, quantized, self.expert_shards)
+        self.tp, self.tp_plan = tp, plan
+        if plan is not None and plan.embed:
+            self.embed = tensor_parallel.ShardedTable(
+                (config.vocab_size, config.d_model), plan.dims["embed.weight"], tp)
+        else:
+            self.embed = nn.Embedding(config.vocab_size, config.d_model)
+        self.layers = nn.ModuleList(Block(config, dtype, quantized, self.expert_shards, tp, plan)
                                     for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.d_model)
-        self.lm_head = (
-            None if config.tied_embeddings
-            else Dense(config.d_model, config.vocab_size, dtype)
-        )
+        if config.tied_embeddings:
+            self.lm_head = None
+        elif plan is not None and plan.lm_head:
+            self.lm_head = tensor_parallel.ShardedTable(
+                (config.vocab_size, config.d_model), plan.dims["lm_head.weight"], tp)
+        else:
+            self.lm_head = Dense(config.d_model, config.vocab_size, dtype)
         self.to(resolve_device(device))
+        self.tp_layout = None
+        if tp is not None:
+            # Each rank's shards on its own device (LockstepTP over several).
+            for n, p in self.named_parameters():
+                i = tensor_parallel.split_name(n)[1]
+                if i is not None:
+                    p.data = p.data.to(tp.devices[i])
+            self.tp_layout = tensor_parallel.layout(self, plan)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return self.final_norm.scale.device
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "TransformerLM":
@@ -383,11 +449,16 @@ class TransformerLM(nn.Module):
         normal(0.02), projections and router LeCun truncated normal, norms
         ones), drawn on the CPU so every device gets the same weights. An
         expert stack is drawn whole, ``[E, in, out]``, and this process
-        keeps its slice, so every expert sharding holds the same model."""
+        keeps its slice, so every expert sharding holds the same model; a
+        tensor-parallel model draws the whole model's leaves in its order
+        and keeps its shards."""
         from deeplearning_mpi_tpu_torch.parallel.expert_parallel import is_expert_leaf
 
         gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
+        leaves = (self.named_parameters() if self.tp is None
+                  else ((n, torch.empty(s, device="meta")) for n, s in self.tp_plan.shapes.items()))
+        drawn = {}
+        for name, p in leaves:
             expert = is_expert_leaf(name, p)
             shape = (self.config.moe_experts, *p.shape[1:]) if expert else p.shape
             host = torch.empty(shape)
@@ -404,11 +475,39 @@ class TransformerLM(nn.Module):
                 nn.init.trunc_normal_(host, std=std, a=-2 * std, b=2 * std, generator=gen)
             if expert and self.expert_shards is not None:
                 host = self.expert_shards.local(host)
-            p.copy_(host)
+            if self.tp is None:
+                p.copy_(host)
+            else:
+                drawn[name] = host
+        if self.tp is not None:
+            for name, t in self.tp_layout.local(drawn).items():
+                self.get_parameter(name).copy_(t)
         return self
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed.weight.to(self.dtype))
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The whole model's parameters (the shards of a tensor-parallel
+        model gathered: a collective over its model group), detached."""
+        params = {n: p.detach() for n, p in self.named_parameters()}
+        return params if self.tp_layout is None else self.tp_layout.gather(params)
+
+    def new_cache(self, batch: int, max_len: int,
+                  device: torch.device | str | None = None) -> KVCache:
+        """An empty :class:`KVCache` for this model: each rank's heads on its
+        device when the attention is split over ``tp``."""
+        split = self.tp_plan is not None and self.tp_plan.attention
+        return KVCache.empty(self.config, batch, max_len, self.dtype,
+                             self.device if device is None else device,
+                             tp=self.tp if split else None)
+
+    def _table(self) -> torch.Tensor:
+        """The embedding table whole (gathered from its shards under TP)."""
+        if isinstance(self.embed, nn.Embedding):
+            return self.embed.weight
+        return self.embed.full()
+
+    def embed_tokens(self, tokens: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
+        table = self._table() if table is None else table
+        return F.embedding(tokens, table.to(self.dtype))
 
     def _run_block(self, block: Block, x, positions, attention_fn) -> torch.Tensor:
         """One block of the full-sequence forward, under the remat policy."""
@@ -422,13 +521,18 @@ class TransformerLM(nn.Module):
         return checkpoint(block, x, positions, use_reentrant=False,
                           attention_fn=attention_fn, **kw)
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
+    def head(self, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
         """Final-norm activations -> float32 logits (float64 in a float64
-        model; tied: ``x @ E^T`` in the compute dtype, as flax ``Embed.attend``)."""
+        model; tied: ``x @ E^T`` in the compute dtype, as flax ``Embed.attend``,
+        with ``table`` the embedding when the caller holds it whole). An untied
+        vocab-parallel head gathers its weight."""
         if self.lm_head is None:
-            logits = x.to(self.dtype) @ self.embed.weight.to(self.dtype).T
-        else:
+            table = self._table() if table is None else table
+            logits = x.to(self.dtype) @ table.to(self.dtype).T
+        elif isinstance(self.lm_head, Dense):
             logits = self.lm_head(x)
+        else:
+            logits = F.linear(x.to(self.dtype), self.lm_head.full().to(self.dtype))
         return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def forward(
@@ -461,7 +565,8 @@ class TransformerLM(nn.Module):
             start = cache.index if cache is not None else 0
             positions = torch.arange(start, start + seq, device=tokens.device)
             positions = positions[None].expand(batch, seq)
-        x = self.embed_tokens(tokens)
+        table = self._table()  # gathered once a forward under TP
+        x = self.embed_tokens(tokens, table)
         for i, block in enumerate(self.layers):
             if cache is None:
                 x = self._run_block(block, x, positions, attention_fn)
@@ -473,8 +578,8 @@ class TransformerLM(nn.Module):
         if return_hidden:
             return x
         if self.return_prehead and cache is None:
-            return x, self.embed.weight.T
-        return self.head(x)
+            return x, table.T
+        return self.head(x, table if self.lm_head is None else None)
 
 
 def draft_config(config: TransformerConfig, num_layers: int, **overrides) -> TransformerConfig:

@@ -31,7 +31,6 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from deeplearning_mpi_tpu_torch.runtime import collectives
 
@@ -45,41 +44,16 @@ def is_expert_leaf(name: str, leaf: torch.Tensor) -> bool:
     return EXPERT_MARKER in name and leaf.dim() >= 3
 
 
-class _CopyToExperts(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
-        return grad, None
-
-
-class _ReduceFromExperts(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return grad, None
-
-
 def copy_to_experts(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the backward sums the gradient over the expert
     group (each rank's gradient covers only its own experts)."""
-    return _CopyToExperts.apply(x, group)
+    return collectives.copy_to_group(x, group)
 
 
 def reduce_from_experts(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the expert group (each rank's partial combine); identity
     backward (every rank reads the same sum)."""
-    return _ReduceFromExperts.apply(x, group)
+    return collectives.reduce_from_group(x, group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,12 @@ reference (XLA)         here (torch.distributed)
 ``broadcast_from``      ``broadcast``
 ======================  =====================================================
 
+The Megatron pair (``copy_to_group``: identity forward, all-reduce-sum
+backward; ``reduce_from_group``: all-reduce-sum forward, identity backward)
+carries the sharded layers of expert and tensor parallelism, and
+``gather_from_group`` the tables every rank of a group reads whole (the
+backward keeps this rank's block: every rank computed the same gradient).
+
 The ``_autograd`` functions have a backward: :func:`all_reduce_sum_autograd`
 all-reduces the gradient (BatchNorm's global-batch moments go through it),
 :func:`ring_shift_autograd` sends it back the other way round the ring (the
@@ -106,6 +112,71 @@ def all_reduce_sum_autograd(x: torch.Tensor, group: dist.ProcessGroup | None = N
     reads through the sum gets the sum of their gradients."""
     counts["all_reduce_sum_autograd"] += 1
     return _AllReduceSum.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over the group. Where
+    a replicated activation enters a layer whose ranks each hold a part of
+    the weights (a column-parallel projection, a rank's experts), each rank's
+    gradient covers only its part."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group (each rank's partial output of a row-parallel
+    projection or of its experts); identity backward, since every rank reads
+    the same sum."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, axis: int) -> torch.Tensor:
+        n = dist.get_world_size(group)
+        ctx.args = n, dist.get_rank(group), axis
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=axis)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        n, rank, axis = ctx.args
+        return grad.chunk(n, dim=axis)[rank].contiguous(), None, None
+
+
+def gather_from_group(x: torch.Tensor, group, *, axis: int) -> torch.Tensor:
+    """Every rank's block concatenated along ``axis``, differentiable; the
+    backward keeps this rank's block of the gradient WITHOUT a sum over the
+    group: for a table that every rank reads whole into the same replicated
+    computation, every rank holds the same full gradient already (summing it
+    would count it once a rank)."""
+    counts["gather_from_group"] += 1
+    return _GatherFromGroup.apply(x, group, axis)
 
 
 def all_gather(tree: Tree, group: dist.ProcessGroup | None = None, *, axis: int = 0) -> Tree:

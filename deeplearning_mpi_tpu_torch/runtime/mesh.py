@@ -3,9 +3,9 @@
 Port of ``deeplearning_mpi_tpu/runtime/mesh.py``. The axis names and
 ``MeshSpec.resolve``'s arithmetic and errors are the reference's;
 :func:`create_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
-with those names (one process a device). ``data``, ``expert`` and ``seq``
-may exceed 1: the schedules that shard along the other axes (tensor and
-pipeline parallelism) are ROADMAP Queue 1 item 8. The reference's
+with those names (one process a device). ``data``, ``expert``, ``seq`` and
+``model`` may exceed 1: pipeline parallelism, which shards along ``pipe``,
+is ROADMAP Queue 1 item 8.3. The reference's
 ``order_devices_for_mesh`` (multi-slice TPU placement) has no counterpart
 on GPUs.
 
@@ -20,7 +20,11 @@ the batch over ``data`` only): every process of a seq group loads the same
 whole rows and keeps its ``S / seq`` slice of the sequence through the
 model (``parallel.seq_common.SeqShards``). A parameter replica is shared by
 the processes of one data x seq plane (:func:`replica_group`): their
-gradients are summed over ``seq`` and averaged over ``data``.
+gradients are summed over ``seq`` and averaged over ``data``. Rows are
+replicated over ``model`` too: the processes of one model group hold the
+shards of one replica's weights (``parallel.tensor_parallel``,
+:func:`tp_shards`) and run the same rows; a replica's data group is the
+processes of its model coordinate.
 """
 
 from __future__ import annotations
@@ -75,21 +79,19 @@ def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "c
 
     With no spec every process is on ``data`` (the original repo's DDP
     world). ``device`` is the mesh's device type (``cuda`` for NCCL,
-    ``cpu`` for gloo). Raises without a live group, and for the ``pipe`` or
-    ``model`` axis above 1 (ROADMAP Queue 1 item 8).
+    ``cpu`` for gloo). Raises without a live group, and for the ``pipe``
+    axis above 1 (ROADMAP Queue 1 item 8.3).
     """
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a live process group (runtime.bootstrap.init "
                            "with a coordinator)")
     spec = spec or MeshSpec()
     shape = spec.resolve(dist.get_world_size())
-    wide = [f"{a}={n}" for a, n in zip(MESH_AXES, shape)
-            if n != 1 and a not in (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ)]
-    if wide:
+    pipe = shape[MESH_AXES.index(AXIS_PIPE)]
+    if pipe != 1:
         raise NotImplementedError(
-            f"mesh axes {', '.join(wide)}: only the data, expert and seq axes may exceed 1 in "
-            "the port so far (tensor and pipeline parallelism are ROADMAP Queue 1 item 8)"
-        )
+            f"mesh axis pipe={pipe}: pipeline parallelism is not ported yet (ROADMAP Queue 1 "
+            "item 8.3)")
     return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
 
 
@@ -123,6 +125,21 @@ def seq_rank(mesh: DeviceMesh | None) -> int:
     return 0 if mesh is None else mesh.get_local_rank(AXIS_SEQ)
 
 
+def model_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
+    """The process group of the model axis (None: no mesh, one process)."""
+    return None if mesh is None else mesh.get_group(AXIS_MODEL)
+
+
+def model_size(mesh: DeviceMesh | None) -> int:
+    """The tensor-parallel degree (1: no mesh)."""
+    return 1 if mesh is None else mesh.size(MESH_AXES.index(AXIS_MODEL))
+
+
+def model_rank(mesh: DeviceMesh | None) -> int:
+    """This process's coordinate on the model axis (0: no mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(AXIS_MODEL)
+
+
 def replica_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
     """The processes that share this process's parameter replica: its data x
     seq plane of the mesh (the same expert, pipe and model coordinates). The
@@ -150,6 +167,22 @@ def seq_shards(mesh: DeviceMesh | None):
         return None
     return SeqShards(seq_group(mesh), seq_size(mesh), seq_rank(mesh), replica_group(mesh),
                      data_size(mesh))
+
+
+def tp_shards(mesh: DeviceMesh | None, device: str | torch.device | None = None):
+    """This process's place in its model group, the process-group form of
+    tensor parallelism (``parallel.tensor_parallel.GroupTP``) on ``device``
+    (default: the mesh's device type, this process's current card); None
+    without a mesh or at model size 1."""
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import GroupTP
+
+    if model_size(mesh) == 1:
+        return None
+    if device is None:
+        device = mesh.device_type
+        if device == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    return GroupTP(model_group(mesh), device)
 
 
 def expert_shards(mesh: DeviceMesh | None):

@@ -19,8 +19,13 @@ Under expert parallelism (the model's ``expert_shards``) a process holds
 its slice of every expert stack and of the stacks' optimizer moments and
 EMA: :meth:`TrainState.arrays` gathers the full stacks (a collective over
 the expert group, so every rank calls it) and :meth:`TrainState.fill`
-takes full stacks and keeps this rank's slice. A checkpoint is thus the
-same tree at every expert sharding.
+takes full stacks and keeps this rank's slice. Under tensor parallelism
+(the model's ``tp_layout``) the shards of every sharded leaf are gathered
+whole, and under ZeRO-1 (``zero``, ``parallel.zero.Zero1``) the optimizer
+moments' slices over the data group: both collectives, so every rank calls
+:meth:`TrainState.arrays`, and :meth:`TrainState.fill` keeps this rank's
+part. A checkpoint is thus the same tree at every expert, tensor, data and
+ZeRO layout, and restores under any other.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ class TrainState:
     ema_params: dict[str, torch.Tensor] | None = None
     #: the attention core the model's full-sequence forward runs.
     attention_fn: Callable | None = None
+    #: ZeRO-1: the optimizer moments are this rank's slices over the data
+    #: group (``parallel.zero.Zero1``; None: whole).
+    zero: Any = None
 
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -65,6 +73,12 @@ class TrainState:
     def expert_shards(self) -> Any:
         """The model's expert sharding (None: every expert is here)."""
         return getattr(self.model, "expert_shards", None)
+
+    @property
+    def shards(self) -> Any:
+        """What the global norm spans beyond this process's leaves: the
+        expert sharding or the tensor-parallel layout (None: neither)."""
+        return self.expert_shards or getattr(self.model, "tp_layout", None)
 
     def arrays(self) -> dict[str, Any]:
         """What a checkpoint holds: ``step`` (an int32 scalar, as the
@@ -85,6 +99,11 @@ class TrainState:
         shards = self.expert_shards
         if shards is not None:
             out = {k: map_expert_leaves(shards.gather, v) for k, v in out.items()}
+        if self.zero is not None:
+            out["opt_state"] = self.zero.gather(out["opt_state"])
+        layout = getattr(self.model, "tp_layout", None)
+        if layout is not None:
+            out = {k: _named_trees(layout.gather, v, k) for k, v in out.items()}
         return out
 
     @torch.no_grad()
@@ -99,6 +118,12 @@ class TrainState:
         if shards is not None:
             arrays = {k: map_expert_leaves(lambda t: shards.local(t).clone(), v)
                       for k, v in arrays.items()}
+        layout = getattr(self.model, "tp_layout", None)
+        if layout is not None:
+            local = lambda tree: {n: t.clone() for n, t in layout.local(tree).items()}  # noqa: E731
+            arrays = {k: _named_trees(local, v, k) for k, v in arrays.items()}
+        if self.zero is not None and "opt_state" in arrays:
+            arrays = {**arrays, "opt_state": self.zero.shard(arrays["opt_state"])}
         if "params" in arrays:
             for n, p in self.model.named_parameters():
                 p.copy_(arrays["params"][n])
@@ -111,6 +136,17 @@ class TrainState:
             opt_state=arrays.get("opt_state", self.opt_state),
             ema_params=arrays.get("ema_params", self.ema_params),
         )
+
+
+def _named_trees(fn: Callable[[dict], dict], tree: Any, key: str) -> Any:
+    """``fn`` over the trees keyed by parameter names in one top-level
+    entry of :meth:`TrainState.arrays`: ``params``, ``ema_params``,
+    ``batch_stats`` and each slot of ``opt_state`` (its ``count`` as is)."""
+    if key == "opt_state":
+        return {k: fn(v) if isinstance(v, dict) else v for k, v in tree.items()}
+    if key in ("params", "ema_params"):
+        return fn(tree)
+    return tree
 
 
 def create_train_state(

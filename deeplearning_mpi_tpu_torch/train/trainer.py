@@ -70,6 +70,23 @@ flat all-reduce over the DATA group, expert slices included (no gradient
 is averaged over the expert group), and the global norm of the clip and of
 ``grad_norm`` sums the expert slices' squares over the expert group.
 
+**Tensor parallelism** (the model's ``tp``, ``parallel.tensor_parallel``)
+alike: each rank holds its shards of the Megatron pairs and the embedding,
+every rank of a model group computes the same loss, and the gradients of
+model-sharded leaves are NOT averaged over the model group; the data mean
+stays the one flat all-reduce over the data group, and the global norm
+sums each sharded leaf's squares over the model group once (the
+replicated leaves once). Adafactor is refused under either.
+
+**ZeRO-1** (the state's ``zero``, ``parallel.zero.Zero1``, placed by
+:meth:`Trainer.place_state`): the optimizer moments are this rank's slices
+over the data group; after the same gradient all-reduce the clip runs on
+the whole gradients, the update on this rank's slices, and the updated
+slices are all-gathered, so the step is bitwise the data-parallel one.
+``zero_overlap`` (``parallel.zero.make_overlapped_train_step``) swaps the
+flat all-reduce for bucketed reduce-scatters launched from the backward
+(``overlap``), or falls back with the reason logged.
+
 The step is eager PyTorch: the reference's ``jit`` has no counterpart the
 port needs. The NaN guard selects with ``torch.where`` on the device, so a
 step adds no host sync; the trainer reads its metrics once per epoch.
@@ -79,6 +96,7 @@ warmup.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -228,8 +246,8 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def _model_norm(grads: dict[str, torch.Tensor], shards: Any) -> torch.Tensor:
-    """:func:`global_norm` of the whole model: with expert ``shards``, every
-    rank's expert slices count."""
+    """:func:`global_norm` of the whole model: with expert ``shards`` (or a
+    tensor-parallel layout), every rank's slices count, each once."""
     return global_norm(grads.values()) if shards is None else shards.global_norm(grads)
 
 
@@ -331,22 +349,30 @@ class Optimizer:
             return self.learning_rate(count.float())
         return self.learning_rate
 
+    def clip(self, grads: dict[str, torch.Tensor], shards: Any = None) -> dict[str, torch.Tensor]:
+        """``clip_by_global_norm`` (as is without ``clip_norm``); the norm
+        spans ``shards``' other ranks (:func:`_model_norm`)."""
+        if self.clip_norm is None:
+            return grads
+        g_norm = _model_norm(grads, shards)
+        keep = g_norm < self.clip_norm
+        return {n: torch.where(keep, g, (g / g_norm) * self.clip_norm) for n, g in grads.items()}
+
     def update(
         self, grads: dict[str, torch.Tensor], state: dict[str, Any],
-        params: dict[str, torch.Tensor], *, shards: Any = None,
+        params: dict[str, torch.Tensor], *, shards: Any = None, clipped: bool = False,
     ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
-        """``shards`` (``parallel.expert_parallel.ExpertShards``): the
-        expert leaves are this rank's slices, and the clip's global norm
-        spans every rank's."""
+        """``shards`` (``parallel.expert_parallel.ExpertShards``, or a
+        tensor-parallel layout): the sharded leaves are this rank's slices,
+        and the clip's global norm spans every rank's. ``clipped``: the
+        caller has applied :meth:`clip` (ZeRO-1 updates slices of gradients
+        clipped whole)."""
         if shards is not None and self.name == "adafactor":
             raise NotImplementedError(
-                "adafactor under expert parallelism is not ported yet (its factored "
-                "moments and block RMS span the whole expert stack)")
-        if self.clip_norm is not None:
-            g_norm = _model_norm(grads, shards)
-            keep = g_norm < self.clip_norm
-            grads = {n: torch.where(keep, g, (g / g_norm) * self.clip_norm)
-                     for n, g in grads.items()}
+                "adafactor under expert or tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                "item 8.5: its factored moments and block RMS span the whole leaf)")
+        if not clipped:
+            grads = self.clip(grads, shards)
         lr = self._lr(state["count"])
         count = state["count"] + 1
         new: dict[str, Any] = {"count": count}
@@ -446,7 +472,7 @@ def _mean_over_group(grads: list[torch.Tensor], scalars: list[torch.Tensor],
 def make_train_step(
     task: str, *, aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0,
     seg_loss: str = "bce", ema_decay: float = 0.0, guard_metrics: bool = False,
-    group: Any = None, seq: Any = None,
+    group: Any = None, seq: Any = None, overlap: Any = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, dict[str, torch.Tensor]]]:
     """Build the optimizer step for a task (``lm``, ``classification``,
     ``segmentation``).
@@ -463,7 +489,10 @@ def make_train_step(
     makes the step data-parallel (module docstring): BatchNorm spans the
     group and the gradients and loss are averaged over it. ``seq`` (a
     ``parallel.seq_common.SeqShards``) shards the LM's sequence over its
-    group (module docstring). Metrics are
+    group (module docstring). ``overlap`` (a ``parallel.zero.BucketedReduce``,
+    ``--zero_overlap``) reduces the gradients over ``group`` in buckets
+    launched from the backward, in place of the one flat all-reduce, and
+    hands the ZeRO-1 update this rank's slices. Metrics are
     device scalars: ``loss``, ``finite`` (1.0 or 0.0), with
     ``guard_metrics`` ``grad_norm``, ``moe_dropped_frac`` when the model
     has routed layers and ``moe_aux_loss`` when they sow a balance loss
@@ -487,7 +516,7 @@ def make_train_step(
         model = state.model
         model.train()
         set_group(model, group)
-        shards = state.expert_shards
+        shards = state.shards
         names, params = zip(*model.named_parameters())
         # BatchNorm advances its statistics in the forward; a skipped step
         # puts them back.
@@ -512,42 +541,56 @@ def make_train_step(
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
             return loss.detach(), grads, drop, None if aux is None else aux.detach()
 
-        if grad_accum == 1:
-            loss, grads, drop, aux = loss_and_grads(batch)
-        else:
-            for key, x in batch.items():
-                if x.shape[0] % grad_accum:
-                    raise ValueError(
-                        f"batch dim of batch[{key!r}] (shape {tuple(x.shape)}) not "
-                        f"divisible by grad_accum={grad_accum}"
-                    )
-            if task == "lm" and batch.get("mask") is not None:
-                w_total = torch.clamp(chunk_weight(batch), min=1.0)
+        hooks = contextlib.nullcontext() if overlap is None else overlap.hooks(list(params))
+        with hooks as flight:
+            if grad_accum == 1:
+                loss, grads, drop, aux = loss_and_grads(batch)
             else:
-                w_total = float(grad_accum)
-            loss, grads, drop, aux = 0.0, None, None, None
-            for i in range(grad_accum):
-                chunk = {k: x.chunk(grad_accum)[i] for k, x in batch.items()}
-                w = chunk_weight(chunk) / w_total
-                c_loss, c_grads, c_drop, c_aux = loss_and_grads(
-                    chunk, data_scale=w, aux_scale=aux_weight / grad_accum)
-                loss = loss + w * c_loss
-                grads = c_grads if grads is None else [a + b for a, b in zip(grads, c_grads)]
-                # Equal chunk shares: these cover every routed token.
-                if c_drop is not None:
-                    drop = c_drop / grad_accum if drop is None else drop + c_drop / grad_accum
-                if c_aux is not None:
-                    aux = c_aux / grad_accum if aux is None else aux + c_aux / grad_accum
-        if group is not None or seq is not None:
-            grads, scalars = _mean_over_group(grads, [loss] + ([] if drop is None else [drop]),
-                                              group, seq)
-            loss, drop = scalars[0], (None if drop is None else scalars[1])
+                for key, x in batch.items():
+                    if x.shape[0] % grad_accum:
+                        raise ValueError(
+                            f"batch dim of batch[{key!r}] (shape {tuple(x.shape)}) not "
+                            f"divisible by grad_accum={grad_accum}"
+                        )
+                if task == "lm" and batch.get("mask") is not None:
+                    w_total = torch.clamp(chunk_weight(batch), min=1.0)
+                else:
+                    w_total = float(grad_accum)
+                loss, grads, drop, aux = 0.0, None, None, None
+                for i in range(grad_accum):
+                    if flight is not None:
+                        flight.chunk(i, grads)
+                    chunk = {k: x.chunk(grad_accum)[i] for k, x in batch.items()}
+                    w = chunk_weight(chunk) / w_total
+                    c_loss, c_grads, c_drop, c_aux = loss_and_grads(
+                        chunk, data_scale=w, aux_scale=aux_weight / grad_accum)
+                    loss = loss + w * c_loss
+                    grads = c_grads if grads is None else [a + b for a, b in zip(grads, c_grads)]
+                    # Equal chunk shares: these cover every routed token.
+                    if c_drop is not None:
+                        drop = c_drop / grad_accum if drop is None else drop + c_drop / grad_accum
+                    if c_aux is not None:
+                        aux = c_aux / grad_accum if aux is None else aux + c_aux / grad_accum
+        scalars = [loss] + ([] if drop is None else [drop])
+        if flight is not None:
+            grads, scalars = flight.finish(grads, scalars)
+        elif group is not None or seq is not None:
+            grads, scalars = _mean_over_group(grads, scalars, group, seq)
+        loss, drop = scalars[0], (None if drop is None else scalars[1])
+        # The norm of gradients that are this rank's ZeRO-1 slices spans the
+        # data group.
+        norm_shards = state.zero if flight is not None else shards
 
         with torch.no_grad():
             grads = dict(zip(names, grads))
             old = {n: p.detach() for n, p in zip(names, params)}
-            updates, new_opt = state.tx.update(grads, state.opt_state, old, shards=shards)
-            grad_norm = _model_norm(grads, shards) if guard_metrics else None
+            if state.zero is None:
+                updates, new_opt = state.tx.update(grads, state.opt_state, old, shards=shards)
+                new = None
+            else:  # ZeRO-1: the update on this rank's slices, gathered
+                new, new_opt = state.zero.update(state.tx, grads, state.opt_state, old, shards,
+                                                 sliced=flight is not None)
+            grad_norm = _model_norm(grads, norm_shards) if guard_metrics else None
             finite = torch.isfinite(loss)
             if grad_norm is not None:
                 finite = finite & torch.isfinite(grad_norm)
@@ -555,7 +598,7 @@ def make_train_step(
             # state and EMA.
             keep = lambda new, cur: torch.where(finite, new, cur)  # noqa: E731
             for n in names:
-                old[n].copy_(keep(old[n] + updates[n], old[n]))
+                old[n].copy_(keep(old[n] + updates[n] if new is None else new[n], old[n]))
             for n, b in model.named_buffers():
                 b.copy_(keep(b, stats_before[n]))
             opt_state = _tree_map2(keep, new_opt, state.opt_state)
@@ -626,7 +669,8 @@ class Trainer:
     state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
     epoch. ``group`` makes the steps data-parallel; eval then averages over
     every rank's rows. ``seq`` shards the LM's sequence (``make_train_step``).
-    ``aux_weight`` weighs the MoE load-balance loss."""
+    ``aux_weight`` weighs the MoE load-balance loss. ``zero`` /
+    ``zero_overlap``: ZeRO-1 over ``group`` (:meth:`place_state`)."""
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
@@ -634,6 +678,7 @@ class Trainer:
         seg_loss: str = "bce",
         ema_decay: float = 0.0, log: Callable[[str], None] = print, checkpointer: Any = None,
         shutdown: GracefulShutdown | None = None, group: Any = None, seq: Any = None,
+        zero: bool = False, zero_overlap: bool = False,
     ) -> None:
         self.state = state
         self.task = task
@@ -642,12 +687,53 @@ class Trainer:
         self.checkpointer = checkpointer
         self.shutdown = shutdown
         self.group = group
+        self.seq = seq
+        self.zero, self.zero_overlap = zero or zero_overlap, zero_overlap
         self.world = 1 if group is None else collectives.axis_size(group)
-        self.train_step = make_train_step(task, aux_weight=aux_weight, grad_accum=grad_accum,
-                                          loss_chunk=loss_chunk, seg_loss=seg_loss,
-                                          ema_decay=ema_decay, group=group, seq=seq)
+        self._step_kwargs = dict(aux_weight=aux_weight, grad_accum=grad_accum,
+                                 loss_chunk=loss_chunk, seg_loss=seg_loss, ema_decay=ema_decay)
+        self.train_step = make_train_step(task, group=group, seq=seq, **self._step_kwargs)
         self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss, seq=seq)
         self.history: list[dict[str, float]] = []
+        self.place_state()
+
+    def place_state(self) -> None:
+        """Place the optimizer state and choose the step, as the reference's
+        ``Trainer.place_state``: the data-parallel step (tensor-parallel when
+        the model is sharded) as built; with ``zero`` the moments cut to this
+        rank's slices over the data group (``parallel.zero.Zero1``), which
+        that step then updates; with ``zero_overlap`` the bucketed schedule
+        (``parallel.zero.make_overlapped_train_step``) where it applies, else
+        the ZeRO-1 step with the reason logged (no data parallelism, another
+        axis above 1, the balance or chunked loss, BatchNorm statistics, a
+        state that does not mirror the parameters): a fallback from one
+        schedule to another, never from the card."""
+        if not self.zero:
+            return
+        from deeplearning_mpi_tpu_torch.parallel.zero import (
+            OverlapUnsupported,
+            Zero1,
+            make_overlapped_train_step,
+        )
+
+        state = self.state
+        if (state.expert_shards is not None and state.expert_shards.size > 1) or (
+                self.seq is not None and self.seq.size > 1):
+            raise NotImplementedError(
+                "ZeRO-1 with expert or sequence parallelism is not ported yet (ROADMAP Queue 1 "
+                "item 8.5: ZeRO-1 slices of expert stacks and over a data x seq plane)")
+        zero = Zero1.for_state(state, self.group)
+        self.state = dataclasses.replace(state, zero=zero, opt_state=zero.shard(state.opt_state))
+        if not self.zero_overlap:
+            return
+        model = state.model
+        busy = {"model": model.tp.size if getattr(model, "tp", None) is not None else 1}
+        try:
+            self.train_step = make_overlapped_train_step(
+                self.task, self.state, self.group, busy=busy, **self._step_kwargs)
+            self.log("overlap: explicit bucketed ZeRO-1 schedule active")
+        except OverlapUnsupported as err:
+            self.log(f"overlap unsupported ({err}); falling back to the ZeRO-1 step (--zero)")
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
         """One training epoch; the mean loss leaves non-finite steps out. An

@@ -125,12 +125,14 @@ def restore_for_start(
 
 def restore_lm(
     cfg: Any, *, dtype: torch.dtype, device: torch.device, model_dir: str | Path,
-    model_filename: str = "lm", epoch: int | None = None, ema: bool = False,
+    model_filename: str = "lm", epoch: int | None = None, ema: bool = False, tp: Any = None,
 ):
     """A ``TransformerLM`` of ``cfg`` with the weights of a ``train_lm``
     checkpoint, for inference: the arch sidecar checked, a params-only
-    restore (no optimizer needed), the EMA weights when ``ema``. Refusals
-    raise ``SystemExit`` with one line."""
+    restore (no optimizer needed), the EMA weights when ``ema``; with
+    ``tp`` (``parallel.tensor_parallel.LockstepTP``) each rank keeps its
+    shards of the whole checkpoint. Refusals raise ``SystemExit`` with one
+    line."""
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
     from deeplearning_mpi_tpu_torch.train import create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
@@ -141,7 +143,10 @@ def restore_lm(
     err = arch_mismatch_error(cfg, ckpt_dir)
     if err:
         raise SystemExit(err)
-    model = TransformerLM(cfg, dtype=dtype, device=device)
+    try:
+        model = TransformerLM(cfg, dtype=dtype, device=device, tp=tp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     template = create_train_state(model, None, ema=ema)
     try:
         state = Checkpointer(ckpt_dir).restore_params_only(template, epoch=epoch)
@@ -158,10 +163,7 @@ def restore_lm(
 # -- the data-parallel trainers' flags ---------------------------------------
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
 UNPORTED_FLAGS = {
-    "tp": (1, "Queue 1 item 8 (tensor parallelism)"),
-    "pp": (1, "Queue 1 item 8 (pipeline parallelism)"),
-    "zero": (False, "Queue 1 item 8 (ZeRO-1)"),
-    "zero_overlap": (False, "Queue 1 item 8 (ZeRO-1)"),
+    "pp": (1, "Queue 1 item 8.3 (pipeline parallelism)"),
     "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
     "profile_dir": (None, "Queue 1 item 9 (telemetry)"),
     "metrics_dir": (None, "Queue 1 item 9 (telemetry)"),
@@ -196,10 +198,15 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--sp", type=int, default=1,
                        help="sequence-parallel degree: each process of a seq group runs its "
                        "S/sp slice of the same rows (train_lm --attention ring|ulysses)")
-    for flag in ("tp", "pp"):
-        group.add_argument(f"--{flag}", type=int, default=1, help="not ported yet")
-    group.add_argument("--zero", action="store_true", help="not ported yet")
-    group.add_argument("--zero_overlap", action="store_true", help="not ported yet")
+    group.add_argument("--tp", type=int, default=1,
+                       help="tensor-parallel degree (train_lm): the Megatron-sharded LM over "
+                       "this many processes of one data coordinate")
+    group.add_argument("--pp", type=int, default=1, help="not ported yet")
+    group.add_argument("--zero", action="store_true",
+                       help="ZeRO-1: the optimizer moments sharded over the data group")
+    group.add_argument("--zero_overlap", action="store_true",
+                       help="ZeRO-1 with the bucketed reduce-scatter schedule (falls back to "
+                       "--zero, the reason logged, where it does not apply)")
     group.add_argument("--tuned_step", default=None, help="not ported yet")
 
 
@@ -259,14 +266,48 @@ def reject_unported(args: argparse.Namespace) -> None:
         if getattr(args, "loss_chunk", 0) > 0:
             raise SystemExit("--sp with --loss_chunk is not ported yet (ROADMAP Queue 1 item 8: "
                              "the chunked loss over sequence shards)")
+    reject_tp(args)
+    if ((getattr(args, "zero", False) or getattr(args, "zero_overlap", False))
+            and (getattr(args, "ep", 1) != 1 or sp != 1)):
+        raise SystemExit("--zero / --zero_overlap with --ep or --sp is not ported yet (ROADMAP "
+                         "Queue 1 item 8.5: ZeRO-1 slices of expert stacks and over a data x "
+                         "seq plane)")
     if (args.resume or args.eval_only) and args.model_dir is None:
         raise SystemExit("--resume and --eval_only need --model_dir")
 
 
+def reject_tp(args: argparse.Namespace) -> None:
+    """Refuse (``SystemExit``) the ``--tp`` combinations this port leaves
+    out; the reference runs each of them (ROADMAP Queue 1 item 8.5)."""
+    tp = getattr(args, "tp", 1)
+    if tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {tp}")
+    if tp == 1:
+        return
+    if not hasattr(args, "d_model"):
+        raise SystemExit("--tp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
+                         "item 8.5: tensor parallelism of the convolutions)")
+    if getattr(args, "moe_experts", 0) or getattr(args, "ep", 1) != 1:
+        raise SystemExit("--tp with --moe_experts or --ep is not ported yet (ROADMAP Queue 1 "
+                         "item 8.5: the reference's expert rule over a model axis)")
+    if getattr(args, "sp", 1) != 1:
+        raise SystemExit("--tp with --sp is not ported yet (ROADMAP Queue 1 item 8.5)")
+    if getattr(args, "optimizer", None) == "adafactor":
+        raise SystemExit("--tp with adafactor is not ported yet (ROADMAP Queue 1 item 8.5: its "
+                         "factored moments and block RMS span the whole leaf)")
+    sizes = {"num_heads": args.num_heads, "kv_heads": args.num_kv_heads or args.num_heads,
+             "d_ff": args.d_ff, "d_model": args.d_model}
+    bad = [f"{k} {v}" for k, v in sizes.items() if v % tp]
+    if bad:
+        raise SystemExit(f"--tp {tp} must divide {', '.join(bad)}: the port splits whole heads "
+                         "and widths (ROADMAP Queue 1 item 8.5: the reference splits H*D)")
+
+
 def setup_runtime(args: argparse.Namespace):
     """``bootstrap.init`` from the topology flags, then the mesh (data x
-    expert x seq) when a group is live; returns ``(topology, mesh, data
-    group)`` (mesh and group None for one process without a coordinator)."""
+    expert x seq x model) when a group is live; returns ``(topology, mesh,
+    data group)`` (mesh and group None for one process without a
+    coordinator)."""
     import torch.distributed as dist
 
     from deeplearning_mpi_tpu_torch.runtime import bootstrap
@@ -274,13 +315,14 @@ def setup_runtime(args: argparse.Namespace):
 
     topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
                           device=args.device)
-    sp = getattr(args, "sp", 1)
+    sp, tp = getattr(args, "sp", 1), getattr(args, "tp", 1)
     if not dist.is_initialized():
-        if args.dp not in (-1, 1) or args.ep != 1 or sp != 1:
-            raise SystemExit(f"--dp {args.dp} --ep {args.ep} --sp {sp} needs "
-                             f"{max(args.dp, 1) * args.ep * sp} processes")
+        if args.dp not in (-1, 1) or args.ep != 1 or sp != 1 or tp != 1:
+            raise SystemExit(f"--dp {args.dp} --ep {args.ep} --sp {sp} --tp {tp} needs "
+                             f"{max(args.dp, 1) * args.ep * sp * tp} processes")
         return topo, None, None
-    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep, seq=sp), device=topo.device.type)
+    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep, seq=sp, model=tp),
+                       device=topo.device.type)
     return topo, mesh, data_group(mesh)
 
 
@@ -364,7 +406,7 @@ def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
         state, start_epoch = restore_for_start(args, checkpointer, state, log)
     trainer = Trainer(state, task, eval_every=args.eval_every, grad_accum=args.grad_accum,
                       seg_loss=seg_loss, ema_decay=args.ema, log=log, checkpointer=checkpointer,
-                      group=group)
+                      group=group, zero=args.zero, zero_overlap=args.zero_overlap)
     return Run(args, trainer, train_loader, eval_loader, start_epoch)
 
 

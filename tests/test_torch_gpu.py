@@ -3,7 +3,9 @@ paths (ragged prompts, beam search) on the card against the CPU plain run;
 the serving engine's CUDA graphs against its eager steps, and its int8 KV
 decode (K4 on int8 pages) against the CPU plain path; the CNN train steps
 (cuDNN, TF32 off) against the CPU's, and over NCCL at world size 1 against
-no group; with four cards, data, expert and sequence parallelism over NCCL
+no group; K1-K4 at a tensor-parallel rank's local head counts, and the
+one-process tensor-parallel model on the card against the CPU; with four
+cards, data, expert, sequence and tensor parallelism and ZeRO-1 over NCCL
 against one card.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
@@ -388,6 +390,43 @@ def test_flash_decode_kernel_rejects_unsupported_head_dim(cuda):
         fd.flash_decode(q, k, k, torch.tensor([3, 5], device="cuda"))
 
 
+@pytest.mark.parametrize("heads", [3, 1], ids=["H3", "H1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_at_tensor_parallel_local_heads(cuda, dtype, heads):
+    """K1 (BSHD and the train step's BHSD), K2/K3 and K4 (Hkv = H) at the
+    head counts a rank of tp 4 runs: 3 of the 110M model's 12, 1 of
+    ``TP_SHAPE``'s 4; against their plain versions."""
+    _fwd_case(cuda, (2, 1000, heads, 64), dtype)
+    _fwd_case(cuda, (2, heads, 1000, 64), dtype, layout="bhsd")
+    got, want, _ = _bwd_case(cuda, (2, heads, 1000, 64), dtype)
+    _grads_close(got, want, dtype, f"H{heads}")
+    _decode_case(cuda, 8, 1024, heads, heads, 64, dtype, [143, 527, 1023, 0, -1, 300, 600, 900])
+
+
+def test_lockstep_tp_generation_on_the_card_equals_cpu(cuda):
+    """The one-process tensor-parallel model (tp 2, every shard on this
+    card; K1 prefill and K4 decode per rank at its local heads) gives the
+    CPU plain run's greedy tokens, with 2 x layers K1 launches."""
+    from deeplearning_mpi_tpu_torch.models.generate import generate
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
+    cfg = TransformerConfig(vocab_size=256, num_layers=2, num_heads=4, head_dim=64,
+                            d_model=128, d_ff=256)
+    cpu = TransformerLM(cfg, dtype=torch.float32, device="cpu",
+                        tp=LockstepTP(2, "cpu")).init_weights(0)
+    gpu = TransformerLM(cfg, dtype=torch.float32, device="cuda",
+                        tp=LockstepTP(2, "cuda")).init_weights(0)
+    prompt = torch.randint(1, 256, (3, 40), generator=torch.Generator().manual_seed(5))
+    want = generate(cpu, prompt, max_new_tokens=16, temperature=0.0)
+    fa.flash_attention_cuda.launches = fd.flash_decode_cuda.launches = 0
+    got = generate(gpu, prompt.cuda(), max_new_tokens=16, temperature=0.0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == 2 * 2
+    assert fd.flash_decode_cuda.launches == 2 * 2 * 15
+    assert torch.equal(got.cpu(), want)
+
+
 def _decode_pair():
     """A small f32 model on the CPU (plain versions) and its copy on the card."""
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
@@ -724,9 +763,10 @@ def test_nccl_expert_parallel_f64_matches_one_card(expert_parallel_runs):
 def sequence_parallel_runs(tmp_path_factory):
     """4 NCCL ranks (one card each) of ``tests/torch_seq_ranks.py``'s
     :data:`CUDA_LAYOUTS` on the LM at 2 layers of the 110M widths, B4 S4096
-    (the float64 case B2 S2048), TF32 off; and one card's step on the global
-    batch: float32 with flash over the whole sequence, float64 with the
-    one-process plain ring over 4 shards. Skips with fewer than four cards."""
+    (the float64 cases B2 S2048), TF32 off; and one card's step on the
+    global batch: float32 with flash over the whole sequence, float64 with
+    the one-process plain ring over 4 shards and with dense attention over
+    whole sequences. Skips with fewer than four cards."""
     import sys
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
@@ -753,7 +793,9 @@ def sequence_parallel_runs(tmp_path_factory):
     one = {torch.float32: seq_ranks.lm_step_case(inputs, device="cuda", attention="flash"),
            torch.float64: seq_ranks.lm_step_case(inputs, device="cuda", dtype=torch.float64,
                                                  attention="ring_xla", tokens="tokens_f64",
-                                                 sp=4)}
+                                                 sp=4),
+           "f64_whole": seq_ranks.lm_step_case(inputs, device="cuda", dtype=torch.float64,
+                                               attention="dense", tokens="tokens_f64")}
     return seq_ranks, spawned, one
 
 
@@ -801,3 +843,212 @@ def test_nccl_sequence_parallel_f64_matches_one_card(sequence_parallel_runs):
     replicas = seq_ranks.differing_replicas(results)
     assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-7: {over[:20]}; "
                                        f"replicas differing: {replicas}")
+
+
+def test_nccl_sequence_parallel_dp2_sp2_f64_matches_whole_sequences(sequence_parallel_runs):
+    """``dp 2 x sp 2`` with the plain ring in float64 over 4 NCCL cards
+    against one card on whole sequences (dense attention, no seq axis):
+    the losses, every gradient and every updated parameter within 1e-7
+    relative, so the data x seq plane's gradient sum and its division by
+    the data size have a float64 check of their own; the ranks' parameters
+    bitwise equal."""
+    seq_ranks, spawned, one = sequence_parallel_runs
+    results = [res["dp2_sp2_ring_f64"] for res in spawned]
+    assert all(g.dtype == torch.float64 for g in results[0]["grads"].values())
+    worst = seq_ranks.relative_errors(results, one["f64_whole"])
+    print("dp2_sp2 float64 worst relative errors:", worst[:12])
+    over = [(k, e) for k, e in worst if e > 1e-7]
+    replicas = seq_ranks.differing_replicas(results)
+    assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-7: {over[:20]}; "
+                                       f"replicas differing: {replicas}")
+
+
+@pytest.fixture(scope="module")
+def tensor_parallel_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``tests/torch_tp_ranks.py``'s
+    :data:`CUDA_TP_LAYOUTS` on the LM at 2 layers of the 110M widths (3
+    heads a rank at tp 4), B4 S4096 (the float64 cases B2 S2048), TF32 off;
+    and one card's step on the global batch: float32 with flash, float64
+    with dense attention. Skips with fewer than four cards."""
+    import dataclasses
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: tp 4 and dp 2 x tp 2, one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_tp_ranks as tp_ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    tmp_path = tmp_path_factory.mktemp("tensor_parallel")
+    cfg = TransformerConfig(num_layers=2)
+    full = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+
+    def rows(n, seq, seed):
+        ds = SyntheticTokens(n, seq, vocab_size=cfg.vocab_size, seed=seed)
+        return torch.stack([torch.from_numpy(ds[i]["tokens"]) for i in range(n)])
+
+    inputs = {"cfg": dataclasses.asdict(cfg), "params": full.state_dict(),
+              "tokens": rows(4, 4096, 0), "tokens_f64": rows(2, 2048, 1)}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    spawned = tp_ranks.spawn(tmp_path, tp_ranks.worker_cuda_tp)
+    one = {torch.float32: tp_ranks.tp_step_case(inputs, device="cuda",
+                                                attention=fa.flash_attention_bhsd),
+           torch.float64: tp_ranks.tp_step_case(inputs, device="cuda", dtype=torch.float64,
+                                                tokens="tokens_f64")}
+    return spawned, one
+
+
+@pytest.mark.parametrize("layout", ["tp4", "dp2_tp2"])
+def test_nccl_tensor_parallel_matches_one_card(tensor_parallel_runs, layout):
+    """``tp 4`` and ``dp 2 x tp 2`` over 4 NCCL cards (K1-K3 at the local
+    heads), float32, against one card on the global batch: both losses
+    within 1e-6 relative; every gradient and every parameter after one Adam
+    step (gathered whole) within ``torch_moe_ranks.split_batch_rule`` (2x
+    the worst of its class in ``dp 4`` from the same spawn, ``dp 4`` itself
+    under ``DP_CEILING``); every rank's whole parameters bitwise equal."""
+    import torch_moe_ranks as moe_ranks
+    import torch_seq_ranks as seq_ranks
+
+    spawned, one = tensor_parallel_runs
+    results = [res[layout] for res in spawned]
+    worst = seq_ranks.relative_errors(results, one[torch.float32])
+    print(f"{layout} worst relative errors:", worst[:12])
+    print("dp4:", seq_ranks.relative_errors([res["dp4"] for res in spawned],
+                                            one[torch.float32])[:4])
+    over, bars = moe_ranks.split_batch_rule(results, [res["dp4"] for res in spawned],
+                                            one[torch.float32])
+    print("split-batch bars:", bars)
+    losses = [(k, e) for k, e in worst if len(k) == 2 and e > 1e-6]
+    replicas = seq_ranks.differing_replicas(results)
+    assert not losses and not over and not replicas, (
+        f"losses over 1e-6: {losses}; {len(over)} tensors over {bars}: {over[:20]}; "
+        f"replicas differing: {replicas}")
+
+
+@pytest.mark.parametrize("layout", ["tp4", "dp2_tp2"])
+def test_nccl_tensor_parallel_f64_matches_one_card(tensor_parallel_runs, layout):
+    """The float64 twins (dense attention) against one card in float64: the
+    losses, every gradient and every updated parameter within 1e-7
+    relative; every rank's whole parameters bitwise equal."""
+    import torch_seq_ranks as seq_ranks
+
+    spawned, one = tensor_parallel_runs
+    results = [res[f"{layout}_f64"] for res in spawned]
+    worst = seq_ranks.relative_errors(results, one[torch.float64])
+    print(f"{layout} float64 worst relative errors:", worst[:12])
+    over = [(k, e) for k, e in worst if e > 1e-7]
+    replicas = seq_ranks.differing_replicas(results)
+    assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-7: {over[:20]}; "
+                                       f"replicas differing: {replicas}")
+
+
+def test_nccl_tensor_generate_tp4_equals_tp1(cuda, tmp_path, capsys):
+    """``cli.generate --device cuda --tp 4`` (shard i on card i) prints
+    what ``--tp 1`` prints, greedy, on a checkpoint of the 110M widths at 2
+    layers (vocab 256)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: generate --tp 4 puts one shard on each")
+    from deeplearning_mpi_tpu_torch.cli import generate
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.train import create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_mpi_tpu_torch.utils.config import save_arch
+
+    cfg = TransformerConfig(vocab_size=256, num_layers=2)
+    model = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    save_arch(cfg, tmp_path / "lm")
+    Checkpointer(tmp_path / "lm").save(create_train_state(model, None), epoch=0)
+    argv = ["--device", "cuda", "--num_layers", "2", "--num_heads", "12", "--head_dim", "64",
+            "--d_model", "768", "--d_ff", "2048", "--model_dir", str(tmp_path), "--prompt",
+            "Tensor parallel decode", "--max_new_tokens", "24", "--greedy"]
+    capsys.readouterr()
+    assert generate.main(argv) == 0
+    single = capsys.readouterr().out
+    fd.flash_decode_cuda.launches = 0
+    assert generate.main(argv + ["--tp", "4"]) == 0
+    assert capsys.readouterr().out == single and single.strip()
+    assert fd.flash_decode_cuda.launches == 4 * 2 * 23
+
+
+@pytest.fixture(scope="module")
+def zero_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``torch_tp_ranks.worker_cuda_zero``
+    over ``dp 4`` on the LM at 2 layers of the 110M widths, 3 steps of B8
+    S1024 with clip (half one card's float64 step-1 gradient norm) and EMA
+    0.9, TF32 off. Skips with fewer than four cards."""
+    import dataclasses
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: dp 4, one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_tp_ranks as tp_ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    tmp_path = tmp_path_factory.mktemp("zero")
+    cfg = TransformerConfig(num_layers=2)
+    full = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    ds = SyntheticTokens(24, 1024, vocab_size=cfg.vocab_size, seed=3)
+    batches = [torch.stack([torch.from_numpy(ds[i * 8 + j]["tokens"]) for j in range(8)])
+               for i in range(3)]
+    probe = TransformerLM(cfg, dtype=torch.float64, device="cuda").double()
+    probe.load_state_dict(full.state_dict())
+    _, metrics = make_train_step("lm", guard_metrics=True)(
+        create_train_state(probe, build_optimizer("adam", 1e-3)), {"tokens": batches[0].cuda()})
+    inputs = {"cfg": dataclasses.asdict(cfg), "zero_params": full.state_dict(),
+              "zero_batches": batches, "clip": 0.5 * float(metrics["grad_norm"])}
+    del probe
+    torch.save(inputs, tmp_path / "inputs.pt")
+    return tp_ranks, tp_ranks.spawn(tmp_path, tp_ranks.worker_cuda_zero)
+
+
+def test_nccl_zero_is_bitwise_dp4(zero_runs):
+    """``--zero`` over 4 NCCL cards, float32, 3 steps with clip and EMA:
+    losses, parameters, gathered moments and EMA bitwise those of ``dp 4``
+    on the same cards."""
+    _, spawned = zero_runs
+    for res in spawned:
+        got, want = res["zero_f32"], res["dp_f32"]
+        assert got["losses"] == want["losses"]
+        for key in ("params", "mu", "nu", "ema"):
+            assert all(torch.equal(got[key][n], t) for n, t in want[key].items()), key
+
+
+def test_nccl_zero_overlap_f64_matches_dp4(zero_runs):
+    """The bucketed schedule over 4 NCCL cards (reduce-scatters under the
+    backward), float64: losses, parameters, gathered moments and EMA within
+    1e-7 relative of ``dp 4``'s; the ranks' parameters bitwise equal."""
+    tp_ranks, spawned = zero_runs
+    for res in spawned:
+        got, want = res["overlap_f64"], res["dp_f64"]
+        errs = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])]
+        errs += [e for key in ("params", "mu", "nu", "ema")
+                 for _, e in tp_ranks.tree_errors(got[key], want[key])]
+        print("worst relative error:", max(errs))
+        assert max(errs) <= 1e-7
+    for res in spawned[1:]:
+        assert all(torch.equal(res["overlap_f64"]["params"][n], t)
+                   for n, t in spawned[0]["overlap_f64"]["params"].items())
+
+
+def test_nccl_zero_moments_are_a_quarter(zero_runs):
+    """Each rank keeps a quarter of every sharded leaf's moments (the rest
+    whole, as ``dp 4`` keeps all); it prints the moments' bytes a rank."""
+    from deeplearning_mpi_tpu_torch.parallel.zero import param_zero_dim
+
+    _, spawned = zero_runs
+    for res in spawned:
+        zero, dp = res["zero_f32"]["local_numel"], res["dp_f32"]["local_numel"]
+        shapes = {n: tuple(t.shape) for n, t in res["dp_f32"]["mu"].items()}
+        for n, k in dp.items():
+            sharded = param_zero_dim(n, shapes[n], 4) is not None
+            assert zero[n] * (4 if sharded else 1) == k, n
+    print("Adam moments a rank:", spawned[0]["zero_f32"]["local_bytes"], "bytes with --zero,",
+          spawned[0]["dp_f32"]["local_bytes"], "with dp 4")

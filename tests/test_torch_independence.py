@@ -10,8 +10,10 @@ cache, and imports the CLIs; and one that runs the original workloads'
 path: hello_world over gloo, a CNN train and eval step on the CIFAR loader,
 and the CNN CLIs' imports; one that runs the MoE LM's path (an
 expert-sharded step over gloo, its checkpoint, stepwise MoE generation);
-and one that runs the sequence-parallel path (the one-process ring and
-Ulysses, an LM step under a seq mesh over gloo).
+one that runs the sequence-parallel path (the one-process ring and
+Ulysses, an LM step under a seq mesh over gloo); and three for tensor
+parallelism and ZeRO-1: ``train_lm --tp 2`` and ``--zero_overlap`` over 2
+gloo processes, ``generate --tp 2`` in one, each process with jax blocked.
 """
 
 import ast
@@ -201,6 +203,63 @@ def test_sequence_parallel_path_runs_with_jax_blocked(tmp_path):
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+_BLOCKED_RANK = (
+    "import sys\n"
+    "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+    "    sys.modules[name] = None\n"
+    "from deeplearning_mpi_tpu_torch.cli import train_lm\n"
+    "rank, store, extra = int(sys.argv[1]), sys.argv[2], sys.argv[3:]\n"
+    "rc = train_lm.main(['--device', 'cpu', '--num_layers', '1', '--num_heads', '4',\n"
+    "                    '--head_dim', '32', '--d_model', '128', '--d_ff', '512',\n"
+    "                    '--seq_len', '16', '--batch_size', '4', '--train_sequences', '12',\n"
+    "                    '--num_epochs', '1', '--coordinator', 'file://' + store,\n"
+    "                    '--num_processes', '2', '--process_id', str(rank), *extra])\n"
+    "assert rc == 0, rc\n"
+    "print('ok')\n"
+)
+
+
+@pytest.mark.parametrize("path", ["train_lm_tp", "zero_overlap", "generate_tp"])
+def test_tensor_parallel_and_zero_paths_run_with_jax_blocked(path, tmp_path):
+    """``train_lm --tp 2`` (the process-group form over gloo) and ``--dp 2
+    --zero_overlap`` (the bucketed schedule) as 2 processes, and
+    ``generate --tp 2`` (the one-process form) on a port checkpoint, each
+    process with jax blocked."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    if path == "generate_tp":
+        code = (
+            "import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "from deeplearning_mpi_tpu_torch.cli import generate, train_lm\n"
+            "T = ['--device', 'cpu', '--num_layers', '1', '--num_heads', '4', '--head_dim', '16',\n"
+            "     '--d_model', '32', '--d_ff', '64']\n"
+            f"d = '{tmp_path}'\n"
+            "assert train_lm.main(T + ['--seq_len', '16', '--batch_size', '4',\n"
+            "    '--train_sequences', '12', '--num_epochs', '1', '--model_dir', d]) == 0\n"
+            "g = generate.run(T + ['--model_dir', d, '--prompt', 'ab', '--max_new_tokens', '4',\n"
+            "                      '--greedy', '--tp', '2'])\n"
+            "assert g.tokens.shape == (1, 6)\n"
+            "print('ok')\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                             text=True, timeout=120, env=env)
+        assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+        return
+    extra = ["--tp", "2"] if path == "train_lm_tp" else ["--dp", "2", "--zero_overlap"]
+    procs = [subprocess.Popen([sys.executable, "-c", _BLOCKED_RANK, str(r),
+                               str(tmp_path / "store"), *extra], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0 and stdout.strip().endswith("ok"), stderr
+    if path == "zero_overlap":
+        assert "explicit bucketed ZeRO-1 schedule active" in outs[0][0]
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -94,7 +94,7 @@ def w_collectives(rank, world, store, out_dir):
         "hello": run_hello_world(g),
     }
     try:
-        M.create_mesh(M.MeshSpec(data=world // 2, model=2), device="cpu")
+        M.create_mesh(M.MeshSpec(data=world // 2, pipe=2), device="cpu")
     except NotImplementedError as e:
         res["refused"] = str(e)
     collectives.ring_shift = lambda v, group=None, offset=1: v.clone()  # identity "ring"
@@ -319,7 +319,7 @@ def test_train_unet_cli_two_ranks():
     assert "eval: dice" in out.stdout
 
 
-@pytest.mark.parametrize("flag,item", [(["--zero"], "item 8"), (["--tp", "2"], "item 8"),
+@pytest.mark.parametrize("flag,item", [(["--pp", "2"], "item 8"), (["--tp", "2"], "item 8"),
                                        (["--chaos", "kill@step:1"], "item 10"),
                                        (["--tuned_step", "db.json"], "item 9"),
                                        (["--metrics_dir", "m"], "item 9")])

@@ -158,12 +158,14 @@ def worker(rank: int, world: int, store: str, out_dir: str) -> None:
 
 #: The four-card layouts, ``(data, seq, attention, dtype, tokens)``: the
 #: cases under test, pure data parallelism (flash over whole rows) beside
-#: them, and the plain ring in float64 on the smaller batch.
+#: them, and the plain ring in float64 on the smaller batch, over ``sp 4``
+#: and over the ``dp 2 x sp 2`` plane.
 CUDA_LAYOUTS = {"sp4_ring": (1, 4, "ring_flash", torch.float32, "tokens"),
                 "sp4_ulysses": (1, 4, "ulysses", torch.float32, "tokens"),
                 "dp2_sp2_ring": (2, 2, "ring_flash", torch.float32, "tokens"),
                 "dp4": (4, 1, "flash", torch.float32, "tokens"),
-                "sp4_ring_f64": (1, 4, "ring_xla", torch.float64, "tokens_f64")}
+                "sp4_ring_f64": (1, 4, "ring_xla", torch.float64, "tokens_f64"),
+                "dp2_sp2_ring_f64": (2, 2, "ring_xla", torch.float64, "tokens_f64")}
 
 
 def worker_cuda(rank: int, world: int, store: str, out_dir: str) -> None:
