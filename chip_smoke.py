@@ -11,7 +11,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 3. K1 (flash-attention forward) against its plain PyTorch version at the 110M
    widths: bf16 B8 S2048 H12 D64 causal, window 512 (both layouts) and
    window 300, the train step's call (BHSD views of BSHD storage, with the
-   lse; also at a tp-4 rank's H3), a ragged B2 S2000, D128 at S2048, f32
+   lse; also at a tp-4 rank's H3 and at the GPipe microbatch's B2 and B1),
+   a ragged B2 S2000, D128 at S2048, f32
    S512, S 127 / 128 / 129, head dims 8 / 24 / 128, and the shift / lse /
    f32-output options; each output
    held element by element and in relative L2 (``FWD_TOL``), the lse to
@@ -41,7 +42,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    L 1024-8192, float32 and bf16 (``DECODE_DENSE_MAX``);
 7. K2 and K3 (flash-attention backward) against their plain version: bf16
    B8 S2048 H12 D64 causal and window 512 in both layouts, causal at a tp-4
-   rank's H3 (BHSD, as phase 15 calls them), a ragged B2 S2000
+   rank's H3 (BHSD, as phase 15 calls them) and at the GPipe microbatch's
+   B2 and B1 (phase 16), a ragged B2 S2000
    and a window of 300 (not a multiple of the kernels' 128-row blocks), f32
    S512, head dims 8 / 24 / 128, ragged S, and shift with window and float32
    grads; each gradient held element by element and in relative L2
@@ -177,7 +179,28 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``cli.train_lm --tp 1 --zero_overlap`` over NCCL at world size 1 (the
     wiring only) exits 0 and logs the reference's fallback reason ("no
     data parallelism"). Then K1/K2/K3 timed at the train step's shape at
-    H3 and K4 at B8 L1024 H3 Hkv3, beside their plain versions and SDPA.
+    H3 and K4 at B8 L1024 H3 Hkv3, beside their plain versions and SDPA;
+16. pipeline parallelism on one card through the one-process form
+    (``LockstepPipe``: the stages tick by tick, since NCCL refuses two ranks
+    on one card) and the ViT family. (a) The 110M ``TransformerConfig()``
+    in bf16 at B8 S2048 with flash as ``PipelinedLM`` over 4 stages of 3
+    blocks with 4 microbatches, from phase 8's weights and batches:
+    step-1 gradients remapped flat within 5e-2 relative L2 per tensor of
+    the flat flash step's, then 6 Adam steps (3e-4, clip 1.0) with every
+    loss finite and K1/K2/K3 launched exactly 48 times a step each (12
+    layers x 4 microbatches, at B2: no bubble work); step median, tokens/s,
+    MFU, peak memory and one profiled step, no bar. (b) 4 layers at
+    ``tiny()`` widths over 2 stages and 2 microbatches, float32 with TF32
+    off: the card's loss and step-1 gradients within 1e-4 of the CPU's;
+    ``tiny_moe`` the same way, its load-balance loss within 1e-5. (c)
+    ``vit_small`` float32, TF32 off, B32: the card's gradients within 1e-4
+    relative L2 of the CPU's; then ``cli.train_resnet --arch vit_small
+    --synthetic --dtype bfloat16`` over NCCL at world size 1 with phase
+    12's bars (finite, falling: memorisation; one gradient all-reduce a
+    step; an eval): step median, images/s. (d) ``cli.train_lm --pp 2 --tp
+    2`` exits 1 with its ROADMAP item. Then K1/K2/K3 timed at the
+    microbatch call (B2 S2048 H12 D64 bf16) beside their plain versions and
+    SDPA.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -291,14 +314,24 @@ def require(ok: bool, what: str) -> None:
 FWD_TOL = {"bfloat16": (1e-2, 2e-2, 5e-3), "float32": (1e-5, 1e-5, 1e-5)}
 
 
-def check_k1(torch, gen) -> None:
+#: The GPipe microbatch calls (phase 16: B8 over ``--microbatches`` 4, and
+#: 8), in the form of ``check_k1``'s / ``check_k2k3``'s cases. They draw from
+#: a generator of their own, so the earlier cases' inputs, and every later
+#: phase's, stay as they were without them.
+K1_PP_CASES = [(f"bf16 causal bhsd views lse B{b} (pp microbatch)", b, 2048, 12, 64, "bfloat16",
+                {"return_lse": True}, "views") for b in (2, 1)]
+K2K3_PP_CASES = [(f"bf16 causal bhsd B{b} (pp microbatch)", b, 2048, 12, 64, "bfloat16", {},
+                  "bhsd") for b in (2, 1)]
+
+
+def check_k1(torch, gen, cases=None) -> None:
     """K1 against its plain version: each output held to ``FWD_TOL`` by its
     input dtype, the lse to 1e-4 where finite, and a second launch on the
-    same inputs bit-identical."""
+    same inputs bit-identical (``cases``: the list below by default)."""
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [
+    cases = [(*c[:5], getattr(torch, c[5]), *c[6:]) for c in cases] if cases else [
         # (name, B, S, H, D, dtype, kwargs, layout); "views": BHSD views of
         # BSHD storage, as the model passes them in training.
         ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd"),
@@ -751,13 +784,14 @@ def time_extra(torch, gen) -> dict:
 
 
 # -- phase 7 -----------------------------------------------------------------
-def check_k2k3(torch, gen) -> None:
+def check_k2k3(torch, gen, cases=None) -> None:
     """K2 and K3 against their plain version on the same o, do and lse (o and
-    lse from K1), over cases that mirror phase 3."""
+    lse from K1), over cases that mirror phase 3 (``cases``: the list below
+    by default)."""
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [
+    cases = [(*c[:5], getattr(torch, c[5]), *c[6:]) for c in cases] if cases else [
         # (name, B, S, H, D, input dtype, kwargs, layout); bound GRAD_TOL[dtype]
         ("bf16 causal", 8, 2048, 12, 64, bf16, {}, "bshd"),
         ("bf16 causal bhsd", 8, 2048, 12, 64, bf16, {}, "bhsd"),
@@ -920,9 +954,11 @@ def train_cli() -> None:
     require(rc == 0, f"train_lm CLI exited {rc}")
 
 
-def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8") -> list[dict]:
+def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8",
+                  batch: int = 8) -> list[dict]:
     """K1, K2 and K3 at the phase-8 shape (bf16 B8 S2048 H12 D64 causal;
-    ``heads``: a tensor-parallel rank's local heads, phase 15).
+    ``heads``: a tensor-parallel rank's local heads, phase 15; ``batch``: a
+    GPipe microbatch's rows, phase 16).
     K1 as the train step calls it (BHSD views of BSHD storage, with the lse)
     beside the forward of ``F.scaled_dot_product_attention``; K2 and K3 on
     BHSD tensors beside the plain backward and SDPA's backward (the pair's
@@ -932,12 +968,13 @@ def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8")
 
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, H, S, D = 8, heads, 2048, 64
+    B, H, S, D = batch, heads, 2048, 64
     pairs = B * H * S * (S + 1) // 2
     tensor = B * H * S * D * 2  # one bf16 [B, H, S, D] tensor
     rowvec = B * H * S * 4  # one float32 [B, H, S] vector
     rows = []
     tag = "" if heads == 12 else f", tp {12 // heads} local heads"
+    tag += "" if batch == 8 else f", pp microbatch B{batch}"
 
     def row(name, source, replaces, fn, flops, nbytes, **fields):
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
@@ -1554,7 +1591,7 @@ def _card_vs_cpu(torch, task: str, run, batch_rows: int, dtypes=("float32",)) ->
 
 def train_workload(torch, card: str, cli, flags: list[str], *, task: str, dtype: str,
                    flops_per_step: float, rdzv: str, model_dir: str | None, check_rows: int,
-                   metric: str, grad_bar_dtype: str = "float32") -> dict:
+                   metric: str, grad_bar_dtype: str = "float32", label: str | None = None) -> dict:
     """One of 12b / 12c: the CLI's run built over NCCL at world size 1,
     every step timed (synchronised), the gradient mean counted, one step
     profiled; the bars of phase 12. The card-vs-CPU step holds the loss in
@@ -1571,7 +1608,8 @@ def train_workload(torch, card: str, cli, flags: list[str], *, task: str, dtype:
     if model_dir is not None:
         argv += ["--model_dir", model_dir]
     run = cli.build(argv)
-    label = f"12{'b' if task == 'classification' else 'c'} {cli.__name__.split('.')[-1]} {dtype}"
+    label = label or f"12{'b' if task == 'classification' else 'c'} {cli.__name__.split('.')[-1]}"
+    label = f"{label} {dtype}"
     out = {"dtype": dtype, "card": card}
     if dtype == "float32":
         dtypes = tuple(dict.fromkeys(("float32", grad_bar_dtype)))
@@ -2570,6 +2608,258 @@ def tp_phase(torch, card: str, gen, seed: int) -> dict:
     return out
 
 
+# -- phase 16 ----------------------------------------------------------------
+#: Phase 16's pipeline: 4 stages of 3 blocks, 4 microbatches (B8 -> B2 each).
+P16_PP, P16_MICRO = 4, 4
+#: 16b's widths: ``TransformerConfig.tiny()`` at 4 layers.
+P16_SMALL = dict(vocab_size=256, num_layers=4, num_heads=4, head_dim=8, d_model=32, d_ff=64)
+#: 16c's ViT training through ``cli.train_resnet``: Adam, as the reference's
+#: ViT test trains it, at 1e-4 (1e-3 with no warmup sends vit_small's bf16
+#: loss from 2.6 to 4.5 in a step on the H100); 256 synthetic images, 4
+#: steps an epoch.
+P16_VIT = ["--arch", "vit_small", "--synthetic", "--train_samples", "256", "--batch_size", "64",
+           "--num_epochs", "3", "--optimizer", "adam", "--learning_rate", "1e-4"]
+
+
+def _flat_grads(model) -> dict:
+    """A model's ``.grad`` s as the flat ``TransformerLM``'s, float32 (a
+    pipelined model's remapped ``stages[block_j][s] -> layers.{s*K+j}``)."""
+    from deeplearning_mpi_tpu_torch.models.convert import flat_from_stacked
+
+    g = {n: p.grad.float() for n, p in model.named_parameters()}
+    layout = getattr(model, "pipe_layout", None)
+    return g if layout is None else flat_from_stacked(layout.gather(g))
+
+
+def pp_train(torch, seed: int) -> dict:
+    """16a: the 110M ``TransformerConfig()`` in bf16 at B8 S2048 with flash,
+    as ``PipelinedLM`` over ``LockstepPipe(4)`` (3 blocks a stage, the stages
+    tick by tick on this card: NCCL refuses two ranks on one card) with 4
+    microbatches, from phase 8's weights and batches: step-1 gradients,
+    remapped flat, within 5e-2 relative L2 per tensor of the flat flash
+    step's; then 6 Adam steps (3e-4, clip 1.0) with every loss finite and
+    K1/K2/K3 launched exactly 48 times a step each (12 layers x 4
+    microbatches: no bubble work); step median, tokens/s, MFU, peak memory,
+    one profiled step."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    cfg = TransformerConfig()
+    B, S, steps = 8, 2048, 6
+    loader = Loader(SyntheticTokens(2 * B, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=True, seed=seed, device="cuda")
+    batches = [b for epoch in range(steps // 2) for b in loader.epoch(epoch)]
+    one = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    model = PipelinedLM(cfg, num_stages=P16_PP, num_microbatches=P16_MICRO, dtype=torch.bfloat16,
+                        device="cuda", pipe=LockstepPipe(P16_PP)).init_weights(seed)
+    whole = model.full_state_dict()
+    require(all(torch.equal(whole[n], p) for n, p in one.state_dict().items()),
+            "16a: the pipelined model does not hold phase 8's weights")
+    del whole
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        tokens = batches[0]["tokens"]
+        lm_cross_entropy(m(tokens, attention_fn=fa.flash_attention_bhsd), tokens).backward()
+        g = _flat_grads(m)
+        m.zero_grad(set_to_none=True)
+        return g
+
+    g_one = grads(one)
+    del one
+    g_pp = grads(model)
+    rel = {n: float((g_pp[n] - g).norm() / g.norm().clamp(min=1e-30)) for n, g in g_one.items()}
+    worst = max(rel, key=rel.get)
+    log(f"16a pp {P16_PP} x {P16_MICRO} microbatches vs flat flash step-1 grads (B{B} S{S}, "
+        f"{len(rel)} tensors): relative L2 error max {rel[worst]:.3e} ({worst}), median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e} (tol 5e-2)")
+    require(rel[worst] <= 5e-2, f"16a: pipelined grads differ from the flat step: {worst} "
+            f"{rel[worst]}")
+    del g_one, g_pp
+    torch.cuda.empty_cache()
+    state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                               attention_fn=fa.flash_attention_bhsd)
+    step = make_train_step("lm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = _kernel_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    expect = 12 * P16_MICRO
+    flops = lm_train_flops(cfg, B, S)
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "losses": losses,
+              "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
+              "model_flops_per_step": flops, "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+              "max_memory_allocated": peak, "launches": launches}
+    log(f"16a pp {P16_PP}: losses {[round(x, 4) for x in losses]}, step median "
+        f"{1e3 * step_s:.2f} ms (steps 2-{steps}), {result['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{100 * result['mfu']:.2f}% of 989 TFLOP/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB, launches {launches} (expected {expect} a step each)")
+    require(all(np.isfinite(losses)), f"16a: non-finite loss {losses}")
+    require(all(n == expect * steps for n in launches.values()),
+            f"16a: expected {expect * steps} launches of each kernel, got {launches}")
+    result["profile"] = device_profile(torch, lambda: step(state, batches[-1]),
+                                       "16a profile (one pp step)")
+    return result
+
+
+def pp_card_vs_cpu(torch, seed: int) -> dict:
+    """16b: ``P16_SMALL`` as ``PipelinedLM`` over ``LockstepPipe(2)``, 2
+    microbatches, float32 with TF32 off, the same weights and batch (B4 S32)
+    on the card (K1-K3) and on the CPU (their plain versions): the loss
+    within 1e-4 relative and every step-1 gradient within 1e-4 relative L2;
+    then ``tiny_moe`` the same way: the load-balance loss within 1e-5."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models import moe
+    from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (4, 32)))
+
+    def run(cfg, device):
+        m = PipelinedLM(cfg, num_stages=2, num_microbatches=2, dtype=torch.float32,
+                        device=device, pipe=LockstepPipe(2)).init_weights(seed)
+        t = tokens.to(device)
+        with moe.collecting(m) as sown:
+            loss = lm_cross_entropy(m(t, attention_fn=fa.flash_attention_bhsd), t)
+            aux = float(moe.collect_aux_loss(sown).detach()) if sown.aux else None
+        loss.backward()
+        return float(loss.detach()), aux, {n: g.cpu().double() for n, g in _flat_grads(m).items()}
+
+    cfg = TransformerConfig(**P16_SMALL)
+    (loss_gpu, _, g_gpu), (loss_cpu, _, g_cpu) = run(cfg, "cuda"), run(cfg, "cpu")
+    rel = {n: float((g_gpu[n] - g).norm() / g.norm().clamp(min=1e-30)) for n, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    moe_cfg = TransformerConfig.tiny_moe()
+    (_, aux_gpu, _), (_, aux_cpu, _) = run(moe_cfg, "cuda"), run(moe_cfg, "cpu")
+    log(f"16b pp 2 card vs CPU (4 layers, float32, TF32 off): loss {loss_gpu:.6f} vs "
+        f"{loss_cpu:.6f} ({loss_rel:.2e}), worst gradient {rel[worst]:.3e} ({worst}) (tol 1e-4); "
+        f"tiny_moe aux {aux_gpu:.8f} vs {aux_cpu:.8f} (tol 1e-5)")
+    require(loss_rel <= 1e-4 and rel[worst] <= 1e-4,
+            f"16b: card differs from CPU: loss {loss_rel}, {worst} {rel[worst]}")
+    require(abs(aux_gpu - aux_cpu) <= 1e-5, f"16b: MoE aux {aux_gpu} vs CPU {aux_cpu}")
+    return {"loss_rel": loss_rel, "grads_rel_l2_max": rel[worst], "grads_worst": worst,
+            "aux_card": aux_gpu, "aux_cpu": aux_cpu}
+
+
+def vit_train_flops(batch: int, *, image_size: int = 32, patch: int = 4, layers: int = 12,
+                    heads: int = 6, head_dim: int = 64, d: int = 384, d_ff: int = 1536,
+                    classes: int = 10) -> float:
+    """Model FLOPs of one ViT train step, counted as ``lm_train_flops``: 3x
+    the forward's matmuls (the patch conv, per token and block 2*d*3*H*Dh
+    q/k/v, 2*H*Dh*d out, 4*T*H*Dh full attention, 6*d*d_ff SwiGLU; the
+    head on the CLS row)."""
+    patches = (image_size // patch) ** 2
+    tokens = patches + 1
+    hd = heads * head_dim
+    per_token = 2 * d * 3 * hd + 2 * hd * d + 4 * tokens * hd + 6 * d * d_ff
+    forward = (2 * patch * patch * 3 * d * patches + tokens * layers * per_token
+               + 2 * d * classes)
+    return 3.0 * batch * forward
+
+
+def vit_phase(torch, card: str, seed: int) -> dict:
+    """16c: ``vit_small`` in float32 with TF32 off, B32 synthetic CIFAR on
+    the card and on the CPU (same weights): every gradient within 1e-4
+    relative L2; then ``cli.train_resnet --arch vit_small --synthetic
+    --dtype bfloat16`` over NCCL at world size 1 (phase 12's bars:
+    finite, falling (memorisation), one gradient all-reduce a step, an
+    eval): step median and images/s."""
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import train_resnet
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticCIFAR10
+    from deeplearning_mpi_tpu_torch.data.cifar10 import train_transform
+    from deeplearning_mpi_tpu_torch.models.vit import vit_small
+    from deeplearning_mpi_tpu_torch.ops.loss import softmax_cross_entropy
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+
+    batch = next(iter(Loader(SyntheticCIFAR10(32, seed=seed), 32, shuffle=False,
+                             transform=train_transform, device="cpu").epoch(0)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = vit_small(dtype=torch.float32, device=device).init_weights(seed)
+        loss = softmax_cross_entropy(m(batch["image"].to(device)), batch["label"].to(device))
+        names, params = zip(*m.named_parameters())
+        g = torch.autograd.grad(loss, params)
+        out[device] = (float(loss.detach()), {n: x.cpu().double() for n, x in zip(names, g)})
+    rel = {n: float((out["cuda"][1][n] - g).norm() / g.norm().clamp(min=1e-30))
+           for n, g in out["cpu"][1].items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    log(f"16c vit_small card vs CPU (B32, float32, TF32 off, {len(rel)} tensors): loss rel "
+        f"{loss_rel:.2e}, worst gradient {rel[worst]:.3e} ({worst}), median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e} (tol 1e-4)")
+    require(loss_rel <= 1e-4 and rel[worst] <= 1e-4,
+            f"16c: card differs from CPU: loss {loss_rel}, {worst} {rel[worst]}")
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "loss_rel": loss_rel}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase16-", dir=os.path.join(ROOT, "build"))
+    try:
+        w = train_workload(torch, card, train_resnet, P16_VIT, task="classification",
+                           dtype="bfloat16", flops_per_step=vit_train_flops(64),
+                           rdzv=os.path.join(work, "vit"), model_dir=None, check_rows=8,
+                           metric="accuracy", label="16c train_resnet --arch vit_small")
+        w.pop("run")
+        w.pop("final_digests")
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    result["train"] = w
+    return result
+
+
+def pp_refusal() -> dict:
+    """16d: ``cli.train_lm --pp 2 --tp 2`` exits 1 with its ROADMAP item."""
+    import contextlib
+    import io
+
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = train_lm.main(["--device", "cuda", "--pp", "2", "--tp", "2"])
+    text = err.getvalue().strip()
+    log(f"16d train_lm --pp 2 --tp 2: exit {rc}: {text}")
+    require(rc == 1 and "item 8.5" in text, f"16d: exit {rc}: {text}")
+    return {"rc": rc, "message": text}
+
+
+def pp_phase(torch, card: str, gen, seed: int) -> dict:
+    """Phase 16: pipeline parallelism (16a, 16b), the ViT family (16c), the
+    refusal (16d), and the kernel rows at the microbatch call."""
+    out = {"train": pp_train(torch, seed)}
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = pp_card_vs_cpu(torch, seed)
+    out["vit"] = vit_phase(torch, card, seed)
+    torch.cuda.empty_cache()
+    out["refusal"] = pp_refusal()
+    out["kernels"] = time_training(torch, gen, out["train"]["launches"], where="16a (6 steps)",
+                                   batch=8 // P16_MICRO)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -2602,6 +2892,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     check_k1(torch, gen)
+    pp_gen = torch.Generator(device="cuda").manual_seed(args.seed + 16)
+    check_k1(torch, pp_gen, K1_PP_CASES)
     log(f"phase 3 K1 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k4(torch, gen)
@@ -2614,6 +2906,7 @@ def main() -> int:
     log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k2k3(torch, gen)
+    check_k2k3(torch, pp_gen, K2K3_PP_CASES)
     log(f"phase 7 K2/K3 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     train = train_110m(torch, args.seed)
@@ -2653,6 +2946,13 @@ def main() -> int:
     log(f"phase 15 tensor parallelism (the 110M model over tp 4 in bf16, card vs CPU, greedy "
         f"generation at tp 4, --zero_overlap over NCCL) OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pp = pp_phase(torch, card, pp_gen, args.seed)
+    kernels.extend(pp["kernels"])
+    log(f"phase 16 pipeline parallelism (the 110M model over pp 4 x 4 microbatches in bf16, "
+        f"card vs CPU, the ViT trained through train_resnet, the --pp refusal) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -2665,7 +2965,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
-                       "workloads": workloads, "moe": moe, "seq": seq, "tp": tp,
+                       "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -39,6 +39,17 @@ with ``--tp``, or without data parallelism, it falls back to ``--zero``
 and logs why). ``--tp`` refuses ``--moe_experts`` / ``--ep``, ``--sp``,
 adafactor and widths it does not divide (ROADMAP Queue 1 item 8.5).
 
+``--pp S`` trains the pipelined LM (``models/pipeline_lm.py``): the blocks
+in ``S`` GPipe stages, one a process of a data coordinate (the process-group
+form of ``parallel/pipeline.py``), each global batch's rows (of each
+``--grad_accum`` chunk) split into ``--microbatches`` microbatches. ``--dp
+M --pp S`` takes ``M * S`` processes; every rank of a pipe group loads the
+same rows and the last stage's loss is logged. Its checkpoint stacks each
+block leaf over the stages, and ``arch.json`` records ``S``: a resume
+takes the same ``--pp`` at any ``--dp``. ``--pp`` refuses ``--tp``,
+``--sp`` / ``--attention ring|ulysses``, ``--ep``, ``--zero`` /
+``--zero_overlap`` and adafactor (ROADMAP Queue 1 item 8.5).
+
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
 ``<model_dir>/<model_filename>/<epoch>/``, beside an ``arch.json`` sidecar
@@ -62,8 +73,12 @@ SIGTERM ends training after the current epoch with a final checkpoint.
         --zero --num_layers 2 --num_heads 4 --head_dim 16 --d_model 32 --d_ff 64 \
         --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
-Not ported yet: pipeline parallelism (refused), chaos,
-auto-resume (``--max_restarts``), guardrails and telemetry.
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 2 --pp 2 \
+        --microbatches 2 --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \
+        --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
+
+Not ported yet: chaos, auto-resume (``--max_restarts``), guardrails and
+telemetry (its ``pipeline_bytes`` included).
 """
 
 from __future__ import annotations
@@ -111,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=("none", "dots", "full"))
     model.add_argument("--attention", default="dense", choices=("dense", "flash", "ring", "ulysses"))
     model.add_argument("--loss_chunk", type=int, default=0)
+    model.add_argument("--microbatches", type=int, default=4,
+                       help="GPipe microbatches when --pp > 1 (bubble fraction = "
+                       "(pp-1)/(M+pp-1))")
     model.add_argument("--moe_experts", type=int, default=0,
                        help="0 = dense SwiGLU MLP; N swaps in a routed MoE MLP per block")
     model.add_argument("--moe_top_k", type=int, default=2)
@@ -184,6 +202,7 @@ def train(argv: list[str] | None = None):
         data_rank,
         data_size,
         expert_shards,
+        pipe_shards,
         seq_shards,
         tp_shards,
     )
@@ -201,8 +220,12 @@ def train(argv: list[str] | None = None):
     train_ds = _Slice(dataset, 0, len(dataset) - n_eval)
     eval_ds = _Slice(dataset, len(dataset) - n_eval, len(dataset))
     ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
+    # Under --pp each chunk is cut into microbatches: a rank takes its share
+    # of each of the reference's contiguous microbatches, so the MoE
+    # balance loss of a microbatch is the reference's under --dp too.
+    chunks = args.grad_accum * (args.microbatches if args.pp > 1 else 1)
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          grad_accum=args.grad_accum, device=device, **ranks)
+                          grad_accum=chunks, device=device, **ranks)
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
                          device=device, **ranks)
 
@@ -231,19 +254,28 @@ def train(argv: list[str] | None = None):
         ckpt_dir = Path(args.model_dir) / args.model_filename
         # Checked at every start: a fresh run into a directory of another
         # architecture must not re-stamp the sidecar under its epochs.
-        err = config.arch_mismatch_error(cfg, ckpt_dir)
+        err = config.arch_mismatch_error(cfg, ckpt_dir, pipeline_stages=args.pp)
         if err:
             raise SystemExit(err)
         if not args.eval_only and topo.is_coordinator:
-            config.save_arch(cfg, ckpt_dir)
+            config.save_arch(cfg, ckpt_dir, pipeline_stages=args.pp)
         checkpointer = Checkpointer(ckpt_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     try:
-        model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
-                              return_prehead=args.loss_chunk > 0, expert_shards=expert_shards(mesh),
-                              tp=tp_shards(mesh, device)).init_weights(args.random_seed)
-    except ValueError as e:  # a width the tensor-parallel rule would split unevenly
-        raise SystemExit(str(e)) from e
+        if args.pp > 1:
+            from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+
+            model = PipelinedLM(cfg, num_stages=args.pp, num_microbatches=args.microbatches,
+                                dtype=dtype, device=device, remat=args.remat,
+                                return_prehead=args.loss_chunk > 0,
+                                pipe=pipe_shards(mesh, device))
+        else:
+            model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
+                                  return_prehead=args.loss_chunk > 0,
+                                  expert_shards=expert_shards(mesh), tp=tp_shards(mesh, device))
+        model = model.init_weights(args.random_seed)
+    except ValueError as e:  # a width the tensor-parallel rule would split unevenly, a
+        raise SystemExit(str(e)) from e  # depth the stages do not divide
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=1.0)
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
     start_epoch = 0
@@ -255,6 +287,7 @@ def train(argv: list[str] | None = None):
     log(f"train_lm: {n_params} params on this process{moe}, {len(train_ds)} train / "
         f"{len(eval_ds)} eval sequences of {args.seq_len}, {train_loader.steps_per_epoch()} "
         f"steps/epoch, attention {args.attention} (--sp {args.sp}), --tp {args.tp}"
+        f"{f', --pp {args.pp} x {args.microbatches} microbatches' if args.pp > 1 else ''}"
         f"{' --zero_overlap' if args.zero_overlap else ' --zero' if args.zero else ''}, "
         f"{args.dtype}, on {device}, {topo.num_processes} process(es) "
         f"({topo.backend or 'no group'})")

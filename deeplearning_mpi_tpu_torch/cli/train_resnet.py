@@ -18,9 +18,13 @@ logs and writes the checkpoints.
     python -m deeplearning_mpi_tpu_torch.cli.train_resnet --device cpu --nproc 2 --synthetic \\
         --num_epochs 1 --batch_size 8 --train_samples 32
 
+``--arch vit_tiny`` / ``vit_small`` trains the ViT family
+(``models/vit.py``) on the same data and trainer; ``--torch_padding`` is a
+CNN flag and is refused with it, as in the reference.
+
 Real data: ``--data_dir`` holding ``cifar-10-batches-py`` (``cli.download
-cifar10 --from_file``). Not ported yet: the ViT family, the native C++
-transforms and the flags ``reject_unported`` names.
+cifar10 --from_file``). Not ported yet: the native C++ transforms and the
+flags ``reject_unported`` names.
 """
 
 from __future__ import annotations
@@ -54,21 +58,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_model(args: argparse.Namespace, device):
-    """The flags' ResNet on ``device``, seeded by ``--random_seed``."""
+    """The flags' ResNet or ViT on ``device``, seeded by ``--random_seed``."""
     from deeplearning_mpi_tpu_torch.models import get_model
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    return get_model(args.arch, num_classes=10, stem=args.stem, dtype=dtype,
-                     torch_padding=args.torch_padding, device=device).init_weights(args.random_seed)
+    kw = {} if args.arch.startswith("vit") else {"torch_padding": args.torch_padding}
+    return get_model(args.arch, num_classes=10, stem=args.stem, dtype=dtype, device=device,
+                     **kw).init_weights(args.random_seed)
 
 
 def build(argv: list[str] | None = None) -> config.Run:
     """Parse ``argv``, join the group and build the run (not yet run)."""
     args = build_parser().parse_args(argv)
     config.reject_unported(args)
-    if args.arch.startswith("vit"):
-        raise SystemExit(f"--arch {args.arch}: the ViT family is not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
+    if args.torch_padding and args.arch.startswith("vit"):
+        raise SystemExit("--torch_padding is a CNN numerics flag (strided-conv padding); it "
+                         "does not apply to --arch " + args.arch)
     from deeplearning_mpi_tpu_torch.data import CIFAR10, Loader, SyntheticCIFAR10
     from deeplearning_mpi_tpu_torch.data.cifar10 import eval_transform, train_transform
     from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size
@@ -94,7 +99,8 @@ def build(argv: list[str] | None = None) -> config.Run:
                            train_loader=train_loader, eval_loader=eval_loader)
     n_params = sum(p.numel() for p in model.parameters())
     run.trainer.log(
-        f"train_resnet: {args.arch} ({args.stem} stem), {n_params} params, {len(train_ds)} train / "
+        f"train_resnet: {args.arch}{'' if args.arch.startswith('vit') else f' ({args.stem} stem)'}"
+        f", {n_params} params, {len(train_ds)} train / "
         f"{len(eval_ds)} eval images, global batch {args.batch_size} over {topo.num_processes} "
         f"process(es) ({topo.backend or 'no group'}), {train_loader.steps_per_epoch()} "
         f"steps/epoch, {args.dtype}, on {device}")

@@ -1,5 +1,6 @@
-"""The model zoo: the decoder-only TransformerLM (training and inference),
-the ResNet family and the UNet, their converters and generation."""
+"""The model zoo: the decoder-only TransformerLM (training and inference)
+and its pipelined form, the ResNet family, the UNet and the ViT family,
+their converters and generation."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from deeplearning_mpi_tpu_torch.models.resnet import (  # noqa: F401
     resnet152,
 )
 from deeplearning_mpi_tpu_torch.models.unet import UNet  # noqa: F401
+from deeplearning_mpi_tpu_torch.models.vit import ViT, vit_small, vit_tiny  # noqa: F401
 
 _RESNETS = {
     "resnet18": resnet18,
@@ -25,18 +27,24 @@ _RESNETS = {
     "resnet152": resnet152,
 }
 
+_VITS = {"vit_tiny": vit_tiny, "vit_small": vit_small}
+
 
 def get_model(name: str, **kwargs: Any) -> nn.Module:
-    """Build a CNN by name — the registry behind the trainers' ``--arch``.
-    The LM is built from its config (``models.transformer``)."""
+    """Build an image model by name — the registry behind the trainers'
+    ``--arch``. The LM is built from its config (``models.transformer``)."""
     if name in _RESNETS:
         return _RESNETS[name](**kwargs)
-    if name.startswith("vit_"):
-        raise NotImplementedError(
-            f"{name}: the ViT family is not ported yet (ROADMAP Queue 1 item 8)")
+    if name in _VITS:
+        kwargs.pop("stem", None)  # the patch conv is the stem; the CNN knob does not apply
+        if kwargs.pop("torch_padding", False):
+            raise ValueError("torch_padding is a CNN numerics option; a ViT has no strided "
+                             "conv padding")
+        return _VITS[name](**kwargs)
     if name == "unet":
         return UNet(**kwargs)
     if name == "unet3d":
         kwargs.setdefault("spatial_dims", 3)
         return UNet(**kwargs)
-    raise ValueError(f"unknown model '{name}'; choose from {sorted(_RESNETS) + ['unet', 'unet3d']}")
+    raise ValueError(f"unknown model '{name}'; choose from "
+                     f"{sorted(_RESNETS) + sorted(_VITS) + ['unet', 'unet3d']}")

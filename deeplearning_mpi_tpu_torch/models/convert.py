@@ -11,7 +11,9 @@ weights are ``[out, in]``, so every projection (and an MoE block's
 ``router``) is transposed, while the expert stacks ``experts_*`` keep
 their ``[E, in, out]`` layout. The tied
 head has no tensor of its own; an untied ``lm_head`` kernel becomes
-``lm_head.weight``. The CNNs (:func:`cnn_variables_from_jax`): see there.
+``lm_head.weight``. The pipelined LM: :func:`pipelined_params_from_jax`
+and the flat remaps beside it. The CNNs (:func:`cnn_variables_from_jax`)
+and the ViT (:func:`vit_params_from_jax`): see there.
 """
 
 from __future__ import annotations
@@ -54,6 +56,15 @@ def lm_params_from_jax(params: Mapping[str, Any], model: Any = None) -> dict[str
 
         return shard_state_dict(lm_params_from_jax(params), model)
     sd = {"embed.weight": _t(params["embed"]["embedding"])}
+    _blocks_from_jax(params, sd)
+    sd["final_norm.scale"] = _t(params["final_norm"]["scale"])
+    if "lm_head" in params:
+        sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
+    return sd
+
+
+def _blocks_from_jax(params: Mapping[str, Any], sd: dict[str, torch.Tensor]) -> None:
+    """Every ``layer_{i}`` block of a flax tree as ``layers.{i}.*``."""
     n_layers = sum(1 for name in params if name.startswith("layer_"))
     for i in range(n_layers):
         lp, pre = params[f"layer_{i}"], f"layers.{i}"
@@ -68,10 +79,105 @@ def lm_params_from_jax(params: Mapping[str, Any], model: Any = None) -> dict[str
             continue
         for name in _MLP:
             sd[f"{pre}.mlp.{name}.weight"] = _kernel(lp["mlp"][name]["kernel"])
+
+
+def vit_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ``ViT`` params (numpy leaves) -> ``state_dict`` of
+    ``models.vit.ViT``: the patch conv's kernel ``[p, p, 3, d]`` as the
+    CNNs' (``[d, 3, p, p]``), the CLS token, the blocks as the LM's, the
+    final norm and the head's kernel transposed and bias."""
+    conv = params["patch_embed"]
+    sd = {"patch_embed.weight": _cnn_leaf("patch_embed", "kernel", conv["kernel"])[1].float(),
+          "patch_embed.bias": _t(conv["bias"]), "cls": _t(params["cls"])}
+    _blocks_from_jax(params, sd)
     sd["final_norm.scale"] = _t(params["final_norm"]["scale"])
-    if "lm_head" in params:
-        sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
+    sd["head.weight"] = _kernel(params["head"]["kernel"])
+    sd["head.bias"] = _t(params["head"]["bias"])
     return sd
+
+
+# -- the pipelined LM ---------------------------------------------------------
+#: Flat ``TransformerLM`` names of the pipelined model's ``embed_head``.
+_ENDS = {"embed.weight": "embed_head.embed.weight",
+         "final_norm.scale": "embed_head.final_norm.scale",
+         "lm_head.weight": "embed_head.lm_head.weight"}
+
+
+def pipelined_from_flat(sd: Mapping[str, torch.Tensor], num_stages: int) -> dict[str, torch.Tensor]:
+    """A flat ``TransformerLM`` state dict as ``models.pipeline_lm.PipelinedLM``'s
+    (every stage): ``layers.{s*K+j}.*`` -> ``stages.{s}.block_{j}.*`` with
+    ``K = num_layers / num_stages``, and the ends under ``embed_head``."""
+    n_layers = 1 + max(int(n.split(".")[1]) for n in sd if n.startswith("layers."))
+    if n_layers % num_stages:
+        raise ValueError(f"num_layers {n_layers} not divisible into {num_stages} stages")
+    per = n_layers // num_stages
+    out = {}
+    for name, t in sd.items():
+        if name.startswith("layers."):
+            _, layer, rest = name.split(".", 2)
+            s, j = divmod(int(layer), per)
+            out[f"stages.{s}.block_{j}.{rest}"] = t
+        else:
+            out[_ENDS[name]] = t
+    return out
+
+
+def flat_from_stacked(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The pipelined model's whole tree (stage leaves stacked ``[S, ...]`` as
+    ``stages.block_{j}.*``, ``parallel.pipeline.PipeLayout.gather``) as a
+    flat ``TransformerLM`` state dict: stage ``s``, block ``j`` ->
+    ``layers.{s*K+j}``."""
+    ends = {v: k for k, v in _ENDS.items()}
+    blocks = {int(n.split(".")[1].split("_")[1]) for n in sd if n.startswith("stages.")}
+    per = 1 + max(blocks)
+    out = {}
+    for name, t in sd.items():
+        if not name.startswith("stages."):
+            out[ends[name]] = t
+            continue
+        _, block, rest = name.split(".", 2)
+        j = int(block.split("_")[1])
+        for s in range(t.shape[0]):
+            out[f"layers.{s * per + j}.{rest}"] = t[s]
+    return out
+
+
+def flat_params_from_pipelined(params: Mapping[str, Any]) -> dict[str, Any]:
+    """The reference's ``PipelinedLM`` param tree (numpy leaves) as its flat
+    ``TransformerLM`` tree: ``stages[block_j]`` leaf ``[s]`` ->
+    ``layer_{s*K+j}``, and ``embed_head``'s ``embed`` / ``final_norm`` /
+    ``lm_head`` at the top."""
+    stages = params["stages"]
+    per = len(stages)
+    num_stages = len(np.asarray(_first_leaf(stages)))
+    out = dict(params["embed_head"])
+    for s in range(num_stages):
+        for j in range(per):
+            out[f"layer_{s * per + j}"] = _map_leaves(lambda x, s=s: np.asarray(x)[s],
+                                                      stages[f"block_{j}"])
+    return out
+
+
+def _first_leaf(tree: Any) -> Any:
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def pipelined_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference's ``PipelinedLM`` params (numpy leaves: ``embed_head``
+    and the stacked ``stages/block_j`` leaves ``[S, ...]``) -> the state
+    dict of the port's ``PipelinedLM`` holding every stage: stage ``s``,
+    block ``j`` from slice ``[s]`` of ``block_j``, converted as
+    :func:`lm_params_from_jax` converts a layer."""
+    num_stages = len(np.asarray(_first_leaf(params["stages"])))
+    return pipelined_from_flat(lm_params_from_jax(flat_params_from_pipelined(params)), num_stages)
 
 
 #: The optax state fields each optimizer's port state carries (beside

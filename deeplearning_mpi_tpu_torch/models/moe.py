@@ -76,16 +76,20 @@ class Sown:
 @contextlib.contextmanager
 def collecting(model: nn.Module) -> Iterator[Sown]:
     """Record the load-balance losses and dropped fractions of the forwards
-    of ``model`` run inside the block (the reference's ``mutable=[...]``)."""
+    of ``model`` run inside the block (the reference's ``mutable=[...]``).
+    Every submodule with a ``sown`` slot reports: the routed layers, and a
+    pipelined model that re-emits its stages' totals
+    (``models.pipeline_lm``). Nested blocks restore the outer record."""
     sown = Sown()
-    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    layers = [m for m in model.modules() if hasattr(m, "sown")]
+    before = [m.sown for m in layers]
     for m in layers:
         m.sown = sown
     try:
         yield sown
     finally:
-        for m in layers:
-            m.sown = None
+        for m, prev in zip(layers, before):
+            m.sown = prev
 
 
 def collect_aux_loss(sown: Sown) -> torch.Tensor:

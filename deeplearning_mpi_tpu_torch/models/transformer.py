@@ -236,12 +236,14 @@ class KVCache:
 
 class Attention(nn.Module):
     """Multi-head self-attention with RoPE, grouped K/V heads and an
-    optional sliding window."""
+    optional sliding window; ``causal=False`` attends both ways over the
+    full sequence (an encoder's: ViT)."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 quantized: bool = False) -> None:
+                 quantized: bool = False, causal: bool = True) -> None:
         super().__init__()
         c = config
+        self.causal = causal
         if c.num_heads % c.kv_heads:
             raise ValueError(
                 f"num_kv_heads ({c.kv_heads}) must divide num_heads ({c.num_heads})"
@@ -278,7 +280,7 @@ class Attention(nn.Module):
         if getattr(attn, "gqa_native", False):
             # The sequence-parallel schedules take GROUPED K/V: they move
             # Hkv heads and repeat after the hop.
-            return attn(q, k, v, causal=True, **self._window_kw())
+            return attn(q, k, v, causal=self.causal, **self._window_kw())
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
         if getattr(attn, "layout", "bshd") == "bhsd":
             if self.quantized:
@@ -286,9 +288,10 @@ class Attention(nn.Module):
                     "quantized attention supports the BSHD path only (the BHSD layout "
                     "is a training-path optimization; quantization is inference-only)"
                 )
-            ctx = attn(*(t.transpose(1, 2) for t in (q, k, v)), causal=True, **self._window_kw())
+            ctx = attn(*(t.transpose(1, 2) for t in (q, k, v)), causal=self.causal,
+                       **self._window_kw())
             return ctx.transpose(1, 2)
-        return attn(q, k, v, causal=True, **self._window_kw())
+        return attn(q, k, v, causal=self.causal, **self._window_kw())
 
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor, *,
@@ -326,10 +329,12 @@ class SwiGLU(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm transformer block: x + attn(norm(x)); x + mlp(norm(x)). The
-    MLP is routed (``models.moe.MoEMLP``) when ``config.moe_experts > 0``."""
+    MLP is routed (``models.moe.MoEMLP``) when ``config.moe_experts > 0``.
+    ``causal`` as the reference's ``Block``: False for an encoder stack."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 quantized: bool = False, expert_shards=None, tp=None, tp_plan=None) -> None:
+                 quantized: bool = False, expert_shards=None, tp=None, tp_plan=None,
+                 causal: bool = True) -> None:
         super().__init__()
         if tp_plan is not None:
             from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import TPPair
@@ -337,9 +342,9 @@ class Block(nn.Module):
         if tp_plan is not None and tp_plan.attention:
             local = dataclasses.replace(config, num_heads=config.num_heads // tp.size,
                                         num_kv_heads=config.kv_heads // tp.size)
-            self.attn = TPPair([Attention(local, dtype) for _ in tp.ranks], tp)
+            self.attn = TPPair([Attention(local, dtype, causal=causal) for _ in tp.ranks], tp)
         else:
-            self.attn = Attention(config, dtype, quantized)
+            self.attn = Attention(config, dtype, quantized, causal)
         self.mlp_norm = RMSNorm(config.d_model)
         if config.moe_experts > 0:
             self.mlp = mlp_from_config(config, config.d_model, config.d_ff, dtype, expert_shards)
@@ -370,6 +375,20 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 REMAT_POLICIES = ("none", "full", "dots")
+
+
+def run_block(block: Block, x, positions, attention_fn, remat: str) -> torch.Tensor:
+    """One block of a full-sequence forward under the ``remat`` policy
+    (none while grad is off)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return block(x, positions, attention_fn=attention_fn)
+    context_fn = (
+        functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        if remat == "dots" else None
+    )
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(block, x, positions, use_reentrant=False,
+                      attention_fn=attention_fn, **kw)
 
 
 class TransformerLM(nn.Module):
@@ -509,18 +528,6 @@ class TransformerLM(nn.Module):
         table = self._table() if table is None else table
         return F.embedding(tokens, table.to(self.dtype))
 
-    def _run_block(self, block: Block, x, positions, attention_fn) -> torch.Tensor:
-        """One block of the full-sequence forward, under the remat policy."""
-        if self.remat == "none" or not torch.is_grad_enabled():
-            return block(x, positions, attention_fn=attention_fn)
-        context_fn = (
-            functools.partial(create_selective_checkpoint_contexts, _save_dots)
-            if self.remat == "dots" else None
-        )
-        kw = {} if context_fn is None else {"context_fn": context_fn}
-        return checkpoint(block, x, positions, use_reentrant=False,
-                          attention_fn=attention_fn, **kw)
-
     def head(self, x: torch.Tensor, table: torch.Tensor | None = None) -> torch.Tensor:
         """Final-norm activations -> float32 logits (float64 in a float64
         model; tied: ``x @ E^T`` in the compute dtype, as flax ``Embed.attend``,
@@ -569,7 +576,7 @@ class TransformerLM(nn.Module):
         x = self.embed_tokens(tokens, table)
         for i, block in enumerate(self.layers):
             if cache is None:
-                x = self._run_block(block, x, positions, attention_fn)
+                x = run_block(block, x, positions, attention_fn, self.remat)
             else:
                 x = block(x, positions, cache=cache, layer=i, attention_fn=attention_fn)
         if cache is not None:

@@ -16,6 +16,9 @@ reference (XLA)         here (torch.distributed)
                         this rank's block — the same function)
 ``ring_shift``          ``batch_isend_irecv`` to ``rank + offset``
 ``ppermute`` (a ring)   :func:`ring_shift_autograd` (backward: ``-offset``)
+``ppermute`` (a line)   :func:`stage_shift`: ``(i, i + 1)`` without the
+                        wrap (the pipeline's activations; ``-1``: their
+                        gradients)
 ``all_to_all`` (tiled)  :func:`all_to_all_autograd` (backward: the
                         inverse all-to-all)
 ``broadcast_from``      ``broadcast``
@@ -234,6 +237,28 @@ def _ring_shift(x: torch.Tensor, group, offset: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+def stage_shift(sends: list[torch.Tensor], recv_like: list[torch.Tensor],
+                group: dist.ProcessGroup | None = None, *, offset: int = 1) -> list[torch.Tensor]:
+    """The non-wrapping shift of the pipeline (the reference's ``ppermute``
+    over the ``(i, i + 1)`` permutation): this rank sends ``sends`` to rank
+    ``rank + offset`` and receives tensors shaped as ``recv_like`` from
+    ``rank - offset``. Either list may be empty (the line's ends, and a
+    tick on which a neighbour holds no microbatch); every send must meet
+    a receive of the same shapes. The sends and receives go in one
+    ``batch_isend_irecv`` so that neither order can deadlock. Returns the
+    received tensors."""
+    counts["stage_shift"] += 1
+    rank = dist.get_rank(group)
+    received = [torch.empty_like(t) for t in recv_like]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), _global(group, rank + offset), group)
+           for t in sends]
+    ops += [dist.P2POp(dist.irecv, t, _global(group, rank - offset), group) for t in received]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return received
 
 
 class _RingShift(torch.autograd.Function):

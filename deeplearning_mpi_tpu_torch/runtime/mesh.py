@@ -3,9 +3,8 @@
 Port of ``deeplearning_mpi_tpu/runtime/mesh.py``. The axis names and
 ``MeshSpec.resolve``'s arithmetic and errors are the reference's;
 :func:`create_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
-with those names (one process a device). ``data``, ``expert``, ``seq`` and
-``model`` may exceed 1: pipeline parallelism, which shards along ``pipe``,
-is ROADMAP Queue 1 item 8.3. The reference's
+with those names (one process a device); every axis may exceed 1. The
+reference's
 ``order_devices_for_mesh`` (multi-slice TPU placement) has no counterpart
 on GPUs.
 
@@ -24,7 +23,10 @@ gradients are summed over ``seq`` and averaged over ``data``. Rows are
 replicated over ``model`` too: the processes of one model group hold the
 shards of one replica's weights (``parallel.tensor_parallel``,
 :func:`tp_shards`) and run the same rows; a replica's data group is the
-processes of its model coordinate.
+processes of its model coordinate. Rows are replicated over ``pipe`` as
+well: the processes of one pipe group each hold one stage of the pipelined
+LM (``parallel.pipeline.GroupPipe``, :func:`pipe_shards`) and load the same
+rows; a stage's data group is the processes of its pipe coordinate.
 """
 
 from __future__ import annotations
@@ -79,19 +81,13 @@ def create_mesh(spec: MeshSpec | None = None, *, device: str | torch.device = "c
 
     With no spec every process is on ``data`` (the original repo's DDP
     world). ``device`` is the mesh's device type (``cuda`` for NCCL,
-    ``cpu`` for gloo). Raises without a live group, and for the ``pipe``
-    axis above 1 (ROADMAP Queue 1 item 8.3).
+    ``cpu`` for gloo). Raises without a live group.
     """
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a live process group (runtime.bootstrap.init "
                            "with a coordinator)")
     spec = spec or MeshSpec()
     shape = spec.resolve(dist.get_world_size())
-    pipe = shape[MESH_AXES.index(AXIS_PIPE)]
-    if pipe != 1:
-        raise NotImplementedError(
-            f"mesh axis pipe={pipe}: pipeline parallelism is not ported yet (ROADMAP Queue 1 "
-            "item 8.3)")
     return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=MESH_AXES)
 
 
@@ -140,6 +136,21 @@ def model_rank(mesh: DeviceMesh | None) -> int:
     return 0 if mesh is None else mesh.get_local_rank(AXIS_MODEL)
 
 
+def pipe_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
+    """The process group of the pipe axis (None: no mesh, one process)."""
+    return None if mesh is None else mesh.get_group(AXIS_PIPE)
+
+
+def pipe_size(mesh: DeviceMesh | None) -> int:
+    """The pipeline-parallel degree (1: no mesh)."""
+    return 1 if mesh is None else mesh.size(MESH_AXES.index(AXIS_PIPE))
+
+
+def pipe_rank(mesh: DeviceMesh | None) -> int:
+    """This process's coordinate on the pipe axis, its stage (0: no mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(AXIS_PIPE)
+
+
 def replica_group(mesh: DeviceMesh | None) -> dist.ProcessGroup | None:
     """The processes that share this process's parameter replica: its data x
     seq plane of the mesh (the same expert, pipe and model coordinates). The
@@ -183,6 +194,22 @@ def tp_shards(mesh: DeviceMesh | None, device: str | torch.device | None = None)
         if device == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
     return GroupTP(model_group(mesh), device)
+
+
+def pipe_shards(mesh: DeviceMesh | None, device: str | torch.device | None = None):
+    """This process's stage in its pipe group, the process-group form of
+    pipeline parallelism (``parallel.pipeline.GroupPipe``) on ``device``
+    (default: the mesh's device type, this process's current card); None
+    without a mesh or at pipe size 1."""
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import GroupPipe
+
+    if pipe_size(mesh) == 1:
+        return None
+    if device is None:
+        device = mesh.device_type
+        if device == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    return GroupPipe(pipe_group(mesh), device)
 
 
 def expert_shards(mesh: DeviceMesh | None):

@@ -39,7 +39,11 @@ expert stacks (parameters, moments, EMA; ``TrainState.arrays``) before rank
 0 writes, and a restore keeps each rank's slice, so the files, their
 digests and the manifests are those of the whole model. A state's tensors
 do not depend on the world size or the expert sharding, so a save restores
-on any (:meth:`Checkpointer.restore_elastic`).
+on any (:meth:`Checkpointer.restore_elastic`). A pipelined LM's save (``--pp
+S``) holds the reference's layout: each stage leaf stacked ``[S, ...]``
+(``stages.block_{j}.*``), gathered over the pipe group before rank 0
+writes, so it restores under the same ``S`` at any data-parallel degree
+and in either pipe form; ``arch.json`` records ``S`` and refuses another.
 
 Not ported: the chaos hook.
 """

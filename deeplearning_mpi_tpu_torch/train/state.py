@@ -25,7 +25,11 @@ whole, and under ZeRO-1 (``zero``, ``parallel.zero.Zero1``) the optimizer
 moments' slices over the data group: both collectives, so every rank calls
 :meth:`TrainState.arrays`, and :meth:`TrainState.fill` keeps this rank's
 part. A checkpoint is thus the same tree at every expert, tensor, data and
-ZeRO layout, and restores under any other.
+ZeRO layout, and restores under any other. A pipelined model's tree (its
+``pipe_layout``, ``parallel.pipeline.PipeLayout``) holds each stage leaf
+stacked over the stages, ``[S, ...]``, the reference's layout: gathered
+over the pipe group (a collective) and cut back to this rank's stage, so it
+restores under the same stage count at any data or pipe form.
 """
 
 from __future__ import annotations
@@ -77,8 +81,9 @@ class TrainState:
     @property
     def shards(self) -> Any:
         """What the global norm spans beyond this process's leaves: the
-        expert sharding or the tensor-parallel layout (None: neither)."""
-        return self.expert_shards or getattr(self.model, "tp_layout", None)
+        expert sharding, the tensor-parallel layout or the pipeline's (None:
+        none)."""
+        return self.expert_shards or _layout(self.model)
 
     def arrays(self) -> dict[str, Any]:
         """What a checkpoint holds: ``step`` (an int32 scalar, as the
@@ -101,7 +106,7 @@ class TrainState:
             out = {k: map_expert_leaves(shards.gather, v) for k, v in out.items()}
         if self.zero is not None:
             out["opt_state"] = self.zero.gather(out["opt_state"])
-        layout = getattr(self.model, "tp_layout", None)
+        layout = _layout(self.model)
         if layout is not None:
             out = {k: _named_trees(layout.gather, v, k) for k, v in out.items()}
         return out
@@ -118,7 +123,7 @@ class TrainState:
         if shards is not None:
             arrays = {k: map_expert_leaves(lambda t: shards.local(t).clone(), v)
                       for k, v in arrays.items()}
-        layout = getattr(self.model, "tp_layout", None)
+        layout = _layout(self.model)
         if layout is not None:
             local = lambda tree: {n: t.clone() for n, t in layout.local(tree).items()}  # noqa: E731
             arrays = {k: _named_trees(local, v, k) for k, v in arrays.items()}
@@ -136,6 +141,11 @@ class TrainState:
             opt_state=arrays.get("opt_state", self.opt_state),
             ema_params=arrays.get("ema_params", self.ema_params),
         )
+
+
+def _layout(model: nn.Module) -> Any:
+    """The model's tensor-parallel or pipeline layout (None: neither)."""
+    return getattr(model, "tp_layout", None) or getattr(model, "pipe_layout", None)
 
 
 def _named_trees(fn: Callable[[dict], dict], tree: Any, key: str) -> Any:

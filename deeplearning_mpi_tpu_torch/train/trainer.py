@@ -78,6 +78,18 @@ stays the one flat all-reduce over the data group, and the global norm
 sums each sharded leaf's squares over the model group once (the
 replicated leaves once). Adafactor is refused under either.
 
+**Pipeline parallelism** (the model's ``pipe_layout``,
+``models.pipeline_lm.PipelinedLM``): a pipe rank holds its stage and a
+replica of the embedding and head, and every rank of a pipe group feeds the
+same rows. Each ``grad_accum`` chunk is pipelined into the model's
+microbatches. After the backward the replicated leaves' gradients (the
+tied embedding's encode part on the first stage, its head part and the
+final norm's on the last) and the last stage's loss go through ONE
+``all_reduce_sum`` over the pipe group (``PipeLayout.reduce``), then the
+data mean as above; the global norm sums the stage leaves' squares over the
+pipe group and counts the replicated leaves once. Adafactor is refused (its
+block RMS spans the reference's stacked leaf).
+
 **ZeRO-1** (the state's ``zero``, ``parallel.zero.Zero1``, placed by
 :meth:`Trainer.place_state`): the optimizer moments are this rank's slices
 over the data group; after the same gradient all-reduce the clip runs on
@@ -369,8 +381,9 @@ class Optimizer:
         clipped whole)."""
         if shards is not None and self.name == "adafactor":
             raise NotImplementedError(
-                "adafactor under expert or tensor parallelism is not ported yet (ROADMAP Queue 1 "
-                "item 8.5: its factored moments and block RMS span the whole leaf)")
+                "adafactor under expert, tensor or pipeline parallelism is not ported yet "
+                "(ROADMAP Queue 1 item 8.5: its factored moments and block RMS span the whole "
+                "leaf)")
         if not clipped:
             grads = self.clip(grads, shards)
         lr = self._lr(state["count"])
@@ -571,6 +584,9 @@ def make_train_step(
                         drop = c_drop / grad_accum if drop is None else drop + c_drop / grad_accum
                     if c_aux is not None:
                         aux = c_aux / grad_accum if aux is None else aux + c_aux / grad_accum
+        pipe_layout = getattr(model, "pipe_layout", None)
+        if pipe_layout is not None:
+            grads, loss = pipe_layout.reduce(names, grads, loss)
         scalars = [loss] + ([] if drop is None else [drop])
         if flight is not None:
             grads, scalars = flight.finish(grads, scalars)
@@ -717,6 +733,10 @@ class Trainer:
         )
 
         state = self.state
+        if getattr(state.model, "pipe_layout", None) is not None:
+            raise NotImplementedError(
+                "ZeRO-1 with pipeline parallelism is not ported yet (ROADMAP Queue 1 item 8.5: "
+                "ZeRO-1 slices of the stage stacks)")
         if (state.expert_shards is not None and state.expert_shards.size > 1) or (
                 self.seq is not None and self.seq.size > 1):
             raise NotImplementedError(

@@ -47,23 +47,27 @@ def ema_decay(value: str) -> float:
     return f
 
 
-def save_arch(cfg: Any, ckpt_dir: str | Path) -> None:
-    """Write the model config (a dataclass) as ``arch.json`` beside the
-    checkpoint, atomically."""
+def save_arch(cfg: Any, ckpt_dir: str | Path, *, pipeline_stages: int = 1) -> None:
+    """Write the LM config (a dataclass) and its ``pipeline_stages``
+    (``--pp``: a pipelined checkpoint stacks its blocks by stage) as
+    ``arch.json`` beside the checkpoint, atomically."""
     path = Path(ckpt_dir)
     path.mkdir(parents=True, exist_ok=True)
-    atomic_write_json(path / "arch.json", dataclasses.asdict(cfg))
+    atomic_write_json(path / "arch.json",
+                      {**dataclasses.asdict(cfg), "pipeline_stages": pipeline_stages})
 
 
-def arch_mismatch_error(cfg: Any, ckpt_dir: str | Path) -> str | None:
-    """The refusal message when ``cfg`` differs from the directory's
-    ``arch.json``; None when they match or there is no sidecar. Only the
-    fields present in the file are compared."""
+def arch_mismatch_error(cfg: Any, ckpt_dir: str | Path, *,
+                        pipeline_stages: int = 1) -> str | None:
+    """The refusal message when ``cfg`` or the stage count differs from the
+    directory's ``arch.json``; None when they match or there is no sidecar.
+    Only the fields present in the file are compared (a sidecar from before
+    the stage count was recorded has none)."""
     path = Path(ckpt_dir) / "arch.json"
     if not path.is_file():
         return None
     saved = json.loads(path.read_text())
-    current = dataclasses.asdict(cfg)
+    current = {**dataclasses.asdict(cfg), "pipeline_stages": pipeline_stages}
     lines = [f"{key}: checkpoint={saved[key]!r}, flags={current[key]!r}"
              for key in saved if key in current and saved[key] != current[key]]
     if not lines:
@@ -163,7 +167,6 @@ def restore_lm(
 # -- the data-parallel trainers' flags ---------------------------------------
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
 UNPORTED_FLAGS = {
-    "pp": (1, "Queue 1 item 8.3 (pipeline parallelism)"),
     "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
     "profile_dir": (None, "Queue 1 item 9 (telemetry)"),
     "metrics_dir": (None, "Queue 1 item 9 (telemetry)"),
@@ -201,7 +204,9 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--tp", type=int, default=1,
                        help="tensor-parallel degree (train_lm): the Megatron-sharded LM over "
                        "this many processes of one data coordinate")
-    group.add_argument("--pp", type=int, default=1, help="not ported yet")
+    group.add_argument("--pp", type=int, default=1,
+                       help="pipeline-parallel degree (train_lm): the LM's blocks in this many "
+                       "GPipe stages, one a process of one data coordinate")
     group.add_argument("--zero", action="store_true",
                        help="ZeRO-1: the optimizer moments sharded over the data group")
     group.add_argument("--zero_overlap", action="store_true",
@@ -267,6 +272,7 @@ def reject_unported(args: argparse.Namespace) -> None:
             raise SystemExit("--sp with --loss_chunk is not ported yet (ROADMAP Queue 1 item 8: "
                              "the chunked loss over sequence shards)")
     reject_tp(args)
+    reject_pp(args)
     if ((getattr(args, "zero", False) or getattr(args, "zero_overlap", False))
             and (getattr(args, "ep", 1) != 1 or sp != 1)):
         raise SystemExit("--zero / --zero_overlap with --ep or --sp is not ported yet (ROADMAP "
@@ -303,10 +309,37 @@ def reject_tp(args: argparse.Namespace) -> None:
                          "and widths (ROADMAP Queue 1 item 8.5: the reference splits H*D)")
 
 
+def reject_pp(args: argparse.Namespace) -> None:
+    """Refuse (``SystemExit``) the ``--pp`` combinations this port leaves
+    out; the reference composes each of them through GSPMD (ROADMAP Queue 1
+    item 8.5)."""
+    pp = getattr(args, "pp", 1)
+    if pp < 1:
+        raise SystemExit(f"--pp must be >= 1, got {pp}")
+    if pp == 1:
+        return
+    if not hasattr(args, "d_model"):
+        raise SystemExit("--pp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
+                         "item 8.5: the CNNs over a pipe axis)")
+    combos = {
+        "--tp": getattr(args, "tp", 1) != 1,
+        "--sp": getattr(args, "sp", 1) != 1,
+        "--attention ring / ulysses": getattr(args, "attention", None) in ("ring", "ulysses"),
+        "--ep": getattr(args, "ep", 1) != 1,
+        "--zero / --zero_overlap": getattr(args, "zero", False)
+        or getattr(args, "zero_overlap", False),
+        "adafactor": getattr(args, "optimizer", None) == "adafactor",
+    }
+    for flag, on in combos.items():
+        if on:
+            raise SystemExit(f"--pp with {flag} is not ported yet (ROADMAP Queue 1 item 8.5: "
+                             "pipeline parallelism beside the other axes)")
+
+
 def setup_runtime(args: argparse.Namespace):
     """``bootstrap.init`` from the topology flags, then the mesh (data x
-    expert x seq x model) when a group is live; returns ``(topology, mesh,
-    data group)`` (mesh and group None for one process without a
+    pipe x expert x seq x model) when a group is live; returns ``(topology,
+    mesh, data group)`` (mesh and group None for one process without a
     coordinator)."""
     import torch.distributed as dist
 
@@ -315,13 +348,13 @@ def setup_runtime(args: argparse.Namespace):
 
     topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
                           device=args.device)
-    sp, tp = getattr(args, "sp", 1), getattr(args, "tp", 1)
+    sp, tp, pp = getattr(args, "sp", 1), getattr(args, "tp", 1), getattr(args, "pp", 1)
     if not dist.is_initialized():
-        if args.dp not in (-1, 1) or args.ep != 1 or sp != 1 or tp != 1:
-            raise SystemExit(f"--dp {args.dp} --ep {args.ep} --sp {sp} --tp {tp} needs "
-                             f"{max(args.dp, 1) * args.ep * sp * tp} processes")
+        if args.dp not in (-1, 1) or args.ep != 1 or sp != 1 or tp != 1 or pp != 1:
+            raise SystemExit(f"--dp {args.dp} --pp {pp} --ep {args.ep} --sp {sp} --tp {tp} "
+                             f"needs {max(args.dp, 1) * pp * args.ep * sp * tp} processes")
         return topo, None, None
-    mesh = create_mesh(MeshSpec(data=args.dp, expert=args.ep, seq=sp, model=tp),
+    mesh = create_mesh(MeshSpec(data=args.dp, pipe=pp, expert=args.ep, seq=sp, model=tp),
                        device=topo.device.type)
     return topo, mesh, data_group(mesh)
 

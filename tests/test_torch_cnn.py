@@ -229,8 +229,7 @@ def test_get_model():
     assert get_model("resnet34", num_classes=7, device="cpu").num_classes == 7
     assert get_model("unet", out_classes=2, features=(4, 8), device="cpu").out_classes == 2
     assert get_model("unet3d", features=(4, 8), device="cpu").spatial_dims == 3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_model("vit_tiny")
+    assert get_model("vit_tiny", stem="cifar", dtype=torch.float32, device="cpu").d_model == 192
     with pytest.raises(ValueError, match="unknown model"):
         get_model("lenet")
 

@@ -5,8 +5,8 @@ decode (K4 on int8 pages) against the CPU plain path; the CNN train steps
 (cuDNN, TF32 off) against the CPU's, and over NCCL at world size 1 against
 no group; K1-K4 at a tensor-parallel rank's local head counts, and the
 one-process tensor-parallel model on the card against the CPU; with four
-cards, data, expert, sequence and tensor parallelism and ZeRO-1 over NCCL
-against one card.
+cards, data, expert, sequence, tensor and pipeline parallelism and ZeRO-1
+over NCCL against one card.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -1052,3 +1052,101 @@ def test_nccl_zero_moments_are_a_quarter(zero_runs):
             assert zero[n] * (4 if sharded else 1) == k, n
     print("Adam moments a rank:", spawned[0]["zero_f32"]["local_bytes"], "bytes with --zero,",
           spawned[0]["dp_f32"]["local_bytes"], "with dp 4")
+
+
+@pytest.fixture(scope="module")
+def nccl_pipeline_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``tests/torch_pipe_ranks.py``'s
+    :data:`CUDA_PIPE_LAYOUTS` on the LM at 4 layers of the 110M widths, B4
+    S2048 (float64: B4 S512), TF32 off, and a ``--pp 4`` checkpoint over 3
+    steps of B4 S512; one card's flat step on the global batch (float32
+    with flash, float64 dense). Skips with fewer than four cards."""
+    import dataclasses
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: pp 4 and dp 2 x pp 2, one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_pipe_ranks as pipe_ranks
+    import torch_tp_ranks as tp_ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    tmp_path = tmp_path_factory.mktemp("pipeline")
+    cfg = TransformerConfig(num_layers=4)
+    full = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+
+    def rows(n, seq, seed):
+        ds = SyntheticTokens(n, seq, vocab_size=cfg.vocab_size, seed=seed)
+        return torch.stack([torch.from_numpy(ds[i]["tokens"]) for i in range(n)])
+
+    inputs = {"cfg": dataclasses.asdict(cfg), "params": full.state_dict(),
+              "tokens": rows(4, 2048, 0), "tokens_f64": rows(4, 512, 1), "clip": 1.0,
+              "batches": [rows(4, 512, 2 + i) for i in range(3)]}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    spawned = tp_ranks.spawn(tmp_path, pipe_ranks.worker_cuda_pipe)
+    one = {torch.float32: tp_ranks.tp_step_case(inputs, device="cuda",
+                                                attention=fa.flash_attention_bhsd),
+           torch.float64: tp_ranks.tp_step_case(inputs, device="cuda", dtype=torch.float64,
+                                                tokens="tokens_f64")}
+    return spawned, one
+
+
+@pytest.mark.parametrize("layout", ["pp4", "dp2_pp2"])
+def test_nccl_pipeline_matches_one_card(nccl_pipeline_runs, layout):
+    """``pp 4`` (M 4) and ``dp 2 x pp 2`` (M 2) over 4 NCCL cards (K1-K3 at
+    the microbatch shape, activations by send / receive), float32, against
+    one card's flat step on the global batch: both losses within 1e-6
+    relative; every gradient and every parameter after one Adam step
+    (remapped flat) within ``torch_moe_ranks.split_batch_rule`` against
+    ``dp 4`` from the same spawn (``dp 4`` itself under ``DP_CEILING``);
+    every rank's whole parameters bitwise equal."""
+    import torch_moe_ranks as moe_ranks
+    import torch_seq_ranks as seq_ranks
+
+    spawned, one = nccl_pipeline_runs
+    results = [res[layout] for res in spawned]
+    worst = seq_ranks.relative_errors(results, one[torch.float32])
+    print(f"{layout} worst relative errors:", worst[:12])
+    print("dp4:", seq_ranks.relative_errors([res["dp4"] for res in spawned],
+                                            one[torch.float32])[:4])
+    over, bars = moe_ranks.split_batch_rule(results, [res["dp4"] for res in spawned],
+                                            one[torch.float32])
+    print("split-batch bars:", bars)
+    losses = [(k, e) for k, e in worst if len(k) == 2 and e > 1e-6]
+    replicas = seq_ranks.differing_replicas(results)
+    assert not losses and not over and not replicas, (
+        f"losses over 1e-6: {losses}; {len(over)} tensors over {bars}: {over[:20]}; "
+        f"replicas differing: {replicas}")
+
+
+@pytest.mark.parametrize("layout", ["pp4", "dp2_pp2"])
+def test_nccl_pipeline_f64_matches_one_card(nccl_pipeline_runs, layout):
+    """The float64 twins (dense attention) against one card in float64: the
+    losses, every gradient and every updated parameter within 1e-7
+    relative; every rank's whole parameters bitwise equal."""
+    import torch_seq_ranks as seq_ranks
+
+    spawned, one = nccl_pipeline_runs
+    results = [res[f"{layout}_f64"] for res in spawned]
+    worst = seq_ranks.relative_errors(results, one[torch.float64])
+    print(f"{layout} float64 worst relative errors:", worst[:12])
+    over = [(k, e) for k, e in worst if e > 1e-7]
+    replicas = seq_ranks.differing_replicas(results)
+    assert not over and not replicas, (f"{len(over)} of {len(worst)} over 1e-7: {over[:20]}; "
+                                       f"replicas differing: {replicas}")
+
+
+def test_nccl_pipeline_checkpoint_resumes_bitwise(nccl_pipeline_runs):
+    """A ``--pp 4`` save over 4 NCCL cards (the stage leaves gathered,
+    stacked ``[4, ...]``): every rank's digests equal, its verified restore
+    the same digests, and the resumed step bitwise the uninterrupted one."""
+    spawned, _ = nccl_pipeline_runs
+    ckpts = [res["checkpoint"] for res in spawned]
+    saved = ckpts[0]["saved"]
+    assert any("stages.block_0" in k for k in saved)
+    for c in ckpts:
+        assert c["saved"] == saved and c["restored"] == saved
+        assert c["resumed"] == c["uninterrupted"]

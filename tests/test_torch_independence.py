@@ -11,9 +11,12 @@ path: hello_world over gloo, a CNN train and eval step on the CIFAR loader,
 and the CNN CLIs' imports; one that runs the MoE LM's path (an
 expert-sharded step over gloo, its checkpoint, stepwise MoE generation);
 one that runs the sequence-parallel path (the one-process ring and
-Ulysses, an LM step under a seq mesh over gloo); and three for tensor
+Ulysses, an LM step under a seq mesh over gloo); three for tensor
 parallelism and ZeRO-1: ``train_lm --tp 2`` and ``--zero_overlap`` over 2
-gloo processes, ``generate --tp 2`` in one, each process with jax blocked.
+gloo processes, ``generate --tp 2`` in one; one for pipeline parallelism
+(``train_lm --pp 2`` over 2 gloo processes, a ``LockstepPipe`` step and
+its checkpoint in one) and one for the ViT (a step, ``train_resnet --arch
+vit_tiny``), each process with jax blocked.
 """
 
 import ast
@@ -260,6 +263,76 @@ def test_tensor_parallel_and_zero_paths_run_with_jax_blocked(path, tmp_path):
         assert p.returncode == 0 and stdout.strip().endswith("ok"), stderr
     if path == "zero_overlap":
         assert "explicit bucketed ZeRO-1 schedule active" in outs[0][0]
+
+
+def test_pipeline_runs_with_jax_blocked(tmp_path):
+    """``train_lm --pp 2 --microbatches 2`` (the process-group form over
+    gloo) as 2 processes, and one process's ``LockstepPipe(2)`` step with a
+    checkpoint round trip, each with jax blocked."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    extra = ["--num_layers", "2", "--pp", "2", "--microbatches", "2"]
+    procs = [subprocess.Popen([sys.executable, "-c", _BLOCKED_RANK, str(r),
+                               str(tmp_path / "store"), *extra], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    code = (
+        "import sys, tempfile\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig\n"
+        "from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe\n"
+        "from deeplearning_mpi_tpu_torch.resilience import tree_digests\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step\n"
+        "from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer\n"
+        "def state():\n"
+        "    m = PipelinedLM(TransformerConfig.tiny(), num_stages=2, num_microbatches=2,\n"
+        "                    dtype=torch.float32, device='cpu', pipe=LockstepPipe(2)).init_weights(0)\n"
+        "    return create_train_state(m, build_optimizer('adam', 1e-3, clip_norm=1.0))\n"
+        "s, metrics = make_train_step('lm')(state(), {'tokens': torch.randint(0, 256, (4, 16))})\n"
+        "assert s.step == 1 and float(metrics['finite']) == 1.0\n"
+        "ck = Checkpointer(tempfile.mkdtemp())\n"
+        "ck.save(s, epoch=0)\n"
+        "r, _ = ck.restore_verified(state())\n"
+        "assert tree_digests(r.arrays()) == tree_digests(s.arrays())\n"
+        "print('ok')\n"
+    )
+    one = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert one.returncode == 0 and one.stdout.strip() == "ok", one.stderr
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0 and stdout.strip().endswith("ok"), stderr
+    assert "--pp 2 x 2 microbatches" in outs[0][0]
+
+
+def test_vit_runs_with_jax_blocked():
+    """A ViT step and ``train_resnet --arch vit_tiny --synthetic`` with jax
+    blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from deeplearning_mpi_tpu_torch.models.vit import ViT\n"
+        "from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step\n"
+        "m = ViT(10, patch_size=8, num_layers=1, num_heads=2, head_dim=8, d_model=16, d_ff=32,\n"
+        "        dtype=torch.float32, device='cpu').init_weights(0)\n"
+        "s = create_train_state(m, build_optimizer('adam', 1e-3))\n"
+        "batch = {'image': torch.randn(2, 32, 32, 3), 'label': torch.tensor([1, 2])}\n"
+        "s, metrics = make_train_step('classification')(s, batch)\n"
+        "assert float(metrics['finite']) == 1.0\n"
+        "from deeplearning_mpi_tpu_torch.cli import train_resnet\n"
+        "assert train_resnet.main(['--device', 'cpu', '--arch', 'vit_tiny', '--synthetic',\n"
+        "    '--num_epochs', '1', '--batch_size', '8', '--train_samples', '8']) == 0\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

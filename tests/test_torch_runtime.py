@@ -9,8 +9,8 @@ with ``torch.save`` and the test reads them.
 - collectives on 2 and 4 ranks (sum / mean over a dict, gather, reduce-
   scatter, a ring shift forward and back, a broadcast from rank 1), the
   hello_world checks, and an identity "ring shift" that the single-shift
-  check must catch; the mesh over the group, and an axis other than data
-  refused;
+  check must catch; the mesh over the group, and a pipe axis of 2 (its
+  coordinates and the non-wrapping stage shift);
 - data-parallel training on 2 ranks (ResNet-18 and UNet at small widths,
   BatchNorm over the global batch, the gradient mean over one flat bucket)
   equal to one process on the same global batch to atol 2e-5 after 3 SGD
@@ -93,10 +93,11 @@ def w_collectives(rank, world, store, out_dir):
         "bcast": collectives.broadcast_from(x, src=1, group=g),
         "hello": run_hello_world(g),
     }
-    try:
-        M.create_mesh(M.MeshSpec(data=world // 2, pipe=2), device="cpu")
-    except NotImplementedError as e:
-        res["refused"] = str(e)
+    pmesh = M.create_mesh(M.MeshSpec(data=world // 2, pipe=2), device="cpu")
+    stage = M.pipe_rank(pmesh)
+    res["pipe"] = (M.pipe_size(pmesh), stage, M.data_size(pmesh))
+    res["stage_shift"] = collectives.stage_shift([x] if stage == 0 else [],
+                                                 [x] if stage == 1 else [], M.pipe_group(pmesh))
     collectives.ring_shift = lambda v, group=None, offset=1: v.clone()  # identity "ring"
     res["identity"] = run_hello_world(g)
     _save(out_dir, "w_collectives", rank, res)
@@ -249,8 +250,12 @@ def test_collectives_and_hello_world(tmp_path, world):
         assert r["hello"].ok and r["hello"].n_devices == world
         assert r["identity"].broadcast_ok and r["identity"].psum_ok
         assert not r["identity"].ring_ok  # the single-shift check catches it
-        if world % 2 == 0:
-            assert "item 8" in r["refused"]
+        # The pipe axis: (data, pipe) row-major; stage 1 receives stage 0's value.
+        assert r["pipe"] == (2, rank % 2, world // 2)
+        want = [xs[rank - 1]] if rank % 2 else []
+        assert len(r["stage_shift"]) == len(want)
+        for got, w in zip(r["stage_shift"], want):
+            torch.testing.assert_close(got, w)
 
 
 @pytest.mark.parametrize("kind", ["resnet", "unet"])
