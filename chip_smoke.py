@@ -159,7 +159,7 @@ Phases, each printed on its own line; any failure exits non-zero:
     median, tokens/s, peak memory and one profiled step of each, no bar.
     (c) ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over NCCL
     at world size 1 (2 layers, seq 4096: the wiring only) exit 0 with K1
-    launched; ``--sp 2 --moe_experts 8`` exits 1 with its refusal. Then
+    launched; ``--sp 2 --loss_chunk 256`` exits 1 with its refusal. Then
     K1/K2/K3 timed at the ring's past-block call (B2 S2048 H12 D64 bf16,
     non-causal, float32 output / gradients) beside their plain versions and
     SDPA's non-causal forward / backward;
@@ -197,9 +197,34 @@ Phases, each printed on its own line; any failure exits non-zero:
     relative L2 of the CPU's; then ``cli.train_resnet --arch vit_small
     --synthetic --dtype bfloat16`` over NCCL at world size 1 with phase
     12's bars (finite, falling: memorisation; one gradient all-reduce a
-    step; an eval): step median, images/s. (d) ``cli.train_lm --pp 2 --tp
-    2`` exits 1 with its ROADMAP item. Then K1/K2/K3 timed at the
-    microbatch call (B2 S2048 H12 D64 bf16) beside their plain versions and
+    step; an eval): step median, images/s. (d) ``cli.train_lm --pp 2 --ep
+    2 --moe_experts 4`` exits 1 with its ROADMAP item. Then K1/K2/K3 timed
+    at the microbatch call (B2 S2048 H12 D64 bf16) beside their plain
+    versions and SDPA;
+17. the parallel axes composed on one card, in the one-process grid
+    (``parallel.seq_common``: two lockstep axes side by side, each module
+    calling its own). (a) The 110M ``TransformerConfig()`` in
+    bf16 at B8 S2048 with flash as ``PipelinedLM`` over pp 2 x tp 2 with 4
+    microbatches (K1/K2/K3 96 a step each: 12 layers x 4 microbatches x 2
+    model ranks, at B2 H6); (b) tp 2 x sp 2 at B2 S8192 with the ring (72
+    a step: 3 live blocks a layer and model rank) and with Ulysses (48: a
+    whole-sequence call a layer, model rank and seq rank, at H3); (c)
+    phase 13a's MoE LM (8 experts, top 2, capacity 1.25, balance loss
+    0.01) with its routing shard by shard over 2 sequence shards (each
+    shard's positions after the other's claims, capacity from the whole
+    length) and the ring over them (36 a step); (d) the MoE LM over tp 2,
+    attention and each expert's d_ff split (24 a step at H6). Each: step-1
+    gradients gathered whole within 5e-2 relative L2 per tensor of the
+    flat flash step's, 4 Adam steps (3e-4, clip 1.0) with every loss
+    finite and falling (memorisation), the launch counts exact, a second
+    2-step run bit-identical; step median, tokens/s, peak memory and one
+    profiled step, no bar. (e) Ulysses at a tp-4 rank's 3 heads over sp 2
+    (2 divides the model's 12 heads but not the rank's 3: the (batch,
+    head)-pair all-to-all, K1-K3 on 3 single-head rows of the whole B2
+    S8192 sequence, 2 calls each a forward and backward), held to
+    ``FWD_TOL`` / ``GRAD_TOL`` as 14a. Then K1/K2/K3 timed at the new calls
+    (B2 H6, B8 H6, Ulysses' B2 S8192 H3, its pairs' B3 S8192 H1, the ring's
+    blocks B2 S4096 H6 and B8 S1024 H12) beside their plain versions and
     SDPA.
 
 The second-to-last lines are the kernel table (one JSON object) and the
@@ -284,13 +309,28 @@ def close(got, want, tol: float) -> bool:
 GRAD_TOL = {"bfloat16": (1e-2, 2e-2, 5e-3), "float32": (1e-4, 1e-4, 1e-4)}
 
 
-def grads_close(got, want, atol: float, rtol: float, l2: float) -> tuple[bool, float, float]:
+def grads_close(got, want, atol: float, rtol: float, l2: float,
+                scale=None) -> tuple[bool, float, float]:
     """``(within the bound, max abs err, relative L2 err)`` of one tensor (a
-    gradient in phase 7, K1's output in phase 3)."""
+    gradient in phase 7, K1's output in phase 3). ``scale``: the size the
+    elementwise bound's ``rtol`` is taken of, in place of ``|want|``: for a
+    sum of rounded terms, the sum of their magnitudes (:func:`terms_scale`)."""
     diff, ref = got.float() - want.float(), want.float()
     rel = float(diff.norm() / ref.norm().clamp(min=1e-30))
-    ok = bool((diff.abs() <= atol + rtol * ref.abs()).all()) and rel <= l2
+    size = ref.abs() if scale is None else ref.abs().maximum(scale.float())
+    ok = bool((diff.abs() <= atol + rtol * size).all()) and rel <= l2
     return ok, float(diff.abs().max()), rel
+
+
+def terms_scale(terms, groups: int):
+    """``sum |term|`` over each run of ``groups`` adjacent heads (dim 2) of
+    a ``[B, S, H, D]`` tensor of per-head terms: the size of the sum that a
+    grouped K/V's backward makes of them (GQA's repeat summed back). Each
+    term is rounded to its dtype before the sum, so where the terms cancel
+    the sum's error is a rounding of the terms', not of the small sum; a
+    bound relative to ``|sum|`` alone then rejects a right kernel."""
+    t = terms.float().abs()
+    return t.reshape(*t.shape[:2], -1, groups, t.shape[-1]).sum(3)
 
 
 def require(ok: bool, what: str) -> None:
@@ -316,8 +356,9 @@ FWD_TOL = {"bfloat16": (1e-2, 2e-2, 5e-3), "float32": (1e-5, 1e-5, 1e-5)}
 
 #: The GPipe microbatch calls (phase 16: B8 over ``--microbatches`` 4, and
 #: 8), in the form of ``check_k1``'s / ``check_k2k3``'s cases. They draw from
-#: a generator of their own, so the earlier cases' inputs, and every later
-#: phase's, stay as they were without them.
+#: the shared generator, after the cases above: phase 14a then runs on the
+#: draws under which its Ulysses GQA case once failed the elementwise bound
+#: taken of ``|want|`` (``terms_scale``).
 K1_PP_CASES = [(f"bf16 causal bhsd views lse B{b} (pp microbatch)", b, 2048, 12, 64, "bfloat16",
                 {"return_lse": True}, "views") for b in (2, 1)]
 K2K3_PP_CASES = [(f"bf16 causal bhsd B{b} (pp microbatch)", b, 2048, 12, 64, "bfloat16", {},
@@ -955,7 +996,7 @@ def train_cli() -> None:
 
 
 def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8",
-                  batch: int = 8) -> list[dict]:
+                  batch: int = 8, seq: int = 2048, label: str | None = None) -> list[dict]:
     """K1, K2 and K3 at the phase-8 shape (bf16 B8 S2048 H12 D64 causal;
     ``heads``: a tensor-parallel rank's local heads, phase 15; ``batch``: a
     GPipe microbatch's rows, phase 16).
@@ -968,13 +1009,15 @@ def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8",
 
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, H, S, D = batch, heads, 2048, 64
+    B, H, S, D = batch, heads, seq, 64
     pairs = B * H * S * (S + 1) // 2
     tensor = B * H * S * D * 2  # one bf16 [B, H, S, D] tensor
     rowvec = B * H * S * 4  # one float32 [B, H, S] vector
     rows = []
     tag = "" if heads == 12 else f", tp {12 // heads} local heads"
-    tag += "" if batch == 8 else f", pp microbatch B{batch}"
+    tag += "" if batch == 8 else f", B{batch}"
+    tag += "" if seq == 2048 else f", S{seq}"
+    tag = tag if label is None else f", {label}"
 
     def row(name, source, replaces, fn, flops, nbytes, **fields):
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
@@ -1895,7 +1938,7 @@ def moe_card_vs_cpu(torch, seed: int) -> dict:
         with torch.no_grad():
             for layer, h in zip(model.layers, inputs):
                 probs = torch.softmax(layer.mlp.router(h.float()), dim=-1)
-                combine = layer.mlp._token_choice(probs, layer.mlp.capacity(S))[0]
+                combine = layer.mlp._token_choice([probs], layer.mlp.capacity(S))[0][0]
                 masks.append((combine > 0).cpu())
         out[name] = (float(loss.detach()), {n: g.double().cpu() for n, g in zip(names, grads)},
                      masks)
@@ -2074,8 +2117,9 @@ def _whole_sequence(torch, q, k, v, do, causal, window, grad_dtype):
     then cast once (``grad_dtype`` float32); Ulysses' inner gives q's dtype
     a head, which its repeat's backward then sums (``grad_dtype`` None).
     Under GQA the second rounds each head's dK/dV before a sum that may
-    cancel, so only a reference with the same rounding can hold it
-    element by element."""
+    cancel; the second value is then each of dK / dV's ``sum |term|`` over
+    its group (:func:`terms_scale`), the size the elementwise bound is taken
+    of (None where nothing is rounded before the group sum)."""
     from deeplearning_mpi_tpu_torch.ops.attention import repeat_kv
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -2086,7 +2130,9 @@ def _whole_sequence(torch, q, k, v, do, causal, window, grad_dtype):
                                    grad_dtype=grad_dtype)
     dq, dk, dv = (g.float().reshape(*g.shape[:2], -1, rep, g.shape[-1]).sum(3)
                   if i and rep > 1 else g for i, g in enumerate(grads))
-    return [o, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)]
+    scales = ([terms_scale(g, rep) for g in grads[1:]] if rep > 1 and grad_dtype is None
+              else None)
+    return [o, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)], scales
 
 
 def seq_attention(torch, gen) -> dict:
@@ -2117,8 +2163,11 @@ def seq_attention(torch, gen) -> dict:
         for sched, (kernel_fn, plain_fn) in schedules.items():
             if sched == "ulysses" and name not in ("bf16 causal", "bf16 GQA Hkv4"):
                 continue
-            whole = _whole_sequence(torch, q, k, v, do, causal, window,
-                                    torch.float32 if sched == "ring" else None)
+            whole, scales = _whole_sequence(torch, q, k, v, do, causal, window,
+                                            torch.float32 if sched == "ring" else None)
+            # dK / dV of grouped K/V: the bound is taken of each group's
+            # sum of term magnitudes (both references sum the same terms).
+            sizes = (None, None, *(scales or (None, None)))
             run = lambda fn: _attention_and_grads(torch, lambda *t: fn(*t, **kw), q, k, v, do)  # noqa: E731
             got, again = run(kernel_fn), run(kernel_fn)
             torch.cuda.synchronize()
@@ -2127,14 +2176,14 @@ def seq_attention(torch, gen) -> dict:
             plain = run(plain_fn)
             errs = []
             for ref_name, ref in (("plain", plain), ("whole", whole)):
-                for label, g, r, tol in zip(("out", "dq", "dk", "dv"), got, ref,
-                                            (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+                for label, g, r, tol, size in zip(("out", "dq", "dk", "dv"), got, ref,
+                                                  (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL), sizes):
                     atol, rtol, l2 = tol[dtype_name]
                     require(g.dtype == r.dtype and g.shape == r.shape,
                             f"14a {sched} {name}: {label} {g.dtype}{tuple(g.shape)} vs {ref_name} "
                             f"{r.dtype}{tuple(r.shape)}")
                     require(bool(torch.isfinite(g).all()), f"14a {sched} {name}: non-finite {label}")
-                    ok, err, rel = grads_close(g, r, atol, rtol, l2)
+                    ok, err, rel = grads_close(g, r, atol, rtol, l2, size)
                     errs.append({"vs": ref_name, "tensor": label, "max_abs_err": err, "rel_l2": rel})
                     require(ok, f"14a {sched} {name}: {label} vs {ref_name}: max abs err {err}, "
                             f"rel L2 {rel} (bound atol {atol:g} + rtol {rtol:g}, rel L2 {l2:g})")
@@ -2234,7 +2283,7 @@ def seq_train(torch, seed: int) -> dict:
 def seq_clis(torch, card: str) -> dict:
     """14c: ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over
     NCCL at world size 1 (2 layers at the 110M widths, seq 4096; the wiring
-    only, as 13d), and ``--sp 2 --moe_experts 8`` refused."""
+    only, as 13d), and ``--sp 2 --loss_chunk 256`` refused."""
     import contextlib
     import io
     import shutil
@@ -2276,30 +2325,32 @@ def seq_clis(torch, card: str) -> dict:
             require(rc == 0 and "nccl" in text and k1 > 0, f"14c {attention}: exited {rc}, K1 "
                     f"{k1}: {err[-2000:]}")
             out[attention] = {"rc": rc, "K1": k1}
-        rc, _, err = cli(flags + ["--sp", "2", "--attention", "ring", "--moe_experts", "8"])
-        log(f"14c --sp 2 --moe_experts 8: exit {rc}: {err.strip()}")
-        require(rc == 1 and "ROADMAP" in err, f"14c: --sp with --moe_experts exited {rc}")
+        rc, _, err = cli(flags + ["--sp", "2", "--attention", "ring", "--loss_chunk", "256"])
+        log(f"14c --sp 2 --loss_chunk 256: exit {rc}: {err.strip()}")
+        require(rc == 1 and "ROADMAP" in err, f"14c: --sp with --loss_chunk exited {rc}")
     finally:
         bootstrap.shutdown()
         shutil.rmtree(work, ignore_errors=True)
     return out
 
 
-def time_seq(torch, gen, launches) -> list[dict]:
-    """K1, K2 and K3 at the ring's past-block call (bf16 B2 S2048 H12 D64,
-    ``causal=False``; K1 with a float32 output and the lse, K2/K3 with the
-    global lse and output and float32 gradients), beside their plain
-    versions and SDPA's non-causal forward / backward (the port never calls
-    SDPA); ``launches``: 14b's ring run."""
+def time_seq(torch, gen, launches, *, batch: int = P14_B, seq: int = P14_S // P14_SP,
+             heads: int = P14_H, where: str = "14b's ring") -> list[dict]:
+    """K1, K2 and K3 at the ring's past-block call (bf16 B2 S2048 H12 D64 by
+    default, ``causal=False``; K1 with a float32 output and the lse, K2/K3
+    with the global lse and output and float32 gradients), beside their
+    plain versions and SDPA's non-causal forward / backward (the port never
+    calls SDPA); ``launches``: the ring run of ``where``."""
     import torch.nn.functional as F
 
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, H, S, D = P14_B, P14_H, P14_S // P14_SP, P14_D
+    B, H, S, D = batch, heads, seq, P14_D
     pairs = B * H * S * S
     tensor = B * H * S * D * 2  # one bf16 [B, S, H, D] tensor
     rowvec = B * H * S * 4
     shape = f"B{B} S{S} H{H} D{D} bf16 full (the ring's past block)"
+    tag = "" if (B, S, H) == (P14_B, P14_S // P14_SP, P14_H) else f" B{B} S{S} H{H}"
     q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
                    for _ in range(4))
     fwd = dict(causal=False, window=None, shift=0, return_lse=True, out_dtype=torch.float32,
@@ -2330,17 +2381,18 @@ def time_seq(torch, gen, launches) -> list[dict]:
             "bound_by": "operations" if t_ops > t_bytes else "bytes", "shape": shape, **fields,
         })
 
-    row("K1 flash_attention_fwd (ring block: full, f32 out, lse)", "flash_attention_fwd.cu", 110,
+    row(f"K1 flash_attention_fwd (ring block{tag}: full, f32 out, lse)",
+        "flash_attention_fwd.cu", 110,
         lambda: fa.flash_attention_cuda(q, k, v, **fwd), 4 * D * pairs,
         3 * tensor + 2 * tensor + rowvec, launches=launches["K1"], max_abs_err=max_err(o32, want),
         plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v, **fwd), iters=3, warmup=1),
         library_ms=sdpa_fwd)
-    row("K2 flash_attention_bwd_dq (ring block: full, global lse, f32 grads)",
+    row(f"K2 flash_attention_bwd_dq (ring block{tag}: full, global lse, f32 grads)",
         "flash_attention_bwd.cu", 338,
         lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **bwd), 6 * D * pairs,
         5 * tensor + rowvec + 2 * tensor + rowvec, launches=launches["K2"],
         max_abs_err=max_err(dq, gwant[0]), plain_ms=plain_bwd, library_ms=sdpa_bwd)
-    row("K3 flash_attention_bwd_dkv (ring block: full, global lse, f32 grads)",
+    row(f"K3 flash_attention_bwd_dkv (ring block{tag}: full, global lse, f32 grads)",
         "flash_attention_bwd.cu", 386,
         lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **bwd),
         8 * D * pairs, 4 * tensor + 2 * rowvec + 4 * tensor, launches=launches["K3"],
@@ -2350,7 +2402,7 @@ def time_seq(torch, gen, launches) -> list[dict]:
         log(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, sdpa {'forward' if r['name'].startswith('K1') else 'backward'}"
             f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['launches']} launches in 14b's ring run, max abs err {r['max_abs_err']:.3e}")
+            f"{r['launches']} launches in {where} run, max abs err {r['max_abs_err']:.3e}")
     return rows
 
 
@@ -2831,7 +2883,8 @@ def vit_phase(torch, card: str, seed: int) -> dict:
 
 
 def pp_refusal() -> dict:
-    """16d: ``cli.train_lm --pp 2 --tp 2`` exits 1 with its ROADMAP item."""
+    """16d: ``cli.train_lm --pp 2 --ep 2 --moe_experts 4`` exits 1 with its
+    ROADMAP item (``--pp 2 --tp 2`` runs since phase 17)."""
     import contextlib
     import io
 
@@ -2839,9 +2892,9 @@ def pp_refusal() -> dict:
 
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = train_lm.main(["--device", "cuda", "--pp", "2", "--tp", "2"])
+        rc = train_lm.main(["--device", "cuda", "--pp", "2", "--ep", "2", "--moe_experts", "4"])
     text = err.getvalue().strip()
-    log(f"16d train_lm --pp 2 --tp 2: exit {rc}: {text}")
+    log(f"16d train_lm --pp 2 --ep 2 --moe_experts 4: exit {rc}: {text}")
     require(rc == 1 and "item 8.5" in text, f"16d: exit {rc}: {text}")
     return {"rc": rc, "message": text}
 
@@ -2857,6 +2910,241 @@ def pp_phase(torch, card: str, gen, seed: int) -> dict:
     out["refusal"] = pp_refusal()
     out["kernels"] = time_training(torch, gen, out["train"]["launches"], where="16a (6 steps)",
                                    batch=8 // P16_MICRO)
+    return out
+
+
+# -- phase 17 ----------------------------------------------------------------
+#: Phase 17's compositions, each in the one-process grid (two lockstep axes
+#: side by side, ``parallel.seq_common``: NCCL refuses two ranks on one card):
+#: name -> (what it runs, B, S, K1/K2/K3 launches a step each). 17a: the 110M
+#: model as ``PipelinedLM`` over pp 2 x tp 2 with 4 microbatches (12 layers x
+#: 4 microbatches x 2 model ranks at B2 H6). 17b: tp 2 x sp 2 at phase 14b's
+#: B2 S8192, the ring (3 K1 calls a layer and model rank at sp 2: the
+#: diagonal block and one past block) and Ulysses (one whole-sequence call
+#: a layer, model rank and seq rank, at H3). 17c: phase 13a's MoE LM with
+#: its routing shard by shard over ``LockstepRing(2)`` and the ring over the
+#: same 2 shards (3 a layer). 17d: the MoE LM over tp 2, attention and each
+#: expert's d_ff split (a layer's one call a model rank, at B8 H6).
+P17_CASES = {
+    "17a pp2 x tp2": ("pp_tp", 8, 2048, 12 * 4 * 2),
+    "17b tp2 x sp2 ring": ("tp_sp_ring", 2, 8192, 12 * 2 * 3),
+    "17b tp2 x sp2 ulysses": ("tp_sp_ulysses", 2, 8192, 12 * 2 * 2),
+    "17c moe x sp2 ring": ("moe_sp", 8, 2048, 12 * 3),
+    "17d moe x tp2": ("moe_tp", 8, 2048, 12 * 2),
+}
+P17_STEPS = 4
+
+
+def _compose_model(torch, kind: str, seed: int):
+    """``(model, attention fn, flat reference model, its attention fn)`` of
+    one phase-17 composition, bf16, from ``seed``'s weights."""
+    from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.parallel import make_ring_attention_fn, make_ulysses_attention_fn
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+    from deeplearning_mpi_tpu_torch.parallel.seq_common import LockstepRing
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
+    moe = kind.startswith("moe")
+    cfg = moe_config() if moe else TransformerConfig()
+    tp = (LockstepTP(2, "cuda") if kind in ("pp_tp", "tp_sp_ring", "tp_sp_ulysses", "moe_tp")
+          else None)
+    if kind == "pp_tp":
+        model = PipelinedLM(cfg, num_stages=2, num_microbatches=4, dtype=torch.bfloat16,
+                            device="cuda", pipe=LockstepPipe(2), tp=tp)
+    else:
+        model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda", tp=tp,
+                              seq=LockstepRing(2) if kind == "moe_sp" else None)
+    model.init_weights(seed)
+    fn = (make_ulysses_attention_fn(sp=2, head_groups=2) if kind == "tp_sp_ulysses"
+          else make_ring_attention_fn(sp=2) if kind in ("tp_sp_ring", "moe_sp")
+          else fa.flash_attention_bhsd)
+    flat = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    return model, fn, flat, fa.flash_attention_bhsd
+
+
+def _model_grads(torch, model, attention_fn, tokens, aux_weight: float) -> dict:
+    """Step-1 gradients of the loss (and the weighted balance loss), whole
+    and with the flat model's names, float32."""
+    from deeplearning_mpi_tpu_torch.models.convert import flat_from_stacked
+    from deeplearning_mpi_tpu_torch.models.moe import collect_aux_loss, collecting
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+
+    model.zero_grad(set_to_none=True)
+    with collecting(model) as sown:
+        loss = lm_cross_entropy(model(tokens, attention_fn=attention_fn), tokens)
+        if sown.aux:
+            loss = loss + aux_weight * collect_aux_loss(sown)
+        loss.backward()
+    g = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    layout = getattr(model, "layout", None) or getattr(model, "tp_layout", None)
+    g = g if layout is None else layout.gather(g)
+    return flat_from_stacked(g) if hasattr(model, "pipe_layout") else g
+
+
+def compose_train(torch, name: str, seed: int) -> dict:
+    """One of 17a-17d (:data:`P17_CASES`), bf16, Adam 3e-4 with clip 1.0
+    (the MoE balance loss weighted 0.01): step-1 gradients, gathered whole,
+    against the flat model's flash step within 5e-2 relative L2 per tensor
+    (phases 14b / 15a / 16a's bar); then :data:`P17_STEPS` steps through
+    ``make_train_step`` on 2 batches of seeded sequences, every loss finite,
+    the mean of the last 3 below the first (memorisation), K1/K2/K3 launched
+    exactly the expected count a step each; a second run of 2 steps from the
+    same weights bitwise equal (losses and parameters); step median,
+    tokens/s, peak memory, one profiled step."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    kind, B, S, expect = P17_CASES[name]
+    aux_weight = MOE_AUX_WEIGHT if kind.startswith("moe") else 0.0
+    model, fn, flat, flat_fn = _compose_model(torch, kind, seed)
+    ds = SyntheticTokens(2 * B, S, vocab_size=model.config.vocab_size, seed=seed)
+    rows = np.stack([ds[i]["tokens"] for i in range(2 * B)])
+    batches = [{"tokens": torch.from_numpy(rows[i * B:(i + 1) * B]).cuda()}
+               for i in (0, 1)] * (P17_STEPS // 2)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g_flat = _model_grads(torch, flat, flat_fn, batches[0]["tokens"], aux_weight)
+    del flat
+    g = _model_grads(torch, model, fn, batches[0]["tokens"], aux_weight)
+    rel = {n: float((g[n] - w).norm() / w.norm().clamp(min=1e-30)) for n, w in g_flat.items()}
+    worst = max(rel, key=rel.get)
+    log(f"{name} vs the flat flash step, step-1 grads (B{B} S{S}, {len(rel)} tensors): relative "
+        f"L2 error max {rel[worst]:.3e} ({worst}), median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3e} (tol 5e-2)")
+    require(rel[worst] <= 5e-2, f"{name}: grads differ from the flat step: {worst} {rel[worst]}")
+    del g, g_flat
+    torch.cuda.empty_cache()
+
+    def run(steps: int, profile: bool = False):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                   attention_fn=fn)
+        step = make_train_step("lm", aux_weight=aux_weight)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(fa)
+        losses, times = [], []
+        for batch in batches[:steps]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = _kernel_counts(fa)
+        prof = (device_profile(torch, lambda: step(state, batches[-1]), f"{name} profile "
+                               "(one step)") if profile else None)
+        return state, losses, times, launches, prof
+
+    state, losses, times, launches, _ = run(2)
+    first = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state, again, _, _, _ = run(2)
+    same = again == losses and all(torch.equal(p, first[n])
+                                   for n, p in state.model.named_parameters())
+    require(same, f"{name}: a second run differs (losses {losses} vs {again})")
+    del first
+    state, losses, times, launches, prof = run(P17_STEPS, profile=True)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "losses": losses,
+              "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
+              "max_memory_allocated": peak, "launches": launches, "second_run_bitwise": same,
+              "profile": prof}
+    log(f"{name}: losses {[round(x, 4) for x in losses]}, step median {1e3 * step_s:.2f} ms "
+        f"(steps 2-{P17_STEPS}), {result['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB, launches {launches} (expected {expect} a step each), busy "
+        f"{100 * prof['busy_share']:.2f}%; a second run bit-identical")
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(np.mean(losses[-3:]) < losses[0], f"{name}: the loss did not fall: {losses}")
+    require(all(n == expect * P17_STEPS for n in launches.values()),
+            f"{name}: expected {expect * P17_STEPS} launches of each kernel, got {launches}")
+    del state, model, init
+    torch.cuda.empty_cache()
+    return result
+
+
+#: 17e: a tp-4 rank's heads of the 110M model (12 / 4) under Ulysses over
+#: sp 2, at 14a's B2 S8192 D64; each seq rank's inner gets B * 3 / 2 rows.
+P17E_TP, P17E_SP = 4, 2
+
+
+def ulysses_pairs(torch, gen) -> dict:
+    """17e: Ulysses over the (batch, head) pairs (``parallel.ulysses``'s
+    form where sp divides the model's heads but not a model rank's), bf16
+    causal: output and gradients held to ``FWD_TOL`` / ``GRAD_TOL`` against
+    the same schedule on the plain versions of K1-K3 and against one K1 /
+    K2+K3 call over the whole sequence; a second run bit-identical; the
+    launches of one forward and backward (one K1, K2 and K3 call a seq
+    rank)."""
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.parallel import make_ulysses_attention_fn
+
+    B, S, H, D = P14_B, P14_S, P14_H // P17E_TP, P14_D
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    kernel_fn, plain_fn = (make_ulysses_attention_fn(sp=P17E_SP, head_groups=P17E_TP, **kw)
+                           for kw in ({}, {"inner": _plain_flash_fn(torch)}))
+    run = lambda fn: _attention_and_grads(torch, lambda *t: fn(*t, causal=True), q, k, v, do)  # noqa: E731
+    _zero_counts(fa)
+    got = run(kernel_fn)
+    torch.cuda.synchronize()
+    launches = _kernel_counts(fa)
+    again = run(kernel_fn)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), "17e: a second run differs")
+    require(all(n == P17E_SP for n in launches.values()),
+            f"17e: expected {P17E_SP} launches of each kernel, got {launches}")
+    whole, _ = _whole_sequence(torch, q, k, v, do, True, None, None)
+    errs = []
+    for ref_name, ref in (("plain", run(plain_fn)), ("whole", whole)):
+        for label, g, r, tol in zip(("out", "dq", "dk", "dv"), got, ref,
+                                    (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+            atol, rtol, l2 = tol["bfloat16"]
+            require(g.dtype == r.dtype and g.shape == r.shape and bool(torch.isfinite(g).all()),
+                    f"17e: {label} {g.dtype}{tuple(g.shape)} vs {ref_name} {r.dtype}"
+                    f"{tuple(r.shape)}, or non-finite")
+            ok, err, rel = grads_close(g, r, atol, rtol, l2)
+            errs.append({"vs": ref_name, "tensor": label, "max_abs_err": err, "rel_l2": rel})
+            require(ok, f"17e: {label} vs {ref_name}: max abs err {err}, rel L2 {rel} (bound "
+                    f"atol {atol:g} + rtol {rtol:g}, rel L2 {l2:g})")
+    worst = {r: max(e["rel_l2"] for e in errs if e["vs"] == r) for r in ("plain", "whole")}
+    log(f"17e ulysses pairs, tp {P17E_TP} x sp {P17E_SP}, B{B} S{S} H{H} D{D} (K1-K3 on "
+        f"{B * H // P17E_SP} single-head rows): out, dq, dk, dv within FWD_TOL / GRAD_TOL of the "
+        f"plain schedule (worst rel L2 {worst['plain']:.3e}) and of one whole-sequence K1 / "
+        f"K2+K3 call ({worst['whole']:.3e}); launches {launches}; bit-identical on a second run")
+    return {"errs": errs, "launches": launches}
+
+
+def compose_phase(torch, card: str, gen) -> dict:
+    """Phase 17: the parallel axes composed (17a-17d) and K1-K3's rows at
+    their new calls: a microbatch's B2 at a model rank's H6 (17a), a model
+    rank's H6 at B8 (17d), the ring's block at a model rank's heads (17b,
+    B2 S4096 H6) and at a shard of 1024 (17c, B8 H12), Ulysses' whole
+    sequence at H3 (17b) and over the (batch, head) pairs (17e, B3 H1)."""
+    out = {name: compose_train(torch, name, 17) for name in P17_CASES}
+    out["17e ulysses pairs"] = ulysses_pairs(torch, gen)
+    ring_b = out["17b tp2 x sp2 ring"]["launches"]
+    out["kernels"] = (
+        time_training(torch, gen, out["17a pp2 x tp2"]["launches"], heads=6,
+                      where="17a (4 steps)", batch=2)
+        + time_training(torch, gen, out["17d moe x tp2"]["launches"], heads=6,
+                        where="17d (4 steps)")
+        + time_training(torch, gen, out["17b tp2 x sp2 ulysses"]["launches"], heads=3,
+                        where="17b ulysses (4 steps)", batch=2, seq=8192,
+                        label="Ulysses at tp 2 x sp 2: H3, B2, S8192")
+        + time_training(torch, gen, out["17e ulysses pairs"]["launches"], heads=1,
+                        where="17e (one forward and backward)",
+                        batch=P14_B * (P14_H // P17E_TP) // P17E_SP,
+                        seq=8192, label="Ulysses pairs at tp 4 x sp 2: H1, B3, S8192")
+        + time_seq(torch, gen, ring_b, batch=2, seq=4096, heads=6, where="17b's ring")
+        + time_seq(torch, gen, out["17c moe x sp2 ring"]["launches"], batch=8, seq=1024,
+                   heads=12, where="17c's ring"))
+    log(f"phase 17 on {card}")
     return out
 
 
@@ -2892,8 +3180,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     check_k1(torch, gen)
-    pp_gen = torch.Generator(device="cuda").manual_seed(args.seed + 16)
-    check_k1(torch, pp_gen, K1_PP_CASES)
+    check_k1(torch, gen, K1_PP_CASES)
     log(f"phase 3 K1 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k4(torch, gen)
@@ -2906,7 +3193,7 @@ def main() -> int:
     log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k2k3(torch, gen)
-    check_k2k3(torch, pp_gen, K2K3_PP_CASES)
+    check_k2k3(torch, gen, K2K3_PP_CASES)
     log(f"phase 7 K2/K3 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     train = train_110m(torch, args.seed)
@@ -2947,10 +3234,18 @@ def main() -> int:
         f"generation at tp 4, --zero_overlap over NCCL) OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    pp = pp_phase(torch, card, pp_gen, args.seed)
+    pp = pp_phase(torch, card, torch.Generator(device="cuda").manual_seed(args.seed + 16),
+                  args.seed)
     kernels.extend(pp["kernels"])
     log(f"phase 16 pipeline parallelism (the 110M model over pp 4 x 4 microbatches in bf16, "
         f"card vs CPU, the ViT trained through train_resnet, the --pp refusal) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    compose = compose_phase(torch, card, torch.Generator(device="cuda").manual_seed(args.seed + 17))
+    kernels.extend(compose["kernels"])
+    log(f"phase 17 the parallel axes composed (pp 2 x tp 2, tp 2 x sp 2 ring and Ulysses, MoE "
+        f"routing over 2 sequence shards, MoE experts over tp 2; the 110M widths in bf16) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
@@ -2966,6 +3261,7 @@ def main() -> int:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
+                       "compose": compose,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -25,8 +25,10 @@ coordinate load the same rows and each runs its ``S/N`` slice of them
 through the model, gradients summed over the seq group and averaged over
 data. On CUDA the ring runs K1 a rotation forward and K2/K3 backward
 (``parallel.ring_flash``) and Ulysses K1 on whole sequences; on the CPU both
-take their plain inners. ``--sp`` with ``--moe_experts`` or ``--ep`` is
-refused (ROADMAP Queue 1 item 8).
+take their plain inners. Beside ``--moe_experts`` (and ``--ep``) each
+block routes its shard as the whole sequence (``models.moe``: positions
+across the shards, capacity from the whole length, the balance loss over
+the whole rows).
 
 ``--tp N`` shards the model over the mesh's model axis, the process-group
 form of ``parallel/tensor_parallel.py``: ``N`` processes of a data
@@ -36,8 +38,11 @@ the local heads. ``--dp M --tp N`` takes ``M * N`` processes. ``--zero``
 keeps each rank's slice of the optimizer moments over the data group and
 ``--zero_overlap`` runs the bucketed ZeRO-1 schedule (``parallel/zero.py``;
 with ``--tp``, or without data parallelism, it falls back to ``--zero``
-and logs why). ``--tp`` refuses ``--moe_experts`` / ``--ep``, ``--sp``,
-adafactor and widths it does not divide (ROADMAP Queue 1 item 8.5).
+and logs why). ``--tp`` composes with ``--moe_experts`` / ``--ep`` (each
+expert's d_ff split over the model group, the reference's ``ep_spec``),
+with ``--sp`` (ring or Ulysses at each model rank's local heads) and with
+``--pp`` (Megatron blocks inside each stage); it refuses adafactor and
+widths it does not divide (ROADMAP Queue 1 item 8.5).
 
 ``--pp S`` trains the pipelined LM (``models/pipeline_lm.py``): the blocks
 in ``S`` GPipe stages, one a process of a data coordinate (the process-group
@@ -46,9 +51,10 @@ form of ``parallel/pipeline.py``), each global batch's rows (of each
 M --pp S`` takes ``M * S`` processes; every rank of a pipe group loads the
 same rows and the last stage's loss is logged. Its checkpoint stacks each
 block leaf over the stages, and ``arch.json`` records ``S``: a resume
-takes the same ``--pp`` at any ``--dp``. ``--pp`` refuses ``--tp``,
+takes the same ``--pp`` at any ``--dp`` or ``--tp``. ``--pp`` refuses
 ``--sp`` / ``--attention ring|ulysses``, ``--ep``, ``--zero`` /
-``--zero_overlap`` and adafactor (ROADMAP Queue 1 item 8.5).
+``--zero_overlap`` and adafactor (ROADMAP Queue 1 item 8.5). ``arch.json``
+records every axis's degree under ``layout``.
 
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
@@ -76,6 +82,14 @@ SIGTERM ends training after the current epoch with a final checkpoint.
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 2 --pp 2 \
         --microbatches 2 --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 \
         --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
+
+The composed layouts on four CPU ranks (``--pp 2 --tp 2``, ``--tp 2 --sp 2
+--attention ring|ulysses``, ``--moe_experts 4 --ep 2 --sp 2 --attention
+ring``, ``--moe_experts 4 --ep 2 --tp 2``)::
+
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --pp 2 --tp 2 \
+        --microbatches 2 --num_layers 2 --num_heads 4 --num_kv_heads 2 --head_dim 16 \
+        --d_model 32 --d_ff 64 --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
 Not ported yet: chaos, auto-resume (``--max_restarts``), guardrails and
 telemetry (its ``pipeline_bytes`` included).
@@ -202,7 +216,9 @@ def train(argv: list[str] | None = None):
         data_rank,
         data_size,
         expert_shards,
+        mesh_layout,
         pipe_shards,
+        seq_ring,
         seq_shards,
         tp_shards,
     )
@@ -258,7 +274,7 @@ def train(argv: list[str] | None = None):
         if err:
             raise SystemExit(err)
         if not args.eval_only and topo.is_coordinator:
-            config.save_arch(cfg, ckpt_dir, pipeline_stages=args.pp)
+            config.save_arch(cfg, ckpt_dir, pipeline_stages=args.pp, layout=mesh_layout(mesh))
         checkpointer = Checkpointer(ckpt_dir)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     try:
@@ -268,11 +284,12 @@ def train(argv: list[str] | None = None):
             model = PipelinedLM(cfg, num_stages=args.pp, num_microbatches=args.microbatches,
                                 dtype=dtype, device=device, remat=args.remat,
                                 return_prehead=args.loss_chunk > 0,
-                                pipe=pipe_shards(mesh, device))
+                                pipe=pipe_shards(mesh, device), tp=tp_shards(mesh, device))
         else:
             model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
                                   return_prehead=args.loss_chunk > 0,
-                                  expert_shards=expert_shards(mesh), tp=tp_shards(mesh, device))
+                                  expert_shards=expert_shards(mesh), tp=tp_shards(mesh, device),
+                                  seq=seq_ring(mesh))
         model = model.init_weights(args.random_seed)
     except ValueError as e:  # a width the tensor-parallel rule would split unevenly, a
         raise SystemExit(str(e)) from e  # depth the stages do not divide

@@ -49,8 +49,8 @@ def transposed_from_jax(name: str) -> bool:
 def lm_params_from_jax(params: Mapping[str, Any], model: Any = None) -> dict[str, torch.Tensor]:
     """Flax ``TransformerLM`` params (numpy leaves) -> ``state_dict`` for
     :class:`~deeplearning_mpi_tpu_torch.models.transformer.TransformerLM`;
-    for a tensor-parallel ``model``, its shards of each leaf
-    (``parallel.tensor_parallel.shard_state_dict``)."""
+    for an expert- or tensor-parallel ``model`` (or both), its slices and
+    shards of each leaf (``parallel.tensor_parallel.shard_state_dict``)."""
     if model is not None:
         from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import shard_state_dict
 
@@ -122,6 +122,17 @@ def pipelined_from_flat(sd: Mapping[str, torch.Tensor], num_stages: int) -> dict
     return out
 
 
+def flat_name(name: str, per_stage: int) -> str:
+    """The flat ``TransformerLM`` name of one pipelined model's leaf
+    (``stages.{s}.block_{j}.*`` -> ``layers.{s*K+j}.*``, the ends from
+    ``embed_head``), ``per_stage`` blocks a stage."""
+    if name.startswith("stages."):
+        _, stage, block, rest = name.split(".", 3)
+        return f"layers.{int(stage) * per_stage + int(block.split('_')[1])}.{rest}"
+    ends = {v: k for k, v in _ENDS.items()}
+    return ends.get(name, name)
+
+
 def flat_from_stacked(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The pipelined model's whole tree (stage leaves stacked ``[S, ...]`` as
     ``stages.block_{j}.*``, ``parallel.pipeline.PipeLayout.gather``) as a
@@ -175,7 +186,8 @@ def pipelined_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tens
     and the stacked ``stages/block_j`` leaves ``[S, ...]``) -> the state
     dict of the port's ``PipelinedLM`` holding every stage: stage ``s``,
     block ``j`` from slice ``[s]`` of ``block_j``, converted as
-    :func:`lm_params_from_jax` converts a layer."""
+    :func:`lm_params_from_jax` converts a layer (``PipelinedLM.load_full_state_dict``
+    keeps a process's stages and model shards of it)."""
     num_stages = len(np.asarray(_first_leaf(params["stages"])))
     return pipelined_from_flat(lm_params_from_jax(flat_params_from_pipelined(params)), num_stages)
 

@@ -26,6 +26,18 @@ so the train step's one sum of the replicated leaves over the pipe group
 (``PipeLayout.reduce``) counts each part of the tied embedding's gradient
 once.
 
+Tensor parallelism inside the stages (``tp``, a
+``parallel.tensor_parallel.GroupTP`` over the model group or a
+``LockstepTP``): every stage's blocks are the Megatron-sharded blocks of
+``TransformerLM(tp=...)`` and ``EmbedHead``'s tied table (or untied head) is
+stored as its model shards and gathered whole each time it is read, the
+reference's rule laid over the stage stacks
+(``parallel/tensor_parallel.py:80-103`` in the reference). The pipe's
+sends go to the same model coordinate of the next stage: the pipe group is
+the mesh's, at this process's model coordinate. ``tp_layout`` maps the
+shards to the whole leaves; the state composes it with ``pipe_layout``
+(``parallel.tensor_parallel.Within``).
+
 MoE through the stages: a stage's routed layers report to a record of
 that stage's forward (``models.moe.collecting``), and each microbatch
 carries an ``aux`` and a ``drop`` scalar through the schedule, the sums
@@ -74,11 +86,11 @@ class StageBlocks(nn.Module):
     each under the ``remat`` policy as ``TransformerLM``'s blocks."""
 
     def __init__(self, config: TransformerConfig, num_blocks: int, dtype: torch.dtype,
-                 remat: str = "none") -> None:
+                 remat: str = "none", tp=None, tp_plan=None) -> None:
         super().__init__()
         self.num_blocks, self.remat = num_blocks, remat
         for j in range(num_blocks):
-            setattr(self, f"block_{j}", Block(config, dtype))
+            setattr(self, f"block_{j}", Block(config, dtype, tp=tp, tp_plan=tp_plan))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 attention_fn: Callable | None = None) -> torch.Tensor:
@@ -90,18 +102,40 @@ class StageBlocks(nn.Module):
 class EmbedHead(nn.Module):
     """The embedding in, the logits out: the non-pipelined ends of the LM.
     ``live=False`` computes the same values with the parameters detached
-    (a pipe rank whose head gradient does not count)."""
+    (a pipe rank whose head gradient does not count). Under ``tp_plan`` the
+    table (and an untied head) is stored as ``tp``'s shards
+    (``ShardedTable``) and gathered whole where it is read."""
 
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype) -> None:
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype, tp=None,
+                 tp_plan=None) -> None:
         super().__init__()
+        from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import ShardedTable
+
         self.config, self.dtype = config, dtype
-        self.embed = nn.Embedding(config.vocab_size, config.d_model)
+        shape = (config.vocab_size, config.d_model)
+        if tp_plan is not None and tp_plan.embed:
+            self.embed = ShardedTable(shape, tp_plan.dims["embed.weight"], tp)
+        else:
+            self.embed = nn.Embedding(*shape)
         self.final_norm = RMSNorm(config.d_model)
-        self.lm_head = None if config.tied_embeddings else Dense(
-            config.d_model, config.vocab_size, dtype)
+        if config.tied_embeddings:
+            self.lm_head = None
+        elif tp_plan is not None and tp_plan.lm_head:
+            self.lm_head = ShardedTable(shape, tp_plan.dims["lm_head.weight"], tp)
+        else:
+            self.lm_head = Dense(config.d_model, config.vocab_size, dtype)
+
+    def _table(self, params: dict, key: str) -> torch.Tensor:
+        """The ``[V, d]`` table ``key`` (``embed`` / ``lm_head``) whole: as
+        held, or gathered from its model shards."""
+        table = getattr(self, key)
+        if isinstance(table, (nn.Embedding, Dense)):
+            return params[f"{key}.weight"]
+        return table.tp.gather([params[f"{key}.shards.{i}.weight"]
+                                for i in range(len(table.shards))], table.dim)
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed.weight.to(self.dtype))
+        return F.embedding(tokens, self._table(self._params(True), "embed").to(self.dtype))
 
     def _params(self, live: bool) -> dict[str, torch.Tensor]:
         return {n: p if live else p.detach() for n, p in self.named_parameters()}
@@ -114,9 +148,9 @@ class EmbedHead(nn.Module):
         params = self._params(live)
         x = self._norm(x, params)
         if self.lm_head is None:
-            logits = x.to(self.dtype) @ params["embed.weight"].to(self.dtype).T
+            logits = x.to(self.dtype) @ self._table(params, "embed").to(self.dtype).T
         else:
-            logits = F.linear(x.to(self.dtype), params["lm_head.weight"].to(self.dtype))
+            logits = F.linear(x.to(self.dtype), self._table(params, "lm_head").to(self.dtype))
         return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def prehead(self, x: torch.Tensor, live: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +159,7 @@ class EmbedHead(nn.Module):
         if self.lm_head is not None:
             raise ValueError("prehead requires tied_embeddings")
         params = self._params(live)
-        return self._norm(x, params), params["embed.weight"].T
+        return self._norm(x, params), self._table(params, "embed").T
 
 
 def reduce_moe_scalars(aux: torch.Tensor, drop: torch.Tensor,
@@ -143,13 +177,14 @@ class PipelinedLM(nn.Module):
     """GPipe-parallel causal LM: ``forward(tokens)`` is ``TransformerLM``'s
     full-sequence forward (logits ``[B, S, V]``, or with ``return_prehead``
     the chunked loss's pair), run as ``num_microbatches`` microbatches
-    through ``num_stages`` stages over ``pipe`` (module docstring).
-    Weights are float32; ``device`` defaults to CUDA (raises without it)."""
+    through ``num_stages`` stages over ``pipe``, the blocks and the table
+    sharded over ``tp`` (module docstring). Weights are float32; ``device``
+    defaults to CUDA (raises without it; ``tp.devices[0]`` under ``tp``)."""
 
     def __init__(
         self, config: TransformerConfig, *, num_stages: int, num_microbatches: int = 4,
         dtype: torch.dtype = torch.bfloat16, device: str | torch.device = "cuda",
-        remat: str = "none", return_prehead: bool = False, pipe: Any = None,
+        remat: str = "none", return_prehead: bool = False, pipe: Any = None, tp: Any = None,
     ) -> None:
         super().__init__()
         if return_prehead and not config.tied_embeddings:
@@ -162,18 +197,33 @@ class PipelinedLM(nn.Module):
         if config.num_layers % num_stages:
             raise ValueError(f"num_layers {config.num_layers} not divisible into "
                              f"{num_stages} stages")
+        tp = tp if tp is not None and tp.size > 1 else None
+        plan = None
+        if tp is not None:
+            from deeplearning_mpi_tpu_torch.parallel import tensor_parallel
+
+            plan = tensor_parallel.plan(config, tp.size)
+            device = tp.devices[0]
         self.config, self.dtype, self.pipe = config, dtype, pipe
         self.num_stages, self.num_microbatches = num_stages, num_microbatches
         self.return_prehead = return_prehead
+        self.tp, self.tp_plan = tp, plan
         self.pipe_layout = PipeLayout(pipe, num_stages)
         per_stage = config.num_layers // num_stages
         self.stages = nn.ModuleDict({
-            str(s): StageBlocks(config, per_stage, dtype, remat)
+            str(s): StageBlocks(config, per_stage, dtype, remat, tp, plan)
             for s in self.pipe_layout.stage_ids})
-        self.embed_head = EmbedHead(config, dtype)
+        self.embed_head = EmbedHead(config, dtype, tp, plan)
         #: the caller's ``models.moe.collecting`` record (re-emission).
         self.sown = None
         self.to(resolve_device(device))
+        self.tp_layout = None
+        if tp is not None:
+            from deeplearning_mpi_tpu_torch.models.convert import flat_name
+
+            tensor_parallel.place_shards(self, tp)
+            self.tp_layout = tensor_parallel.layout(
+                self, plan, rename=lambda n: flat_name(n, per_stage))
 
     @property
     def device(self) -> torch.device:
@@ -196,19 +246,30 @@ class PipelinedLM(nn.Module):
         return self
 
     def load_full_state_dict(self, sd: dict[str, torch.Tensor]) -> None:
-        """Load the whole pipelined model's state dict (every stage), keeping
-        this process's stages."""
+        """Load the whole pipelined model's state dict (every stage, whole
+        leaves), keeping this process's stages and model shards."""
         mine = {n: t for n, t in sd.items()
                 if PipeLayout.split(n)[1] in (None, *self.pipe_layout.stage_ids)}
-        self.load_state_dict(mine)
+        self.load_state_dict(mine if self.tp_layout is None else self.tp_layout.local(mine))
+
+    @property
+    def layout(self) -> Any:
+        """The model's whole layout: the pipe's, with the model shards
+        inside it under ``tp`` (``parallel.tensor_parallel.Within``)."""
+        if self.tp_layout is None:
+            return self.pipe_layout
+        from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import Within
+
+        return Within(self.tp_layout, self.pipe_layout)
 
     def full_state_dict(self) -> dict[str, torch.Tensor]:
         """The whole model's parameters as a flat ``TransformerLM`` state
-        dict (a collective over a process-group pipe), detached."""
+        dict (a collective over a process-group pipe or model group),
+        detached."""
         from deeplearning_mpi_tpu_torch.models.convert import flat_from_stacked
 
         params = {n: p.detach() for n, p in self.named_parameters()}
-        return flat_from_stacked(self.pipe_layout.gather(params))
+        return flat_from_stacked(self.layout.gather(params))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None, *,
                 attention_fn: Callable | None = None):

@@ -60,8 +60,13 @@ at H/tp, Hkv/tp heads and d_ff/tp, one all-reduce each), the embedding (and
 an untied head) is stored as its shards and gathered whole once a forward,
 and the norms are replicated. The attention core, K1-K3 on the card, runs
 at the rank's local heads; the :class:`KVCache` holds each rank's Hkv/tp
-heads (:meth:`TransformerLM.new_cache`). A tensor-parallel model has no
-int8, MoE or draft counterpart.
+heads (:meth:`TransformerLM.new_cache`). Under MoE each expert's d_ff is
+split over the model group (the reference's ``ep_spec``), the router
+replicated. A tensor-parallel model has no int8 or draft counterpart.
+
+Sequence parallelism of an MoE model: ``seq`` (a ``parallel.seq_common``
+``GroupRing`` or ``LockstepRing``) routes each block's sharded sequence as
+the whole sequence's (``models.moe``).
 
 The explicit :class:`KVCache` replaces flax's mutable ``cache``
 collection.
@@ -334,7 +339,7 @@ class Block(nn.Module):
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
                  quantized: bool = False, expert_shards=None, tp=None, tp_plan=None,
-                 causal: bool = True) -> None:
+                 causal: bool = True, seq=None) -> None:
         super().__init__()
         if tp_plan is not None:
             from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import TPPair
@@ -347,7 +352,9 @@ class Block(nn.Module):
             self.attn = Attention(config, dtype, quantized, causal)
         self.mlp_norm = RMSNorm(config.d_model)
         if config.moe_experts > 0:
-            self.mlp = mlp_from_config(config, config.d_model, config.d_ff, dtype, expert_shards)
+            self.mlp = mlp_from_config(config, config.d_model, config.d_ff, dtype, expert_shards,
+                                       tp if tp_plan is not None and tp_plan.experts else None,
+                                       seq)
         elif tp_plan is not None and tp_plan.mlp:
             self.mlp = TPPair([SwiGLU(config.d_model, config.d_ff // tp.size, dtype)
                                for _ in tp.ranks], tp)
@@ -404,12 +411,13 @@ class TransformerLM(nn.Module):
     this process's share of an MoE model's experts; ``tp``
     (``parallel.tensor_parallel``) shards the model over a model group, or
     over all its ranks in this process, on ``tp.devices`` (``device`` is
-    then ignored)."""
+    then ignored); ``seq`` routes an MoE model's sharded sequence."""
 
     def __init__(
         self, config: TransformerConfig, *, dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", remat: str = "none",
         return_prehead: bool = False, quantized: bool = False, expert_shards=None, tp=None,
+        seq=None,
     ) -> None:
         super().__init__()
         tp = tp if tp is not None and tp.size > 1 else None
@@ -438,8 +446,8 @@ class TransformerLM(nn.Module):
                 (config.vocab_size, config.d_model), plan.dims["embed.weight"], tp)
         else:
             self.embed = nn.Embedding(config.vocab_size, config.d_model)
-        self.layers = nn.ModuleList(Block(config, dtype, quantized, self.expert_shards, tp, plan)
-                                    for _ in range(config.num_layers))
+        self.layers = nn.ModuleList(Block(config, dtype, quantized, self.expert_shards, tp, plan,
+                                          seq=seq) for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.d_model)
         if config.tied_embeddings:
             self.lm_head = None
@@ -451,11 +459,7 @@ class TransformerLM(nn.Module):
         self.to(resolve_device(device))
         self.tp_layout = None
         if tp is not None:
-            # Each rank's shards on its own device (LockstepTP over several).
-            for n, p in self.named_parameters():
-                i = tensor_parallel.split_name(n)[1]
-                if i is not None:
-                    p.data = p.data.to(tp.devices[i])
+            tensor_parallel.place_shards(self, tp)
             self.tp_layout = tensor_parallel.layout(self, plan)
 
     @property

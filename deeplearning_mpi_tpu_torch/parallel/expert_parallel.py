@@ -81,15 +81,18 @@ class ExpertShards:
         over the expert group)."""
         return collectives.all_gather(local, self.group, axis=0)
 
+    @staticmethod
+    def is_split(name: str, leaf: torch.Tensor) -> bool:
+        return is_expert_leaf(name, leaf)
+
+    def sum_over(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the expert group (no gradient)."""
+        return collectives.all_reduce_sum(x, self.group)
+
     def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
-        """``optax.global_norm`` of the whole model: the expert leaves'
-        squares summed over the expert group, the replicated ones once."""
-        own = [t for n, t in tensors.items() if is_expert_leaf(n, t)]
-        rest = [t for n, t in tensors.items() if not is_expert_leaf(n, t)]
-        device = next(iter(tensors.values())).device
-        sq = lambda ts: sum((t.float() * t.float()).sum() for t in ts)  # noqa: E731
-        experts = torch.zeros(1, device=device) + sq(own)
-        return torch.sqrt(sq(rest) + collectives.all_reduce_sum(experts, self.group)[0])
+        """``optax.global_norm`` of the whole model
+        (``runtime.collectives.sharded_norm`` over the expert axis)."""
+        return collectives.sharded_norm(tensors, [(self.is_split, self.sum_over)])
 
 
 def map_expert_leaves(fn, tree: Any, name: str = "") -> Any:

@@ -347,12 +347,6 @@ def pipeline_apply(stage_fn: StageFn, stages: Any, microbatches: Mapping[str, to
     return dict(zip(plan.keys, outs))
 
 
-def stage_squares(squares: torch.Tensor, pipe: Any) -> torch.Tensor:
-    """The stage leaves' sum of squares over the whole pipe (each rank
-    holds its stages'): the sum over the pipe group."""
-    return pipe.sum_over(squares)
-
-
 class PipeLayout:
     """How a pipelined model's parameters are laid out over the pipe: the
     stage leaves ``stages.{s}.{leaf}`` of this process's stages, and the
@@ -416,17 +410,18 @@ class PipeLayout:
                 out[name] = t
         return out
 
+    def is_split(self, name: str, leaf: torch.Tensor | None = None) -> bool:
+        """Whether ``name`` is a stage leaf (one stage's, split over the pipe)."""
+        return self.split(name)[1] is not None
+
+    def sum_over(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the pipe group (no gradient)."""
+        return x if self.pipe is None else self.pipe.sum_over(x)
+
     def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
-        """``optax.global_norm`` of the whole model: the stage leaves'
-        squares summed over the pipe, the replicated leaves counted once."""
-        sq = lambda ts: sum((t.float() * t.float()).sum() for t in ts)  # noqa: E731
-        stage = [t for n, t in tensors.items() if self.split(n)[1] is not None]
-        rest = [t for n, t in tensors.items() if self.split(n)[1] is None]
-        device = next(iter(tensors.values())).device
-        squares = torch.zeros(1, device=device) + sq(stage)
-        if self.pipe is not None:
-            squares = stage_squares(squares, self.pipe)
-        return torch.sqrt(sq(rest) + squares[0])
+        """``optax.global_norm`` of the whole model
+        (``runtime.collectives.sharded_norm`` over the pipe axis)."""
+        return collectives.sharded_norm(tensors, [(self.is_split, self.sum_over)])
 
     def reduce(self, names: Sequence[str], grads: list[torch.Tensor],
                loss: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor]:

@@ -16,7 +16,20 @@ Port of ``deeplearning_mpi_tpu/parallel/seq_common.py`` (``repeat_grouped``,
 
 A schedule holds one value a simulated rank in a list (one entry in the
 process-group form) and loops over ``ring.ranks`` for its per-rank work,
-so both forms run the same code.
+so both forms run the same code. The MoE layer's routing over a sharded
+sequence (``models.moe``) reads the group through the same two forms:
+:meth:`GroupRing.all_gather` (every rank's value, no gradient),
+:meth:`GroupRing.reduce` (the sum, identity backward: each rank's gradient
+is its own share) and :meth:`GroupRing.gather` (the whole sequence, the
+backward this rank's block).
+
+**The one-process grid.** Two axes in one process are two of these
+one-process forms side by side, each module calling its own axis's object:
+``LockstepPipe`` x ``LockstepTP`` (pipeline stages of tensor-parallel
+blocks), ``LockstepTP`` x ``LockstepRing`` (a ring or Ulysses attention fn
+at each model rank's local heads), ``LockstepRing`` beside the MoE layer
+(its routing run shard by shard with the cross-shard prefix) and
+``LockstepTP`` inside the expert stacks.
 
 :class:`SeqShards` is the train step's side: which slice of its whole rows
 this process runs through the model, at which positions, and the shard's
@@ -26,7 +39,7 @@ share of the next-token loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -96,6 +109,21 @@ class GroupRing:
         return [collectives.all_to_all_autograd(xs[0], self.group, split_axis=split_axis,
                                                 concat_axis=concat_axis)]
 
+    def all_gather(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``[n, ...]``: every rank's value stacked in rank order (no
+        gradient)."""
+        return [collectives.all_gather(xs[0].detach()[None], self.group, axis=0)]
+
+    def reduce(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """The sum over the ranks; the backward is the identity, so each
+        rank's gradient is its own share of a replicated total."""
+        return collectives.reduce_from_group(xs[0], self.group)
+
+    def gather(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """The whole sequence (dim 1) from every rank's shard; the backward
+        keeps this rank's block."""
+        return collectives.gather_from_group(xs[0], self.group, axis=1)
+
 
 class LockstepRing:
     """The one-process form: ``n`` ranks, each a shard of the sequence axis
@@ -125,6 +153,19 @@ class LockstepRing:
                              f"divisible by the ring's {n} ranks")
         blocks = [x.chunk(n, dim=split_axis) for x in xs]
         return [torch.cat([blocks[j][i] for j in range(n)], dim=concat_axis) for i in range(n)]
+
+    def all_gather(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        every = torch.stack([x.detach() for x in xs])
+        return [every for _ in self.ranks]
+
+    def reduce(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        return total
+
+    def gather(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(xs, dim=1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,6 +43,13 @@ Two forms, as ``parallel/seq_common.py`` has for the seq axis:
   controller, and what lets one card run TP: NCCL refuses two ranks on one
   device. Its replicated computation runs once, on ``devices[0]``.
 
+Under MoE (the reference's ``ep_spec``, ``parallel/expert_parallel.py``)
+each expert stack ``[E, in, out]`` is split Megatron-wise inside every
+expert: ``experts_gate`` / ``experts_up`` on their last dim, ``experts_down``
+on dim -2, whatever their size; the router stays replicated. The routed
+layer (``models.moe.MoEMLP``) runs each rank's d_ff/tp slice of its experts
+and sums the ``down`` partials over the model group before the combine.
+
 A sharded model names rank ``i``'s shard of ``<module>.<leaf>`` as
 ``<module>.shards.<i>.<leaf>`` (``i`` indexes the form's local ranks: 0 in
 the process-group form). :class:`TPLayout` maps trees of those names to the
@@ -295,15 +302,25 @@ class TPLayout:
         return out
 
     def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
-        """``optax.global_norm`` of the whole model: each sharded leaf's
-        squares summed over the model group once, the replicated leaves
-        counted once."""
-        home = self.tp.devices[0]
-        sq = lambda ts: sum(((t.float() * t.float()).sum().to(home) for t in ts),  # noqa: E731
-                            torch.zeros((), device=home))
-        sharded = [t for n, t in tensors.items() if split_name(n)[1] is not None]
-        rest = [t for n, t in tensors.items() if split_name(n)[1] is None]
-        return torch.sqrt(sq(rest) + self.tp.sum_over(sq(sharded)[None])[0])
+        """``optax.global_norm`` of the whole model
+        (``runtime.collectives.sharded_norm`` over the model axis)."""
+        return collectives.sharded_norm(tensors, [(is_tp_shard, self.tp.sum_over)])
+
+
+#: The expert stacks' names (``models.moe.MoEMLP``); ``experts_down``
+#: projects back into the residual stream (the reference's
+#: ``ROW_PARALLEL_EXPERT_MARKERS``).
+EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
+
+
+def expert_spec(name: str, shape: tuple[int, ...], tp: int) -> int | None:
+    """The model-axis part of the reference's ``ep_spec`` for an expert
+    stack ``[E, in, out]`` (the port keeps flax's layout): ``down`` on dim
+    -2, the others on dim -1, when ``tp`` divides it; no ``min_size``."""
+    if tp <= 1:
+        return None
+    d = len(shape) - (2 if "down" in name.rsplit(".", 1)[-1] else 1)
+    return d if shape[d] % tp == 0 else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,25 +335,36 @@ class Plan:
     mlp: bool
     embed: bool
     lm_head: bool
+    experts: bool = False
 
 
 def plan(config: Any, tp: int, *, min_size: int = MIN_SIZE) -> Plan:
     """The rule over every leaf of ``config``'s model (shapes only), with
     the pairs checked: each Megatron pair is sharded whole or not at all,
-    and a sharded pair's heads (H, Hkv) or d_ff split evenly. Raises
-    ``ValueError`` for a config the port refuses."""
+    and a sharded pair's heads (H, Hkv) or d_ff split evenly; an MoE
+    model's expert stacks by :func:`expert_spec`, the router replicated.
+    Raises ``ValueError`` for a config the port refuses."""
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
 
-    if config.moe_experts:
-        raise ValueError("tensor parallelism with MoE experts is not ported yet (ROADMAP Queue 1 "
-                         "item 8.5: the reference's expert rule over a model axis)")
     shapes = {n: tuple(p.shape) for n, p in
               TransformerLM(config, dtype=torch.float32, device="meta").named_parameters()}
-    dims = {n: d for n, shape in shapes.items()
-            if (d := param_spec(n, shape, tp, min_size=min_size)) is not None}
-    pairs = {"attention": ("q_proj", "k_proj", "v_proj", "out_proj"),
-             "mlp": ("gate_proj", "up_proj", "down_proj")}
-    split = {}
+    moe = config.moe_experts > 0
+    if moe and config.d_ff % tp:
+        raise ValueError(f"--tp {tp} must divide d_ff ({config.d_ff}): the port splits each "
+                         "expert's d_ff whole")
+    dims = {}
+    for n, shape in shapes.items():
+        leaf = n.rsplit(".", 1)[-1]
+        if ".router." in n:
+            continue
+        d = (expert_spec(n, shape, tp) if leaf in EXPERT_LEAVES
+             else param_spec(n, shape, tp, min_size=min_size))
+        if d is not None:
+            dims[n] = d
+    pairs = {"attention": ("q_proj", "k_proj", "v_proj", "out_proj")}
+    if not moe:
+        pairs["mlp"] = ("gate_proj", "up_proj", "down_proj")
+    split = {"mlp": False}
     for kind, members in pairs.items():
         sub = "attn" if kind == "attention" else "mlp"
         got = {m: dims.get(f"layers.0.{sub}.{m}.weight") for m in members}
@@ -351,21 +379,69 @@ def plan(config: Any, tp: int, *, min_size: int = MIN_SIZE) -> Plan:
         raise ValueError(f"--tp {tp} must divide num_heads ({config.num_heads}) and kv_heads "
                          f"({config.kv_heads}): the port splits whole heads")
     return Plan(shapes=shapes, dims=dims, attention=split["attention"], mlp=split["mlp"],
-                embed="embed.weight" in dims, lm_head="lm_head.weight" in dims)
+                embed="embed.weight" in dims, lm_head="lm_head.weight" in dims, experts=moe)
 
 
-def layout(model: nn.Module, tp_plan: Plan) -> TPLayout:
+def place_shards(model: nn.Module, tp: Any) -> None:
+    """Each rank's shards of ``model`` on its own device (``LockstepTP``
+    over several)."""
+    for n, p in model.named_parameters():
+        i = split_name(n)[1]
+        if i is not None:
+            p.data = p.data.to(tp.devices[i])
+
+
+def layout(model: nn.Module, tp_plan: Plan, rename: Callable[[str], str] | None = None) -> TPLayout:
     """The :class:`TPLayout` of a sharded ``model`` (its ``tp``) built to
-    ``tp_plan``, in the order of the whole model's leaves."""
-    names: dict[str, list[str]] = {n: [] for n in tp_plan.shapes}
+    ``tp_plan``, in the order of the model's leaves. ``rename`` maps the
+    model's whole-leaf names to the plan's (a pipelined model's stage leaves
+    to the flat model's), where the two differ."""
+    names: dict[str, list[str]] = {}
+    dims: dict[str, int] = {}
     for n, _ in model.named_parameters():
-        names[split_name(n)[0]].append(n)
-    return TPLayout(model.tp, tp_plan.dims, names)
+        full = split_name(n)[0]
+        names.setdefault(full, []).append(n)
+        d = tp_plan.dims.get(full if rename is None else rename(full))
+        if d is not None:
+            dims[full] = d
+    return TPLayout(model.tp, dims, names)
+
+
+def is_tp_shard(name: str, leaf: torch.Tensor | None = None) -> bool:
+    """Whether ``name`` is one rank's shard of a model-sharded leaf."""
+    return split_name(name)[1] is not None
+
+
+class Within:
+    """Tensor parallelism inside another layout ``outer``: a pipelined
+    model's stages (``parallel.pipeline.PipeLayout``) or an MoE model's
+    expert shards (``parallel.expert_parallel.ExpertShards``). Each outer
+    layout gives ``is_split(name, leaf)`` and ``sum_over(x)``; the global
+    norm sums each leaf over exactly the axes that split it
+    (``runtime.collectives.sharded_norm``). With a pipe, :meth:`gather` /
+    :meth:`local` map this process's tree to the whole model's (the shards
+    gathered, then the stages stacked) and back."""
+
+    def __init__(self, tp_layout: TPLayout, outer: Any) -> None:
+        self.tp_layout, self.outer = tp_layout, outer
+
+    def gather(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return self.outer.gather(self.tp_layout.gather(tree))
+
+    def local(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return self.tp_layout.local(self.outer.local(tree))
+
+    def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
+        return collectives.sharded_norm(tensors, [(is_tp_shard, self.tp_layout.tp.sum_over),
+                                                  (self.outer.is_split, self.outer.sum_over)])
 
 
 def shard_state_dict(sd: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.Tensor]:
     """A whole model's state dict (``models.convert.lm_params_from_jax``, a
-    one-process checkpoint) cut to ``model``'s shards, for its
-    ``load_state_dict``; as is for a model without tensor parallelism."""
+    one-process checkpoint) cut to ``model``'s expert slices and model
+    shards, for its ``load_state_dict``; as is for a model with neither."""
+    from deeplearning_mpi_tpu_torch.parallel import expert_parallel
+
+    sd = expert_parallel.shard_state_dict(sd, getattr(model, "expert_shards", None))
     tp_layout = getattr(model, "tp_layout", None)
     return sd if tp_layout is None else tp_layout.local(sd)

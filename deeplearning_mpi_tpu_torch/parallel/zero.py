@@ -236,7 +236,7 @@ class Zero1:
         slices (the reference's pre-clip): each leaf's squares, the sharded
         ones summed over the data group (disjoint slices), added in leaf
         order."""
-        sq = {n: (g.float() * g.float()).sum() for n, g in grads.items()}
+        sq = {n: collectives.squares(g) for n, g in grads.items()}
         sharded = [n for n in grads if n in self.dims]
         if sharded:
             sq.update(zip(sharded, shard_squares(torch.stack([sq[n] for n in sharded]),

@@ -68,6 +68,39 @@ def _global(group: dist.ProcessGroup | None, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
+def squares(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t``'s squares in its dtype promoted to at least float32
+    (float64 for a float64 model): a global norm's partial, before its sum
+    over a group."""
+    x = t.to(torch.promote_types(t.dtype, torch.float32))
+    return (x * x).sum()
+
+
+def sharded_norm(tensors: dict[str, torch.Tensor],
+                 axes: list[tuple[Callable[[str, torch.Tensor], bool],
+                                  Callable[[torch.Tensor], torch.Tensor]]]) -> torch.Tensor:
+    """``optax.global_norm`` of a model whose leaves are split over several
+    axes at once: ``axes`` holds one ``(is_split(name, leaf), sum_over)`` an
+    axis. Each leaf's squares are summed over exactly the axes that split
+    it, so a leaf replicated over an axis counts once. Every class of leaves
+    (each subset of the axes, in a fixed order) takes its sums, empty or
+    not, so every rank calls the same collectives."""
+    home = next(iter(tensors.values())).device
+    buckets: dict[tuple[int, ...], torch.Tensor] = {}
+    for n, t in tensors.items():
+        key = tuple(i for i, (split, _) in enumerate(axes) if split(n, t))
+        sq = squares(t).to(home)
+        buckets[key] = sq if key not in buckets else buckets[key] + sq
+    total = torch.zeros((), device=home)
+    for mask in range(1 << len(axes)):
+        key = tuple(i for i in range(len(axes)) if mask >> i & 1)
+        x = buckets.get(key, torch.zeros((), device=home))[None]
+        for i in key:
+            x = axes[i][1](x)
+        total = total + x[0]
+    return torch.sqrt(total)
+
+
 def all_reduce_sum(tree: Tree, group: dist.ProcessGroup | None = None) -> Tree:
     """Sum across the group."""
     counts["all_reduce_sum"] += 1

@@ -27,6 +27,17 @@ processes of its model coordinate. Rows are replicated over ``pipe`` as
 well: the processes of one pipe group each hold one stage of the pipelined
 LM (``parallel.pipeline.GroupPipe``, :func:`pipe_shards`) and load the same
 rows; a stage's data group is the processes of its pipe coordinate.
+
+Two axes compose by these groups alone (``get_group`` of each axis is the
+processes that differ only on it): under ``pipe x model`` a stage's sends
+go over the pipe group of this process's model coordinate, and its
+Megatron sums over the model group of its stage; under ``seq x model`` the
+ring or Ulysses runs over the seq group of each model coordinate, at that
+rank's local heads, and the replica plane (data x seq) is taken at each
+model coordinate; under ``expert x seq`` and ``expert x model`` the MoE
+layer's combine sums over the expert group of this process's seq or model
+coordinate, its routing over the seq group, its ``down`` partials over the
+model group.
 """
 
 from __future__ import annotations
@@ -178,6 +189,22 @@ def seq_shards(mesh: DeviceMesh | None):
         return None
     return SeqShards(seq_group(mesh), seq_size(mesh), seq_rank(mesh), replica_group(mesh),
                      data_size(mesh))
+
+
+def seq_ring(mesh: DeviceMesh | None):
+    """This process's seq group as the routing of an MoE model over a
+    sharded sequence reads it (``parallel.seq_common.GroupRing``); None
+    without a mesh or at seq size 1."""
+    from deeplearning_mpi_tpu_torch.parallel.seq_common import GroupRing
+
+    return None if seq_size(mesh) == 1 else GroupRing(seq_group(mesh))
+
+
+def mesh_layout(mesh: DeviceMesh | None) -> dict[str, int]:
+    """The degree of every axis (all 1 without a mesh)."""
+    if mesh is None:
+        return {axis: 1 for axis in MESH_AXES}
+    return {axis: mesh.size(i) for i, axis in enumerate(MESH_AXES)}
 
 
 def tp_shards(mesh: DeviceMesh | None, device: str | torch.device | None = None):

@@ -44,6 +44,12 @@ S``) holds the reference's layout: each stage leaf stacked ``[S, ...]``
 (``stages.block_{j}.*``), gathered over the pipe group before rank 0
 writes, so it restores under the same ``S`` at any data-parallel degree
 and in either pipe form; ``arch.json`` records ``S`` and refuses another.
+The composed layouts save the same whole trees: ``--pp x --tp`` gathers
+each stage's model shards and then stacks the stages, ``--ep x --tp``
+gathers the expert slices and then each expert's d_ff, so a ``pp 2 x tp 2``
+save restores in one process over ``LockstepPipe(2)`` and an ``ep 2 x tp
+2`` save into the flat model (``arch.json``'s ``layout`` records the
+degrees a run trained under and is not compared).
 
 Not ported: the chaos hook.
 """

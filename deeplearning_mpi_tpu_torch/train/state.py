@@ -29,7 +29,10 @@ ZeRO layout, and restores under any other. A pipelined model's tree (its
 ``pipe_layout``, ``parallel.pipeline.PipeLayout``) holds each stage leaf
 stacked over the stages, ``[S, ...]``, the reference's layout: gathered
 over the pipe group (a collective) and cut back to this rank's stage, so it
-restores under the same stage count at any data or pipe form.
+restores under the same stage count at any data or pipe form. The
+composed layouts gather both: a pipelined model's model shards, then its
+stages (``parallel.tensor_parallel.Within``); an MoE model's expert slices
+over the expert group, then each expert's d_ff over the model group.
 """
 
 from __future__ import annotations
@@ -81,9 +84,14 @@ class TrainState:
     @property
     def shards(self) -> Any:
         """What the global norm spans beyond this process's leaves: the
-        expert sharding, the tensor-parallel layout or the pipeline's (None:
-        none)."""
-        return self.expert_shards or _layout(self.model)
+        expert sharding, the tensor-parallel layout or the pipeline's, or
+        two of them composed (None: none)."""
+        layout, experts = _layout(self.model), self.expert_shards
+        if layout is not None and experts is not None:
+            from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import Within
+
+            return Within(layout, experts)
+        return experts or layout
 
     def arrays(self) -> dict[str, Any]:
         """What a checkpoint holds: ``step`` (an int32 scalar, as the
@@ -144,8 +152,11 @@ class TrainState:
 
 
 def _layout(model: nn.Module) -> Any:
-    """The model's tensor-parallel or pipeline layout (None: neither)."""
-    return getattr(model, "tp_layout", None) or getattr(model, "pipe_layout", None)
+    """The model's tensor-parallel or pipeline layout, or both composed
+    (a pipelined model's ``layout``; None: neither)."""
+    if getattr(model, "pipe_layout", None) is not None:
+        return model.layout
+    return getattr(model, "tp_layout", None)
 
 
 def _named_trees(fn: Callable[[dict], dict], tree: Any, key: str) -> Any:

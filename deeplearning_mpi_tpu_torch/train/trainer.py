@@ -90,6 +90,16 @@ data mean as above; the global norm sums the stage leaves' squares over the
 pipe group and counts the replicated leaves once. Adafactor is refused (its
 block RMS spans the reference's stacked leaf).
 
+**Composed layouts**: each gradient is reduced over exactly the axes
+that replicate it, and the clip's norm sums each leaf's squares over
+exactly the axes that split it (``runtime.collectives.sharded_norm``;
+the state's ``shards``). Under ``pipe x model`` the Megatron sums run
+inside each stage and the pipe sum of the replicated leaves at each model
+coordinate, so the tied table's shards are summed shard by shard; under
+``seq x model`` the replica plane (data x seq) is taken at each model
+coordinate; under ``expert x seq`` and ``expert x model`` the expert slices
+stay local, the rest as above.
+
 **ZeRO-1** (the state's ``zero``, ``parallel.zero.Zero1``, placed by
 :meth:`Trainer.place_state`): the optimizer moments are this rank's slices
 over the data group; after the same gradient all-reduce the clip runs on
@@ -253,8 +263,9 @@ def build_lr_schedule(
 
 # -- optimizers -----------------------------------------------------------------
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: the L2 norm over every element of every tensor."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """``optax.global_norm``: the L2 norm over every element of every tensor
+    (in float32, or float64 for float64 tensors)."""
+    return torch.sqrt(sum(collectives.squares(t) for t in tensors))
 
 
 def _model_norm(grads: dict[str, torch.Tensor], shards: Any) -> torch.Tensor:

@@ -47,14 +47,19 @@ def ema_decay(value: str) -> float:
     return f
 
 
-def save_arch(cfg: Any, ckpt_dir: str | Path, *, pipeline_stages: int = 1) -> None:
+def save_arch(cfg: Any, ckpt_dir: str | Path, *, pipeline_stages: int = 1,
+              layout: dict[str, int] | None = None) -> None:
     """Write the LM config (a dataclass) and its ``pipeline_stages``
     (``--pp``: a pipelined checkpoint stacks its blocks by stage) as
-    ``arch.json`` beside the checkpoint, atomically."""
+    ``arch.json`` beside the checkpoint, atomically; ``layout`` (the mesh
+    degrees the run trained under) is recorded as ``layout`` and never
+    compared: the expert, tensor, sequence and data layouts save the same
+    whole tree, which restores under any other."""
     path = Path(ckpt_dir)
     path.mkdir(parents=True, exist_ok=True)
+    extra = {} if layout is None else {"layout": layout}
     atomic_write_json(path / "arch.json",
-                      {**dataclasses.asdict(cfg), "pipeline_stages": pipeline_stages})
+                      {**dataclasses.asdict(cfg), "pipeline_stages": pipeline_stages, **extra})
 
 
 def arch_mismatch_error(cfg: Any, ckpt_dir: str | Path, *,
@@ -264,10 +269,6 @@ def reject_unported(args: argparse.Namespace) -> None:
         if getattr(args, "attention", None) not in ("ring", "ulysses"):
             raise SystemExit(f"--sp {sp} shards the LM's sequence: it needs train_lm's "
                              "--attention ring or ulysses")
-        if getattr(args, "moe_experts", 0) or getattr(args, "ep", 1) != 1:
-            raise SystemExit("--sp with --moe_experts or --ep is not ported yet (ROADMAP Queue 1 "
-                             "item 8: MoE under sequence parallelism, whose balance loss and "
-                             "expert-choice routing need the seq group)")
         if getattr(args, "loss_chunk", 0) > 0:
             raise SystemExit("--sp with --loss_chunk is not ported yet (ROADMAP Queue 1 item 8: "
                              "the chunked loss over sequence shards)")
@@ -284,7 +285,8 @@ def reject_unported(args: argparse.Namespace) -> None:
 
 def reject_tp(args: argparse.Namespace) -> None:
     """Refuse (``SystemExit``) the ``--tp`` combinations this port leaves
-    out; the reference runs each of them (ROADMAP Queue 1 item 8.5)."""
+    out; the reference runs each of them (ROADMAP Queue 1 item 8.5).
+    ``--tp`` with ``--moe_experts`` / ``--ep``, ``--sp`` and ``--pp`` runs."""
     tp = getattr(args, "tp", 1)
     if tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {tp}")
@@ -293,11 +295,6 @@ def reject_tp(args: argparse.Namespace) -> None:
     if not hasattr(args, "d_model"):
         raise SystemExit("--tp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
                          "item 8.5: tensor parallelism of the convolutions)")
-    if getattr(args, "moe_experts", 0) or getattr(args, "ep", 1) != 1:
-        raise SystemExit("--tp with --moe_experts or --ep is not ported yet (ROADMAP Queue 1 "
-                         "item 8.5: the reference's expert rule over a model axis)")
-    if getattr(args, "sp", 1) != 1:
-        raise SystemExit("--tp with --sp is not ported yet (ROADMAP Queue 1 item 8.5)")
     if getattr(args, "optimizer", None) == "adafactor":
         raise SystemExit("--tp with adafactor is not ported yet (ROADMAP Queue 1 item 8.5: its "
                          "factored moments and block RMS span the whole leaf)")
@@ -312,7 +309,7 @@ def reject_tp(args: argparse.Namespace) -> None:
 def reject_pp(args: argparse.Namespace) -> None:
     """Refuse (``SystemExit``) the ``--pp`` combinations this port leaves
     out; the reference composes each of them through GSPMD (ROADMAP Queue 1
-    item 8.5)."""
+    item 8.5). ``--pp`` with ``--tp`` runs."""
     pp = getattr(args, "pp", 1)
     if pp < 1:
         raise SystemExit(f"--pp must be >= 1, got {pp}")
@@ -322,7 +319,6 @@ def reject_pp(args: argparse.Namespace) -> None:
         raise SystemExit("--pp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
                          "item 8.5: the CNNs over a pipe axis)")
     combos = {
-        "--tp": getattr(args, "tp", 1) != 1,
         "--sp": getattr(args, "sp", 1) != 1,
         "--attention ring / ulysses": getattr(args, "attention", None) in ("ring", "ulysses"),
         "--ep": getattr(args, "ep", 1) != 1,

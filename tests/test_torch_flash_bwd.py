@@ -184,3 +184,55 @@ def test_phase7_bound_rejects_a_wrong_kernel(mutant, window):
     assert all(verdicts) == (mutant == "none"), verdicts
     if mutant == "dq_3pct_low":
         assert cs.close(got[0], want[0], 2e-2)
+
+
+@functools.lru_cache(maxsize=1)
+def _gqa_bwd():
+    """bf16 B1 S1024 D64 causal inputs with 6 query heads over 2 KV heads
+    (K/V repeated, as Ulysses' inner gets them), and the plain per-head
+    (dq, dk, dv) over BHSD."""
+    gen = torch.Generator().manual_seed(12)
+    q, do = (torch.randn(1, 6, 1024, 64, generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, 2, 1024, 64, generator=gen).bfloat16().repeat_interleave(3, dim=1)
+            for _ in range(2))
+    o, lse = tfa.flash_attention_reference(q, k, v, return_lse=True, layout="bhsd")
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, do, lse, layout="bhsd")
+    return (q, k, v, o, do, lse), want
+
+
+def _group_sum(g: torch.Tensor) -> torch.Tensor:
+    """Per-head ``[B, H, S, D]`` gradients summed over each KV head's 3
+    query heads in float32 and rounded once, as GQA's repeat backward."""
+    b, h, s, d = g.shape
+    return g.float().reshape(b, h // 3, 3, s, d).sum(2).bfloat16()
+
+
+@pytest.mark.parametrize("mutant", ["none", "k3_last_q_tile", "dv_3pct_low", "dk_64_rows"])
+def test_14a_gqa_bound_rejects_a_wrong_kernel(mutant):
+    """Phase 14a's dK / dV bound under GQA, taken of each group's sum of
+    term magnitudes (``chip_smoke.terms_scale``): a right kernel (the terms
+    rounded from another accumulation order) passes; a dropped q tile, a
+    dV 3% low and a dropped 64-row chunk of dK each fail."""
+    cs = _chip_smoke()
+    inputs, want = _gqa_bwd()
+    seq, block, tile = 1024, 128, 64
+    i = torch.arange(seq)[:, None]
+    valid = tfa._valid_pairs(seq, True, None, 0, "cpu")
+    terms = _masked_bwd(*inputs, valid, torch.float64)
+    if mutant == "k3_last_q_tile":
+        j = torch.arange(seq)[None, :]
+        last_q = (j // block * block + block - 1 + seq - 1).clamp(max=seq - 1) // tile
+        terms = (terms[0], *_masked_bwd(*inputs, valid & (i // tile != last_q), torch.float32)[1:])
+    elif mutant == "dv_3pct_low":
+        terms = (*terms[:2], (terms[2].float() * 0.97).bfloat16())
+    elif mutant == "dk_64_rows":
+        dk = terms[1].clone()
+        dk[:, :, 512:576] = 0
+        terms = (terms[0], dk, terms[2])
+    to_bshd = lambda t: t.transpose(1, 2)  # noqa: E731
+    verdicts = []
+    for g_terms, w_terms in zip(terms[1:], want[1:]):
+        got, ref = to_bshd(_group_sum(g_terms)), to_bshd(_group_sum(w_terms))
+        scale = cs.terms_scale(to_bshd(w_terms), 3)
+        verdicts.append(cs.grads_close(got, ref, *cs.GRAD_TOL["bfloat16"], scale)[0])
+    assert all(verdicts) == (mutant == "none"), verdicts

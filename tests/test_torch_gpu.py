@@ -5,8 +5,9 @@ decode (K4 on int8 pages) against the CPU plain path; the CNN train steps
 (cuDNN, TF32 off) against the CPU's, and over NCCL at world size 1 against
 no group; K1-K4 at a tensor-parallel rank's local head counts, and the
 one-process tensor-parallel model on the card against the CPU; with four
-cards, data, expert, sequence, tensor and pipeline parallelism and ZeRO-1
-over NCCL against one card.
+cards, data, expert, sequence, tensor and pipeline parallelism, ZeRO-1 and
+the composed layouts (pp x tp, tp x sp, ep x sp, ep x tp) over NCCL against
+one card.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -1150,3 +1151,128 @@ def test_nccl_pipeline_checkpoint_resumes_bitwise(nccl_pipeline_runs):
     for c in ckpts:
         assert c["saved"] == saved and c["restored"] == saved
         assert c["resumed"] == c["uninterrupted"]
+
+
+@pytest.fixture(scope="module")
+def nccl_compose_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``tests/torch_compose_ranks.py``'s
+    compositions on the 110M widths at 2 layers (the MoE LM with 4 experts),
+    B4 S2048 in float32 (K1-K3 at the local heads and shards; the kernel
+    ring on CUDA) and the float64 twins (dense attention), TF32 off, with
+    the split-batch baselines (:data:`_COMPOSE_BASE`) and the wrong copies
+    of :data:`_COMPOSE_WRONG` in the same spawn; one card's flat step on
+    the global batch (float32 with flash, float64 dense). Skips with fewer
+    than four cards."""
+    import dataclasses
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: pp 2 x tp 2, tp 2 x sp 2, ep 2 x sp 2 and ep 2 x tp 2, "
+                    "one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_compose_ranks as compose_ranks
+    import torch_tp_ranks as tp_ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    tmp_path = tmp_path_factory.mktemp("compose")
+    cfg = TransformerConfig(num_layers=2)
+    moe_cfg = dataclasses.replace(cfg, moe_experts=4)
+    dense = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    moe = TransformerLM(moe_cfg, dtype=torch.float32, device="cpu").init_weights(1)
+    ds = SyntheticTokens(4, 2048, vocab_size=cfg.vocab_size, seed=0)
+    tokens = torch.stack([torch.from_numpy(ds[i]["tokens"]) for i in range(4)])
+    as_dict = lambda c: {k: v for k, v in dataclasses.asdict(c).items()  # noqa: E731
+                         if k != "moe_routing"}
+    inputs = {"cfg": as_dict(cfg), "moe_cfg": as_dict(moe_cfg), "params": dense.state_dict(),
+              "moe_params": moe.state_dict(), "tokens": tokens,
+              "clip": {name: 1.0 for name in compose_ranks.LAYOUTS},
+              "layouts": list(compose_ranks.LAYOUTS), "dp4": ["pp2_tp2", "ep2_tp2"],
+              "dp2_sp2": ["tp2_sp2_ring", "ep2_sp2", "ep2_sp2_ec"], "wrong": _COMPOSE_WRONG}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    spawned = tp_ranks.spawn(tmp_path, compose_ranks.worker_cuda)
+    one = {name: {torch.float32: compose_ranks.step_case(inputs, name, device="cuda",
+                                                         attention_fn=fa.flash_attention_bhsd),
+                  torch.float64: compose_ranks.step_case(inputs, name, device="cuda",
+                                                         dtype=torch.float64)}
+           for name in compose_ranks.LAYOUTS}
+    return spawned, one
+
+
+#: Each composition's split-batch baseline in the same spawn: the same
+#: model and routing as pure data parallelism where the layout splits the
+#: batch's work by rows or weights (``dp 4``), and over ``dp 2 x sp 2``
+#: with the ring where it splits each row's sequence, which re-associates
+#: each row's float32 sums as a batch split does not.
+_COMPOSE_BASE = {"pp2_tp2": "dp4_pp2_tp2", "tp2_sp2_ring": "dp2_sp2_tp2_sp2_ring",
+                 "tp2_sp2_ulysses": "dp2_sp2_tp2_sp2_ring", "ep2_sp2": "dp2_sp2_ep2_sp2",
+                 "ep2_sp2_ec": "dp2_sp2_ep2_sp2_ec", "ep2_tp2": "dp4_ep2_tp2"}
+#: Wrong copies (``torch_compose_ranks.WRONG``) the seq-split bar must
+#: reject on four cards: the gradients not summed over the seq group; each
+#: shard's balance loss averaged after; capacity from the shard's length.
+_COMPOSE_WRONG = ["grads_not_summed_over_seq", "balance_loss_per_shard", "capacity_from_shard"]
+
+
+def _compose_failures(nccl_compose_runs, layout: str, case: str) -> tuple[list, dict, list]:
+    """``(tensors over the split-batch bar, the bars, scalars over 1e-6)`` of
+    ``case``'s float32 step on ``layout`` against one card's flat step."""
+    import torch_moe_ranks as moe_ranks
+
+    spawned, one = nccl_compose_runs
+    ref = one[layout][torch.float32]
+    results = [res[case] for res in spawned]
+    over, bars = moe_ranks.split_batch_rule(results, [res[_COMPOSE_BASE[layout]]
+                                                      for res in spawned], ref)
+    worst = sorted(((moe_ranks.relative_error(got[key][n], t), key, n) for got in results[:1]
+                    for key in ("grads", "params") for n, t in ref[key].items()), reverse=True)
+    print(f"{case} on {layout}: split-batch bars", bars, "worst:", worst[:6])
+    scalars = [(r, k, got[k], ref[k]) for r, got in enumerate(results)
+               for k in ("adam_loss", "moe_aux_loss", "moe_dropped_frac") if k in ref
+               and abs(got[k] - ref[k]) > 1e-6 * max(1.0, abs(ref[k]))]
+    return over, bars, scalars
+
+
+@pytest.mark.parametrize("layout", ["pp2_tp2", "tp2_sp2_ring", "tp2_sp2_ulysses", "ep2_sp2",
+                                    "ep2_sp2_ec", "ep2_tp2"])
+def test_nccl_compose_matches_one_card(nccl_compose_runs, layout):
+    """``nccl_pp_tp``, ``nccl_tp_sp`` (ring, Ulysses), ``nccl_ep_sp`` (token
+    and expert choice) and ``nccl_ep_tp`` over 4 NCCL cards, float32,
+    against one card's flat step on the global batch: the losses within
+    1e-6 relative, the MoE metrics within 1e-6; every gradient and every
+    parameter after one Adam step within ``torch_moe_ranks.split_batch_rule``
+    against the layout's split-batch baseline (:data:`_COMPOSE_BASE`) from
+    the same spawn (the baseline itself under ``DP_CEILING``); every rank's
+    whole parameters bitwise equal."""
+    over, bars, scalars = _compose_failures(nccl_compose_runs, layout, layout)
+    results = [res[layout] for res in nccl_compose_runs[0]]
+    replicas = [n for got in results[1:] for n, t in results[0]["params"].items()
+                if not torch.equal(got["params"][n], t)]
+    assert not over and not scalars and not replicas, (
+        f"{len(over)} tensors over {bars}: {over[:20]}; scalars: {scalars}; replicas "
+        f"differing: {replicas}")
+
+
+@pytest.mark.parametrize("kind", _COMPOSE_WRONG)
+def test_nccl_compose_bar_rejects_a_wrong_copy(nccl_compose_runs, kind):
+    """Each wrong copy of :data:`_COMPOSE_WRONG` on four cards puts a
+    gradient or an updated parameter over its layout's split-batch bar."""
+    import torch_compose_ranks as compose_ranks
+
+    over, bars, _ = _compose_failures(nccl_compose_runs, compose_ranks.WRONG[kind], kind)
+    assert over, f"{kind} passed the bars {bars}"
+
+
+@pytest.mark.parametrize("layout", ["pp2_tp2", "tp2_sp2_ring", "tp2_sp2_ulysses", "ep2_sp2",
+                                    "ep2_sp2_ec", "ep2_tp2"])
+def test_nccl_compose_f64_matches_one_card(nccl_compose_runs, layout):
+    """The float64 twins (dense attention) against one card in float64: the
+    loss, every gradient, its clip and every updated parameter within 1e-7
+    relative."""
+    import torch_compose_ranks as compose_ranks
+
+    spawned, one = nccl_compose_runs
+    results = [res[f"{layout}_f64"] for res in spawned]
+    bad = compose_ranks.f64_failures(results, one[layout][torch.float64])
+    assert not bad, bad[:20]

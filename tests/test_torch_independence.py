@@ -309,6 +309,31 @@ def test_pipeline_runs_with_jax_blocked(tmp_path):
     assert "--pp 2 x 2 microbatches" in outs[0][0]
 
 
+_BLOCKED_RANK4 = _BLOCKED_RANK.replace("'--num_layers', '1'", "'--num_layers', '2'").replace(
+    "'--num_processes', '2'", "'--num_processes', '4'")
+
+
+@pytest.mark.parametrize("layout", [
+    ["--pp", "2", "--tp", "2", "--microbatches", "2"],
+    ["--tp", "2", "--sp", "2", "--attention", "ulysses"],
+    ["--moe_experts", "4", "--ep", "2", "--sp", "2", "--attention", "ring"],
+    ["--moe_experts", "4", "--ep", "2", "--tp", "2"],
+], ids=["pp_tp", "tp_sp", "ep_sp", "ep_tp"])
+def test_composed_layouts_run_with_jax_blocked(layout, tmp_path):
+    """``train_lm`` under each composition (4 gloo processes), every
+    process with jax blocked."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", _BLOCKED_RANK4, str(r),
+                               str(tmp_path / "store"), *layout], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(4)]
+    outs = [p.communicate(timeout=180) for p in procs]
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0 and stdout.strip().endswith("ok"), stderr[-2000:]
+
+
 def test_vit_runs_with_jax_blocked():
     """A ViT step and ``train_resnet --arch vit_tiny --synthetic`` with jax
     blocked."""

@@ -121,8 +121,8 @@ def test_tied_router_probabilities_break_ties_like_lax_top_k(routing):
     with torch.no_grad():
         probs = torch.softmax(tm.router(torch.from_numpy(x).float()), dim=-1)
         cap = tm.capacity(S)
-        combine = (tm._token_choice(probs, cap)[0] if routing == "token_choice"
-                   else tm._expert_choice(probs, cap)[0])
+        combine = (tm._token_choice([probs], cap)[0][0] if routing == "token_choice"
+                   else tm._expert_choice([probs], cap)[0][0])
     used = (combine > 0).any(dim=3)  # [B, S, E]
     if routing == "token_choice":
         # Every token's top 2 are experts 0 and 1, the first tokens claim them.

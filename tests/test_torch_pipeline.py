@@ -567,11 +567,28 @@ def test_train_lm_cli_pp2_logs_the_one_process_losses(capsys):
 ], ids=["tp", "sp", "ulysses", "ep", "zero", "zero_overlap", "adafactor", "cnn"])
 def test_pp_refusals(cli, extra, capsys):
     """What this slice leaves beside ``--pp`` is refused with ROADMAP Queue 1
-    item 8.5; the reference composes each through GSPMD."""
+    item 8.5; the reference composes each through GSPMD. ``--pp 2 --tp 2``
+    runs (4 gloo ranks, Megatron blocks in each stage) and logs the
+    one-process run's epoch losses."""
     import importlib
 
     module = importlib.import_module(f"deeplearning_mpi_tpu_torch.cli.{cli}")
     flags = LM_FLAGS if cli == "train_lm" else ["--device", "cpu"]
+    if extra == ["--tp", "2"]:
+        # widths whose Megatron pairs clear the rule's min_size
+        wide = [*LM_FLAGS, "--num_heads", "4", "--head_dim", "16", "--d_model", "32",
+                "--d_ff", "64"]
+        assert module.main(wide) == 0
+        want = re.findall(r"^Epoch \d+: loss ([0-9.]+)", capsys.readouterr().out, re.M)
+        out = subprocess.run([sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.train_lm",
+                              *wide, "--nproc", "4", "--pp", "2", "--tp", "2",
+                              "--microbatches", "2"], cwd=ROOT, capture_output=True, text=True,
+                             timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "--pp 2 x 2 microbatches" in out.stdout and "--tp 2" in out.stdout
+        got = re.findall(r"^Epoch \d+: loss ([0-9.]+)", out.stdout, re.M)
+        assert len(want) == 2 and got == want, (got, want)
+        return
     assert module.main([*flags, "--pp", "2", *extra]) == 1
     err = capsys.readouterr().err
     assert "--pp" in err and "item 8.5" in err

@@ -108,9 +108,20 @@ def test_sp_cli_step_matches_the_jax_step(tmp_path, data, sp, attention):
 
 @pytest.mark.parametrize("extra, message", [
     (("--sp", "2"), "--attention ring or ulysses"),
-    (("--sp", "2", "--attention", "ring", "--moe_experts", "4"), "ROADMAP Queue 1 item 8"),
+    (("--nproc", "4", "--ep", "2", "--sp", "2", "--attention", "ring", "--moe_experts", "4"),
+     None),
     (("--sp", "2", "--attention", "ulysses", "--loss_chunk", "8"), "ROADMAP Queue 1 item 8"),
 ], ids=["no_schedule", "moe", "loss_chunk"])
 def test_sp_cli_refusals(extra, message):
+    """What ``--sp`` leaves out exits 1 with its reason; the MoE LM under
+    ``--ep 2 --sp 2`` (refused before its routing spanned the seq group)
+    runs and logs one process's losses and dropped fractions."""
     out = _cli(*extra)
-    assert out.returncode == 1 and message in out.stderr, out.stderr[-2000:]
+    if message is not None:
+        assert out.returncode == 1 and message in out.stderr, out.stderr[-2000:]
+        return
+    one = _cli("--moe_experts", "4")
+    assert out.returncode == 0 and one.returncode == 0, (out.stderr[-2000:], one.stderr[-2000:])
+    pattern = r"^Epoch \d+: (?:loss|moe_dropped_frac) ([0-9.]+)"
+    want = re.findall(pattern, one.stdout, re.M)
+    assert want and re.findall(pattern, out.stdout, re.M) == want

@@ -29,7 +29,10 @@
 """
 
 import dataclasses
+import os
 import pathlib
+import re
+import subprocess
 import sys
 
 import jax
@@ -381,8 +384,8 @@ def test_generate_cli_tp2_equals_tp1(checkpoint, capsys, extra):
 
 
 @pytest.mark.parametrize("cli,extra,message", [
-    ("train_lm", ["--tp", "2", "--moe_experts", "4"], "item 8.5"),
-    ("train_lm", ["--tp", "2", "--sp", "2", "--attention", "ring"], "item 8.5"),
+    ("train_lm", ["--tp", "2", "--moe_experts", "4", "--ep", "2", "--nproc", "4"], None),
+    ("train_lm", ["--tp", "2", "--sp", "2", "--attention", "ring", "--nproc", "4"], None),
     ("train_lm", ["--tp", "2", "--optimizer", "adafactor"], "item 8.5"),
     ("train_lm", ["--tp", "3"], "must divide"),
     ("train_resnet", ["--tp", "2", "--synthetic"], "convolutions"),
@@ -394,10 +397,25 @@ def test_generate_cli_tp2_equals_tp1(checkpoint, capsys, extra):
 def test_tp_refusals(cli, extra, message, capsys):
     """What this slice leaves out is refused with its ROADMAP item (``--tp``
     in those combinations, and ZeRO-1 with expert or sequence parallelism);
-    the reference runs each."""
+    the reference runs each. ``--tp 2`` beside ``--moe_experts 4 --ep 2``
+    and beside ``--sp 2 --attention ring`` runs on 4 gloo ranks and logs
+    one process's epoch losses."""
     import importlib
 
     module = importlib.import_module(f"deeplearning_mpi_tpu_torch.cli.{cli}")
     flags = [] if cli == "train_resnet" else TP_FLAGS
+    if message is None:
+        run = ["--device", "cpu", *flags, "--seq_len", "32", "--batch_size", "4",
+               "--train_sequences", "20", "--num_epochs", "1"]
+        one = ["--moe_experts", "4"] if "--moe_experts" in extra else []
+        assert module.main(run + one) == 0
+        want = re.findall(r"^Epoch \d+: loss ([0-9.]+)", capsys.readouterr().out, re.M)
+        out = subprocess.run([sys.executable, "-m", f"deeplearning_mpi_tpu_torch.cli.{cli}",
+                              *run, *extra], cwd=pathlib.Path(__file__).resolve().parents[1],
+                             capture_output=True, text=True, timeout=300,
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert want and re.findall(r"^Epoch \d+: loss ([0-9.]+)", out.stdout, re.M) == want
+        return
     assert module.main(["--device", "cpu", *flags, *extra]) == 1
     assert message in capsys.readouterr().err

@@ -187,7 +187,8 @@ def wrong_pipe(kind: str):
     from deeplearning_mpi_tpu_torch.models import pipeline_lm as lm
     from deeplearning_mpi_tpu_torch.parallel import pipeline as pl
 
-    saved = [(pl, "place_output", pl.place_output), (pl, "stage_squares", pl.stage_squares),
+    saved = [(pl, "place_output", pl.place_output),
+             (pl.PipeLayout, "sum_over", pl.PipeLayout.sum_over),
              (pl.GroupPipe, "runs_head", pl.GroupPipe.runs_head),
              (lm.EmbedHead, "encode", lm.EmbedHead.encode),
              (lm, "reduce_moe_scalars", lm.reduce_moe_scalars)]
@@ -202,7 +203,7 @@ def wrong_pipe(kind: str):
     elif kind == "last_microbatch_dropped":
         pl.place_output = lambda t, s, m: None if place(t, s, m) == m - 1 else place(t, s, m)
     elif kind == "local_clip":
-        pl.stage_squares = lambda squares, pipe: squares
+        pl.PipeLayout.sum_over = lambda self, x: x
     elif kind == "aux_averaged":
         lm.reduce_moe_scalars = lambda aux, drop, s: (aux.mean() / s, drop.mean() / s)
     elif kind == "drop_not_divided":
