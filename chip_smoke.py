@@ -159,7 +159,9 @@ Phases, each printed on its own line; any failure exits non-zero:
     median, tokens/s, peak memory and one profiled step of each, no bar.
     (c) ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over NCCL
     at world size 1 (2 layers, seq 4096: the wiring only) exit 0 with K1
-    launched; ``--sp 2 --loss_chunk 256`` exits 1 with its refusal. Then
+    launched; ``--sp 2 --loss_chunk 256`` is no longer refused (one process
+    exits 1 for want of a second seq rank; the chunked loss over seq
+    shards is held on gloo ranks, ``tests/test_torch_compose_pipe.py``). Then
     K1/K2/K3 timed at the ring's past-block call (B2 S2048 H12 D64 bf16,
     non-causal, float32 output / gradients) beside their plain versions and
     SDPA's non-causal forward / backward;
@@ -197,10 +199,9 @@ Phases, each printed on its own line; any failure exits non-zero:
     relative L2 of the CPU's; then ``cli.train_resnet --arch vit_small
     --synthetic --dtype bfloat16`` over NCCL at world size 1 with phase
     12's bars (finite, falling: memorisation; one gradient all-reduce a
-    step; an eval): step median, images/s. (d) ``cli.train_lm --pp 2 --ep
-    2 --moe_experts 4`` exits 1 with its ROADMAP item. Then K1/K2/K3 timed
-    at the microbatch call (B2 S2048 H12 D64 bf16) beside their plain
-    versions and SDPA;
+    step; an eval): step median, images/s. Then K1/K2/K3 timed at the
+    microbatch call (B2 S2048 H12 D64 bf16) beside their plain versions and
+    SDPA;
 17. the parallel axes composed on one card, in the one-process grid
     (``parallel.seq_common``: two lockstep axes side by side, each module
     calling its own). (a) The 110M ``TransformerConfig()`` in
@@ -225,7 +226,29 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``FWD_TOL`` / ``GRAD_TOL`` as 14a. Then K1/K2/K3 timed at the new calls
     (B2 H6, B8 H6, Ulysses' B2 S8192 H3, its pairs' B3 S8192 H1, the ring's
     blocks B2 S4096 H6 and B8 S1024 H12) beside their plain versions and
-    SDPA.
+    SDPA;
+18. the parallel axes completed. (a) ``cli.train_lm --pp 2 --sp 2
+    --attention ring`` and ``ulysses`` exit 1 with the reference's reason
+    (its ring / Ulysses ``shard_map`` nested in the pipeline's is refused
+    by JAX) and their ROADMAP item. (b) Phase 13a's MoE LM (8 experts, top
+    2, balance loss 0.01) in bf16 at B8 S2048 as ``PipelinedLM`` over
+    ``LockstepPipe(2)`` with 4 microbatches, every expert in this process
+    (an expert group needs a process a rank: the four-card test splits
+    them): step-1 gradients within 5e-2 relative L2 per tensor of the flat
+    MoE model's flash step over the same 4 microbatches (each microbatch's
+    balance loss, averaged: the reference's pipelined semantics), 4 Adam
+    steps (3e-4, clip 1.0) finite and falling, K1/K2/K3 48 a step each (12
+    layers x 4 microbatches), a second 2-step run bit-identical; step
+    median, tokens/s, peak memory, one profiled step. (c) Adafactor (1e-3,
+    clip 1.0) on 4 layers at ``d_model`` 256, ``d_ff`` 512 (factored
+    moments), float32 with TF32 off, B4 S256, over ``LockstepTP(2)`` and
+    over ``LockstepPipe(2)`` (2 microbatches), card (K1-K3) against CPU
+    (their plain versions): the loss within 1e-4 relative, every step-1
+    gradient within 1e-4 relative L2, every parameter's step delta within
+    1e-3 relative L2 of the CPU's Adafactor update of the card's gradients
+    (an unfactored leaf's first step is ``lr * g / |g|``: a gradient element
+    near 0 flips it). Then K1/K2/K3 timed at 18b's microbatch call (B2
+    S2048 H12) with 18b's launches.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -2283,7 +2306,8 @@ def seq_train(torch, seed: int) -> dict:
 def seq_clis(torch, card: str) -> dict:
     """14c: ``cli.train_lm --sp 1 --attention ring`` and ``ulysses`` over
     NCCL at world size 1 (2 layers at the 110M widths, seq 4096; the wiring
-    only, as 13d), and ``--sp 2 --loss_chunk 256`` refused."""
+    only, as 13d), and ``--sp 2 --loss_chunk 256`` accepted (one process
+    stops only for want of a second seq rank)."""
     import contextlib
     import io
     import shutil
@@ -2326,8 +2350,9 @@ def seq_clis(torch, card: str) -> dict:
                     f"{k1}: {err[-2000:]}")
             out[attention] = {"rc": rc, "K1": k1}
         rc, _, err = cli(flags + ["--sp", "2", "--attention", "ring", "--loss_chunk", "256"])
-        log(f"14c --sp 2 --loss_chunk 256: exit {rc}: {err.strip()}")
-        require(rc == 1 and "ROADMAP" in err, f"14c: --sp with --loss_chunk exited {rc}")
+        log(f"14c --sp 2 --loss_chunk 256 in one process: exit {rc}: {err.strip()}")
+        require(rc == 1 and "needs 2 processes" in err and "ROADMAP" not in err,
+                f"14c: --sp with --loss_chunk exited {rc}: {err.strip()}")
     finally:
         bootstrap.shutdown()
         shutil.rmtree(work, ignore_errors=True)
@@ -2882,32 +2907,38 @@ def vit_phase(torch, card: str, seed: int) -> dict:
     return result
 
 
-def pp_refusal() -> dict:
-    """16d: ``cli.train_lm --pp 2 --ep 2 --moe_experts 4`` exits 1 with its
-    ROADMAP item (``--pp 2 --tp 2`` runs since phase 17)."""
+def pp_seq_refusal() -> dict:
+    """18a: ``cli.train_lm --pp 2 --sp 2 --attention ring`` and ``ulysses``
+    exit 1 with the reason the reference raises on them and their ROADMAP
+    item."""
     import contextlib
     import io
 
     from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.utils.config import PP_SEQ_REASON
 
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc = train_lm.main(["--device", "cuda", "--pp", "2", "--ep", "2", "--moe_experts", "4"])
-    text = err.getvalue().strip()
-    log(f"16d train_lm --pp 2 --ep 2 --moe_experts 4: exit {rc}: {text}")
-    require(rc == 1 and "item 8.5" in text, f"16d: exit {rc}: {text}")
-    return {"rc": rc, "message": text}
+    out = {}
+    for schedule in ("ring", "ulysses"):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = train_lm.main(["--device", "cuda", "--pp", "2", "--sp", "2", "--attention",
+                                schedule])
+        text = err.getvalue().strip()
+        log(f"18a train_lm --pp 2 --sp 2 --attention {schedule}: exit {rc}: {text}")
+        require(rc == 1 and "item 8.6" in text and PP_SEQ_REASON in text,
+                f"18a: exit {rc}: {text}")
+        out[schedule] = {"rc": rc, "message": text}
+    return out
 
 
 def pp_phase(torch, card: str, gen, seed: int) -> dict:
-    """Phase 16: pipeline parallelism (16a, 16b), the ViT family (16c), the
-    refusal (16d), and the kernel rows at the microbatch call."""
+    """Phase 16: pipeline parallelism (16a, 16b), the ViT family (16c) and
+    the kernel rows at the microbatch call."""
     out = {"train": pp_train(torch, seed)}
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = pp_card_vs_cpu(torch, seed)
     out["vit"] = vit_phase(torch, card, seed)
     torch.cuda.empty_cache()
-    out["refusal"] = pp_refusal()
     out["kernels"] = time_training(torch, gen, out["train"]["launches"], where="16a (6 steps)",
                                    batch=8 // P16_MICRO)
     return out
@@ -3148,6 +3179,214 @@ def compose_phase(torch, card: str, gen) -> dict:
     return out
 
 
+# -- phase 18 ----------------------------------------------------------------
+#: 18b: phase 13a's MoE LM over pp 2 with 4 microbatches of B2 (12 layers x
+#: 4 microbatches a step each of K1/K2/K3).
+P18_PP, P18_MICRO, P18_STEPS = 2, 4, 4
+#: 18c's widths: Adafactor factors the 256- and 512-wide kernels.
+P18_ADA = dict(vocab_size=256, num_layers=4, num_heads=4, head_dim=64, d_model=256, d_ff=512)
+
+
+def _microbatch_grads(torch, model, attention_fn, tokens, aux_weight: float,
+                      micro: int) -> dict:
+    """Step-1 gradients of a flat model on ``micro`` microbatches of
+    ``tokens`` in turn, as the pipelined model's loss is: the mean of the
+    microbatch losses plus ``aux_weight`` times the mean of their balance
+    losses; float32, flat names."""
+    from deeplearning_mpi_tpu_torch.models.moe import collect_aux_loss, collecting
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+
+    model.zero_grad(set_to_none=True)
+    for part in tokens.chunk(micro):
+        with collecting(model) as sown:
+            loss = lm_cross_entropy(model(part, attention_fn=attention_fn), part)
+            if sown.aux:
+                loss = loss + aux_weight * collect_aux_loss(sown)
+            (loss / micro).backward()
+    g = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return g
+
+
+def pp_moe_train(torch, seed: int) -> dict:
+    """18b (:data:`P18_PP`, :data:`P18_MICRO`; the phase docstring)."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    cfg, B, S = moe_config(), 8, 2048
+    fn = fa.flash_attention_bhsd
+    ds = SyntheticTokens(2 * B, S, vocab_size=cfg.vocab_size, seed=seed)
+    rows = np.stack([ds[i]["tokens"] for i in range(2 * B)])
+    batches = [{"tokens": torch.from_numpy(rows[i * B:(i + 1) * B]).cuda()}
+               for i in (0, 1)] * (P18_STEPS // 2)
+    flat = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    g_flat = _microbatch_grads(torch, flat, fn, batches[0]["tokens"], MOE_AUX_WEIGHT, P18_MICRO)
+    del flat
+    torch.cuda.empty_cache()
+    model = PipelinedLM(cfg, num_stages=P18_PP, num_microbatches=P18_MICRO,
+                        dtype=torch.bfloat16, device="cuda",
+                        pipe=LockstepPipe(P18_PP)).init_weights(seed)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g = _model_grads(torch, model, fn, batches[0]["tokens"], MOE_AUX_WEIGHT)
+    rel = {n: float((g[n] - w).norm() / w.norm().clamp(min=1e-30)) for n, w in g_flat.items()}
+    worst = max(rel, key=rel.get)
+    log(f"18b MoE pp {P18_PP} x {P18_MICRO} microbatches vs the flat MoE flash step over the "
+        f"same microbatches, step-1 grads (B{B} S{S}, {len(rel)} tensors): relative L2 error "
+        f"max {rel[worst]:.3e} ({worst}), median {sorted(rel.values())[len(rel) // 2]:.3e} "
+        "(tol 5e-2)")
+    require(rel[worst] <= 5e-2, f"18b: grads differ from the flat step: {worst} {rel[worst]}")
+    del g, g_flat
+    torch.cuda.empty_cache()
+    expect = cfg.num_layers * P18_MICRO
+
+    def run(steps: int, profile: bool = False):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                   attention_fn=fn)
+        step = make_train_step("lm", aux_weight=MOE_AUX_WEIGHT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(fa)
+        losses, times = [], []
+        for batch in batches[:steps]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = _kernel_counts(fa)
+        prof = (device_profile(torch, lambda: step(state, batches[-1]), "18b profile (one step)")
+                if profile else None)
+        return state, losses, times, launches, prof
+
+    state, losses, _, _, _ = run(2)
+    first = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state, again, _, _, _ = run(2)
+    same = again == losses and all(torch.equal(p, first[n])
+                                   for n, p in state.model.named_parameters())
+    require(same, f"18b: a second run differs (losses {losses} vs {again})")
+    del first
+    state, losses, times, launches, prof = run(P18_STEPS, profile=True)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "losses": losses,
+              "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
+              "max_memory_allocated": peak, "launches": launches, "second_run_bitwise": same,
+              "profile": prof}
+    log(f"18b: losses {[round(x, 4) for x in losses]}, step median {1e3 * step_s:.2f} ms "
+        f"(steps 2-{P18_STEPS}), {result['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB, launches {launches} (expected {expect} a step each), busy "
+        f"{100 * prof['busy_share']:.2f}%; a second run bit-identical")
+    require(all(np.isfinite(losses)), f"18b: non-finite loss {losses}")
+    require(np.mean(losses[-3:]) < losses[0], f"18b: the loss did not fall: {losses}")
+    require(all(n == expect * P18_STEPS for n in launches.values()),
+            f"18b: expected {expect * P18_STEPS} launches of each kernel, got {launches}")
+    del state, model, init
+    torch.cuda.empty_cache()
+    return result
+
+
+def adafactor_card_vs_cpu(torch, seed: int) -> dict:
+    """18c (:data:`P18_ADA`; the phase docstring)."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.convert import flat_from_stacked
+    from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
+    from deeplearning_mpi_tpu_torch.parallel.leaves import reducer as leaf_reducer
+    from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+    from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    cfg = TransformerConfig(**P18_ADA)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (4, 256)))
+
+    def whole(model, tree):
+        layout = getattr(model, "layout", None) or getattr(model, "tp_layout", None)
+        tree = layout.gather(tree)
+        return {n: t.detach().cpu().double() for n, t in (
+            flat_from_stacked(tree) if hasattr(model, "pipe_layout") else tree).items()}
+
+    def build(kind, device):
+        if kind == "tp":
+            return TransformerLM(cfg, dtype=torch.float32, device=device,
+                                 tp=LockstepTP(2, device)).init_weights(seed)
+        return PipelinedLM(cfg, num_stages=2, num_microbatches=2, dtype=torch.float32,
+                           device=device, pipe=LockstepPipe(2)).init_weights(seed)
+
+    def run(kind, device):
+        model = build(kind, device)
+        t = tokens.to(device)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        lm_cross_entropy(model(t, attention_fn=fa.flash_attention_bhsd), t).backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        state = create_train_state(model, build_optimizer("adafactor", 1e-3, clip_norm=1.0),
+                                   attention_fn=fa.flash_attention_bhsd)
+        state, metrics = make_train_step("lm")(state, {"tokens": t})
+        delta = {n: p.detach() - before[n] for n, p in model.named_parameters()}
+        return float(metrics["loss"]), model, grads, delta
+
+    def cpu_update(kind, grads):
+        """The CPU's Adafactor update (the same split leaves) of the card's
+        gradients: a gradient element near 0 sets an unfactored leaf's step
+        to ``lr * sign(g)``, so the step is compared on the same gradients."""
+        model = build(kind, "cpu")
+        state = create_train_state(model, build_optimizer("adafactor", 1e-3, clip_norm=1.0))
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        updates, _ = state.tx.update({n: g.cpu() for n, g in grads.items()}, state.opt_state,
+                                     params, shards=state.shards, leaves=leaf_reducer(model))
+        return whole(model, updates)
+
+    out = {}
+    for kind in ("tp", "pp"):
+        loss_gpu, model_gpu, g_gpu, d_gpu = run(kind, "cuda")
+        loss_cpu, model_cpu, g_cpu, _ = run(kind, "cpu")
+        d_cpu = cpu_update(kind, g_gpu)
+        g_gpu, g_cpu = whole(model_gpu, g_gpu), whole(model_cpu, g_cpu)
+        d_gpu = whole(model_gpu, d_gpu)
+        rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))  # noqa: E731
+        g_rel = {n: rel(g_gpu[n], g) for n, g in g_cpu.items()}
+        d_rel = {n: rel(d_gpu[n], d) for n, d in d_cpu.items()}
+        gw, dw = max(g_rel, key=g_rel.get), max(d_rel, key=d_rel.get)
+        loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        label = "LockstepTP(2)" if kind == "tp" else "LockstepPipe(2)"
+        log(f"18c adafactor over {label} card vs CPU (4 layers, d_model 256, d_ff 512, float32, "
+            f"TF32 off): loss {loss_gpu:.6f} vs {loss_cpu:.6f} ({loss_rel:.2e}, tol 1e-4), worst "
+            f"gradient {g_rel[gw]:.3e} ({gw}, tol 1e-4), worst step delta against the CPU's "
+            f"update of the card's gradients {d_rel[dw]:.3e} ({dw}, tol 1e-3)")
+        require(loss_rel <= 1e-4 and g_rel[gw] <= 1e-4 and d_rel[dw] <= 1e-3,
+                f"18c {kind}: card differs from CPU: loss {loss_rel}, {gw} {g_rel[gw]}, "
+                f"{dw} {d_rel[dw]}")
+        out[kind] = {"loss_rel": loss_rel, "grads_rel_l2_max": g_rel[gw], "grads_worst": gw,
+                     "delta_rel_l2_max": d_rel[dw], "delta_worst": dw}
+        del model_gpu, model_cpu
+    return out
+
+
+def completed_phase(torch, card: str, gen, seed: int) -> dict:
+    """Phase 18: the refusal that stands (18a), the MoE LM through the
+    stages (18b), Adafactor over split leaves (18c), and K1-K3's rows at
+    18b's microbatch call."""
+    out = {"refusal": pp_seq_refusal(), "pp_moe": pp_moe_train(torch, seed)}
+    out["adafactor"] = adafactor_card_vs_cpu(torch, seed)
+    out["kernels"] = time_training(torch, gen, out["pp_moe"]["launches"],
+                                   where=f"18b ({P18_STEPS} steps)", batch=8 // P18_MICRO)
+    log(f"phase 18 on {card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -3248,6 +3487,14 @@ def main() -> int:
         f"routing over 2 sequence shards, MoE experts over tp 2; the 110M widths in bf16) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    completed = completed_phase(torch, card, torch.Generator(device="cuda").manual_seed(
+        args.seed + 18), args.seed)
+    kernels.extend(completed["kernels"])
+    log(f"phase 18 the parallel axes completed (--pp x --sp refused as the reference raises, "
+        f"the MoE LM through 2 stages in bf16, adafactor over tp 2 and pp 2 card vs CPU) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -3261,7 +3508,7 @@ def main() -> int:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
-                       "compose": compose,
+                       "compose": compose, "completed": completed,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -35,14 +35,18 @@ form of ``parallel/tensor_parallel.py``: ``N`` processes of a data
 coordinate load the same rows and each holds its shards of the Megatron
 pairs (H/N heads, d_ff/N) and of the embedding; on the card K1-K3 run at
 the local heads. ``--dp M --tp N`` takes ``M * N`` processes. ``--zero``
-keeps each rank's slice of the optimizer moments over the data group and
+keeps each rank's slice of the optimizer moments over the data group (the
+reference's placement on its whole leaves, beside any other axis) and
 ``--zero_overlap`` runs the bucketed ZeRO-1 schedule (``parallel/zero.py``;
-with ``--tp``, or without data parallelism, it falls back to ``--zero``
-and logs why). ``--tp`` composes with ``--moe_experts`` / ``--ep`` (each
-expert's d_ff split over the model group, the reference's ``ep_spec``),
-with ``--sp`` (ring or Ulysses at each model rank's local heads) and with
-``--pp`` (Megatron blocks inside each stage); it refuses adafactor and
-widths it does not divide (ROADMAP Queue 1 item 8.5).
+with another axis above 1, or without data parallelism, it falls back to
+``--zero`` and logs why). ``--tp`` composes with ``--moe_experts`` /
+``--ep`` (each expert's d_ff split over the model group, the reference's
+``ep_spec``), with ``--sp`` (ring or Ulysses at each model rank's local
+heads) and with ``--pp`` (Megatron blocks inside each stage); it refuses
+widths it does not divide (ROADMAP Queue 1 item 8.6). Adafactor factors
+and clips the reference's whole leaves under every axis
+(``parallel/leaves.py``). ``--loss_chunk`` composes with ``--sp``: each
+shard chunks its own slice of the loss.
 
 ``--pp S`` trains the pipelined LM (``models/pipeline_lm.py``): the blocks
 in ``S`` GPipe stages, one a process of a data coordinate (the process-group
@@ -51,10 +55,12 @@ form of ``parallel/pipeline.py``), each global batch's rows (of each
 M --pp S`` takes ``M * S`` processes; every rank of a pipe group loads the
 same rows and the last stage's loss is logged. Its checkpoint stacks each
 block leaf over the stages, and ``arch.json`` records ``S``: a resume
-takes the same ``--pp`` at any ``--dp`` or ``--tp``. ``--pp`` refuses
-``--sp`` / ``--attention ring|ulysses``, ``--ep``, ``--zero`` /
-``--zero_overlap`` and adafactor (ROADMAP Queue 1 item 8.5). ``arch.json``
-records every axis's degree under ``layout``.
+takes the same ``--pp`` at any ``--dp``, ``--tp`` or ``--ep``. ``--pp``
+composes with ``--ep`` (each stage's experts over the expert group),
+``--zero`` / ``--zero_overlap`` and adafactor; it refuses ``--sp`` /
+``--attention ring|ulysses``, on which the reference itself raises (ROADMAP
+Queue 1 item 8.6). ``arch.json`` records every axis's degree under
+``layout``.
 
 With ``--model_dir`` the trainer saves the full state (weights, optimizer
 state, step, EMA) every ``--eval_every`` epochs and after the last into
@@ -85,7 +91,8 @@ SIGTERM ends training after the current epoch with a final checkpoint.
 
 The composed layouts on four CPU ranks (``--pp 2 --tp 2``, ``--tp 2 --sp 2
 --attention ring|ulysses``, ``--moe_experts 4 --ep 2 --sp 2 --attention
-ring``, ``--moe_experts 4 --ep 2 --tp 2``)::
+ring``, ``--moe_experts 4 --ep 2 --tp 2``, ``--moe_experts 4 --pp 2 --ep
+2``, ``--dp 2 --ep 2 --zero`` and the like)::
 
     python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --nproc 4 --pp 2 --tp 2 \
         --microbatches 2 --num_layers 2 --num_heads 4 --num_kv_heads 2 --head_dim 16 \
@@ -284,7 +291,8 @@ def train(argv: list[str] | None = None):
             model = PipelinedLM(cfg, num_stages=args.pp, num_microbatches=args.microbatches,
                                 dtype=dtype, device=device, remat=args.remat,
                                 return_prehead=args.loss_chunk > 0,
-                                pipe=pipe_shards(mesh, device), tp=tp_shards(mesh, device))
+                                pipe=pipe_shards(mesh, device), tp=tp_shards(mesh, device),
+                                expert_shards=expert_shards(mesh))
         else:
             model = TransformerLM(cfg, dtype=dtype, device=device, remat=args.remat,
                                   return_prehead=args.loss_chunk > 0,

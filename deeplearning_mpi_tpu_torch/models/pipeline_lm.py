@@ -38,6 +38,15 @@ the mesh's, at this process's model coordinate. ``tp_layout`` maps the
 shards to the whole leaves; the state composes it with ``pipe_layout``
 (``parallel.tensor_parallel.Within``).
 
+Expert parallelism inside the stages (``expert_shards``, a
+``parallel.expert_parallel.ExpertShards`` over the expert group): every
+stage's routed layers hold this process's share of their experts and sum
+the combine over the expert group, per microbatch; the pipe group is the
+mesh's at this process's expert coordinate, so the ranks of one expert
+group run the same stage on the same microbatches. A checkpoint gathers the
+expert stacks whole before it stacks the stages, so it is the same tree at
+every expert degree.
+
 MoE through the stages: a stage's routed layers report to a record of
 that stage's forward (``models.moe.collecting``), and each microbatch
 carries an ``aux`` and a ``drop`` scalar through the schedule, the sums
@@ -86,11 +95,12 @@ class StageBlocks(nn.Module):
     each under the ``remat`` policy as ``TransformerLM``'s blocks."""
 
     def __init__(self, config: TransformerConfig, num_blocks: int, dtype: torch.dtype,
-                 remat: str = "none", tp=None, tp_plan=None) -> None:
+                 remat: str = "none", tp=None, tp_plan=None, expert_shards=None) -> None:
         super().__init__()
         self.num_blocks, self.remat = num_blocks, remat
         for j in range(num_blocks):
-            setattr(self, f"block_{j}", Block(config, dtype, tp=tp, tp_plan=tp_plan))
+            setattr(self, f"block_{j}", Block(config, dtype, expert_shards=expert_shards, tp=tp,
+                                              tp_plan=tp_plan))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 attention_fn: Callable | None = None) -> torch.Tensor:
@@ -185,6 +195,7 @@ class PipelinedLM(nn.Module):
         self, config: TransformerConfig, *, num_stages: int, num_microbatches: int = 4,
         dtype: torch.dtype = torch.bfloat16, device: str | torch.device = "cuda",
         remat: str = "none", return_prehead: bool = False, pipe: Any = None, tp: Any = None,
+        expert_shards: Any = None,
     ) -> None:
         super().__init__()
         if return_prehead and not config.tied_embeddings:
@@ -208,10 +219,11 @@ class PipelinedLM(nn.Module):
         self.num_stages, self.num_microbatches = num_stages, num_microbatches
         self.return_prehead = return_prehead
         self.tp, self.tp_plan = tp, plan
+        self.expert_shards = expert_shards if config.moe_experts > 0 else None
         self.pipe_layout = PipeLayout(pipe, num_stages)
         per_stage = config.num_layers // num_stages
         self.stages = nn.ModuleDict({
-            str(s): StageBlocks(config, per_stage, dtype, remat, tp, plan)
+            str(s): StageBlocks(config, per_stage, dtype, remat, tp, plan, self.expert_shards)
             for s in self.pipe_layout.stage_ids})
         self.embed_head = EmbedHead(config, dtype, tp, plan)
         #: the caller's ``models.moe.collecting`` record (re-emission).
@@ -247,10 +259,15 @@ class PipelinedLM(nn.Module):
 
     def load_full_state_dict(self, sd: dict[str, torch.Tensor]) -> None:
         """Load the whole pipelined model's state dict (every stage, whole
-        leaves), keeping this process's stages and model shards."""
+        leaves), keeping this process's stages, expert slices and model
+        shards."""
+        from deeplearning_mpi_tpu_torch.parallel.expert_parallel import shard_state_dict
+
         mine = {n: t for n, t in sd.items()
                 if PipeLayout.split(n)[1] in (None, *self.pipe_layout.stage_ids)}
-        self.load_state_dict(mine if self.tp_layout is None else self.tp_layout.local(mine))
+        if self.tp_layout is not None:
+            mine = self.tp_layout.local(mine)
+        self.load_state_dict(shard_state_dict(mine, self.expert_shards))
 
     @property
     def layout(self) -> Any:
@@ -264,11 +281,14 @@ class PipelinedLM(nn.Module):
 
     def full_state_dict(self) -> dict[str, torch.Tensor]:
         """The whole model's parameters as a flat ``TransformerLM`` state
-        dict (a collective over a process-group pipe or model group),
-        detached."""
+        dict (a collective over a process-group pipe, expert or model
+        group), detached."""
         from deeplearning_mpi_tpu_torch.models.convert import flat_from_stacked
+        from deeplearning_mpi_tpu_torch.parallel.expert_parallel import map_expert_leaves
 
         params = {n: p.detach() for n, p in self.named_parameters()}
+        if self.expert_shards is not None:
+            params = map_expert_leaves(self.expert_shards.gather, params)
         return flat_from_stacked(self.layout.gather(params))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None, *,

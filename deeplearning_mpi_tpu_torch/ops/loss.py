@@ -125,26 +125,61 @@ def chunked_lm_loss(
     cast to f32 before the log-softmax, as in the dense path.
     """
     compute_dtype = compute_dtype or x.dtype
-    seq = x.shape[1]
-    x_in = x[:, :-1].to(compute_dtype)
     labels = tokens[:, 1:]
     weights = (
         torch.ones(labels.shape, dtype=torch.float32, device=x.device)
         if mask is None else mask[:, 1:].float()
     )
-    n_pos = seq - 1
+    total = _chunked_nll(x[:, :-1].to(compute_dtype), head_kernel.to(compute_dtype), labels,
+                         weights, chunk_size)
+    return total / torch.clamp(weights.sum(), min=1.0)
+
+
+def _chunked_nll(x_in: torch.Tensor, kernel: torch.Tensor, labels: torch.Tensor,
+                 weights: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """The weighted nll sum of ``x_in``'s prediction positions, in chunks of
+    ``chunk_size`` (the last padded with zero weight), each under
+    ``torch.utils.checkpoint``."""
+    n_pos = x_in.shape[1]
     chunk_size = max(1, min(chunk_size, n_pos))
     pad = (-n_pos) % chunk_size
     if pad:
         x_in = F.pad(x_in, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
         weights = F.pad(weights, (0, pad))  # zero weight = excluded
-    kernel = head_kernel.to(compute_dtype)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x_in.device)
     for start in range(0, n_pos + pad, chunk_size):
         sl = slice(start, start + chunk_size)
         total = total + checkpoint(
             _chunk_nll_sum, x_in[:, sl], kernel, labels[:, sl], weights[:, sl],
             use_reentrant=False,
         )
-    return total / torch.clamp(weights.sum(), min=1.0)
+    return total
+
+
+def chunked_lm_loss_slice(
+    x: torch.Tensor,
+    head_kernel: torch.Tensor,
+    tokens: torch.Tensor,
+    start: int,
+    *,
+    chunk_size: int,
+    mask: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """A sequence slice's share of :func:`chunked_lm_loss` on whole rows, as
+    :func:`lm_cross_entropy_slice` is :func:`lm_cross_entropy`'s: ``x``
+    ``[B, S_l, d]`` holds positions ``start .. start+S_l-1`` of ``tokens``
+    ``[B, S]``; each predicts the next token of the whole row, across the
+    slice's edge (none for the row's last position). The slice's own
+    positions are cut into chunks; their weighted nll sum is divided by the
+    whole rows' count of valid targets, so the slices' shares add up to the
+    whole rows' loss."""
+    compute_dtype = compute_dtype or x.dtype
+    labels = tokens[:, start + 1:start + x.shape[1] + 1]
+    every = (torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=x.device)
+             if mask is None else mask[:, 1:].float())
+    weights = every[:, start:start + labels.shape[1]]
+    total = _chunked_nll(x[:, :labels.shape[1]].to(compute_dtype),
+                         head_kernel.to(compute_dtype), labels, weights, chunk_size)
+    return total / torch.clamp(every.sum(), min=1.0)

@@ -206,6 +206,18 @@ class SeqShards:
         start = self.rank * self.local_len(tokens.shape[1])
         return lm_cross_entropy_slice(logits, tokens, start, mask)
 
+    def chunked_lm_loss(self, x: torch.Tensor, head_kernel: torch.Tensor, tokens: torch.Tensor,
+                        mask: torch.Tensor | None, chunk_size: int) -> torch.Tensor:
+        """This rank's share of ``ops.loss.chunked_lm_loss`` on the whole
+        rows, from its slice's pre-head activations: its own positions in
+        chunks, the last predicting across the shard edge, over the whole
+        rows' count of valid targets (:meth:`lm_loss`'s rule)."""
+        from deeplearning_mpi_tpu_torch.ops.loss import chunked_lm_loss_slice
+
+        start = self.rank * self.local_len(tokens.shape[1])
+        return chunked_lm_loss_slice(x, head_kernel, tokens, start, chunk_size=chunk_size,
+                                     mask=mask)
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the group (no gradient)."""
         return collectives.all_reduce_sum(x, self.group)

@@ -301,10 +301,17 @@ class TPLayout:
                 out[local[0]] = tree[full]
         return out
 
+    def is_split(self, name: str, leaf: torch.Tensor | None = None) -> bool:
+        return is_tp_shard(name, leaf)
+
+    def sum_over(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group (no gradient)."""
+        return self.tp.sum_over(x)
+
     def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
         """``optax.global_norm`` of the whole model
         (``runtime.collectives.sharded_norm`` over the model axis)."""
-        return collectives.sharded_norm(tensors, [(is_tp_shard, self.tp.sum_over)])
+        return collectives.sharded_norm(tensors, [(self.is_split, self.sum_over)])
 
 
 #: The expert stacks' names (``models.moe.MoEMLP``); ``experts_down``
@@ -412,28 +419,36 @@ def is_tp_shard(name: str, leaf: torch.Tensor | None = None) -> bool:
     return split_name(name)[1] is not None
 
 
-class Within:
-    """Tensor parallelism inside another layout ``outer``: a pipelined
-    model's stages (``parallel.pipeline.PipeLayout``) or an MoE model's
-    expert shards (``parallel.expert_parallel.ExpertShards``). Each outer
-    layout gives ``is_split(name, leaf)`` and ``sum_over(x)``; the global
-    norm sums each leaf over exactly the axes that split it
-    (``runtime.collectives.sharded_norm``). With a pipe, :meth:`gather` /
-    :meth:`local` map this process's tree to the whole model's (the shards
-    gathered, then the stages stacked) and back."""
+def axes_of(layout: Any) -> list[tuple[Callable, Callable]]:
+    """A layout's ``(is_split(name, leaf), sum_over(x))`` pairs, one an axis
+    (``runtime.collectives.sharded_norm``'s form)."""
+    if isinstance(layout, Within):
+        return axes_of(layout.inner) + axes_of(layout.outer)
+    return [(layout.is_split, layout.sum_over)]
 
-    def __init__(self, tp_layout: TPLayout, outer: Any) -> None:
-        self.tp_layout, self.outer = tp_layout, outer
+
+class Within:
+    """One layout inside another: the model shards inside a pipelined
+    model's stages (``parallel.pipeline.PipeLayout``) or inside an MoE
+    model's expert shards (``parallel.expert_parallel.ExpertShards``), or a
+    pipelined model's layout inside its expert shards. Each layout gives
+    ``is_split(name, leaf)`` and ``sum_over(x)``; the global norm sums each
+    leaf over exactly the axes that split it
+    (``runtime.collectives.sharded_norm``). :meth:`gather` / :meth:`local`
+    map this process's tree to the whole model's (the inner layout's
+    gathered first) and back."""
+
+    def __init__(self, inner: Any, outer: Any) -> None:
+        self.inner, self.outer = inner, outer
 
     def gather(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        return self.outer.gather(self.tp_layout.gather(tree))
+        return self.outer.gather(self.inner.gather(tree))
 
     def local(self, tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        return self.tp_layout.local(self.outer.local(tree))
+        return self.inner.local(self.outer.local(tree))
 
     def global_norm(self, tensors: dict[str, torch.Tensor]) -> torch.Tensor:
-        return collectives.sharded_norm(tensors, [(is_tp_shard, self.tp_layout.tp.sum_over),
-                                                  (self.outer.is_split, self.outer.sum_over)])
+        return collectives.sharded_norm(tensors, axes_of(self))
 
 
 def shard_state_dict(sd: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.Tensor]:

@@ -51,7 +51,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import on_reference_layout, split_name
+from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import on_reference_layout
 from deeplearning_mpi_tpu_torch.runtime import collectives
 
 #: Leaves smaller than this stay replicated (scalars, counts, tiny biases).
@@ -148,16 +148,18 @@ def plan_buckets(leaves: list[tuple[str, tuple[int, ...], int]], dp: int, *,
                       tuple(i for i, d in enumerate(shard_dims) if d is None))
 
 
-def _whole_shape(name: str, t: torch.Tensor, model: Any) -> tuple[tuple[int, ...], int | None]:
-    """A leaf's whole shape and tensor-parallel dim (port layout)."""
-    layout = getattr(model, "tp_layout", None)
-    whole, i = split_name(name)
-    if layout is None or i is None:
-        return tuple(t.shape), None
-    d = layout.dims[whole]
-    shape = list(t.shape)
-    shape[d] *= layout.tp.size
-    return tuple(shape), d
+def leaf_zero_dim(name: str, p: torch.Tensor, dp: int, views: dict, *,
+                  min_size: int = MIN_SIZE) -> int | None:
+    """:func:`zero1_dim` of the reference's whole leaf of this process's leaf
+    ``name`` (``parallel.leaves.LeafView``: a stage leaf stacked ``[S,
+    ...]``, an expert stack ``[E, in, out]``, a model shard whole; each axis
+    that splits it a taken dim of its base spec), as a dim of ``p``."""
+    view = views[name]
+    base = [None] * len(view.shape)
+    for d, axis in view.split.items():
+        base[d] = axis
+    d = zero1_dim(view.shape, tuple(base), dp, min_size=min_size)
+    return None if d is None else view.port_dim(d)
 
 
 def _mirrors(opt_state: dict, params: dict[str, torch.Tensor]) -> bool:
@@ -171,7 +173,11 @@ def _mirrors(opt_state: dict, params: dict[str, torch.Tensor]) -> bool:
 class Zero1:
     """This process's ZeRO-1 place: rank ``rank`` of the data group
     ``group`` (``size`` ranks) keeps the ``1/size`` slice on ``dims[name]``
-    of each sharded leaf's moments (names: the model's own)."""
+    of each sharded leaf's moments (names: the model's own). The dim is the
+    reference's choice on its whole leaf (:func:`leaf_zero_dim`): under
+    expert parallelism an expert stack's ``E`` is taken, and under pipeline
+    parallelism the stacked ``[S, ...]`` leaf's stage dim is, the size
+    threshold applying to the stacked leaf."""
 
     group: Any
     size: int
@@ -183,15 +189,17 @@ class Zero1:
         """The placement of ``state``'s moments over the data ``group``. A
         leaf whose optimizer slots do not all mirror it (Adafactor's
         factored moments) keeps them whole."""
+        from deeplearning_mpi_tpu_torch.parallel.leaves import leaf_views
+
         size = 1 if group is None else dist.get_world_size(group)
         rank = 0 if group is None else dist.get_rank(group)
         slots = [v for v in state.opt_state.values() if isinstance(v, dict)]
+        views = leaf_views(state.model)
         dims = {}
         for n, p in state.model.named_parameters():
             if any(n not in v or v[n].shape != p.shape for v in slots):
                 continue
-            shape, tp_dim = _whole_shape(n, p, state.model)
-            d = param_zero_dim(split_name(n)[0], shape, size, tp_dim, min_size=min_size)
+            d = leaf_zero_dim(n, p, size, views, min_size=min_size)
             if d is not None:
                 dims[n] = d
         return Zero1(group, size, rank, dims)
@@ -244,19 +252,20 @@ class Zero1:
         return torch.sqrt(sum(sq.values()))
 
     def update(self, tx: Any, grads: dict, opt_state: dict, params: dict,
-               shards: Any = None, *, sliced: bool = False
+               shards: Any = None, *, leaves: Any, sliced: bool = False
                ) -> tuple[dict[str, torch.Tensor], dict]:
         """The ZeRO-1 update: the clip, the optimizer on this rank's slices,
         the updated slices gathered. ``grads`` are whole (``--zero``: the
         clip's norm as without ZeRO) or, with ``sliced``, already this
         rank's slices (``--zero_overlap``: the norm is :meth:`global_norm`).
-        Returns ``(new parameters, new sliced state)``."""
+        ``leaves`` goes to ``tx.update``. Returns ``(new parameters, new sliced
+        state)``."""
         if sliced:
             g = tx.clip(grads, self)
         else:
             g = {n: self.slice(n, t) for n, t in tx.clip(grads, shards).items()}
         p = {n: self.slice(n, t) for n, t in params.items()}
-        updates, new_opt = tx.update(g, opt_state, p, shards=shards, clipped=True)
+        updates, new_opt = tx.update(g, opt_state, p, leaves=leaves, shards=shards, clipped=True)
         return self.gather_params({n: p[n] + updates[n] for n in p}), new_opt
 
 

@@ -32,7 +32,10 @@ over the pipe group (a collective) and cut back to this rank's stage, so it
 restores under the same stage count at any data or pipe form. The
 composed layouts gather both: a pipelined model's model shards, then its
 stages (``parallel.tensor_parallel.Within``); an MoE model's expert slices
-over the expert group, then each expert's d_ff over the model group.
+over the expert group, then each expert's d_ff over the model group, and
+its stages last when it is pipelined; :meth:`TrainState.fill` cuts in the
+reverse order. Adafactor's moments follow the reference's whole leaves
+(``train.adafactor.gather_slots``), so they too are saved whole.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ import torch
 from torch import nn
 
 from deeplearning_mpi_tpu_torch.parallel.expert_parallel import map_expert_leaves
+from deeplearning_mpi_tpu_torch.parallel.leaves import leaf_views
+from deeplearning_mpi_tpu_torch.train import adafactor
 
 
 @dataclasses.dataclass
@@ -99,10 +104,11 @@ class TrainState:
         ``batch_stats`` and ``ema_params`` — so the LM's and EMA-off
         checkpoints keep their exact tree. Expert stacks are gathered whole
         (module docstring)."""
+        factored = _factored_slots(self.opt_state)
         out: dict[str, Any] = {
             "step": torch.tensor(self.step, dtype=torch.int32),
             "params": {n: p.detach() for n, p in self.model.named_parameters()},
-            "opt_state": self.opt_state,
+            "opt_state": {k: v for k, v in self.opt_state.items() if k not in factored},
         }
         stats = self.batch_stats()
         if stats:
@@ -117,6 +123,9 @@ class TrainState:
         layout = _layout(self.model)
         if layout is not None:
             out = {k: _named_trees(layout.gather, v, k) for k, v in out.items()}
+        if factored:
+            whole = {**out["opt_state"], **adafactor.gather_slots(self.model, factored)}
+            out["opt_state"] = {k: whole[k] for k in self.opt_state}
         return out
 
     @torch.no_grad()
@@ -127,16 +136,23 @@ class TrainState:
         given; ``batch_stats`` is copied into the buffers. Full expert stacks
         are cut to this rank's slice. The caller has checked names, shapes
         and dtypes."""
+        factored = _factored_slots(arrays.get("opt_state", {}))
+        if factored:
+            arrays = {**arrays, "opt_state": {k: v for k, v in arrays["opt_state"].items()
+                                              if k not in factored}}
+        layout = _layout(self.model)
+        if layout is not None:  # first, so a stacked stage leaf is cut to its stage
+            local = lambda tree: {n: t.clone() for n, t in layout.local(tree).items()}  # noqa: E731
+            arrays = {k: _named_trees(local, v, k) for k, v in arrays.items()}
         shards = self.expert_shards
         if shards is not None:
             arrays = {k: map_expert_leaves(lambda t: shards.local(t).clone(), v)
                       for k, v in arrays.items()}
-        layout = _layout(self.model)
-        if layout is not None:
-            local = lambda tree: {n: t.clone() for n, t in layout.local(tree).items()}  # noqa: E731
-            arrays = {k: _named_trees(local, v, k) for k, v in arrays.items()}
         if self.zero is not None and "opt_state" in arrays:
             arrays = {**arrays, "opt_state": self.zero.shard(arrays["opt_state"])}
+        if factored:
+            mine = {**arrays["opt_state"], **adafactor.local_slots(self.model, factored)}
+            arrays = {**arrays, "opt_state": {k: mine[k] for k in self.opt_state}}
         if "params" in arrays:
             for n, p in self.model.named_parameters():
                 p.copy_(arrays["params"][n])
@@ -149,6 +165,13 @@ class TrainState:
             opt_state=arrays.get("opt_state", self.opt_state),
             ema_params=arrays.get("ema_params", self.ema_params),
         )
+
+
+def _factored_slots(opt_state: dict) -> dict:
+    """Adafactor's slots: its factors follow the reference's whole leaves,
+    not the parameters' shards, so its slots are gathered and cut by
+    ``train.adafactor`` (empty for another optimizer)."""
+    return {k: opt_state[k] for k in adafactor.SLOTS if k in opt_state}
 
 
 def _layout(model: nn.Module) -> Any:
@@ -175,10 +198,12 @@ def create_train_state(
 ) -> TrainState:
     """Wrap an initialised model with a fresh optimizer state for ``tx``
     (``tx=None``: no optimizer, an empty state — the template of a
-    params-only restore)."""
+    params-only restore). Adafactor's factors of a model whose leaves are
+    split sit on the reference's whole leaves (``parallel.leaves``)."""
     params = {n: p.detach() for n, p in model.named_parameters()}
     return TrainState(
-        model=model, tx=tx, opt_state={} if tx is None else tx.init(params),
+        model=model, tx=tx,
+        opt_state={} if tx is None else tx.init(params, leaf_views(model)),
         ema_params={n: p.clone() for n, p in params.items()} if ema else None,
         attention_fn=attention_fn,
     )

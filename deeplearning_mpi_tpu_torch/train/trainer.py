@@ -76,7 +76,8 @@ every rank of a model group computes the same loss, and the gradients of
 model-sharded leaves are NOT averaged over the model group; the data mean
 stays the one flat all-reduce over the data group, and the global norm
 sums each sharded leaf's squares over the model group once (the
-replicated leaves once). Adafactor is refused under either.
+replicated leaves once). Adafactor reads the reference's whole leaves
+under either (below).
 
 **Pipeline parallelism** (the model's ``pipe_layout``,
 ``models.pipeline_lm.PipelinedLM``): a pipe rank holds its stage and a
@@ -87,8 +88,8 @@ tied embedding's encode part on the first stage, its head part and the
 final norm's on the last) and the last stage's loss go through ONE
 ``all_reduce_sum`` over the pipe group (``PipeLayout.reduce``), then the
 data mean as above; the global norm sums the stage leaves' squares over the
-pipe group and counts the replicated leaves once. Adafactor is refused (its
-block RMS spans the reference's stacked leaf).
+pipe group and counts the replicated leaves once. Under ``expert`` the
+stages hold their share of the experts, as the flat model does.
 
 **Composed layouts**: each gradient is reduced over exactly the axes
 that replicate it, and the clip's norm sums each leaf's squares over
@@ -98,13 +99,31 @@ inside each stage and the pipe sum of the replicated leaves at each model
 coordinate, so the tied table's shards are summed shard by shard; under
 ``seq x model`` the replica plane (data x seq) is taken at each model
 coordinate; under ``expert x seq`` and ``expert x model`` the expert slices
-stay local, the rest as above.
+stay local, the rest as above; under ``pipe x expert`` the expert slices
+of each stage.
+
+**Adafactor under split leaves** (``parallel.leaves``): the factoring is
+decided on the reference's whole leaf (the unsharded ``[in, out]`` kernel,
+the ``[E, in, out]`` expert stack, the stacked ``[S, ...]`` stage leaf);
+``g**2``'s row and column means, ``v_row``'s mean over its row dim and the
+block RMS of ``clip_by_block_rms(1)`` sum their partials over the axes that
+split the dims they reduce. So a ``--pp 2`` step clips each stage leaf by
+the RMS of its stacked leaf, as the reference does, and differs from a
+``--pp 1`` step.
+
+**The chunked loss under ``seq``**: each shard chunks its own slice, the
+last position predicting across the shard edge, and its share is its
+summed terms over the whole rows' count (``ops.loss.chunked_lm_loss_slice``).
 
 **ZeRO-1** (the state's ``zero``, ``parallel.zero.Zero1``, placed by
 :meth:`Trainer.place_state`): the optimizer moments are this rank's slices
 over the data group; after the same gradient all-reduce the clip runs on
 the whole gradients, the update on this rank's slices, and the updated
 slices are all-gathered, so the step is bitwise the data-parallel one.
+The placement is the reference's on its whole leaves beside the other
+axes: an expert stack's ``E`` and a stage stack's ``S`` are taken, and
+under ``seq`` the slices are over data only, after the gradients' sum over
+seq.
 ``zero_overlap`` (``parallel.zero.make_overlapped_train_step``) swaps the
 flat all-reduce for bucketed reduce-scatters launched from the backward
 (``overlap``), or falls back with the reason logged.
@@ -128,7 +147,6 @@ from typing import Any, Callable, Iterable
 import torch
 from torch.func import functional_call
 
-from deeplearning_mpi_tpu_torch.models.convert import transposed_from_jax
 from deeplearning_mpi_tpu_torch.models.moe import (
     collect_aux_loss,
     collect_dropped_fraction,
@@ -143,8 +161,10 @@ from deeplearning_mpi_tpu_torch.ops.loss import (
     softmax_cross_entropy,
 )
 from deeplearning_mpi_tpu_torch.ops.metrics import dice_score, top1_accuracy
+from deeplearning_mpi_tpu_torch.parallel.leaves import reducer as leaf_reducer
 from deeplearning_mpi_tpu_torch.resilience.preemption import GracefulShutdown, Preempted
 from deeplearning_mpi_tpu_torch.runtime import collectives
+from deeplearning_mpi_tpu_torch.train import adafactor
 from deeplearning_mpi_tpu_torch.train.state import TrainState
 
 Batch = dict[str, torch.Tensor]
@@ -187,10 +207,11 @@ def _loss_fn(task: str, loss_chunk: int = 0, seg_loss: str = "bce",
     original repo's), ``dice`` or ``bce_dice`` (their sum), on the UNet's
     ``[..., 0]`` logits. ``seq``: the LM loss is this sequence shard's share."""
     if seq is not None:
-        if task != "lm" or loss_chunk > 0:
-            raise NotImplementedError(
-                "sequence parallelism shards the LM's dense loss only (not the chunked loss "
-                "or another task)")
+        if task != "lm":
+            raise NotImplementedError("sequence parallelism shards the LM's loss only")
+        if loss_chunk > 0:
+            return lambda outputs, batch, where=None: seq.chunked_lm_loss(
+                *outputs, batch["tokens"], _lm_mask(batch, where), loss_chunk)
         return lambda logits, batch, where=None: seq.lm_loss(logits, batch["tokens"],
                                                              _lm_mask(batch, where))
     if task == "lm":
@@ -277,67 +298,6 @@ def _model_norm(grads: dict[str, torch.Tensor], shards: Any) -> torch.Tensor:
 #: optax's defaults, which the reference's ``build_optimizer`` keeps.
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 LION_BETAS = (0.9, 0.99)
-#: ``optax.adafactor``'s: factor only tensors with two dims of at least
-#: 128; second-moment decay ``1 - (count + 1) ** -0.8``; eps added to g**2;
-#: each tensor's update clipped to RMS 1.0 (``clip_by_block_rms``).
-ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 128, 0.8, 1e-30, 1.0
-
-
-def _factored_dims(shape: tuple[int, ...]) -> tuple[int, int] | None:
-    """optax's ``_factored_dims``: the two largest axes (second largest,
-    largest; ties in axis order), or None when the second is under 128."""
-    if len(shape) < 2:
-        return None
-    order = sorted(range(len(shape)), key=lambda i: shape[i])  # stable, as np.argsort
-    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
-        return None
-    return order[-2], order[-1]
-
-
-def _reference_view(name: str, t: torch.Tensor) -> torch.Tensor:
-    """``t`` in the reference's layout: a Dense weight is ``[out, in]`` here
-    and ``[in, out]`` in flax, and adafactor factors by that layout."""
-    return t.T if t.dim() == 2 and transposed_from_jax(name) else t
-
-
-def _adafactor_init(name: str, p: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """``(v_row, v_col, v)``: the row and column factors (in the reference's
-    layout) of a factored tensor, else the full second moment; the unused
-    slots are ``zeros(1)``, as in optax's ``FactoredState``."""
-    ref = _reference_view(name, p)
-    dims = _factored_dims(tuple(ref.shape))
-    one = torch.zeros(1, dtype=p.dtype, device=p.device)
-    if dims is None:
-        return one, one.clone(), torch.zeros_like(p)
-    d1, d0 = dims
-    row = [n for i, n in enumerate(ref.shape) if i != d0]
-    col = [n for i, n in enumerate(ref.shape) if i != d1]
-    return (torch.zeros(row, dtype=p.dtype, device=p.device),
-            torch.zeros(col, dtype=p.dtype, device=p.device), one)
-
-
-def _adafactor_scale(
-    name: str, g: torch.Tensor, v_row: torch.Tensor, v_col: torch.Tensor, v: torch.Tensor,
-    decay: torch.Tensor,
-) -> tuple[torch.Tensor, ...]:
-    """optax's ``scale_by_factored_rms`` for one tensor: ``(update, v_row,
-    v_col, v)``, the factored branch computed in the reference's layout."""
-    ref = _reference_view(name, g)
-    dims = _factored_dims(tuple(ref.shape))
-    if dims is None:
-        v = decay * v + (1.0 - decay) * (g * g + ADAFACTOR_EPS)
-        return g * v ** -0.5, v_row, v_col, v
-    d1, d0 = dims
-    g_sqr = ref * ref + ADAFACTOR_EPS
-    v_row = decay * v_row + (1.0 - decay) * g_sqr.mean(dim=d0)
-    v_col = decay * v_col + (1.0 - decay) * g_sqr.mean(dim=d1)
-    reduced_d1 = d1 - 1 if d1 > d0 else d1
-    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-    col_factor = v_col ** -0.5
-    update = ref * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-    return _reference_view(name, update), v_row, v_col, v
-
-
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """An optax-style chain over named tensors: ``init(params) -> state``
@@ -351,7 +311,10 @@ class Optimizer:
     weight_decay: float = 0.0
     clip_norm: float | None = None
 
-    def init(self, params: dict[str, torch.Tensor]) -> dict[str, Any]:
+    def init(self, params: dict[str, torch.Tensor], views: dict[str, Any]) -> dict[str, Any]:
+        """The state of ``params``; ``views`` (``parallel.leaves.leaf_views``
+        of their model) places Adafactor's factors on the reference's whole
+        leaves."""
         device = next(iter(params.values())).device
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
         state: dict[str, Any] = {"count": torch.zeros((), dtype=torch.int32, device=device)}
@@ -362,8 +325,8 @@ class Optimizer:
         elif self.name == "lion":
             state["mu"] = zeros()
         elif self.name == "adafactor":
-            slots = {n: _adafactor_init(n, p) for n, p in params.items()}
-            for i, key in enumerate(("v_row", "v_col", "v")):
+            slots = {n: adafactor.init(p, views[n]) for n, p in params.items()}
+            for i, key in enumerate(adafactor.SLOTS):
                 state[key] = {n: t[i] for n, t in slots.items()}
         return state
 
@@ -383,18 +346,16 @@ class Optimizer:
 
     def update(
         self, grads: dict[str, torch.Tensor], state: dict[str, Any],
-        params: dict[str, torch.Tensor], *, shards: Any = None, clipped: bool = False,
+        params: dict[str, torch.Tensor], *, leaves: Any, shards: Any = None,
+        clipped: bool = False,
     ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
         """``shards`` (``parallel.expert_parallel.ExpertShards``, or a
-        tensor-parallel layout): the sharded leaves are this rank's slices,
-        and the clip's global norm spans every rank's. ``clipped``: the
-        caller has applied :meth:`clip` (ZeRO-1 updates slices of gradients
-        clipped whole)."""
-        if shards is not None and self.name == "adafactor":
-            raise NotImplementedError(
-                "adafactor under expert, tensor or pipeline parallelism is not ported yet "
-                "(ROADMAP Queue 1 item 8.5: its factored moments and block RMS span the whole "
-                "leaf)")
+        tensor-parallel or pipeline layout): the sharded leaves are this
+        rank's slices, and the clip's global norm spans every rank's.
+        ``clipped``: the caller has applied :meth:`clip` (ZeRO-1 updates
+        slices of gradients clipped whole). ``leaves`` (the model's
+        ``parallel.leaves.Reducer``): Adafactor's factored moments and block
+        RMS over the reference's whole leaves."""
         if not clipped:
             grads = self.clip(grads, shards)
         lr = self._lr(state["count"])
@@ -427,17 +388,11 @@ class Optimizer:
             # chain(scale_by_factored_rms, clip_by_block_rms(1), scale(lr),
             # [add_decayed_weights(wd)], scale(-1)): the decay is not scaled
             # by the LR.
-            decay = 1.0 - (state["count"].float() + 1.0) ** -ADAFACTOR_DECAY
-            direction = {}
-            for key in ("v_row", "v_col", "v"):
-                new[key] = {}
-            for n, g in grads.items():
-                u, new["v_row"][n], new["v_col"][n], new["v"][n] = _adafactor_scale(
-                    n, g, state["v_row"][n], state["v_col"][n], state["v"][n], decay)
-                u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIP, min=1.0)
-                u = lr * u
-                direction[n] = u + wd * params[n] if wd else u
-            return {n: -u for n, u in direction.items()}, new
+            decay = 1.0 - (state["count"].float() + 1.0) ** -adafactor.DECAY
+            scaled, slots = adafactor.scale(grads, state, leaves, decay)
+            new.update(slots)
+            return {n: -(lr * u + wd * params[n] if wd else lr * u)
+                    for n, u in scaled.items()}, new
         else:
             raise ValueError(f"unknown optimizer '{self.name}'")
         return {n: -lr * u for n, u in direction.items()}, new
@@ -611,12 +566,14 @@ def make_train_step(
         with torch.no_grad():
             grads = dict(zip(names, grads))
             old = {n: p.detach() for n, p in zip(names, params)}
+            leaves = leaf_reducer(model)
             if state.zero is None:
-                updates, new_opt = state.tx.update(grads, state.opt_state, old, shards=shards)
+                updates, new_opt = state.tx.update(grads, state.opt_state, old, leaves=leaves,
+                                                   shards=shards)
                 new = None
             else:  # ZeRO-1: the update on this rank's slices, gathered
                 new, new_opt = state.zero.update(state.tx, grads, state.opt_state, old, shards,
-                                                 sliced=flight is not None)
+                                                 leaves=leaves, sliced=flight is not None)
             grad_norm = _model_norm(grads, norm_shards) if guard_metrics else None
             finite = torch.isfinite(loss)
             if grad_norm is not None:
@@ -726,10 +683,14 @@ class Trainer:
 
     def place_state(self) -> None:
         """Place the optimizer state and choose the step, as the reference's
-        ``Trainer.place_state``: the data-parallel step (tensor-parallel when
-        the model is sharded) as built; with ``zero`` the moments cut to this
-        rank's slices over the data group (``parallel.zero.Zero1``), which
-        that step then updates; with ``zero_overlap`` the bucketed schedule
+        ``Trainer.place_state``: the data-parallel step (sharded over the
+        model's other axes) as built; with ``zero`` the moments cut to this
+        rank's slices over the data group (``parallel.zero.Zero1``: the
+        reference's placement on its whole leaves, an expert stack's ``E``
+        and a stage stack's ``S`` taken; under ``seq`` the slices are over
+        data only and replicated over seq, the gradients summed over seq
+        before the update), which that step then updates; with
+        ``zero_overlap`` the bucketed schedule
         (``parallel.zero.make_overlapped_train_step``) where it applies, else
         the ZeRO-1 step with the reason logged (no data parallelism, another
         axis above 1, the balance or chunked loss, BatchNorm statistics, a
@@ -744,21 +705,16 @@ class Trainer:
         )
 
         state = self.state
-        if getattr(state.model, "pipe_layout", None) is not None:
-            raise NotImplementedError(
-                "ZeRO-1 with pipeline parallelism is not ported yet (ROADMAP Queue 1 item 8.5: "
-                "ZeRO-1 slices of the stage stacks)")
-        if (state.expert_shards is not None and state.expert_shards.size > 1) or (
-                self.seq is not None and self.seq.size > 1):
-            raise NotImplementedError(
-                "ZeRO-1 with expert or sequence parallelism is not ported yet (ROADMAP Queue 1 "
-                "item 8.5: ZeRO-1 slices of expert stacks and over a data x seq plane)")
         zero = Zero1.for_state(state, self.group)
         self.state = dataclasses.replace(state, zero=zero, opt_state=zero.shard(state.opt_state))
         if not self.zero_overlap:
             return
         model = state.model
-        busy = {"model": model.tp.size if getattr(model, "tp", None) is not None else 1}
+        pipe = getattr(model, "pipe_layout", None)
+        busy = {"pipe": 1 if pipe is None or pipe.pipe is None else pipe.pipe.size,
+                "expert": 1 if state.expert_shards is None else state.expert_shards.size,
+                "seq": 1 if self.seq is None else self.seq.size,
+                "model": model.tp.size if getattr(model, "tp", None) is not None else 1}
         try:
             self.train_step = make_overlapped_train_step(
                 self.task, self.state, self.group, busy=busy, **self._step_kwargs)

@@ -265,28 +265,20 @@ def reject_unported(args: argparse.Namespace) -> None:
     sp = getattr(args, "sp", 1)
     if sp < 1:
         raise SystemExit(f"--sp must be >= 1, got {sp}")
-    if sp > 1:
-        if getattr(args, "attention", None) not in ("ring", "ulysses"):
-            raise SystemExit(f"--sp {sp} shards the LM's sequence: it needs train_lm's "
-                             "--attention ring or ulysses")
-        if getattr(args, "loss_chunk", 0) > 0:
-            raise SystemExit("--sp with --loss_chunk is not ported yet (ROADMAP Queue 1 item 8: "
-                             "the chunked loss over sequence shards)")
+    if sp > 1 and getattr(args, "attention", None) not in ("ring", "ulysses"):
+        raise SystemExit(f"--sp {sp} shards the LM's sequence: it needs train_lm's "
+                         "--attention ring or ulysses")
     reject_tp(args)
     reject_pp(args)
-    if ((getattr(args, "zero", False) or getattr(args, "zero_overlap", False))
-            and (getattr(args, "ep", 1) != 1 or sp != 1)):
-        raise SystemExit("--zero / --zero_overlap with --ep or --sp is not ported yet (ROADMAP "
-                         "Queue 1 item 8.5: ZeRO-1 slices of expert stacks and over a data x "
-                         "seq plane)")
     if (args.resume or args.eval_only) and args.model_dir is None:
         raise SystemExit("--resume and --eval_only need --model_dir")
 
 
 def reject_tp(args: argparse.Namespace) -> None:
     """Refuse (``SystemExit``) the ``--tp`` combinations this port leaves
-    out; the reference runs each of them (ROADMAP Queue 1 item 8.5).
-    ``--tp`` with ``--moe_experts`` / ``--ep``, ``--sp`` and ``--pp`` runs."""
+    out; the reference runs each of them (ROADMAP Queue 1 item 8.6).
+    ``--tp`` with ``--moe_experts`` / ``--ep``, ``--sp``, ``--pp`` and
+    adafactor runs."""
     tp = getattr(args, "tp", 1)
     if tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {tp}")
@@ -294,22 +286,32 @@ def reject_tp(args: argparse.Namespace) -> None:
         return
     if not hasattr(args, "d_model"):
         raise SystemExit("--tp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
-                         "item 8.5: tensor parallelism of the convolutions)")
-    if getattr(args, "optimizer", None) == "adafactor":
-        raise SystemExit("--tp with adafactor is not ported yet (ROADMAP Queue 1 item 8.5: its "
-                         "factored moments and block RMS span the whole leaf)")
+                         "item 8.6: tensor parallelism of the convolutions)")
     sizes = {"num_heads": args.num_heads, "kv_heads": args.num_kv_heads or args.num_heads,
              "d_ff": args.d_ff, "d_model": args.d_model}
     bad = [f"{k} {v}" for k, v in sizes.items() if v % tp]
     if bad:
         raise SystemExit(f"--tp {tp} must divide {', '.join(bad)}: the port splits whole heads "
-                         "and widths (ROADMAP Queue 1 item 8.5: the reference splits H*D)")
+                         "and widths (ROADMAP Queue 1 item 8.6: the reference splits H*D)")
+
+
+#: Why ``--pp`` refuses a sequence-parallel attention: the reference
+#: raises on it. Its pipeline is a ``shard_map`` manual over ``pipe`` only,
+#: and the ring's and Ulysses' ``shard_map`` over ``seq`` inside a stage is
+#: refused by its JAX (0.9) when the step is traced.
+PP_SEQ_REASON = (
+    "the reference raises on it: its ring / Ulysses shard_map over 'seq' nested inside the "
+    "pipeline's shard_map over 'pipe' is refused by JAX ('The context mesh ... should match "
+    "the mesh passed to shard_map')")
 
 
 def reject_pp(args: argparse.Namespace) -> None:
     """Refuse (``SystemExit``) the ``--pp`` combinations this port leaves
-    out; the reference composes each of them through GSPMD (ROADMAP Queue 1
-    item 8.5). ``--pp`` with ``--tp`` runs."""
+    out: the CNNs over a pipe axis, and a sequence-parallel attention
+    inside the stages, which the reference itself raises on
+    (:data:`PP_SEQ_REASON`; ROADMAP Queue 1 item 8.6). ``--pp`` with
+    ``--tp``, ``--ep``, ``--zero`` / ``--zero_overlap`` and adafactor
+    runs."""
     pp = getattr(args, "pp", 1)
     if pp < 1:
         raise SystemExit(f"--pp must be >= 1, got {pp}")
@@ -317,19 +319,10 @@ def reject_pp(args: argparse.Namespace) -> None:
         return
     if not hasattr(args, "d_model"):
         raise SystemExit("--pp in train_resnet / train_unet is not ported yet (ROADMAP Queue 1 "
-                         "item 8.5: the CNNs over a pipe axis)")
-    combos = {
-        "--sp": getattr(args, "sp", 1) != 1,
-        "--attention ring / ulysses": getattr(args, "attention", None) in ("ring", "ulysses"),
-        "--ep": getattr(args, "ep", 1) != 1,
-        "--zero / --zero_overlap": getattr(args, "zero", False)
-        or getattr(args, "zero_overlap", False),
-        "adafactor": getattr(args, "optimizer", None) == "adafactor",
-    }
-    for flag, on in combos.items():
-        if on:
-            raise SystemExit(f"--pp with {flag} is not ported yet (ROADMAP Queue 1 item 8.5: "
-                             "pipeline parallelism beside the other axes)")
+                         "item 8.6: the CNNs over a pipe axis)")
+    if getattr(args, "sp", 1) != 1 or getattr(args, "attention", None) in ("ring", "ulysses"):
+        raise SystemExit(f"--pp with --sp / --attention ring|ulysses is refused: {PP_SEQ_REASON} "
+                         "(ROADMAP Queue 1 item 8.6)")
 
 
 def setup_runtime(args: argparse.Namespace):

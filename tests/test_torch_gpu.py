@@ -6,8 +6,8 @@ decode (K4 on int8 pages) against the CPU plain path; the CNN train steps
 no group; K1-K4 at a tensor-parallel rank's local head counts, and the
 one-process tensor-parallel model on the card against the CPU; with four
 cards, data, expert, sequence, tensor and pipeline parallelism, ZeRO-1 and
-the composed layouts (pp x tp, tp x sp, ep x sp, ep x tp) over NCCL against
-one card.
+the composed layouts (pp x tp, tp x sp, ep x sp, ep x tp, pp x ep,
+loss_chunk x sp, ZeRO-1 x ep / sp / pp) over NCCL against one card.
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -1276,3 +1276,141 @@ def test_nccl_compose_f64_matches_one_card(nccl_compose_runs, layout):
     results = [res[f"{layout}_f64"] for res in spawned]
     bad = compose_ranks.f64_failures(results, one[layout][torch.float64])
     assert not bad, bad[:20]
+
+
+@pytest.fixture(scope="module")
+def nccl_sharded_runs(tmp_path_factory):
+    """4 NCCL ranks (one card each) of ``tests/torch_sharded_ranks.py``'s
+    composed layouts on the 110M widths at 2 layers (the MoE LM with 4
+    experts), B8 S1024: ``pp 2 x ep 2`` (2 microbatches), ``--loss_chunk``
+    under ``dp 2 x sp 2`` (ring) and ZeRO-1 beside ``ep 2``, ``sp 2`` (ring)
+    and ``pp 2``, each in float32 (K1-K3; the kernel ring) and float64 (the
+    plain cores), TF32 off, with the split-batch baseline of ``pp 2 x ep 2``
+    (``dp 4``) in the same spawn; one card's step of the pipelined MoE LM
+    (its stages in order, every expert) and of the flat LM with the chunked
+    loss, each in float32 with flash and in float64. Skips with fewer than
+    four cards."""
+    import dataclasses
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: pp 2 x ep 2 and dp 2 x (ep, sp, pp) 2, one rank a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_sharded_ranks as sharded
+    import torch_tp_ranks as tp_ranks
+
+    from deeplearning_mpi_tpu_torch.data import SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    tmp_path = tmp_path_factory.mktemp("sharded")
+    cfg = TransformerConfig(num_layers=2)
+    moe_cfg = dataclasses.replace(cfg, moe_experts=4)
+    dense = TransformerLM(cfg, dtype=torch.float32, device="cpu").init_weights(0)
+    moe = TransformerLM(moe_cfg, dtype=torch.float32, device="cpu").init_weights(1)
+    ds = SyntheticTokens(8, 1024, vocab_size=cfg.vocab_size, seed=0)
+    as_dict = lambda c: {k: v for k, v in dataclasses.asdict(c).items()  # noqa: E731
+                         if k != "moe_routing"}
+    layouts = [*sharded.COMPOSE, *sharded.ZERO]
+    inputs = {"cfg": as_dict(cfg), "moe_cfg": as_dict(moe_cfg), "params": dense.state_dict(),
+              "moe_params": moe.state_dict(),
+              "tokens": torch.stack([torch.from_numpy(ds[i]["tokens"]) for i in range(8)]),
+              "clip": {name: 1.0 for name in [*layouts, "dp4_pp2_ep2"]}, "layouts": layouts}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    spawned = tp_ranks.spawn(tmp_path, sharded.worker_cuda)
+    one = {name: {torch.float32: sharded.step_case(inputs, name, device="cuda",
+                                                   attention_fn=fa.flash_attention_bhsd),
+                  torch.float64: sharded.step_case(inputs, name, device="cuda",
+                                                   dtype=torch.float64)}
+           for name in sharded.COMPOSE}
+    return spawned, one
+
+
+def test_nccl_compose_pp2_ep2_matches_one_card(nccl_sharded_runs):
+    """``pp 2 x ep 2`` over 4 NCCL cards, float32, against one card's
+    pipelined MoE step: the loss, the balance loss and the dropped fraction
+    within 1e-6 relative; every gradient and every parameter after one Adam
+    step within ``torch_moe_ranks.split_batch_rule`` against ``dp 4`` from
+    the same spawn (itself under ``DP_CEILING``); every rank's whole
+    parameters bitwise equal."""
+    assert not _sharded_failures(nccl_sharded_runs, "pp2_ep2", "dp4_pp2_ep2")
+
+
+def test_nccl_compose_pp2_ep2_f64_matches_one_card(nccl_sharded_runs):
+    """The float64 twin (dense attention) against one card in float64: the
+    loss, every gradient, its clip and every updated parameter within 1e-7
+    relative."""
+    assert not _sharded_f64_failures(nccl_sharded_runs, "pp2_ep2")
+
+
+def test_nccl_loss_chunk_sp_matches_one_card(nccl_sharded_runs):
+    """``--loss_chunk`` under ``dp 2 x sp 2`` (the kernel ring) over 4 NCCL
+    cards, float32, against one card's flat step with the chunked loss: the
+    loss within 1e-6 relative; every gradient and every parameter after one
+    Adam step within ``torch_moe_ranks.split_batch_rule`` against the
+    ``dp 2 x sp 2`` ring step of the same model without it from the same
+    spawn (``dp2_sp2_zero`` without ZeRO-1, the seq-split baseline of
+    :data:`_COMPOSE_BASE`; itself under ``DP_CEILING``); every rank's whole
+    parameters bitwise equal."""
+    assert not _sharded_failures(nccl_sharded_runs, "dp2_sp2_chunk", "dp2_sp2_zero_unzeroed")
+
+
+def test_nccl_loss_chunk_sp_f64_matches_one_card(nccl_sharded_runs):
+    """The float64 twin (the plain ring) against one card's chunked step in
+    float64: the loss, every gradient, its clip and every updated parameter
+    within 1e-7 relative."""
+    assert not _sharded_f64_failures(nccl_sharded_runs, "dp2_sp2_chunk")
+
+
+def _sharded_failures(nccl_sharded_runs, layout: str, baseline: str) -> list:
+    """What fails the float32 bar of ``layout`` in ``nccl_sharded_runs``:
+    the tensors over ``split_batch_rule`` against ``baseline``, the scalars
+    over 1e-6 relative, the parameters that differ between ranks."""
+    import torch_moe_ranks as moe_ranks
+
+    spawned, one = nccl_sharded_runs
+    ref = one[layout][torch.float32]
+    results = [res[layout] for res in spawned]
+    over, bars = moe_ranks.split_batch_rule(results, [res[baseline] for res in spawned], ref)
+    print(f"{layout}: split-batch bars", bars, "over:", over[:6])
+    scalars = [(r, k, got[k], ref[k]) for r, got in enumerate(results)
+               for k in ("step_loss", "moe_aux_loss", "moe_dropped_frac")
+               if k in ref and abs(got[k] - ref[k]) > 1e-6 * max(1.0, abs(ref[k]))]
+    replicas = [n for got in results[1:] for n, t in results[0]["params"].items()
+                if not torch.equal(got["params"][n], t)]
+    return over[:20] + scalars + replicas
+
+
+def _sharded_f64_failures(nccl_sharded_runs, layout: str) -> list:
+    """The float64 twin's loss, gradients, clip and updated parameters over
+    1e-7 relative of one card's, on any rank."""
+    import torch_moe_ranks as moe_ranks
+
+    spawned, one = nccl_sharded_runs
+    ref = one[layout][torch.float64]
+    bad = []
+    for r, res in enumerate(spawned):
+        got = res[f"{layout}_f64"]
+        if abs(got["step_loss"] - ref["step_loss"]) > 1e-7 * abs(ref["step_loss"]):
+            bad.append((r, "step_loss", got["step_loss"], ref["step_loss"]))
+        for key in ("grads", "clipped", "params"):
+            worst = max((moe_ranks.relative_error(got[key][n], t), n) for n, t in ref[key].items())
+            if worst[0] > 1e-7:
+                bad.append((r, key, worst))
+    return bad
+
+
+@pytest.mark.parametrize("layout", ["dp2_ep2_zero", "dp2_sp2_zero", "dp2_pp2_zero"])
+def test_nccl_zero_composed_is_bitwise_without_it(nccl_sharded_runs, layout):
+    """ZeRO-1 beside ``ep 2``, ``sp 2`` (the kernel ring) and ``pp 2`` over 4
+    NCCL cards: the loss and every whole parameter after one Adam step
+    bitwise the same layout's step without ZeRO-1, in float32 and in the
+    float64 twin; some moment cut over data."""
+    spawned, _ = nccl_sharded_runs
+    for res in spawned:
+        for suffix in ("", "_f64"):
+            got, want = res[f"{layout}{suffix}"], res[f"{layout}_unzeroed{suffix}"]
+            assert got["step_loss"] == want["step_loss"]
+            assert all(torch.equal(got["params"][n], t) for n, t in want["params"].items())
+        got = res[layout]
+        assert any(s != got["param_shapes"][n] for n, s in got["moment_shapes"].items())

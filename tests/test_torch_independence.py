@@ -15,8 +15,11 @@ Ulysses, an LM step under a seq mesh over gloo); three for tensor
 parallelism and ZeRO-1: ``train_lm --tp 2`` and ``--zero_overlap`` over 2
 gloo processes, ``generate --tp 2`` in one; one for pipeline parallelism
 (``train_lm --pp 2`` over 2 gloo processes, a ``LockstepPipe`` step and
-its checkpoint in one) and one for the ViT (a step, ``train_resnet --arch
-vit_tiny``), each process with jax blocked.
+its checkpoint in one), one for each composed layout and each combination
+lifted beside them (``--pp x --ep``, ``--loss_chunk x --sp``, ZeRO-1 beside
+``--ep`` / ``--sp`` / ``--pp``, Adafactor beside ``--tp`` / ``--ep`` /
+``--pp``: ``train_lm`` over 4 gloo processes) and one for the ViT (a step,
+``train_resnet --arch vit_tiny``), each process with jax blocked.
 """
 
 import ast
@@ -322,6 +325,32 @@ _BLOCKED_RANK4 = _BLOCKED_RANK.replace("'--num_layers', '1'", "'--num_layers', '
 def test_composed_layouts_run_with_jax_blocked(layout, tmp_path):
     """``train_lm`` under each composition (4 gloo processes), every
     process with jax blocked."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", _BLOCKED_RANK4, str(r),
+                               str(tmp_path / "store"), *layout], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(4)]
+    outs = [p.communicate(timeout=180) for p in procs]
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0 and stdout.strip().endswith("ok"), stderr[-2000:]
+
+
+@pytest.mark.parametrize("layout", [
+    ["--moe_experts", "4", "--pp", "2", "--ep", "2", "--microbatches", "2"],
+    ["--dp", "2", "--sp", "2", "--attention", "ring", "--loss_chunk", "8"],
+    ["--moe_experts", "4", "--dp", "2", "--ep", "2", "--zero"],
+    ["--dp", "2", "--sp", "2", "--attention", "ring", "--zero"],
+    ["--dp", "2", "--pp", "2", "--zero", "--microbatches", "2"],
+    ["--dp", "2", "--tp", "2", "--optimizer", "adafactor"],
+    ["--moe_experts", "4", "--dp", "2", "--ep", "2", "--optimizer", "adafactor"],
+    ["--dp", "2", "--pp", "2", "--optimizer", "adafactor", "--microbatches", "2"],
+], ids=["pp_ep", "loss_chunk_sp", "zero_ep", "zero_sp", "zero_pp", "adafactor_tp",
+        "adafactor_ep", "adafactor_pp"])
+def test_completed_layouts_run_with_jax_blocked(layout, tmp_path):
+    """``train_lm`` under each combination lifted beside the composed
+    layouts (4 gloo processes), every process with jax blocked."""
     import os
 
     env = {**os.environ, "OMP_NUM_THREADS": "1"}

@@ -45,8 +45,10 @@ twin.
   ``dp 2 x pp 2`` equal to the reference (aux within 1e-6); a ``dp 2 x pp
   2`` checkpoint that resumes bit for bit and restores in one process.
 - ``cli.train_lm --device cpu --nproc 2 --pp 2 --microbatches 2`` logs the
-  one-process run's epoch losses; each ``--pp`` combination this slice
-  leaves out exits 1 with its ROADMAP item.
+  one-process run's epoch losses; ``--pp`` beside ``--tp``, ``--ep``,
+  ``--zero`` / ``--zero_overlap`` and adafactor runs on gloo ranks, and
+  beside a sequence-parallel attention (on which the reference raises) and
+  in the CNN CLIs exits 1 with its ROADMAP item.
 """
 
 import dataclasses
@@ -566,29 +568,55 @@ def test_train_lm_cli_pp2_logs_the_one_process_losses(capsys):
     ("train_resnet", ["--synthetic"]),
 ], ids=["tp", "sp", "ulysses", "ep", "zero", "zero_overlap", "adafactor", "cnn"])
 def test_pp_refusals(cli, extra, capsys):
-    """What this slice leaves beside ``--pp`` is refused with ROADMAP Queue 1
-    item 8.5; the reference composes each through GSPMD. ``--pp 2 --tp 2``
-    runs (4 gloo ranks, Megatron blocks in each stage) and logs the
-    one-process run's epoch losses."""
+    """Beside ``--pp``, a sequence-parallel attention is refused with the
+    reason the reference raises on it and ROADMAP Queue 1 item 8.6, as are
+    the CNNs. ``--pp 2`` with ``--tp 2``, ``--ep 2``, ``--zero`` /
+    ``--zero_overlap`` (over ``--dp 2``) and adafactor runs on gloo ranks;
+    the dense runs log the one-process run's epoch losses (``--zero_overlap``
+    after its logged fallback), the MoE run the losses and dropped
+    fractions of ``--pp 2`` with every expert on each stage, and adafactor
+    finite losses (its block RMS spans the stacked leaf: a ``--pp 2`` step
+    is not a ``--pp 1`` step)."""
     import importlib
+
+    from deeplearning_mpi_tpu_torch.utils.config import PP_SEQ_REASON
 
     module = importlib.import_module(f"deeplearning_mpi_tpu_torch.cli.{cli}")
     flags = LM_FLAGS if cli == "train_lm" else ["--device", "cpu"]
-    if extra == ["--tp", "2"]:
-        # widths whose Megatron pairs clear the rule's min_size
-        wide = [*LM_FLAGS, "--num_heads", "4", "--head_dim", "16", "--d_model", "32",
-                "--d_ff", "64"]
-        assert module.main(wide) == 0
-        want = re.findall(r"^Epoch \d+: loss ([0-9.]+)", capsys.readouterr().out, re.M)
-        out = subprocess.run([sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.train_lm",
-                              *wide, "--nproc", "4", "--pp", "2", "--tp", "2",
-                              "--microbatches", "2"], cwd=ROOT, capture_output=True, text=True,
-                             timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
-        assert out.returncode == 0, out.stderr[-2000:]
-        assert "--pp 2 x 2 microbatches" in out.stdout and "--tp 2" in out.stdout
-        got = re.findall(r"^Epoch \d+: loss ([0-9.]+)", out.stdout, re.M)
-        assert len(want) == 2 and got == want, (got, want)
+    if cli == "train_resnet" or "--attention" in extra:
+        assert module.main([*flags, "--pp", "2", *extra]) == 1
+        err = capsys.readouterr().err
+        assert "--pp" in err and "item 8.6" in err
+        assert cli == "train_resnet" or PP_SEQ_REASON in err
         return
-    assert module.main([*flags, "--pp", "2", *extra]) == 1
-    err = capsys.readouterr().err
-    assert "--pp" in err and "item 8.5" in err
+    # widths whose Megatron pairs clear the rule's min_size
+    wide = [*LM_FLAGS, "--num_heads", "4", "--head_dim", "16", "--d_model", "32",
+            "--d_ff", "64"]
+    pattern = r"^Epoch \d+: (?:loss|moe_dropped_frac) ([0-9.]+)"
+
+    def losses(*more, nproc=None):
+        if nproc is None:
+            assert module.main([*wide, *more]) == 0
+            return re.findall(pattern, capsys.readouterr().out, re.M), ""
+        out = subprocess.run([sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.train_lm",
+                              *wide, *more, "--nproc", str(nproc), "--microbatches", "2"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300,
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "--pp 2 x 2 microbatches" in out.stdout
+        return re.findall(pattern, out.stdout, re.M), out.stdout
+
+    if extra == ["--optimizer", "adafactor"]:
+        got, _ = losses("--pp", "2", *extra, nproc=2)
+        assert len(got) == 2 and all(np.isfinite(float(x)) for x in got), got
+        return
+    if "--ep" in extra:
+        want, _ = losses("--pp", "2", "--moe_experts", "4", nproc=2)
+        got, _ = losses("--pp", "2", *extra, nproc=4)
+    else:
+        want, _ = losses()
+        more = ["--tp", "2"] if extra == ["--tp", "2"] else ["--dp", "2", *extra]
+        got, stdout = losses("--pp", "2", *more, nproc=4)
+        if extra == ["--zero_overlap"]:
+            assert "non-data mesh axes in use (['pipe'])" in stdout
+    assert len(want) >= 2 and got == want, (got, want)

@@ -9,7 +9,8 @@ eval) and saves it. Its parameters after the step (atol 5e-5, rtol 1e-4,
 decimals: within 6e-5) equal the JAX train step with the same schedule on a
 ``data x seq`` virtual mesh, from the port's seeded init on the loader's
 first batch. The CLI refuses ``--sp`` without a sequence-parallel
-attention, and together with ``--moe_experts`` or ``--loss_chunk``.
+attention; beside ``--moe_experts`` and ``--loss_chunk`` it logs one
+process's losses.
 """
 
 import os
@@ -110,17 +111,20 @@ def test_sp_cli_step_matches_the_jax_step(tmp_path, data, sp, attention):
     (("--sp", "2"), "--attention ring or ulysses"),
     (("--nproc", "4", "--ep", "2", "--sp", "2", "--attention", "ring", "--moe_experts", "4"),
      None),
-    (("--sp", "2", "--attention", "ulysses", "--loss_chunk", "8"), "ROADMAP Queue 1 item 8"),
+    (("--nproc", "4", "--sp", "4", "--attention", "ulysses", "--loss_chunk", "8"), None),
 ], ids=["no_schedule", "moe", "loss_chunk"])
 def test_sp_cli_refusals(extra, message):
     """What ``--sp`` leaves out exits 1 with its reason; the MoE LM under
-    ``--ep 2 --sp 2`` (refused before its routing spanned the seq group)
-    runs and logs one process's losses and dropped fractions."""
+    ``--ep 2 --sp 2`` and the chunked loss under ``--sp 4`` (each refused
+    before its slice) run and log one process's losses (and dropped
+    fractions)."""
     out = _cli(*extra)
     if message is not None:
         assert out.returncode == 1 and message in out.stderr, out.stderr[-2000:]
         return
-    one = _cli("--moe_experts", "4")
+    model = [v for i, f in enumerate(extra) if f in ("--moe_experts", "--loss_chunk")
+             for v in (f, extra[i + 1])]
+    one = _cli(*model)
     assert out.returncode == 0 and one.returncode == 0, (out.stderr[-2000:], one.stderr[-2000:])
     pattern = r"^Epoch \d+: (?:loss|moe_dropped_frac) ([0-9.]+)"
     want = re.findall(pattern, one.stdout, re.M)

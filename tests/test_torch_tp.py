@@ -386,20 +386,21 @@ def test_generate_cli_tp2_equals_tp1(checkpoint, capsys, extra):
 @pytest.mark.parametrize("cli,extra,message", [
     ("train_lm", ["--tp", "2", "--moe_experts", "4", "--ep", "2", "--nproc", "4"], None),
     ("train_lm", ["--tp", "2", "--sp", "2", "--attention", "ring", "--nproc", "4"], None),
-    ("train_lm", ["--tp", "2", "--optimizer", "adafactor"], "item 8.5"),
+    ("train_lm", ["--tp", "2", "--optimizer", "adafactor", "--nproc", "2"], None),
     ("train_lm", ["--tp", "3"], "must divide"),
     ("train_resnet", ["--tp", "2", "--synthetic"], "convolutions"),
     ("generate", ["--tp", "2", "--quantize", "int8", "--model_dir", "x"], "single-device dense"),
     ("serve_lm", ["--tp", "2", "--selftest"], "requires --replicas > 1"),
-    ("train_lm", ["--zero", "--moe_experts", "4", "--ep", "2"], "item 8.5"),
-    ("train_lm", ["--zero_overlap", "--sp", "2", "--attention", "ring"], "item 8.5"),
+    ("train_lm", ["--zero", "--moe_experts", "4", "--ep", "2", "--nproc", "4"], None),
+    ("train_lm", ["--zero_overlap", "--sp", "2", "--attention", "ring", "--nproc", "4"], None),
 ], ids=["moe", "sp", "adafactor", "uneven", "conv", "int8", "serve", "zero_ep", "zero_sp"])
 def test_tp_refusals(cli, extra, message, capsys):
-    """What this slice leaves out is refused with its ROADMAP item (``--tp``
-    in those combinations, and ZeRO-1 with expert or sequence parallelism);
-    the reference runs each. ``--tp 2`` beside ``--moe_experts 4 --ep 2``
-    and beside ``--sp 2 --attention ring`` runs on 4 gloo ranks and logs
-    one process's epoch losses."""
+    """What the port leaves out is refused with its reason (``--tp`` on
+    the convolutions or at widths it does not divide, int8, serving); the
+    reference runs each. ``--tp 2`` beside ``--moe_experts 4 --ep 2``,
+    beside ``--sp 2 --attention ring`` and with adafactor, and ZeRO-1
+    beside ``--ep 2`` and ``--sp 2`` (``--zero_overlap`` falling back),
+    run on gloo ranks and log one process's epoch losses."""
     import importlib
 
     module = importlib.import_module(f"deeplearning_mpi_tpu_torch.cli.{cli}")
@@ -407,7 +408,8 @@ def test_tp_refusals(cli, extra, message, capsys):
     if message is None:
         run = ["--device", "cpu", *flags, "--seq_len", "32", "--batch_size", "4",
                "--train_sequences", "20", "--num_epochs", "1"]
-        one = ["--moe_experts", "4"] if "--moe_experts" in extra else []
+        one = [v for i, f in enumerate(extra) if f in ("--moe_experts", "--optimizer")
+               for v in (f, extra[i + 1])]
         assert module.main(run + one) == 0
         want = re.findall(r"^Epoch \d+: loss ([0-9.]+)", capsys.readouterr().out, re.M)
         out = subprocess.run([sys.executable, "-m", f"deeplearning_mpi_tpu_torch.cli.{cli}",

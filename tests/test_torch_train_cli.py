@@ -110,5 +110,5 @@ def test_train_cli_refuses_missing_cuda_and_unported_options():
         pytest.skip("this machine has CUDA: the refusal is what a machine without it does")
     out = _train(device="cuda")
     assert out.returncode != 0 and "CUDA is not available" in out.stderr
-    out = _train("--pp", "2", "--ep", "2", "--moe_experts", "4")
+    out = _train("--tuned_step", "tuned.json")
     assert out.returncode != 0 and "not ported yet" in out.stderr

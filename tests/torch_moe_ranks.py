@@ -39,10 +39,10 @@ class GradProbe:
 
     name = "probe"
 
-    def init(self, params):
+    def init(self, params, views):
         return {"g": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    def update(self, grads, state, params, *, shards=None):
+    def update(self, grads, state, params, *, leaves, shards=None):
         return {n: torch.zeros_like(g) for n, g in grads.items()}, {"g": dict(grads)}
 
 

@@ -59,10 +59,10 @@ class ClipProbe:
 
         self.tx = build_optimizer("sgd", 1.0, clip_norm=clip_norm)
 
-    def init(self, params):
+    def init(self, params, views):
         return {"g": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    def update(self, grads, state, params, *, shards=None):
+    def update(self, grads, state, params, *, leaves, shards=None):
         return ({n: torch.zeros_like(g) for n, g in grads.items()},
                 {"g": self.tx.clip(grads, shards)})
 
