@@ -132,7 +132,7 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``cli.train_lm --moe_experts 8`` at phase 10's shape with
     ``--model_dir`` exits 0 and logs ``moe_dropped_frac``;
     ``--moe_routing expert_choice`` exits 2 without
-    ``--allow_acausal_routing`` and 0 with it; ``cli.generate --moe_experts
+    ``--allow_acausal_routing`` and 0 with it (at 2 layers); ``cli.generate --moe_experts
     8 --greedy`` on the checkpoint is token-identical to ``generate`` on
     the restored model, K4 launched once a layer for each prompt position
     of the stepwise prefill and each new token after the first, K1 never;
@@ -248,7 +248,26 @@ Phases, each printed on its own line; any failure exits non-zero:
     1e-3 relative L2 of the CPU's Adafactor update of the card's gradients
     (an unfactored leaf's first step is ``lr * g / |g|``: a gradient element
     near 0 flips it). Then K1/K2/K3 timed at 18b's microbatch call (B2
-    S2048 H12) with 18b's launches.
+    S2048 H12) with 18b's launches;
+19. telemetry. (a) ``cli.train_lm`` at the 110M widths (vocab 256) in bf16,
+    B8 S2048, flash, 8 steps, with ``--metrics_dir --profile_dir --log_dir
+    --metrics_every 1``, over NCCL at world size 1 in this process: every
+    record canonical (``{"ts", "kind", ...}`` of JSON scalars; a summary's
+    instruments in ``telemetry/schema.py``), the epoch record with the
+    ``StepTimer`` keys, ``mfu`` and the ``hbm_*`` keys, ``hbm_peak_bytes``
+    equal to ``torch.cuda.max_memory_allocated()``, the run log's sidecar
+    equal to ``metrics.jsonl``, and the profiler trace holding K1, K2 and
+    K3 exactly 12 times in each profiled step by their C++ names. (b) Phase
+    8's step through the ``Trainer`` with the registry's step records off
+    and on: the same synchronizing calls in every step under
+    ``torch.cuda.set_sync_debug_mode``, both step times printed (no bar),
+    the step's own sync sites printed; then with a span recorder the
+    phases sum to the epoch's duration. (c) Phase 5's engine with a
+    registry and a span recorder: every stream equal to offline greedy, 8
+    TTFT and 8 TPOT observations, the registry's counters equal to
+    ``engine.counters``, each request's queue + prefill + decode spans
+    tiling arrival to finish within 1%; then ``serve_lm --selftest
+    --metrics_file`` writes canonical records.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -275,8 +294,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
+#: (phase, seconds) of each phase's closing line, as logged
+PHASE_SECONDS: list[tuple[str, float]] = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    closing = re.match(r"phase (\d+) .* in ([0-9.]+)s$", msg)
+    if closing:
+        PHASE_SECONDS.append((closing.group(1), float(closing.group(2))))
 
 
 def gpu_name_and_power() -> str:
@@ -903,22 +929,6 @@ def check_k2k3(torch, gen, cases=None) -> None:
 
 
 # -- phase 8 -----------------------------------------------------------------
-def lm_train_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step, the reference's count
-    (``telemetry/flops.py``): 3x the forward's matmuls — per token and block
-    2*d*(H+2*Hkv)*Dh for q/k/v, 2*H*Dh*d out, 4*(S/2)*H*Dh causal attention,
-    6*d*d_ff SwiGLU (an MoE block: the 2*d*E router and the top_k ACTIVE
-    experts' 6*d*d_ff each, not the dispatch and combine contractions);
-    plus the 2*d*V head per token."""
-    d, hd, kvd = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-    per_block = 2 * d * hd + 4 * d * kvd + 2 * hd * d + 4 * (seq / 2) * hd
-    if cfg.moe_experts:
-        per_block += 2 * d * cfg.moe_experts + cfg.moe_top_k * 6 * d * cfg.d_ff
-    else:
-        per_block += 6 * d * cfg.d_ff
-    return 3.0 * batch * seq * (cfg.num_layers * per_block + 2 * d * cfg.vocab_size)
-
-
 def train_110m(torch, seed: int) -> dict:
     """The 110M ``TransformerConfig()`` at ``bench_lm``'s shape: bf16, flash
     attention (K1/K2/K3), B8 S2048, Adam 3e-4 with clip 1.0, 10 steps (5
@@ -928,6 +938,7 @@ def train_110m(torch, seed: int) -> dict:
     from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.telemetry.flops import transformer_train_flops
     from deeplearning_mpi_tpu_torch.train import (
         build_optimizer,
         create_train_state,
@@ -985,7 +996,7 @@ def train_110m(torch, seed: int) -> dict:
                 "K3": fa.flash_attention_bwd_dkv_cuda.launches}
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(times[2:])[len(times[2:]) // 2]
-    flops = lm_train_flops(cfg, B, S)
+    flops = transformer_train_flops(cfg, B, S)
     result = {"losses": losses, "step_times_s": times, "step_s_median": step_s,
               "tokens_per_s": B * S / step_s, "model_flops_per_step": flops,
               "mfu": flops / step_s / PEAK_FLOPS["bfloat16"], "max_memory_allocated": peak,
@@ -1520,81 +1531,6 @@ def time_k4_int8(torch, gen, launches: int, fills, k4_len) -> dict:
 
 
 # -- phase 12 ----------------------------------------------------------------
-#: The reference's analytic FLOP counts (``telemetry/flops.py``), copied:
-#: the port has no telemetry package yet.
-RESNET_STAGES = {"resnet18": ((2, 2, 2, 2), False), "resnet34": ((3, 4, 6, 3), False),
-                 "resnet50": ((3, 4, 6, 3), True), "resnet101": ((3, 4, 23, 3), True),
-                 "resnet152": ((3, 8, 36, 3), True)}
-
-
-def _conv_flops(k: int, cin: int, cout: int, oh: float, ow: float) -> float:
-    return 2.0 * k * k * cin * cout * oh * ow
-
-
-def resnet_train_flops(arch: str, batch: int, image_size: int = 32, *, num_classes: int = 10,
-                       stem: str = "cifar") -> float:
-    """3x the forward FLOPs of one ResNet batch: stem, the stages' Basic or
-    Bottleneck blocks with their projections, the head."""
-    stages, bottleneck = RESNET_STAGES[arch]
-    s = float(image_size)
-    flops = 0.0
-    cin = 3
-    if stem == "imagenet":
-        s /= 2
-        flops += _conv_flops(7, cin, 64, s, s)
-        s /= 2
-    else:
-        flops += _conv_flops(3, cin, 64, s, s)
-    cin = 64
-    for stage_idx, num_blocks in enumerate(stages):
-        width = 64 * (2 ** stage_idx)
-        for block_idx in range(num_blocks):
-            stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
-            s_out = s / stride
-            if bottleneck:
-                cout = width * 4
-                flops += _conv_flops(1, cin, width, s_out, s_out)
-                flops += _conv_flops(3, width, width, s_out, s_out)
-                flops += _conv_flops(1, width, cout, s_out, s_out)
-            else:
-                cout = width
-                flops += _conv_flops(3, cin, width, s_out, s_out)
-                flops += _conv_flops(3, width, cout, s_out, s_out)
-            if stride != 1 or cin != cout:
-                flops += _conv_flops(1, cin, cout, s_out, s_out)
-            cin, s = cout, s_out
-    flops += 2.0 * cin * num_classes
-    return 3.0 * batch * flops
-
-
-def unet_train_flops(batch: int, image_size: int, *, features=(64, 128, 256, 512),
-                     in_channels: int = 1, out_channels: int = 2, dim: int = 2) -> float:
-    """3x the forward FLOPs of one UNet batch: the encoder's DoubleConvs,
-    the bottleneck, the decoder's transposed convs and DoubleConvs, the head."""
-    def conv(k_vol: float, cin: int, cout: int, vox: float) -> float:
-        return 2.0 * k_vol * cin * cout * vox
-
-    k3, kt = 3.0 ** dim, 2.0 ** dim
-    size = float(image_size)
-    vox = size ** dim
-    flops, cin, enc_vox = 0.0, in_channels, []
-    for f in features:
-        flops += conv(k3, cin, f, vox) + conv(k3, f, f, vox)
-        enc_vox.append(vox)
-        cin = f
-        size /= 2
-        vox = size ** dim
-    bott = features[-1] * 2
-    flops += conv(k3, cin, bott, vox) + conv(k3, bott, bott, vox)
-    cin = bott
-    for f, up_vox in zip(reversed(features), reversed(enc_vox)):
-        flops += conv(kt, cin, f, up_vox)
-        flops += conv(k3, 2 * f, f, up_vox) + conv(k3, f, f, up_vox)
-        cin = f
-    flops += conv(1.0, cin, out_channels, enc_vox[0])
-    return 3.0 * batch * flops
-
-
 #: Phase 12's workloads: the JAX CLIs' flags at the reference's widths and
 #: per-process batches, synthetic data, 2 epochs each.
 P12_RESNET = ["--synthetic", "--arch", "resnet18", "--stem", "imagenet", "--batch_size", "128",
@@ -1769,6 +1705,11 @@ def original_workloads(torch, card: str) -> dict:
         out["hello_world"] = {"ok": res.ok, "n_devices": res.n_devices}
 
         model_dir = os.path.join(work, "resnet")
+        from deeplearning_mpi_tpu_torch.telemetry.flops import (
+            resnet_train_flops,
+            unet_train_flops,
+        )
+
         rn_flops = resnet_train_flops("resnet18", 128, 32, stem="imagenet")
         un_flops = unet_train_flops(16, 256, in_channels=3, out_channels=1)
         for dtype in ("float32", "bfloat16"):
@@ -1852,6 +1793,7 @@ def moe_train(torch, seed: int) -> dict:
     from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.telemetry.flops import transformer_train_flops
     from deeplearning_mpi_tpu_torch.train import (
         build_optimizer,
         create_train_state,
@@ -1886,7 +1828,7 @@ def moe_train(torch, seed: int) -> dict:
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(times[2:])[len(times[2:]) // 2]
-    flops = lm_train_flops(cfg, B, S)
+    flops = transformer_train_flops(cfg, B, S)
     result = {"params": n_params, "losses": losses, "aux": aux, "dropped_frac": drop,
               "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
               "model_flops_per_step": flops, "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
@@ -2030,8 +1972,11 @@ def moe_clis(torch, card: str) -> dict:
         log(f"13c --moe_routing expert_choice without --allow_acausal_routing: exit {rc}")
         require(rc == 2 and "--allow_acausal_routing" in err, f"13c: expert choice exited {rc}")
         t0 = time.perf_counter()
+        # The routing flag's path at the same widths, 2 layers deep (the
+        # 12-layer model trained just above).
         rc, text, err = cli(train_lm.main, P13_TRAIN + ["--moe_routing", "expert_choice",
-                                                        "--allow_acausal_routing"])
+                                                        "--allow_acausal_routing",
+                                                        "--num_layers", "2"])
         log(f"13c expert choice with the acknowledgement: exit {rc} in "
             f"{time.perf_counter() - t0:.1f}s")
         require(rc == 0 and "moe_dropped_frac" in text, f"13c: expert choice exited {rc}: "
@@ -2726,6 +2671,7 @@ def pp_train(torch, seed: int) -> dict:
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
     from deeplearning_mpi_tpu_torch.ops.loss import lm_cross_entropy
     from deeplearning_mpi_tpu_torch.parallel.pipeline import LockstepPipe
+    from deeplearning_mpi_tpu_torch.telemetry.flops import transformer_train_flops
     from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state, make_train_step
 
     cfg = TransformerConfig()
@@ -2778,7 +2724,7 @@ def pp_train(torch, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(times[1:])[len(times[1:]) // 2]
     expect = 12 * P16_MICRO
-    flops = lm_train_flops(cfg, B, S)
+    flops = transformer_train_flops(cfg, B, S)
     result = {"grads_rel_l2_max": rel[worst], "grads_worst": worst, "losses": losses,
               "step_times_s": times, "step_s_median": step_s, "tokens_per_s": B * S / step_s,
               "model_flops_per_step": flops, "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
@@ -2842,7 +2788,9 @@ def pp_card_vs_cpu(torch, seed: int) -> dict:
 def vit_train_flops(batch: int, *, image_size: int = 32, patch: int = 4, layers: int = 12,
                     heads: int = 6, head_dim: int = 64, d: int = 384, d_ff: int = 1536,
                     classes: int = 10) -> float:
-    """Model FLOPs of one ViT train step, counted as ``lm_train_flops``: 3x
+    """Model FLOPs of one ViT train step, counted as the LM's
+    (``telemetry.flops.transformer_train_flops``; the reference counts none
+    for the ViT): 3x
     the forward's matmuls (the patch conv, per token and block 2*d*3*H*Dh
     q/k/v, 2*H*Dh*d out, 4*T*H*Dh full attention, 6*d*d_ff SwiGLU; the
     head on the CLS row)."""
@@ -3387,6 +3335,346 @@ def completed_phase(torch, card: str, gen, seed: int) -> dict:
     return out
 
 
+# -- phase 19 ----------------------------------------------------------------
+#: 19a's run: the 110M widths at phase 8's shape through ``cli.train_lm``;
+#: 72 sequences leave 65 to train on, 8 steps of B8.
+P19_STEPS, P19_SEQUENCES = 8, 72
+#: histogram statistics a registry snapshot appends to an instrument's name
+_HIST_STATS = re.compile(r"_(count|mean|p50|p95|max)$")
+
+
+def canonical_record(rec: dict, *, instruments: bool = False) -> list[str]:
+    """What keeps ``rec`` from being a canonical telemetry record: the
+    ``{"ts": float, "kind": str, ...}`` shape with flat JSON scalar values;
+    with ``instruments`` (a registry snapshot: ``run_summary``,
+    ``serve_summary``) every other key an instrument of the schema
+    (``telemetry/schema.py``), a histogram's by its base name."""
+    from deeplearning_mpi_tpu_torch.telemetry.schema import is_canonical
+
+    bad = []
+    if not isinstance(rec.get("ts"), (int, float)) or not isinstance(rec.get("kind"), str):
+        bad.append("ts/kind")
+    for k, v in rec.items():
+        if not isinstance(v, (str, int, float, bool, type(None))):
+            bad.append(f"{k} (a {type(v).__name__})")
+        elif instruments and k not in ("ts", "kind") and not (
+                is_canonical(k) or is_canonical(_HIST_STATS.sub("", k))):
+            bad.append(f"{k} (not in the schema)")
+    return bad
+
+
+def _read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def profiled_kernels(trace_path: str) -> dict:
+    """K1 / K2 / K3 launches in a ``torch.profiler`` Chrome trace, by their
+    C++ names: ``fwd_kernel`` (K1); ``bwd_kernel<..., false>`` or
+    ``dq_kernel`` (K2, after its ``delta_kernel``); ``bwd_kernel<...,
+    true>`` or ``dkv_kernel`` (K3)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"K1": 0, "K2": 0, "K3": 0, "delta": 0}
+    names = set()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        if re.search(r"\bfwd_kernel<", name):
+            counts["K1"] += 1
+        elif re.search(r"\bdq_kernel<", name):
+            counts["K2"] += 1
+        elif re.search(r"\bdkv_kernel<", name):
+            counts["K3"] += 1
+        elif re.search(r"\bbwd_kernel<", name):
+            counts["K3" if re.search(r"bwd_kernel<[^()]*(\btrue\b|\(bool\)1)", name) else "K2"] += 1
+        elif re.search(r"\bdelta_kernel<", name):
+            counts["delta"] += 1
+        else:
+            continue
+        names.add(name)
+    counts["names"] = sorted(names)
+    return counts
+
+
+def telemetry_cli(torch, card: str) -> dict:
+    """19a: ``cli.train_lm`` at the 110M widths (vocab 256) in bf16, B8
+    S2048, flash, 8 steps, with ``--metrics_dir --profile_dir --log_dir
+    --metrics_every 1``, over NCCL at world size 1 in this process."""
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase19-", dir=os.path.join(ROOT, "build"))
+    try:
+        dirs = {k: os.path.join(work, k) for k in ("metrics", "profile", "log")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(fa)
+        t0 = time.perf_counter()
+        rc = train_lm.main([
+            "--device", "cuda", "--attention", "flash", "--dtype", "bfloat16",
+            "--num_layers", "12", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
+            "--d_ff", "2048", "--seq_len", "2048", "--batch_size", "8",
+            "--train_sequences", str(P19_SEQUENCES), "--num_epochs", "1",
+            "--metrics_dir", dirs["metrics"], "--profile_dir", dirs["profile"],
+            "--log_dir", dirs["log"], "--metrics_every", "1",
+            "--coordinator", f"file://{os.path.join(work, 'rdzv')}", "--num_processes", "1",
+            "--process_id", "0"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _kernel_counts(fa)
+        require(rc == 0, f"19a: train_lm exited {rc}")
+        records = _read_jsonl(os.path.join(dirs["metrics"], "metrics.jsonl"))
+        kinds = [r["kind"] for r in records]
+        bad = {i: canonical_record(r, instruments=r["kind"].endswith("_summary"))
+               for i, r in enumerate(records)}
+        bad = {i: b for i, b in bad.items() if b}
+        require(not bad, f"19a: records not canonical: {bad}")
+        require(kinds == ["step"] * P19_STEPS + ["epoch", "run_summary"],
+                f"19a: record kinds {kinds}")
+        epoch = records[P19_STEPS]
+        want = ("steps_timed", "step_ms_p50", "step_ms_p90", "step_ms_p95", "step_ms_max",
+                "items_per_s", "items_per_s_per_device", "mfu", "hbm_bytes_in_use",
+                "hbm_bytes_limit", "hbm_utilization", "hbm_peak_bytes")
+        missing = [k for k in want if not isinstance(epoch.get(k), (int, float))]
+        require(not missing, f"19a: the epoch record lacks {missing}: {epoch}")
+        require(epoch["hbm_peak_bytes"] == peak,
+                f"19a: hbm_peak_bytes {epoch['hbm_peak_bytes']} != max_memory_allocated {peak}")
+        sidecars = [f for f in os.listdir(dirs["log"]) if f.endswith(".metrics.jsonl")]
+        require(len(sidecars) == 1 and _read_jsonl(os.path.join(dirs["log"], sidecars[0]))
+                == records, f"19a: the run log's sidecar differs from metrics.jsonl: {sidecars}")
+        traces = sorted(os.listdir(dirs["profile"]))
+        require(len(traces) == 1, f"19a: expected one profiler trace, got {traces}")
+        prof = profiled_kernels(os.path.join(dirs["profile"], traces[0]))
+        steps = 6 - 3  # Trainer.PROFILE_STEPS
+        per_step = {k: prof[k] / steps for k in ("K1", "K2", "K3", "delta")}
+        log(f"19a train_lm telemetry [{card}]: rc 0 in {wall:.1f}s, records {len(records)} "
+            f"({P19_STEPS} step, epoch, run_summary), all canonical; epoch: step_ms_p50 "
+            f"{epoch['step_ms_p50']:.2f}, items_per_s {epoch['items_per_s']:.2f}, mfu "
+            f"{100 * epoch['mfu']:.2f}%, comm_bytes_per_step {epoch['comm_bytes_per_step']}, "
+            f"hbm_peak_bytes {epoch['hbm_peak_bytes']:.0f} == max_memory_allocated {peak}; "
+            f"launches {launches}")
+        log(f"19a profiler trace {traces[0]} ({os.path.getsize(os.path.join(dirs['profile'], traces[0]))} "
+            f"bytes): per profiled step {per_step} over {steps} steps; names {prof['names']}")
+        require(all(per_step[k] == 12 for k in ("K1", "K2", "K3")),
+                f"19a: expected K1/K2/K3 12 a profiled step, got {per_step}")
+        # 12 a train step each, and K1 12 more for the eval's one batch (7
+        # sequences, padded to 8).
+        want_launches = {"K1": 12 * (P19_STEPS + 1), "K2": 12 * P19_STEPS, "K3": 12 * P19_STEPS}
+        require(launches == want_launches,
+                f"19a: expected launches {want_launches}, got {launches}")
+        return {"wall_s": wall, "records": len(records), "epoch": epoch, "peak": peak,
+                "profile": {k: v for k, v in prof.items() if k != "names"},
+                "launches": launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class _MarkedLoader:
+    """Pre-built card batches; at each step's fetch it notes how many
+    synchronizing calls the sync-debug warnings have counted so far."""
+
+    def __init__(self, batches, caught) -> None:
+        self.batches, self.caught, self.marks = batches, caught, []
+
+    def epoch(self, epoch: int):
+        self.marks = []
+        for batch in self.batches:
+            self.marks.append(len(self.caught))
+            yield batch
+        self.marks.append(len(self.caught))
+
+
+def telemetry_syncs(torch, card: str, seed: int) -> dict:
+    """19b: phase 8's train step (110M, bf16, B8 S2048, flash) through the
+    ``Trainer`` with the registry's per-step records off (``metrics_every
+    0``) and on (``metrics_every 1``); the ``StepTimer`` is on in both, as
+    the reference's default. The synchronizing calls each step makes are
+    counted under ``torch.cuda.set_sync_debug_mode("warn")``: they must be
+    the same in both. Then with a span recorder, the phases sum to the
+    epoch's duration."""
+    import tempfile
+    import warnings
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.telemetry import InMemorySink, MetricsRegistry, SpanRecorder
+    from deeplearning_mpi_tpu_torch.telemetry.spans import load_trace_file
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+
+    cfg = TransformerConfig()
+    B, S, steps = 8, 2048, 6
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    loader = Loader(SyntheticTokens(B * steps, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=False, device="cuda")
+    batches = list(loader.epoch(0))
+    state = create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                               attention_fn=fa.flash_attention_bhsd)
+    out = {}
+    for arm, every in (("off", 0), ("on", 1)):
+        sink = InMemorySink()
+        trainer = Trainer(state, "lm", log=lambda msg: None, metrics=MetricsRegistry([sink]),
+                          metrics_every=every)
+        trainer.run_epoch(_MarkedLoader(batches[:2], []), 0)  # warm
+        sink.records.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            marked = _MarkedLoader(batches, caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                stats = trainer.run_epoch(marked, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        state = trainer.state
+        syncs = [b - a for a, b in zip(marked.marks, marked.marks[1:])]
+        out[arm] = {"syncs_per_step": syncs, "epoch_end_syncs": len(caught) - marked.marks[-1],
+                    "step_ms_p50": stats["step_ms_p50"], "duration_s": stats["duration_s"],
+                    "step_records": sum(r["kind"] == "step" for r in sink.records),
+                    "sync_sites": sorted({str(w.message)[:120] for w in caught})}
+        log(f"19b registry {arm} (metrics_every {every}) [{card}]: synchronizing calls a step "
+            f"{syncs}, at the epoch's end {out[arm]['epoch_end_syncs']}; step_ms_p50 "
+            f"{stats['step_ms_p50']:.2f} ms (StepTimer, one window of {steps} steps); "
+            f"{out[arm]['step_records']} step records; sites {out[arm]['sync_sites']}")
+    require(out["on"]["syncs_per_step"] == out["off"]["syncs_per_step"],
+            f"19b: the registry changed the syncs a step: {out}")
+    out["sync_stacks"] = sync_stacks(torch, trainer, batches[0])
+    require(out["on"]["step_records"] == steps and out["off"]["step_records"] == 0,
+            f"19b: step records {out['on']['step_records']} / {out['off']['step_records']}")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tdir:
+        tracer = SpanRecorder(os.path.join(tdir, "trace_trainer.jsonl"), proc="trainer")
+        trainer = Trainer(state, "lm", log=lambda msg: None, tracer=tracer)
+        stats = trainer.run_epoch(_MarkedLoader(batches, []), 2)
+        tracer.close()
+        phases = {k: v for k, v in stats.items() if k.startswith("phase_")}
+        total = sum(phases.values())
+        _, spans = load_trace_file(tracer.path)
+        names = [s["name"] for s in spans if s.get("kind") == "span"]
+    log(f"19b traced [{card}]: phases {phases} sum {total:.6f} s, duration_s "
+        f"{stats['duration_s']:.6f} s; {len(names)} spans")
+    require(abs(total - stats["duration_s"]) <= 1e-9 * stats["duration_s"],
+            f"19b: phases sum {total} != duration {stats['duration_s']}")
+    require(names.count("compute") == steps, f"19b: spans {names}")
+    out["traced"] = {"phases": phases, "duration_s": stats["duration_s"]}
+    return out
+
+
+def sync_stacks(torch, trainer, batch) -> list[str]:
+    """Where one train step synchronizes: the port's innermost Python frame
+    of each warning ``set_sync_debug_mode("warn")`` raises in it."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def show(message, *args, **kwargs):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "deeplearning_mpi_tpu_torch" in f.filename]
+        where = f"{frames[-1].filename.split('deeplearning_mpi_tpu_torch/')[-1]}:{frames[-1].lineno} " \
+                f"{frames[-1].line}" if frames else "outside the port"
+        sites.append(where)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.state, _ = trainer.train_step(trainer.state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"19b the train step's synchronizing calls: {sites}")
+    return sites
+
+
+def telemetry_serve(torch, card: str, seed: int) -> dict:
+    """19c: phase 5's engine (the 110M model, f32, 8 Poisson requests) with
+    a registry and a span recorder: every stream equal to offline greedy,
+    8 TTFT and 8 TPOT observations, the registry's counters equal to
+    ``engine.counters``, each request's queue + prefill + decode spans
+    tiling its arrival to finish within 1%; then ``serve_lm --selftest
+    --metrics_file`` writes canonical records."""
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import serve_lm
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy, replay
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+    from deeplearning_mpi_tpu_torch.telemetry import MetricsRegistry, SpanRecorder
+    from deeplearning_mpi_tpu_torch.telemetry.schema import METRICS
+    from deeplearning_mpi_tpu_torch.telemetry.spans import load_trace_file, span_tree
+
+    cfg = TransformerConfig()
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+    entries = serve_trace(cfg.vocab_size, seed)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tdir:
+        registry = MetricsRegistry()
+        tracer = SpanRecorder(os.path.join(tdir, "trace_engine.jsonl"), proc="engine",
+                              registry=registry)
+        engine = ServingEngine(model, EngineConfig(**SERVE_ENGINE), registry=registry,
+                               tracer=tracer)
+        reqs, wall_s = replay(engine, entries)
+        tracer.close()
+        _, records = load_trace_file(tracer.path)
+        metrics_file = os.path.join(tdir, "serve.jsonl")
+        rc = serve_lm.main(["--selftest", "--device", "cuda", "--metrics_file", metrics_file])
+        serve_records = _read_jsonl(metrics_file) if os.path.exists(metrics_file) else []
+    expects = [offline_greedy(model, r.prompt, r.max_new_tokens, None) for r in reqs]
+    streams_equal(model, reqs, expects, "19c")
+    snap = registry.snapshot()
+    counters = engine.counters
+    hist = {h: snap.get(f"{h}_count") for h in ("serve_ttft_s", "serve_tpot_s")}
+    # Every engine counter equals the registry's (0 where the registry has
+    # none), and every serving counter the registry holds is an engine one.
+    differ = {k: (v, snap.get(k, 0.0)) for k, v in counters.items() if snap.get(k, 0.0) != v}
+    missing = [k for k in snap if k.startswith(("serve_", "spec_")) and k not in counters
+               and METRICS.get(k.split("{")[0], ("",))[0] == "counter"]
+    by_sid, children, orphans = span_tree(records)
+    worst = 0.0
+    for root in (s for s in by_sid.values() if s["name"] == "request"):
+        parts = {c["name"]: c["t1"] - c["t0"] for c in children.get(root["sid"], [])}
+        total = root["t1"] - root["t0"]
+        gap = abs(sum(parts.get(p, 0.0) for p in ("queue", "prefill", "decode")) - total)
+        worst = max(worst, gap / total)
+    n_roots = sum(s["name"] == "request" for s in by_sid.values())
+    bad = {i: canonical_record(r, instruments=r["kind"].endswith("_summary"))
+           for i, r in enumerate(serve_records)}
+    bad = {i: b for i, b in bad.items() if b}
+    log(f"19c engine telemetry [{card}]: {len(reqs)} streams equal offline greedy in "
+        f"{wall_s:.2f}s; ttft/tpot counts {hist}; counters {dict(counters)}; differing "
+        f"{differ}, registry-only {missing}; {n_roots} request spans, {len(orphans)} orphans, "
+        f"worst phase-tiling gap {100 * worst:.4f}% of the request")
+    require(hist == {"serve_ttft_s": 8.0, "serve_tpot_s": 8.0}, f"19c: histogram counts {hist}")
+    require(not differ and not missing, f"19c: registry vs engine.counters: {differ} {missing}")
+    require(n_roots == len(reqs) and not orphans, f"19c: {n_roots} request spans, {orphans}")
+    require(worst <= 0.01, f"19c: a request's phases leave {100 * worst:.3f}% of it")
+    log(f"19c serve_lm --selftest --metrics_file: rc {rc}, {len(serve_records)} records "
+        f"({[r['kind'] for r in serve_records]}), not canonical: {bad}")
+    require(rc == 0 and serve_records and not bad,
+            f"19c: serve_lm --metrics_file rc {rc}, records {serve_records}, {bad}")
+    return {"ttft_p50_s": snap.get("serve_ttft_s_p50"), "tpot_p50_s": snap.get("serve_tpot_s_p50"),
+            "counters": dict(counters), "worst_tiling_gap": worst,
+            "serve_summary": serve_records[-1]}
+
+
+def telemetry_phase(torch, card: str, seed: int) -> dict:
+    """Phase 19: the telemetry through the trainer CLI (19a), the sync
+    count with the registry off and on and the traced phases (19b), and
+    the serving engine's instruments and spans (19c)."""
+    out = {"cli": telemetry_cli(torch, card)}
+    torch.cuda.empty_cache()
+    out["syncs"] = telemetry_syncs(torch, card, seed)
+    torch.cuda.empty_cache()
+    out["serve"] = telemetry_serve(torch, card, seed)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -3495,11 +3783,18 @@ def main() -> int:
         f"the MoE LM through 2 stages in bf16, adafactor over tp 2 and pp 2 card vs CPU) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    telemetry = telemetry_phase(torch, card, args.seed)
+    log(f"phase 19 telemetry (train_lm with --metrics_dir --profile_dir --log_dir, the registry's "
+        f"syncs a step off and on, traced phases, the engine's instruments and spans) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
         f"{time.perf_counter() - t0:.1f}s")
 
+    log(f"phase seconds: {PHASE_SECONDS} of {time.perf_counter() - t_start:.1f}s")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -3508,7 +3803,8 @@ def main() -> int:
             json.dump({"card": card, "kernels": kernels, "extra": extra, "profile": profile,
                        "train": train, "checkpoint": checkpoint, "features": features,
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
-                       "compose": compose, "completed": completed,
+                       "compose": compose, "completed": completed, "telemetry": telemetry,
+                       "phase_seconds": PHASE_SECONDS,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

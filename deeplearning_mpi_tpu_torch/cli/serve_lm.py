@@ -20,7 +20,18 @@ selftest also reconciles the speculative counters), ``--warmup`` (CUDA
 graphs before traffic; the selftest checks that traffic captured
 nothing), ``--decode_buckets`` and ``--max_hold_steps``.
 
+The reference's trace and telemetry flags: ``--trace FILE`` replays a JSONL
+trace instead of the Poisson one (one object a line: ``{"arrival":
+seconds-from-start, "prompt": "text", "max_new": N, "deadline":
+seconds-after-arrival, "tenant": name}``, only ``prompt`` required; the
+prompt's UTF-8 bytes are its tokens), ``--deadline S`` sheds a request
+still queued ``S`` seconds after its arrival (a trace entry may override),
+and ``--metrics_file`` appends the engine's canonical telemetry records
+(the ``serve_*`` counters, TTFT / TPOT histograms and gauges, one
+``serve_summary`` record at the end) for ``tools/metrics_report.py``.
+
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest            # on the GPU
+    python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --metrics_file serve.jsonl
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu \\
         --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 [--model_dir DIR] \\
         [--kv_dtype int8] [--prefix_cache] [--spec_k 2 --draft_layers 1] [--warmup]
@@ -29,9 +40,11 @@ nothing), ``--decode_buckets`` and ``--max_hold_steps``.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from collections import deque
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -102,16 +115,25 @@ def build_parser() -> argparse.ArgumentParser:
     spec.add_argument("--draft_layers", type=int, default=0,
                       help="self-draft: the target's first N layers (needed by --spec_k)")
     trace = parser.add_argument_group("trace")
+    trace.add_argument("--trace", default=None,
+                       help="JSONL request trace (module docstring); default: a synthetic "
+                       "Poisson trace")
     trace.add_argument("--rate", type=float, default=20.0, help="Poisson arrivals, requests/s")
     trace.add_argument("--num_requests", type=int, default=16)
     trace.add_argument("--prompt_len_min", type=int, default=4)
     trace.add_argument("--prompt_len_max", type=int, default=24)
     trace.add_argument("--max_new_tokens", type=int, default=16)
+    trace.add_argument("--deadline", type=float, default=0.0,
+                       help="seconds after arrival a still-queued request is shed (0 = none; "
+                       "trace entries may override)")
     trace.add_argument("--eos_id", type=int, default=-1, help="token that ends a stream (-1 = off)")
     trace.add_argument("--random_seed", type=int, default=0)
     parser.add_argument("--selftest", action="store_true",
                         help="check every stream against offline greedy decode; exit 0 "
                         "iff all match")
+    parser.add_argument("--metrics_file", default=None,
+                        help="append canonical telemetry JSONL records here (readable by "
+                        "tools/metrics_report.py)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--tp", type=int, default=1,
                         help="refused above 1: tensor-parallel replicas need the fleet")
@@ -130,13 +152,43 @@ def poisson_trace(args) -> list[dict]:
             "arrival": t,
             "prompt": rng.integers(1, args.vocab_size, size=n).astype(np.int32),
             "max_new": args.max_new_tokens,
+            "deadline": args.deadline,
         })
     return entries
 
 
+def load_trace(path: str, default_max_new: int, default_deadline: float) -> list[dict]:
+    """The reference's JSONL trace (module docstring) as replay entries,
+    sorted by arrival; a bad line or an empty file raises ``SystemExit``."""
+    entries = []
+    try:
+        lines = Path(path).read_text(encoding="utf-8").splitlines()
+    except OSError as e:
+        raise SystemExit(f"cannot read --trace: {e}")
+    for n, line in enumerate(lines, 1):
+        if not line.strip():
+            continue
+        try:
+            obj = json.loads(line)
+            text = obj["prompt"]
+        except (json.JSONDecodeError, KeyError, TypeError) as e:
+            raise SystemExit(f"{path}:{n}: bad trace entry ({e})")
+        entries.append({
+            "arrival": float(obj.get("arrival", 0.0)),
+            "prompt": np.frombuffer(text.encode("utf-8") or b"\x00", np.uint8).astype(np.int32),
+            "max_new": int(obj.get("max_new", default_max_new)),
+            "deadline": float(obj.get("deadline", default_deadline)),
+            "tenant": str(obj.get("tenant", "default")),
+        })
+    if not entries:
+        raise SystemExit(f"{path}: empty trace")
+    return sorted(entries, key=lambda e: e["arrival"])
+
+
 def replay(engine, entries, *, poll_s: float = 0.0005):
-    """Submit each entry at its arrival offset (wall clock) and step the
-    engine until everything drains. Returns (requests, wall seconds)."""
+    """Submit each entry at its arrival offset (wall clock), with its
+    deadline (seconds after arrival; 0 or absent: none) and tenant, and step
+    the engine until everything drains. Returns (requests, wall seconds)."""
     idle = engine.scheduler.idle
     pending = deque(entries)
     reqs = []
@@ -145,7 +197,11 @@ def replay(engine, entries, *, poll_s: float = 0.0005):
         now = time.monotonic() - t0
         while pending and pending[0]["arrival"] <= now:
             e = pending.popleft()
-            reqs.append(engine.submit(e["prompt"], e["max_new"], arrival=t0 + e["arrival"]))
+            deadline = e.get("deadline", 0.0)
+            reqs.append(engine.submit(
+                e["prompt"], e["max_new"], arrival=t0 + e["arrival"],
+                deadline=t0 + e["arrival"] + deadline if deadline > 0 else None,
+                tenant=e.get("tenant", "default")))
         if not idle():
             engine.step()
         elif pending:
@@ -235,6 +291,7 @@ def main(argv: list[str] | None = None) -> int:
         self_draft,
     )
     from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
+    from deeplearning_mpi_tpu_torch.telemetry import JsonlSink, MetricsRegistry
     from deeplearning_mpi_tpu_torch.utils.config import restore_lm
 
     eos_id = args.eos_id if args.eos_id >= 0 else None
@@ -255,6 +312,9 @@ def main(argv: list[str] | None = None) -> int:
         except SystemExit as refusal:
             print(refusal.code, file=sys.stderr)
             return 1
+    registry = MetricsRegistry()
+    if args.metrics_file:
+        registry.add_sink(JsonlSink(args.metrics_file))
     engine = ServingEngine(model, EngineConfig(
         max_slots=args.max_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_blocks_per_seq=args.max_blocks_per_seq,
@@ -262,14 +322,23 @@ def main(argv: list[str] | None = None) -> int:
         spec_k=args.spec_k, decode_buckets=decode_buckets,
         max_hold_steps=args.max_hold_steps, kv_dtype=args.kv_dtype,
         prefix_cache=args.prefix_cache,
-    ), eos_id=eos_id, draft=self_draft(model, args.draft_layers) if args.spec_k else None)
+    ), eos_id=eos_id, draft=self_draft(model, args.draft_layers) if args.spec_k else None,
+        registry=registry)
     if args.warmup:
         t_warm = time.monotonic()
         built = engine.warmup()
         print(f"warmup: {engine.captures} programs {built} in "
               f"{time.monotonic() - t_warm:.2f}s", file=sys.stderr)
     captures = engine.captures
-    reqs, wall_s = replay(engine, poisson_trace(args))
+    try:
+        entries = (load_trace(args.trace, args.max_new_tokens, args.deadline) if args.trace
+                   else poisson_trace(args))
+    except SystemExit as refusal:
+        print(refusal.code, file=sys.stderr)
+        return 1
+    reqs, wall_s = replay(engine, entries)
+    registry.emit("serve_summary", registry.snapshot())
+    registry.close()
     rep = latency_report(reqs, wall_s)
     ms = {k: (f"{v * 1e3:.2f}" if v is not None else "n/a")
           for k, v in rep.items() if k.endswith("_s") and k != "wall_s"}
@@ -281,6 +350,12 @@ def main(argv: list[str] | None = None) -> int:
         f"steps, {engine.prefill_chunks} prefill chunks",
         file=sys.stderr,
     )
+    shed = [r for r in reqs if r.state is RequestState.SHED]
+    if shed:
+        reasons = sorted({r.shed_reason for r in shed})
+        print(f"shed: {len(shed)} ("
+              + ", ".join(f"{sum(r.shed_reason == why for r in shed)} {why}" for why in reasons)
+              + ")", file=sys.stderr)
     if not args.selftest:
         for r in reqs:
             if r.state is RequestState.FINISHED:

@@ -98,8 +98,19 @@ ring``, ``--moe_experts 4 --ep 2 --tp 2``, ``--moe_experts 4 --pp 2 --ep
         --microbatches 2 --num_layers 2 --num_heads 4 --num_kv_heads 2 --head_dim 16 \
         --d_model 32 --d_ff 64 --seq_len 32 --batch_size 4 --train_sequences 40 --num_epochs 1
 
-Not ported yet: chaos, auto-resume (``--max_restarts``), guardrails and
-telemetry (its ``pipeline_bytes`` included).
+Telemetry as the reference's (``utils/config.py`` ``build_observability``):
+``--log_dir`` (the run log and its ``.metrics.jsonl`` sidecar),
+``--metrics_dir`` / ``--metrics_every`` (``metrics.jsonl``, rendered by
+``tools/metrics_report.py``), ``--profile_dir`` (a ``torch.profiler``
+trace of steps 3-5, K1-K3 under their C++ names) and ``--debug_nans``. The
+epoch record's MFU counts the global batch's model FLOPs
+(``telemetry/flops.py``, remat's recompute as ``mfu_issued``) over every
+process, and ``comm_bytes_per_step`` adds up the reference's collective
+bytes of the run's axes: the gradient all-reduce of the whole model over
+data, the ring's or Ulysses' exchanges over seq, the pipeline's shifts and
+the MoE dispatch over expert (``telemetry/comms.py``).
+
+Not ported yet: chaos, auto-resume (``--max_restarts``) and guardrails.
 """
 
 from __future__ import annotations
@@ -134,6 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--eval_every", type=int, default=10,
                        help="epochs between evals and checkpoints")
     train.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    config.add_observability_flags(train)
     model = parser.add_argument_group("model")
     model.add_argument("--seq_len", type=int, default=512)
     model.add_argument("--num_layers", type=int, default=4)
@@ -229,12 +241,17 @@ def train(argv: list[str] | None = None):
         seq_shards,
         tp_shards,
     )
+    from deeplearning_mpi_tpu_torch.telemetry.flops import (
+        transformer_issued_flops,
+        transformer_train_flops,
+    )
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
 
     topo, mesh, group = config.setup_runtime(args)
     device = topo.device
-    log = config.coordinator_log(topo)
+    logger = config.run_logger(args, topo)
+    log = logger.log
     if args.text_file:
         dataset = ByteTextDataset(args.text_file, args.seq_len)
     else:
@@ -319,9 +336,46 @@ def train(argv: list[str] | None = None):
     trainer = Trainer(state, "lm", eval_every=args.eval_every,
                       aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
                       grad_accum=args.grad_accum, loss_chunk=args.loss_chunk,
-                      ema_decay=args.ema, log=log, checkpointer=checkpointer, group=group,
-                      seq=seq_shards(mesh), zero=args.zero, zero_overlap=args.zero_overlap)
+                      ema_decay=args.ema, logger=logger, checkpointer=checkpointer,
+                      group=group, seq=seq_shards(mesh), zero=args.zero,
+                      zero_overlap=args.zero_overlap)
+    config.build_observability(
+        args, trainer, flops_per_step=transformer_train_flops(cfg, args.batch_size, args.seq_len),
+        issued_flops_per_step=transformer_issued_flops(cfg, args.batch_size, args.seq_len,
+                                                       remat=args.remat),
+        comm_bytes_per_step=comm_bytes(args, mesh, model, dtype))
     return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
+
+
+def comm_bytes(args, mesh, model, dtype: torch.dtype) -> float:
+    """The reference CLI's collective bytes a step a device
+    (``cli/train_lm.py``): the whole model's gradient all-reduce over data
+    (ZeRO-1's reduce-scatter and all-gather under ``--zero``), plus the
+    ring's or Ulysses' exchanges over seq, the GPipe shifts over pipe and
+    the MoE dispatch and combine over expert, at the run's activation
+    dtype."""
+    from deeplearning_mpi_tpu_torch.runtime.mesh import data_size, pipe_size, seq_size
+    from deeplearning_mpi_tpu_torch.telemetry import comms
+
+    dp, sp, pp, ep = data_size(mesh), seq_size(mesh), pipe_size(mesh), args.ep
+    batch_local = max(args.batch_size // max(dp, 1), 1)
+    total = comms.dp_grad_allreduce_bytes(comms.param_count(model), dp, zero=args.zero)
+    kw = dict(kv_heads=args.num_kv_heads or None, num_layers=args.num_layers, dtype=dtype)
+    if args.attention == "ulysses":
+        total += comms.ulysses_attention_bytes(batch_local, max(args.seq_len // sp, 1),
+                                               args.num_heads, args.head_dim, sp, **kw)
+    elif args.attention == "ring":
+        total += comms.ring_attention_bytes(batch_local, max(args.seq_len // sp, 1),
+                                            args.num_heads, args.head_dim, sp, **kw)
+    if pp > 1:
+        total += comms.pipeline_bytes(
+            (max(batch_local // args.microbatches, 1), args.seq_len, args.d_model),
+            args.microbatches, pp, dtype=dtype)
+    if args.moe_experts and ep > 1:
+        total += comms.moe_dispatch_bytes(batch_local * args.seq_len, args.d_model, ep,
+                                          top_k=args.moe_top_k, num_layers=args.num_layers,
+                                          dtype=dtype)
+    return total
 
 
 def main(argv: list[str] | None = None) -> int:

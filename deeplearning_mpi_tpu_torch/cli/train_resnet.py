@@ -23,8 +23,10 @@ logs and writes the checkpoints.
 CNN flag and is refused with it, as in the reference.
 
 Real data: ``--data_dir`` holding ``cifar-10-batches-py`` (``cli.download
-cifar10 --from_file``). Not ported yet: the native C++ transforms and the
-flags ``reject_unported`` names.
+cifar10 --from_file``). Telemetry as the reference's: ``--log_dir``,
+``--metrics_dir`` / ``--metrics_every``, ``--profile_dir``, ``--debug_nans``
+(``utils/config.py``); MFU from the ResNet's analytic FLOPs. Not ported
+yet: the native C++ transforms and the flags ``reject_unported`` names.
 """
 
 from __future__ import annotations
@@ -104,6 +106,14 @@ def build(argv: list[str] | None = None) -> config.Run:
         f"{len(eval_ds)} eval images, global batch {args.batch_size} over {topo.num_processes} "
         f"process(es) ({topo.backend or 'no group'}), {train_loader.steps_per_epoch()} "
         f"steps/epoch, {args.dtype}, on {device}")
+    # Analytic train FLOPs -> MFU (the reference counts none for the ViT);
+    # the gradient all-reduce's bytes come from the model.
+    flops_per_step = None
+    if args.arch.startswith("resnet"):
+        from deeplearning_mpi_tpu_torch.telemetry.flops import resnet_train_flops
+
+        flops_per_step = resnet_train_flops(args.arch, args.batch_size, 32, stem=args.stem)
+    config.build_observability(args, run.trainer, flops_per_step=flops_per_step)
     return run
 
 

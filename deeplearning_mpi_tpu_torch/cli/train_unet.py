@@ -122,6 +122,23 @@ def build(argv: list[str] | None = None) -> config.Run:
         f"{topo.num_processes} process(es) ({topo.backend or 'no group'}), "
         f"{train_loader.steps_per_epoch()} steps/epoch, loss {args.loss}, {args.dtype}, "
         f"on {device}")
+    # Analytic train FLOPs -> MFU; a folder's non-square images count as the
+    # square (cube) of the same pixel (voxel) count, as the reference does.
+    from deeplearning_mpi_tpu_torch.telemetry.flops import unet_train_flops
+
+    dim = 3 if args.volumetric else 2
+    if args.volumetric:
+        sample_hw = (args.image_size,) * 3
+    elif args.synthetic:
+        sample_hw = (args.image_size, args.image_size)
+    else:
+        sample_hw = full[0]["image"].shape[:2]
+    voxels = 1.0
+    for size in sample_hw:
+        voxels *= float(size)
+    config.build_observability(args, run.trainer, flops_per_step=unet_train_flops(
+        args.batch_size, voxels ** (1.0 / dim), in_channels=1 if args.volumetric else 3,
+        out_channels=1, dim=dim))
     return run
 
 

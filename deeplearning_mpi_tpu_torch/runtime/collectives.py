@@ -64,6 +64,11 @@ def axis_size(group: dist.ProcessGroup | None = None) -> int:
     return dist.get_world_size(group)
 
 
+def world_size() -> int:
+    """Every process of the run: the default group's size (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def _global(group: dist.ProcessGroup | None, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 

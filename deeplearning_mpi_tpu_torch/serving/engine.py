@@ -31,9 +31,22 @@ and the multi-token verify step are the reference's. :meth:`ServingEngine.warmup
 captures the decode, verify and draft decode steps as CUDA graphs, one per
 gather width (``compiler/aot.py``); the chunked prefill stays eager.
 
-Greedy-only, dense models only. Not in this slice: disaggregation,
-tracing, chaos and the metrics registry (the engine keeps the reference's
-counters in a plain dict, :attr:`ServingEngine.counters`).
+Telemetry, as the reference's: with a ``registry`` (a
+``telemetry.MetricsRegistry``) the engine keeps the reference's counters
+there as well as in :attr:`ServingEngine.counters` (the same values), the
+``serve_ttft_s`` / ``serve_tpot_s`` histograms, and the queue-depth,
+active-slot, KV-block and KV-byte gauges (unlabeled: the reference labels
+them by role only in a disaggregated pair, ROADMAP item 10), plus the
+prefix cache's; with a ``tracer`` (a ``telemetry.SpanRecorder``)
+each finished request's ``request`` / ``queue`` / ``prefill`` /
+``decode`` spans, derived from its own timestamps so they tile arrival to
+finish, and an ``engine_step`` / ``prefill_chunk`` event trail. Without
+either, each hook is one ``is not None`` test. The reference counts XLA
+compiles in ``serve_compile_total``; the port counts the programs
+:meth:`ServingEngine.warmup` captures (an eager step compiles nothing).
+
+Greedy-only, dense models only. Not in this slice: disaggregation and
+chaos.
 """
 
 from __future__ import annotations
@@ -360,7 +373,7 @@ _COUNTERS = (
     "serve_requests_submitted", "serve_requests_admitted", "serve_requests_completed",
     "serve_requests_shed", "serve_tokens_generated", "serve_prefill_chunks",
     "serve_decode_steps", "serve_requeued_total", "serve_tokens_discarded_total",
-    "serve_decode_held_steps",
+    "serve_compile_total", "serve_decode_held_steps",
 )
 _SPEC_COUNTERS = (
     "spec_proposed_total", "spec_accepted_total", "spec_rollback_total",
@@ -389,6 +402,8 @@ class ServingEngine:
         clock: Callable[[], float] = time.monotonic,
         draft: TransformerLM | None = None,
         tenants: dict[str, dict[str, Any]] | None = None,
+        registry: Any = None,
+        tracer: Any = None,
     ) -> None:
         engine = engine or EngineConfig()
         if model.config.moe_experts > 0:
@@ -420,8 +435,13 @@ class ServingEngine:
         self._counters: dict[str, int] = dict.fromkeys(_COUNTERS, 0)
         if engine.spec_k > 0:
             self._counters.update(dict.fromkeys(_SPEC_COUNTERS, 0))
+        self._metrics = registry
+        # None unless a SpanRecorder was given: each hook is one pointer test.
+        self._tracer = tracer
+        self._kv_dtype_name = str(storage or model.dtype).replace("torch.", "")
         self.pool = PagedKVPool(engine.num_blocks, engine.block_size, kv_dtype=storage)
-        self.prefix_cache = RadixPrefixCache(self.pool) if engine.prefix_cache else None
+        self.prefix_cache = (RadixPrefixCache(self.pool, registry=registry)
+                             if engine.prefix_cache else None)
         self.scheduler = Scheduler(
             self.pool,
             max_slots=engine.max_slots,
@@ -432,7 +452,10 @@ class ServingEngine:
             prefix_cache=self.prefix_cache,
             tenants=tenants,
             counters=self._counters,
+            registry=registry,
         )
+        if registry is not None:
+            self._register(registry)
         self._kvh = KVBuffers(init_kv_buffers(
             self.config.num_layers, engine.num_blocks, engine.block_size,
             self.config.kv_heads, self.config.head_dim, storage or model.dtype, self.device,
@@ -487,6 +510,70 @@ class ServingEngine:
 
     def _inc(self, name: str, amount: int = 1) -> None:
         self._counters[name] = self._counters.get(name, 0) + amount
+        if self._metrics is not None and amount:
+            self._metrics.counter(name).inc(amount)
+
+    # -- telemetry -----------------------------------------------------------
+    def _register(self, registry: Any) -> None:
+        """Create the reference's instruments, so a record lists them at 0."""
+        from deeplearning_mpi_tpu_torch.telemetry.registry import labeled
+
+        for name in _COUNTERS:
+            if name != "serve_decode_held_steps" or self.engine.decode_buckets:
+                registry.counter(name)
+        for name in ("serve_queue_depth", "serve_slots_active", "serve_kv_blocks_in_use",
+                     "serve_kv_bytes"):
+            registry.gauge(name)
+        registry.gauge(labeled("serve_kv_bytes", dtype=self._kv_dtype_name))
+        for name in ("serve_ttft_s", "serve_tpot_s", "serve_compile_seconds"):
+            registry.histogram(name)
+        if self.engine.spec_k > 0:
+            for name in _SPEC_COUNTERS:
+                registry.counter(name)
+        if self.prefix_cache is not None:
+            registry.gauge("serve_prefix_nodes")
+            registry.gauge("serve_prefix_blocks")
+
+    def _set_gauges(self) -> None:
+        m = self._metrics
+        if m is None:
+            return
+        from deeplearning_mpi_tpu_torch.telemetry.registry import labeled
+
+        m.gauge("serve_queue_depth").set(self.scheduler.queue_depth())
+        m.gauge("serve_slots_active").set(self.scheduler.slots_active())
+        m.gauge("serve_kv_blocks_in_use").set(self.pool.in_use)
+        nbytes = self._kvh.nbytes
+        m.gauge("serve_kv_bytes").set(nbytes)
+        m.gauge(labeled("serve_kv_bytes", dtype=self._kv_dtype_name)).set(nbytes)
+        if self.prefix_cache is not None:
+            m.gauge("serve_prefix_nodes").set(self.prefix_cache.num_nodes)
+            m.gauge("serve_prefix_blocks").set(self.prefix_cache.num_blocks_cached)
+        if self.scheduler.tenants:
+            inflight = self.scheduler.tenant_tokens_in_flight()
+            for tenant in self.scheduler.tenants:
+                m.gauge(labeled("serve_tenant_tokens_in_flight", tenant=tenant)).set(
+                    inflight.get(tenant, 0))
+
+    def _trace_request(self, req: Request, now: float) -> None:
+        """The request's phase spans from its own lifecycle stamps, written
+        once at retirement: ``queue`` (arrival -> admitted), ``prefill``
+        (-> first token), ``decode`` (-> finished) under a ``request`` root
+        span, so the phases tile arrival -> finish (the reference's
+        ``handoff`` span belongs to disaggregation, ROADMAP item 10)."""
+        tr = self._tracer
+        trace = req.trace or f"rid{req.rid}"
+        root = tr.record_span("request", req.arrival, now, trace=trace, rid=req.rid,
+                              tenant=req.tenant, tokens=len(req.generated),
+                              prompt_len=req.prompt_len)
+        if req.t_admitted is not None:
+            tr.record_span("queue", req.arrival, req.t_admitted, trace=trace, parent=root.sid)
+            if req.t_first_token is not None:
+                tr.record_span("prefill", req.t_admitted, req.t_first_token, trace=trace,
+                               parent=root.sid)
+        if req.t_first_token is not None:
+            tr.record_span("decode", req.t_first_token, now, trace=trace, parent=root.sid,
+                           tokens=len(req.generated))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -536,7 +623,13 @@ class ServingEngine:
 
         def capture(fn, inputs) -> CapturedProgram:
             self.captures += 1
-            return CapturedProgram(fn, inputs, pool=pool, stream=stream)
+            t0 = time.perf_counter()
+            program = CapturedProgram(fn, inputs, pool=pool, stream=stream)
+            self._inc("serve_compile_total")
+            if self._metrics is not None:
+                self._metrics.histogram("serve_compile_seconds").observe(
+                    time.perf_counter() - t0)
+            return program
 
         def width(tables, *_):
             return tables.shape[1]
@@ -621,6 +714,10 @@ class ServingEngine:
         self._phase_prefill(finished)
         self._phase_decode(self._phase_grow(), finished)
         self.steps += 1
+        self._set_gauges()
+        if self._tracer is not None:
+            self._tracer.event("engine_step", step=self.steps, role="colocated",
+                               finished=len(finished))
         return finished
 
     def run_until_idle(self, *, max_steps: int = 100_000) -> list[Request]:
@@ -652,6 +749,7 @@ class ServingEngine:
         self.pool.check()
         self._inc("serve_requeued_total", len(inflight))
         self._inc("serve_tokens_discarded_total", discarded)
+        self._set_gauges()
         return {"requeued": len(inflight), "tokens_discarded": discarded, **stats}
 
     # -- step phases ---------------------------------------------------------
@@ -838,6 +936,9 @@ class ServingEngine:
             # The draft ingests the same chunk through the same table.
             self._spec.prefill_chunk(table, chunk, start, n_valid)
         self._inc("serve_prefill_chunks")
+        if self._tracer is not None:
+            self._tracer.event("prefill_chunk", trace=req.trace or f"rid{req.rid}",
+                               start=start, n=n_valid, role="colocated")
         req.prefilled += n_valid
         if req.prefilled < req.prompt_len:
             return
@@ -847,6 +948,8 @@ class ServingEngine:
         req.generated.append(tok)
         req.t_first_token = self._clock()
         self._inc("serve_tokens_generated")
+        if self._metrics is not None and req.ttft is not None:
+            self._metrics.histogram("serve_ttft_s").observe(req.ttft)
         if self.prefix_cache is not None:
             # The full prompt blocks are frozen from here on (the request
             # writes positions >= prompt_len only); the sync above proves
@@ -878,3 +981,7 @@ class ServingEngine:
         self.scheduler.finish(req, now)
         finished.append(req)
         self._inc("serve_requests_completed")
+        if self._metrics is not None and req.tpot is not None:
+            self._metrics.histogram("serve_tpot_s").observe(req.tpot)
+        if self._tracer is not None:
+            self._trace_request(req, now)

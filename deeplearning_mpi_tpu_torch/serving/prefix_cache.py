@@ -1,8 +1,9 @@
 """Radix prefix cache: token prefix -> KV block chain, shared copy-on-write.
 
 Port of ``deeplearning_mpi_tpu/serving/prefix_cache.py`` (pure host-side
-Python); its registry counters are plain attributes here, read by
-``ServingEngine.counters`` under the reference's names.
+Python); its counters are plain attributes here, read by
+``ServingEngine.counters`` under the reference's names, and the reference's
+registry counters when a ``registry`` is given.
 
 The KV blocks of completed prefills are indexed by their token prefix, so
 a later request with the same prefix adopts the blocks instead of
@@ -29,7 +30,7 @@ adopter. Flush the cache when the weights change (:meth:`flush`).
 from __future__ import annotations
 
 import zlib
-from typing import Sequence
+from typing import Any, Sequence
 
 from deeplearning_mpi_tpu_torch.serving.kv_pool import PagedKVPool
 
@@ -70,11 +71,21 @@ class _Node:
         self.last_used = 0
 
 
+#: each counting attribute's registry counter
+_COUNTERS = {
+    "hits": "serve_prefix_hits_total",
+    "tokens_reused": "serve_prefix_tokens_reused_total",
+    "cow_copies": "serve_prefix_cow_copies_total",
+    "evictions": "serve_prefix_evictions_total",
+}
+
+
 class RadixPrefixCache:
     """Block-granularity radix index over completed prompt prefixes."""
 
-    def __init__(self, pool: PagedKVPool) -> None:
+    def __init__(self, pool: PagedKVPool, *, registry: Any = None) -> None:
         self.pool = pool
+        self.registry = registry
         self.block_size = pool.block_size
         self.root = _Node((), -1, None)
         self._tick = 0
@@ -86,16 +97,24 @@ class RadixPrefixCache:
         self.tokens_reused = 0
         self.cow_copies = 0
         self.evictions = 0
+        if registry is not None:
+            for name in _COUNTERS.values():
+                registry.counter(name)
+
+    def _inc(self, attr: str, n: int = 1) -> None:
+        setattr(self, attr, getattr(self, attr) + n)
+        if self.registry is not None:
+            self.registry.counter(_COUNTERS[attr]).inc(n)
 
     def note_hit(self, tokens_reused: int) -> None:
         """The scheduler's call once an adoption lands (a match that fails
         admission is not a hit)."""
-        self.hits += 1
-        self.tokens_reused += tokens_reused
+        self._inc("hits")
+        self._inc("tokens_reused", tokens_reused)
 
     def note_cow(self) -> None:
         """The engine's call per completed copy-on-write block copy."""
-        self.cow_copies += 1
+        self._inc("cow_copies")
 
     def _touch(self, node: _Node) -> None:
         self._tick += 1
@@ -232,7 +251,7 @@ class RadixPrefixCache:
                 break
             self._remove(victim)
             freed += 1
-            self.evictions += 1
+            self._inc("evictions")
         return freed
 
     def flush(self) -> int:

@@ -1,8 +1,9 @@
 """Continuous-batching scheduler: admission, deadlines, eviction.
 
 A copy of ``deeplearning_mpi_tpu/serving/scheduler.py`` (pure host-side
-Python) importing this package's ``kv_pool``; the registry's shed counters
-go to a plain dict (``counters``) under the reference's names.
+Python) importing this package's ``kv_pool``; the shed counters go to a
+plain dict (``counters``) under the reference's names, and to the
+reference's registry counters when a ``registry`` is given.
 
 The batching model the offline CLI uses — collect a batch, run it to
 completion, collect the next — leaves decode slots idle from the moment
@@ -167,6 +168,7 @@ class Scheduler:
         tenants: dict[str, dict[str, Any]] | None = None,
         brownout_min_deadline_s: float = 0.25,
         counters: dict[str, int] | None = None,
+        registry: Any = None,
     ) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -188,6 +190,10 @@ class Scheduler:
         #: counters dict
         self.counters = counters if counters is not None else {}
         self.counters.setdefault("serve_shed_total", 0)
+        #: optional ``telemetry.MetricsRegistry`` holding the same counters
+        self.registry = registry
+        if registry is not None:
+            registry.counter("serve_shed_total")
         #: optional RadixPrefixCache (serving/prefix_cache.py) consulted at
         #: admission; shared with the engine, and in the disaggregated
         #: topology with the sibling role's scheduler.
@@ -564,3 +570,5 @@ class Scheduler:
             names.append(labeled("serve_tenant_shed_total", tenant=req.tenant))
         for name in names:
             self.counters[name] = self.counters.get(name, 0) + 1
+            if self.registry is not None:
+                self.registry.counter(name).inc()

@@ -131,8 +131,23 @@ flat all-reduce for bucketed reduce-scatters launched from the backward
 The step is eager PyTorch: the reference's ``jit`` has no counterpart the
 port needs. The NaN guard selects with ``torch.where`` on the device, so a
 step adds no host sync; the trainer reads its metrics once per epoch.
-Not ported yet (ROADMAP): chaos, guardrails, auto-resume, telemetry and AOT
-warmup.
+
+**Telemetry** (the reference's, ``telemetry/``): the trainer always keeps a
+``MetricsRegistry`` (a ``RunLogger`` becomes one of its sinks). Every
+``metrics_every`` steps the step's scalars are buffered on the card
+unread; at epoch end one device-to-host copy emits them as ``step``
+records, then the ``epoch`` record: the mean loss, images (sequences) a
+second, the ``StepTimer``'s latency percentiles (one sync every 25 steps),
+MFU against the card's peak (``mfu``, and with remat ``mfu_issued`` /
+``mfu_gap``) over the world size and the global batch's FLOPs, the
+collective bytes and their overlap estimate, and the device-memory high
+water marks of the most loaded card of the run (one small all-gather an
+epoch). A profiler traces steps 3-5 (``PROFILE_STEPS``). With a span
+recorder (``tracer``) each step is fenced and its ``data_wait`` / ``h2d``
+/ ``compute`` / ``collective_tail`` phases measured, ``other`` the
+residual, so the phases sum to the epoch's duration exactly; without one
+the loop adds no sync. Not ported yet (ROADMAP): chaos, guardrails,
+auto-resume and AOT warmup.
 """
 
 from __future__ import annotations
@@ -164,8 +179,13 @@ from deeplearning_mpi_tpu_torch.ops.metrics import dice_score, top1_accuracy
 from deeplearning_mpi_tpu_torch.parallel.leaves import reducer as leaf_reducer
 from deeplearning_mpi_tpu_torch.resilience.preemption import GracefulShutdown, Preempted
 from deeplearning_mpi_tpu_torch.runtime import collectives
+from deeplearning_mpi_tpu_torch.telemetry import flops as tflops
+from deeplearning_mpi_tpu_torch.telemetry.memory import hbm_usage
+from deeplearning_mpi_tpu_torch.telemetry.registry import LoggerSink, MetricsRegistry
+from deeplearning_mpi_tpu_torch.telemetry.trace import annotate
 from deeplearning_mpi_tpu_torch.train import adafactor
 from deeplearning_mpi_tpu_torch.train.state import TrainState
+from deeplearning_mpi_tpu_torch.utils.profiling import StepTimer, host_sync
 
 Batch = dict[str, torch.Tensor]
 #: batch key holding the model input, per task.
@@ -649,12 +669,26 @@ def make_eval_step(
 class Trainer:
     """The epoch loop: per-epoch mean loss over finite steps, eval and
     checkpoint every ``eval_every`` epochs and after the last, per-epoch
-    timing. ``checkpointer`` (a ``train.checkpoint.Checkpointer``) saves the
-    state; ``shutdown`` (a :class:`GracefulShutdown`) is read after each
-    epoch. ``group`` makes the steps data-parallel; eval then averages over
-    every rank's rows. ``seq`` shards the LM's sequence (``make_train_step``).
-    ``aux_weight`` weighs the MoE load-balance loss. ``zero`` /
-    ``zero_overlap``: ZeRO-1 over ``group`` (:meth:`place_state`)."""
+    timing and the reference's telemetry (module docstring). ``checkpointer``
+    (a ``train.checkpoint.Checkpointer``) saves the state; ``shutdown`` (a
+    :class:`GracefulShutdown`) is read after each epoch. ``group`` makes the
+    steps data-parallel; eval then averages over every rank's rows. ``seq``
+    shards the LM's sequence (``make_train_step``). ``aux_weight`` weighs
+    the MoE load-balance loss. ``zero`` / ``zero_overlap``: ZeRO-1 over
+    ``group`` (:meth:`place_state`).
+
+    Telemetry, as the reference's ``Trainer``: ``metrics`` (a
+    ``MetricsRegistry``; one is built when None), ``metrics_every`` (record
+    every Nth step's scalars; 0 = none), ``flops_per_step`` /
+    ``issued_flops_per_step`` (the global batch's model FLOPs, and with
+    remat's recompute: MFU), ``comm_bytes_per_step`` (static collective
+    bytes a device), ``profiler`` (``utils.profiling.Profiler``: steps
+    ``PROFILE_STEPS``), ``tracer`` (``telemetry.SpanRecorder``: the step
+    phases), ``logger`` (``utils.logging.RunLogger``: it logs, and its
+    sidecar becomes a sink)."""
+
+    #: step window traced when a profiler is attached (skips the first steps)
+    PROFILE_STEPS = (3, 6)
 
     def __init__(
         self, state: TrainState, task: str = "lm", *, eval_every: int = 10,
@@ -662,18 +696,38 @@ class Trainer:
         seg_loss: str = "bce",
         ema_decay: float = 0.0, log: Callable[[str], None] = print, checkpointer: Any = None,
         shutdown: GracefulShutdown | None = None, group: Any = None, seq: Any = None,
-        zero: bool = False, zero_overlap: bool = False,
+        zero: bool = False, zero_overlap: bool = False, logger: Any = None,
+        profiler: Any = None, tracer: Any = None,
+        metrics: MetricsRegistry | None = None, metrics_every: int = 1,
+        flops_per_step: float | None = None, issued_flops_per_step: float | None = None,
+        comm_bytes_per_step: float | None = None,
     ) -> None:
         self.state = state
         self.task = task
         self.eval_every = eval_every
-        self.log = log
+        self.logger = logger
+        self.log = logger.log if logger is not None else log
         self.checkpointer = checkpointer
         self.shutdown = shutdown
         self.group = group
         self.seq = seq
         self.zero, self.zero_overlap = zero or zero_overlap, zero_overlap
         self.world = 1 if group is None else collectives.axis_size(group)
+        # One registry a trainer, always: every record (step, epoch, eval)
+        # takes MetricsRegistry.emit, and a logger's sidecar is one sink.
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if logger is not None and hasattr(logger, "log_metrics") and not any(
+                isinstance(s, LoggerSink) for s in self.metrics.sinks):
+            self.metrics.add_sink(LoggerSink(logger))
+        self.metrics_every = metrics_every
+        self.flops_per_step = flops_per_step
+        self.issued_flops_per_step = issued_flops_per_step
+        self.comm_bytes_per_step = comm_bytes_per_step
+        self.profiler = profiler
+        self.tracer = tracer
+        self._profiled = False
+        #: host-side step counter: reading ``state.step`` would sync
+        self._global_step = 0
         self._step_kwargs = dict(aux_weight=aux_weight, grad_accum=grad_accum,
                                  loss_chunk=loss_chunk, seg_loss=seg_loss, ema_decay=ema_decay)
         self.train_step = make_train_step(task, group=group, seq=seq, **self._step_kwargs)
@@ -724,12 +778,67 @@ class Trainer:
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
         """One training epoch; the mean loss leaves non-finite steps out. An
-        MoE model's epoch mean ``moe_dropped_frac`` covers every step."""
+        MoE model's epoch mean ``moe_dropped_frac`` covers every step. Emits
+        the buffered ``step`` records at its end and returns the epoch's
+        stats (the ``epoch`` record, which :meth:`fit` emits)."""
         t0 = time.perf_counter()
         loss_sum = finite_sum = drop_sum = None
         n_batches = sequences = 0
-        for batch in loader.epoch(epoch):
-            self.state, metrics = self.train_step(self.state, batch)
+        timer = StepTimer(sync_every=25)
+        tracer = self.tracer
+        #: measured step phases (tracing only); "other" is the residual
+        phase_s = {"data_wait": 0.0, "h2d": 0.0, "compute": 0.0, "collective_tail": 0.0}
+        it = iter(loader.epoch(epoch))
+        while True:
+            if tracer is None:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+            else:
+                t_fetch = time.monotonic()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                t_have = time.monotonic()
+                phase_s["data_wait"] += t_have - t_fetch
+            if self.profiler is not None and not self._profiled:
+                if n_batches == self.PROFILE_STEPS[0]:
+                    self.profiler.start()
+                elif n_batches == self.PROFILE_STEPS[1]:
+                    self.profiler.stop()
+                    self._profiled = True
+            if tracer is None:
+                with annotate("trainer/train_step"):
+                    self.state, metrics = self.train_step(self.state, batch)
+            else:
+                # Fenced step (opt-in syncs): h2d = what the card still owed
+                # when the host had the batch; compute = launch until the
+                # loss is ready; collective_tail = what the update (the
+                # optimizer and its collectives) still owed after it.
+                step_trace = f"step:{self._global_step}"
+                host_sync(batch)
+                t_h2d = time.monotonic()
+                phase_s["h2d"] += t_h2d - t_have
+                with annotate("trainer/train_step"):
+                    self.state, metrics = self.train_step(self.state, batch)
+                host_sync(metrics["loss"])
+                t_loss = time.monotonic()
+                phase_s["compute"] += t_loss - t_h2d
+                host_sync(list(self.state.model.parameters()))
+                t_tail = time.monotonic()
+                phase_s["collective_tail"] += t_tail - t_loss
+                tracer.record_span("data_wait", t_fetch, t_have, trace=step_trace)
+                tracer.record_span("h2d", t_have, t_h2d, trace=step_trace)
+                tracer.record_span("compute", t_h2d, t_loss, trace=step_trace)
+                tracer.record_span("collective_tail", t_loss, t_tail, trace=step_trace,
+                                   epoch=epoch)
+            timer.tick(metrics["loss"])
+            if self.metrics_every and self._global_step % self.metrics_every == 0:
+                # The card's scalars, unread until flush_steps.
+                self.metrics.record_step(self._global_step, metrics)
+            self._global_step += 1
             contrib = torch.where(metrics["finite"] > 0, metrics["loss"], 0.0)  # NaN*0 is NaN
             loss_sum = contrib if loss_sum is None else loss_sum + contrib
             finite_sum = metrics["finite"] if finite_sum is None else finite_sum + metrics["finite"]
@@ -744,15 +853,64 @@ class Trainer:
         mean_loss = float(loss_sum) / n_finite if n_finite else float("nan")
         duration = time.perf_counter() - t0
         stats = {"epoch": epoch, "loss": mean_loss, "duration_s": duration,
-                 "images_per_s": sequences / duration, "steps": n_batches}
+                 "images_per_s": sequences / duration}
+        if drop_sum is not None:
+            stats["moe_dropped_frac"] = float(drop_sum) / n_batches
+        stats.update(timer.summary(items_per_step=sequences // n_batches))
+        stats.update(self._derived(duration / n_batches, duration,
+                                   phase_s if tracer is not None else None))
+        # The buffered step scalars: ONE device-to-host copy for the epoch.
+        extra = {"epoch": epoch}
+        if self.comm_bytes_per_step is not None:
+            extra["comm_bytes"] = float(self.comm_bytes_per_step)
+        self.metrics.flush_steps(extra=extra)
         if n_finite < n_batches:
             self.log(f"Epoch {epoch}: skipped {n_batches - int(n_finite)} non-finite loss batch(es)")
         unit = "sequences" if self.task == "lm" else "images"
         self.log(f"Epoch {epoch}: loss {mean_loss:.4f}, {duration:.1f}s, "
                  f"{stats['images_per_s']:.1f} {unit}/s")
         if drop_sum is not None:
-            stats["moe_dropped_frac"] = float(drop_sum) / n_batches
             self.log(f"Epoch {epoch}: moe_dropped_frac {stats['moe_dropped_frac']:.4f}")
+        return stats
+
+    def _derived(self, step_seconds: float, duration: float,
+                 phase_s: dict[str, float] | None) -> dict[str, float]:
+        """The epoch's derived telemetry, as the reference's ``run_epoch``:
+        MFU over every device of the run (``mfu``; ``mfu_issued`` and
+        ``mfu_gap`` with the issued FLOPs), the traced phases (``other``
+        the residual) and the MFU gap's share of each, the collective bytes
+        and their overlap estimate, and the device-memory high-water marks
+        of the run's most loaded card (none on the CPU). Every rank computes
+        the same numbers: the memory's all-gather is a collective."""
+        import torch.distributed as dist
+
+        stats: dict[str, float] = {}
+        world = collectives.world_size()
+        if self.flops_per_step:
+            stats["mfu"] = tflops.mfu(self.flops_per_step, step_seconds, n_devices=world)
+        if self.issued_flops_per_step:
+            issued = tflops.mfu(self.issued_flops_per_step, step_seconds, n_devices=world)
+            if issued is not None:
+                stats["mfu_issued"] = issued
+                if stats.get("mfu") is not None:
+                    stats["mfu_gap"] = issued - stats["mfu"]
+        if phase_s is not None:
+            phase_s = {**phase_s, "other": max(duration - sum(phase_s.values()), 0.0)}
+            for name, secs in phase_s.items():
+                stats[f"phase_{name}_s"] = secs
+            if "mfu_gap" in stats:
+                stats.update(tflops.mfu_gap_attribution(
+                    phase_s, duration, mfu_issued=stats["mfu_issued"], mfu_gap=stats["mfu_gap"]))
+        if self.comm_bytes_per_step is not None:
+            stats["comm_bytes_per_step"] = float(self.comm_bytes_per_step)
+            if self.issued_flops_per_step:
+                frac = tflops.overlap_fraction(self.comm_bytes_per_step,
+                                               self.issued_flops_per_step, n_devices=world)
+                if frac is not None:
+                    stats["overlap_fraction"] = frac
+        hbm = hbm_usage(group=dist.group.WORLD if world > 1 else None)
+        if hbm:
+            stats.update(hbm)
         return stats
 
     def evaluate(self, loader: Any) -> dict[str, float]:
@@ -784,13 +942,26 @@ class Trainer:
         """Record and log a standalone evaluation (``--eval_only``)."""
         self.history.append(dict(stats))
         self.log("Eval-only: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(stats.items())))
+        self.metrics.emit("eval_only", stats)
+
+    def _save(self, epoch: int) -> None:
+        """Save the state; with a tracer, as a ``checkpoint`` span."""
+        if self.tracer is None:
+            self.checkpointer.save(self.state, epoch=epoch)
+            return
+        t0 = time.monotonic()
+        self.checkpointer.save(self.state, epoch=epoch)
+        self.tracer.record_span("checkpoint", t0, time.monotonic(), trace=f"epoch:{epoch}",
+                                epoch=epoch)
 
     def fit(self, train_loader: Any, num_epochs: int, *, eval_loader: Any = None,
             start_epoch: int = 0) -> list[dict[str, float]]:
         """Train epochs ``start_epoch .. num_epochs - 1`` with the
         reference's cadence: eval and save every ``eval_every`` epochs, a
         final eval and save unless the last epoch had them. A requested
-        shutdown saves the epoch just trained and raises :class:`Preempted`."""
+        shutdown saves the epoch just trained and raises :class:`Preempted`.
+        Each epoch's stats (with its eval) are an ``epoch`` record; a final
+        eval after the last epoch's record is a ``final_eval`` record."""
         if start_epoch >= num_epochs:
             self.log(f"nothing to do: start epoch {start_epoch} >= num_epochs {num_epochs}")
             return self.history
@@ -799,8 +970,9 @@ class Trainer:
             stats = self.run_epoch(train_loader, epoch)
             if self.shutdown is not None and self.shutdown.requested():
                 if self.checkpointer is not None:
-                    self.checkpointer.save(self.state, epoch=epoch)
+                    self._save(epoch)
                 self.history.append(stats)
+                self.metrics.emit("epoch", stats)
                 self.log(f"shutdown requested: final checkpoint saved at epoch {epoch}, "
                          "exiting cleanly")
                 raise Preempted(epoch)
@@ -812,14 +984,19 @@ class Trainer:
                     self.log(f"Epoch {epoch} eval: "
                              + ", ".join(f"{k} {v:.4f}" for k, v in ev.items()))
                 if self.checkpointer is not None:
-                    self.checkpointer.save(self.state, epoch=epoch)
+                    self._save(epoch)
                     last_saved = epoch
             self.history.append(stats)
+            self.metrics.emit("epoch", stats)
         final_epoch = num_epochs - 1
         if eval_loader is not None and last_evaled != final_epoch:
             final = self.evaluate(eval_loader)
             self.history[-1].update({f"eval_{k}": v for k, v in final.items()})
             self.log("Final eval: " + ", ".join(f"{k} {v:.4f}" for k, v in final.items()))
+            self.metrics.emit("final_eval",
+                              {"epoch": final_epoch, **{f"eval_{k}": v for k, v in final.items()}})
         if self.checkpointer is not None and last_saved != final_epoch:
-            self.checkpointer.save(self.state, epoch=final_epoch)
+            self._save(final_epoch)
+        if self.profiler is not None:
+            self.profiler.stop()  # closes a window a short epoch left open
         return self.history

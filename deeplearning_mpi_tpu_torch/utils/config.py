@@ -1,7 +1,9 @@
 """Shared CLI helpers: the ``--ema`` type, the architecture sidecar, the LR
 flags, the ``--resume`` / ``--eval_only`` restore and the inference restore;
-for the data-parallel trainers the topology and training flags, the
-runtime set-up and the local launcher (``--nproc``).
+for the data-parallel trainers the topology, training and observability
+flags, the runtime set-up (``--debug_nans`` included), the telemetry
+(:func:`build_observability`), the run log and the local launcher
+(``--nproc``).
 
 The port's copy of the parts of ``deeplearning_mpi_tpu/utils/config.py``
 its CLIs use, with the reference's contracts: ``arch.json`` beside the
@@ -173,10 +175,6 @@ def restore_lm(
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
 UNPORTED_FLAGS = {
     "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
-    "profile_dir": (None, "Queue 1 item 9 (telemetry)"),
-    "metrics_dir": (None, "Queue 1 item 9 (telemetry)"),
-    "log_dir": (None, "Queue 1 item 9 (telemetry: the run log)"),
-    "debug_nans": (False, "Queue 1 item 9 (telemetry)"),
     "chaos": (None, "Queue 1 item 10 (chaos)"),
     "guardrails": (False, "Queue 1 item 10 (numerics guardrails)"),
     "digest_every": (0, "Queue 1 item 10 (numerics guardrails)"),
@@ -247,13 +245,35 @@ def add_training_flags(
     group.add_argument("--keep_checkpoints", type=int, default=3)
     group.add_argument("--eval_every", type=int, default=10)
     group.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
-    for flag in ("profile_dir", "metrics_dir", "log_dir", "chaos"):
-        group.add_argument(f"--{flag}", default=None, help="not ported yet")
-    for flag in ("debug_nans", "guardrails"):
-        group.add_argument(f"--{flag}", action="store_true", help="not ported yet")
+    add_observability_flags(group)
+    group.add_argument("--chaos", default=None, help="not ported yet")
+    group.add_argument("--guardrails", action="store_true", help="not ported yet")
     for flag in ("digest_every", "max_restarts"):
         group.add_argument(f"--{flag}", type=int, default=0, help="not ported yet")
     group.add_argument("--num_workers", type=int, default=None, help="not ported yet")
+
+
+def add_observability_flags(group: Any) -> None:
+    """The reference's telemetry flags: ``--log_dir`` (the run log and its
+    ``.metrics.jsonl`` sidecar; nothing written without it),
+    ``--profile_dir`` (a ``torch.profiler`` Chrome trace of steps 3-5),
+    ``--metrics_dir`` (``metrics.jsonl``: every step / epoch / eval
+    record), ``--metrics_every`` and ``--debug_nans``."""
+    group.add_argument("--log_dir", default=None,
+                       help="write the run log (training_log_<stamp>.log) and its "
+                       ".metrics.jsonl sidecar here (default: print only)")
+    group.add_argument("--profile_dir", default=None,
+                       help="write a torch.profiler Chrome trace of steps 3-5 here")
+    group.add_argument("--metrics_dir", "--metrics-dir", default=None,
+                       help="write telemetry records (per-step scalars, epoch stats, "
+                       "MFU / memory / collective bytes) as metrics.jsonl here; render "
+                       "with tools/metrics_report.py")
+    group.add_argument("--metrics_every", "--metrics-every", type=int, default=1,
+                       help="record every Nth step's scalars (0 = per-step records off; "
+                       "epoch records always flow)")
+    group.add_argument("--debug_nans", action="store_true",
+                       help="raise at the first non-finite module output, naming the "
+                       "module, and detect anomalies in the backward (a sync a module)")
 
 
 def reject_unported(args: argparse.Namespace) -> None:
@@ -326,10 +346,10 @@ def reject_pp(args: argparse.Namespace) -> None:
 
 
 def setup_runtime(args: argparse.Namespace):
-    """``bootstrap.init`` from the topology flags, then the mesh (data x
-    pipe x expert x seq x model) when a group is live; returns ``(topology,
-    mesh, data group)`` (mesh and group None for one process without a
-    coordinator)."""
+    """``bootstrap.init`` from the topology flags (and anomaly detection
+    under ``--debug_nans``), then the mesh (data x pipe x expert x seq x
+    model) when a group is live; returns ``(topology, mesh, data group)``
+    (mesh and group None for one process without a coordinator)."""
     import torch.distributed as dist
 
     from deeplearning_mpi_tpu_torch.runtime import bootstrap
@@ -337,6 +357,12 @@ def setup_runtime(args: argparse.Namespace):
 
     topo = bootstrap.init(args.coordinator, args.num_processes, args.process_id,
                           device=args.device)
+    if getattr(args, "debug_nans", False):
+        from deeplearning_mpi_tpu_torch.utils.profiling import nan_debug_mode
+
+        # The backward half; the forward hooks go on the model in
+        # build_observability.
+        nan_debug_mode(True)
     sp, tp, pp = getattr(args, "sp", 1), getattr(args, "tp", 1), getattr(args, "pp", 1)
     if not dist.is_initialized():
         if args.dp not in (-1, 1) or args.ep != 1 or sp != 1 or tp != 1 or pp != 1:
@@ -404,11 +430,55 @@ class Run:
     start_epoch: int
 
 
-def coordinator_log(topo: Any) -> Callable[[str], None]:
-    """Print (flushed) on rank 0; the other ranks stay quiet."""
-    if topo.is_coordinator:
-        return lambda msg: print(msg, flush=True)
-    return lambda msg: None
+def run_logger(args: argparse.Namespace, topo: Any) -> Any:
+    """The run's ``RunLogger`` (rank 0 prints; with ``--log_dir`` it also
+    writes the log file and its sidecar), with the system and the
+    hyperparameters logged first, as the reference's CLIs do."""
+    from deeplearning_mpi_tpu_torch.utils.logging import RunLogger
+
+    logger = RunLogger(getattr(args, "log_dir", None))
+    if logger.path is not None:
+        logger.log_system_information(topo.device)
+        logger.log_hyperparameters(vars(args))
+    return logger
+
+
+def build_observability(args: argparse.Namespace, trainer: Any, *,
+                        flops_per_step: float | None = None,
+                        issued_flops_per_step: float | None = None,
+                        comm_bytes_per_step: float | None = None) -> None:
+    """Attach the profiler and the telemetry of the shared flags, as the
+    reference's ``build_observability`` (its ``--log_dir`` heartbeat lives
+    with the supervisor, ROADMAP Queue 1 item 10). ``--metrics_dir`` adds a
+    JSONL sink to the trainer's registry on rank 0 only (every rank
+    computes the same records); ``flops_per_step`` /
+    ``issued_flops_per_step`` / ``comm_bytes_per_step`` are the CLI's
+    analytic counts. Without a comm count, the data-parallel gradient
+    all-reduce is derived from the model's whole parameters
+    (``telemetry.comms.param_count``) and the data group's size.
+    ``--debug_nans`` hooks every module of the model."""
+    from deeplearning_mpi_tpu_torch.runtime.bootstrap import is_coordinator
+    from deeplearning_mpi_tpu_torch.telemetry import comms
+    from deeplearning_mpi_tpu_torch.telemetry.registry import JsonlSink
+    from deeplearning_mpi_tpu_torch.utils.profiling import Profiler, nan_debug_mode
+
+    if getattr(args, "profile_dir", None):
+        trainer.profiler = Profiler(args.profile_dir)
+    metrics_dir = getattr(args, "metrics_dir", None)
+    if metrics_dir and is_coordinator():
+        trainer.metrics.add_sink(JsonlSink(Path(metrics_dir) / "metrics.jsonl"))
+    trainer.metrics_every = getattr(args, "metrics_every", trainer.metrics_every)
+    if flops_per_step is not None:
+        trainer.flops_per_step = flops_per_step
+    if issued_flops_per_step is not None:
+        trainer.issued_flops_per_step = issued_flops_per_step
+    if comm_bytes_per_step is None and trainer.comm_bytes_per_step is None:
+        comm_bytes_per_step = comms.dp_grad_allreduce_bytes(
+            comms.param_count(trainer.state.model), trainer.world, zero=trainer.zero)
+    if comm_bytes_per_step is not None:
+        trainer.comm_bytes_per_step = comm_bytes_per_step
+    if getattr(args, "debug_nans", False):
+        nan_debug_mode(True, trainer.state.model)
 
 
 def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
@@ -419,7 +489,8 @@ def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
 
-    log = coordinator_log(topo)
+    logger = run_logger(args, topo)
+    log = logger.log
     state = create_train_state(model, tx, ema=args.ema > 0)
     checkpointer, start_epoch = None, 0
     if args.model_dir is not None:
@@ -427,29 +498,38 @@ def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
                                     max_to_keep=args.keep_checkpoints)
         state, start_epoch = restore_for_start(args, checkpointer, state, log)
     trainer = Trainer(state, task, eval_every=args.eval_every, grad_accum=args.grad_accum,
-                      seg_loss=seg_loss, ema_decay=args.ema, log=log, checkpointer=checkpointer,
-                      group=group, zero=args.zero, zero_overlap=args.zero_overlap)
+                      seg_loss=seg_loss, ema_decay=args.ema, logger=logger,
+                      checkpointer=checkpointer, group=group, zero=args.zero,
+                      zero_overlap=args.zero_overlap)
     return Run(args, trainer, train_loader, eval_loader, start_epoch)
 
 
 def execute(run: Run) -> Any:
     """Train (or, with ``--eval_only``, evaluate once); returns the
     trainer. SIGTERM ends training after the current epoch with a final
-    checkpoint."""
+    checkpoint. At the end, as the reference: the profiler's window is
+    closed, one ``run_summary`` record of every instrument is emitted and
+    the telemetry sinks are closed."""
     from deeplearning_mpi_tpu_torch.resilience import GracefulShutdown, Preempted
 
     trainer, args = run.trainer, run.args
-    if args.eval_only:
-        trainer.report_eval(trainer.evaluate(run.eval_loader))
+    try:
+        if args.eval_only:
+            trainer.report_eval(trainer.evaluate(run.eval_loader))
+            return trainer
+        with GracefulShutdown() as shutdown:
+            trainer.shutdown = shutdown
+            try:
+                trainer.fit(run.train_loader, args.num_epochs, eval_loader=run.eval_loader,
+                            start_epoch=run.start_epoch)
+            except Preempted as p:
+                trainer.log(f"exiting after preemption ({p})")
         return trainer
-    with GracefulShutdown() as shutdown:
-        trainer.shutdown = shutdown
-        try:
-            trainer.fit(run.train_loader, args.num_epochs, eval_loader=run.eval_loader,
-                        start_epoch=run.start_epoch)
-        except Preempted as p:
-            trainer.log(f"exiting after preemption ({p})")
-    return trainer
+    finally:
+        if trainer.profiler is not None:
+            trainer.profiler.stop()
+        trainer.metrics.emit("run_summary", trainer.metrics.snapshot())
+        trainer.metrics.close()
 
 
 def cli_main(module: str, parse: Callable[[list[str]], argparse.Namespace],

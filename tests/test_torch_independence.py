@@ -18,8 +18,10 @@ gloo processes, ``generate --tp 2`` in one; one for pipeline parallelism
 its checkpoint in one), one for each composed layout and each combination
 lifted beside them (``--pp x --ep``, ``--loss_chunk x --sp``, ZeRO-1 beside
 ``--ep`` / ``--sp`` / ``--pp``, Adafactor beside ``--tp`` / ``--ep`` /
-``--pp``: ``train_lm`` over 4 gloo processes) and one for the ViT (a step,
-``train_resnet --arch vit_tiny``), each process with jax blocked.
+``--pp``: ``train_lm`` over 4 gloo processes) one for the ViT (a step,
+``train_resnet --arch vit_tiny``) and one for the telemetry (``train_lm``
+with ``--metrics_dir --log_dir --profile_dir``, a traced ``Trainer`` epoch,
+``serve_lm --metrics_file``), each process with jax blocked.
 """
 
 import ast
@@ -382,6 +384,44 @@ def test_vit_runs_with_jax_blocked():
         "from deeplearning_mpi_tpu_torch.cli import train_resnet\n"
         "assert train_resnet.main(['--device', 'cpu', '--arch', 'vit_tiny', '--synthetic',\n"
         "    '--num_epochs', '1', '--batch_size', '8', '--train_samples', '8']) == 0\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+def test_telemetry_path_runs_with_jax_blocked(tmp_path):
+    """The telemetry path with jax blocked: ``train_lm`` with
+    ``--metrics_dir --log_dir --profile_dir``, a traced ``Trainer`` epoch,
+    and ``serve_lm --selftest --metrics_file`` with the engine's registry."""
+    code = (
+        "import json, pathlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"tmp = pathlib.Path({str(tmp_path)!r})\n"
+        "from deeplearning_mpi_tpu_torch.cli import serve_lm, train_lm\n"
+        "tiny = ['--num_layers', '2', '--num_heads', '2', '--head_dim', '8', '--d_model', '16',\n"
+        "        '--d_ff', '32']\n"
+        "assert train_lm.main(['--device', 'cpu', *tiny, '--seq_len', '16', '--batch_size', '4',\n"
+        "    '--train_sequences', '20', '--num_epochs', '1', '--metrics_dir', str(tmp / 'm'),\n"
+        "    '--log_dir', str(tmp / 'l'), '--profile_dir', str(tmp / 'p')]) == 0\n"
+        "kinds = [json.loads(l)['kind'] for l in (tmp / 'm' / 'metrics.jsonl').open()]\n"
+        "assert kinds[-2:] == ['epoch', 'run_summary'] and 'step' in kinds, kinds\n"
+        "assert list((tmp / 'p').iterdir()) and len(list((tmp / 'l').iterdir())) == 2\n"
+        "import torch\n"
+        "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens\n"
+        "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
+        "from deeplearning_mpi_tpu_torch.telemetry import SpanRecorder\n"
+        "from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state\n"
+        "m = TransformerLM(TransformerConfig.tiny(), dtype=torch.float32, device='cpu').init_weights(0)\n"
+        "tracer = SpanRecorder(tmp / 'trace_t.jsonl', proc='trainer')\n"
+        "t = Trainer(create_train_state(m, build_optimizer('adam', 1e-3)), 'lm', tracer=tracer)\n"
+        "stats = t.run_epoch(Loader(SyntheticTokens(8, 16), 4, device='cpu'), 0)\n"
+        "assert abs(sum(v for k, v in stats.items() if k.startswith('phase_'))\n"
+        "           - stats['duration_s']) <= 1e-9\n"
+        "assert serve_lm.main(['--selftest', '--device', 'cpu', *tiny, '--num_requests', '4',\n"
+        "    '--metrics_file', str(tmp / 'serve.jsonl')]) == 0\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

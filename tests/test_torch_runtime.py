@@ -327,7 +327,7 @@ def test_train_unet_cli_two_ranks():
 @pytest.mark.parametrize("flag,item", [(["--pp", "2"], "item 8"), (["--tp", "2"], "item 8"),
                                        (["--chaos", "kill@step:1"], "item 10"),
                                        (["--tuned_step", "db.json"], "item 9"),
-                                       (["--metrics_dir", "m"], "item 9")])
+                                       (["--num_workers", "2"], "item 7")])
 def test_unported_flags_refuse(flag, item, capsys):
     from deeplearning_mpi_tpu_torch.cli import train_resnet, train_unet
 
