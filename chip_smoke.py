@@ -267,7 +267,31 @@ Phases, each printed on its own line; any failure exits non-zero:
     TTFT and 8 TPOT observations, the registry's counters equal to
     ``engine.counters``, each request's queue + prefill + decode spans
     tiling arrival to finish within 1%; then ``serve_lm --selftest
-    --metrics_file`` writes canonical records.
+    --metrics_file`` writes canonical records. 19b's steps make 0
+    synchronizing calls (Adam's bias correction takes its bases as
+    scalars);
+20. the compiler layer. (a) Phase 8's step (110M, bf16, B8 S2048, flash,
+    Adam 3e-4, clip 1.0) through a ``Trainer``, eager and captured
+    (``Trainer.warmup``: one CUDA graph of the whole step), from the same
+    weights over the same 6 batches (and one more step each for the sync
+    count and one profiled): losses, parameters, Adam moments and
+    ``count`` bitwise equal; the state after warmup bitwise the state
+    before; one capture, none after warmup, no fallback; K1/K2/K3 12 a
+    step through the replays; 0 synchronizing calls in an eager and in a
+    replayed step; the registry's step records the step losses; step
+    median and busy share of both arms reported, no bar. ``tiny_moe`` (8
+    experts) and ``tiny`` under remat ``dots``, f32, captured against
+    eager over 3 steps, bitwise, neither step making a sync. (b) A fresh ``python -c`` process loads every
+    kernel library through ``compiler/cache.py``: 0 builds, 0 misses, a
+    hit a library; ``verify()`` finds no bad digest. (c) ``cli.autotune
+    --step 8x256 --spec_k 1`` on the card, then ``train_lm --tuned_step
+    --aot_warmup`` at that shape applies the DB's schedule under a capture
+    over 2 steps, and ``serve_lm --tuning_db --selftest`` (the tiny config,
+    a 1-layer draft) takes the DB's ``spec_k``.
+
+Order: all kernel builds start together; phases 3, 7, 8, 9 and 12 (no K4)
+run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-20 and
+the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -284,6 +308,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1774,6 +1799,9 @@ P13_TRAIN = P13_MODEL + ["--device", "cuda", "--attention", "flash", "--dtype", 
                          "--num_epochs", "1"]
 P13_NEW = 32
 MOE_AUX_WEIGHT = 0.01
+#: 13c's depth: the CLIs train, checkpoint, restore and generate with 4 of
+#: the 12 blocks (every width kept), which 13a and 13b run whole.
+P13C_LAYERS = ["--num_layers", "4"]
 
 
 def moe_config(**kw):
@@ -1965,8 +1993,9 @@ def moe_clis(torch, card: str) -> dict:
     try:
         model_dir = os.path.join(work, "moe")
         t0 = time.perf_counter()
-        rc, text, err = cli(train_lm.main, P13_TRAIN + ["--model_dir", model_dir])
-        log(f"13c train_lm --moe_experts 8: exit {rc} in {time.perf_counter() - t0:.1f}s")
+        rc, text, err = cli(train_lm.main, P13_TRAIN + P13C_LAYERS + ["--model_dir", model_dir])
+        log(f"13c train_lm --moe_experts 8 {' '.join(P13C_LAYERS)}: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f}s")
         require(rc == 0 and "moe_dropped_frac" in text, f"13c: train_lm exited {rc}: {err[-2000:]}")
         rc, _, err = cli(train_lm.main, P13_TRAIN + ["--moe_routing", "expert_choice"])
         log(f"13c --moe_routing expert_choice without --allow_acausal_routing: exit {rc}")
@@ -1985,13 +2014,13 @@ def moe_clis(torch, card: str) -> dict:
         for fn in (fa.flash_attention_cuda, fd.flash_decode_cuda):
             fn.launches = 0
         t0 = time.perf_counter()
-        res = gen_cli.run(P13_MODEL + ["--device", "cuda", "--model_dir", model_dir,
+        res = gen_cli.run(P13_MODEL + P13C_LAYERS + ["--device", "cuda", "--model_dir", model_dir,
                                        "--prompt", P10_PROMPT, "--max_new_tokens",
                                        str(P13_NEW), "--greedy"])
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches = {"K1": fa.flash_attention_cuda.launches, "K4": fd.flash_decode_cuda.launches}
-        cfg = moe_config(vocab_size=256)
+        cfg = moe_config(vocab_size=256, num_layers=int(P13C_LAYERS[1]))
         model = restore_lm(cfg, dtype=torch.float32, device=torch.device("cuda"),
                            model_dir=model_dir)
         prompt = torch.tensor([list(P10_PROMPT.encode())], device="cuda")
@@ -3539,11 +3568,16 @@ def telemetry_syncs(torch, card: str, seed: int) -> dict:
                     "step_records": sum(r["kind"] == "step" for r in sink.records),
                     "sync_sites": sorted({str(w.message)[:120] for w in caught})}
         log(f"19b registry {arm} (metrics_every {every}) [{card}]: synchronizing calls a step "
-            f"{syncs}, at the epoch's end {out[arm]['epoch_end_syncs']}; step_ms_p50 "
+            f"{syncs} (expected 0 each), at the epoch's end {out[arm]['epoch_end_syncs']}; "
+            "step_ms_p50 "
             f"{stats['step_ms_p50']:.2f} ms (StepTimer, one window of {steps} steps); "
             f"{out[arm]['step_records']} step records; sites {out[arm]['sync_sites']}")
     require(out["on"]["syncs_per_step"] == out["off"]["syncs_per_step"],
             f"19b: the registry changed the syncs a step: {out}")
+    # Adam's bias correction took host floats to the card (2 syncs a step
+    # before the compiler layer's slice); now the step makes none.
+    require(not any(out["on"]["syncs_per_step"]) and not any(out["off"]["syncs_per_step"]),
+            f"19b: expected 0 synchronizing calls a step, got {out}")
     out["sync_stacks"] = sync_stacks(torch, trainer, batches[0])
     require(out["on"]["step_records"] == steps and out["off"]["step_records"] == 0,
             f"19b: step records {out['on']['step_records']} / {out['off']['step_records']}")
@@ -3675,6 +3709,328 @@ def telemetry_phase(torch, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 20 ----------------------------------------------------------------
+#: 20a: phase 8's step, captured against eager, over this many steps.
+P20_STEPS = 6
+#: 20c: the tuned step's shape (cli.autotune --step, then train_lm
+#: --tuned_step at this batch and sequence length).
+P20_STEP_SHAPE = (8, 256)
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor a train step updates, by name: parameters, optimizer
+    state (``count`` included), EMA."""
+    out = {f"param/{n}": p.detach() for n, p in state.model.named_parameters()}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[f"{prefix}{k}"] = v
+
+    walk(state.opt_state, "opt/")
+    walk(state.ema_params or {}, "ema/")
+    return out
+
+
+def _syncs_in(torch, fn) -> list[str]:
+    """The synchronizing calls ``fn`` makes, by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # The mode's own notice ("... is a prototype feature ...") is no sync.
+    return [str(w.message)[:120] for w in caught if "prototype" not in str(w.message)]
+
+
+def _gemm_probe(torch) -> dict:
+    """Diagnostic, run only when 20a's arms differ: one bf16 GEMM at the
+    step's MLP shape, eager against captured, bitwise or not (does cuBLAS
+    pick another algorithm under capture?)."""
+    x = torch.randn(8 * 2048, 768, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(2048, 768, device="cuda", dtype=torch.bfloat16)
+    eager = torch.nn.functional.linear(x, w)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        torch.nn.functional.linear(x, w)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = torch.nn.functional.linear(x, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    return {"bitwise": bool(torch.equal(out, eager)),
+            "max_abs": float((out.float() - eager.float()).abs().max())}
+
+
+def captured_step(torch, card: str, seed: int) -> dict:
+    """20a: phase 8's step (the 110M model, bf16, B8 S2048, flash, Adam
+    3e-4 with clip 1.0) through a ``Trainer``, eager and captured
+    (``Trainer.warmup``: one CUDA graph of the whole step), from the same
+    weights over the same :data:`P20_STEPS` batches: losses, parameters,
+    Adam moments and ``count`` bitwise equal; the state after warmup
+    bitwise the state before; captures flat after warmup; K1/K2/K3 12 a
+    step each, counted through the replays; 0 synchronizing calls in an
+    eager and in a replayed step. Then the tiny MoE LM (f32) the same way
+    over 3 steps, and ``tiny`` under remat ``dots``. Step medians and
+    busy shares reported, no bar."""
+    from deeplearning_mpi_tpu_torch.compiler import aot
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.telemetry import InMemorySink, MetricsRegistry
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+
+    cfg = TransformerConfig()
+    B, S, steps = 8, 2048, P20_STEPS
+    model = TransformerLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loader = Loader(SyntheticTokens(B * steps, S, vocab_size=cfg.vocab_size, seed=seed), B,
+                    shuffle=False, device="cuda")
+    batches = list(loader.epoch(0))
+    out: dict = {"card": card}
+    arms = {}
+    for arm in ("eager", "captured"):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        sink = InMemorySink()
+        trainer = Trainer(create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                             attention_fn=fa.flash_attention_bhsd),
+                          "lm", log=log, metrics=MetricsRegistry([sink]))
+        if arm == "captured":
+            before = {n: t.clone() for n, t in _state_tensors(trainer.state).items()}
+            captures = aot.CapturedProgram.total_captures
+            trainer.warmup(batches[0])
+            after = _state_tensors(trainer.state)
+            require(all(torch.equal(after[n], t) for n, t in before.items()),
+                    "20a: the state after warmup differs from the state before")
+            require(aot.CapturedProgram.total_captures == captures + 1,
+                    f"20a: warmup made {aot.CapturedProgram.total_captures - captures} captures")
+            del before, after
+            captures = aot.CapturedProgram.total_captures
+        _zero_counts(fa)
+        losses, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            trainer.metrics.record_step(len(losses), metrics)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+        launches = _kernel_counts(fa)
+        losses = [float(x) for x in losses]
+        records = [r["loss"] for r in trainer.metrics.flush_steps()]
+        require(records == losses, f"20a {arm}: the registry's step records {records} are not "
+                f"the step losses {losses}")
+        def one_step():
+            trainer.state, _ = trainer.train_step(trainer.state, batches[-1])
+
+        syncs = _syncs_in(torch, one_step)
+        prof = device_profile(torch, one_step, f"20a {arm} profile (one step)")
+        median = sorted(times[1:])[len(times[1:]) // 2]
+        arms[arm] = {"losses": losses, "step_times_s": times, "step_s_median": median,
+                     "launches": launches, "syncs_per_step": len(syncs), "sync_sites": syncs,
+                     "busy_share": prof["busy_share"], "trainer": trainer}
+        log(f"20a {arm} [{card}]: losses {[round(x, 4) for x in losses]}, step median "
+            f"{1e3 * median:.2f} ms (steps 2-{steps}), busy {100 * prof['busy_share']:.2f}%, "
+            f"launches {launches}, synchronizing calls in one step {len(syncs)} {syncs}")
+        require(all(n == 12 * steps for n in launches.values()),
+                f"20a {arm}: expected {12 * steps} launches of each kernel, got {launches}")
+        require(not syncs, f"20a {arm}: the step synchronizes: {syncs}")
+        if arm == "captured":
+            require(aot.CapturedProgram.total_captures == captures,
+                    "20a: captures rose after warmup")
+            require(trainer.train_step.fallback_calls == 0, "20a: a captured step fell back")
+        if arm == "eager":
+            # The same starting point for the captured arm: the eager arm's
+            # state is compared after both ran, so keep it off the model.
+            arms[arm]["state"] = {n: t.clone() for n, t in _state_tensors(trainer.state).items()}
+            del arms[arm]["trainer"]
+    # Both arms ran 6 steps plus the sync and profile steps: 8 updates each.
+    eager, captured = arms["eager"]["state"], _state_tensors(arms["captured"]["trainer"].state)
+    differ = [n for n, t in eager.items() if not torch.equal(captured[n], t)]
+    same_losses = arms["eager"]["losses"] == arms["captured"]["losses"]
+    if differ or not same_losses:
+        probe = _gemm_probe(torch)
+        log(f"20a: captured differs from eager: losses equal {same_losses}, {len(differ)} "
+            f"tensors differ (first {differ[:3]}); GEMM probe eager vs captured {probe}")
+        out["probe"] = probe
+    require(same_losses and not differ, "20a: the captured step is not bitwise the eager step")
+    log(f"20a [{card}]: captured == eager bitwise over {steps} steps (+2): losses, "
+        f"{sum(n.startswith('param/') for n in eager)} parameters, Adam moments and count; "
+        f"step median {1e3 * arms['captured']['step_s_median']:.2f} ms captured / "
+        f"{1e3 * arms['eager']['step_s_median']:.2f} ms eager, busy "
+        f"{100 * arms['captured']['busy_share']:.2f}% / {100 * arms['eager']['busy_share']:.2f}%")
+    for arm in arms.values():
+        arm.pop("trainer", None)
+        arm.pop("state", None)
+    out.update(arms)
+    del eager, captured, init, model
+    torch.cuda.empty_cache()
+    out.update(captured_small(torch, card, seed))
+    return out
+
+
+def captured_small(torch, card: str, seed: int) -> dict:
+    """20a, the other step forms: ``tiny_moe`` (8 experts) and ``tiny``
+    under remat ``dots`` (checkpointed blocks), f32 (TF32 off), 3 steps
+    each, captured against eager: losses and every updated tensor
+    bitwise; neither step (the routing, the recompute) synchronizes."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+
+    out = {}
+    for name, cfg, remat in (("moe", TransformerConfig.tiny_moe(8), "none"),
+                             ("remat_dots", TransformerConfig.tiny(), "dots")):
+        rng = np.random.default_rng(seed)
+        batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()}
+                   for _ in range(3)]
+        runs = {}
+        for warm in (False, True):
+            model = TransformerLM(cfg, dtype=torch.float32, device="cuda",
+                                  remat=remat).init_weights(seed)
+            trainer = Trainer(create_train_state(model, build_optimizer("adam", 1e-3,
+                                                                        clip_norm=1.0)),
+                              "lm", aux_weight=MOE_AUX_WEIGHT if cfg.moe_experts else 0.0,
+                              log=lambda msg: None)
+            if warm:
+                trainer.warmup(batches[0])
+            losses = []
+            for batch in batches:
+                trainer.state, metrics = trainer.train_step(trainer.state, batch)
+                losses.append(float(metrics["loss"]))
+
+            def one_step():
+                trainer.state, _ = trainer.train_step(trainer.state, batches[0])
+
+            syncs = _syncs_in(torch, one_step)
+            runs[warm] = (losses, _state_tensors(trainer.state), syncs)
+        same = runs[True][0] == runs[False][0] and all(
+            torch.equal(t, runs[False][1][n]) for n, t in runs[True][1].items())
+        log(f"20a {name} (f32) [{card}]: captured == eager bitwise over 3 steps (+1): {same}; "
+            f"losses {runs[True][0]}; synchronizing calls a step {len(runs[True][2])} "
+            f"captured, {len(runs[False][2])} eager")
+        require(same, f"20a {name}: captured {runs[True][0]} differs from eager "
+                f"{runs[False][0]}")
+        require(not runs[True][2] and not runs[False][2],
+                f"20a {name}: the step synchronizes: {runs[True][2]} {runs[False][2]}")
+        out[name] = {"losses": runs[True][0], "bitwise": same}
+    return out
+
+
+def kernel_cache_check(torch, card: str) -> dict:
+    """20b: a fresh process loads every kernel through the build cache with
+    0 builds and a hit a library; the manifest verifies."""
+    from deeplearning_mpi_tpu_torch.compiler.cache import kernel_cache
+    from deeplearning_mpi_tpu_torch.ops.kernels import _build
+
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "from deeplearning_mpi_tpu_torch.compiler.cache import kernel_cache\n"
+            "from deeplearning_mpi_tpu_torch.ops.kernels import _build\n"
+            "for name in _build._EXPORTS:\n"
+            "    _build.load(name)\n"
+            "print(json.dumps(kernel_cache().stats()))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    require(res.returncode == 0, f"20b: the fresh process failed: {res.stderr[-2000:]}")
+    stats = json.loads(res.stdout.strip().splitlines()[-1])
+    bad = kernel_cache().verify()
+    n = len(_build._EXPORTS)
+    log(f"20b kernel cache [{card}]: a fresh process loaded {n} libraries in "
+        f"{time.perf_counter() - t0:.1f}s: {stats}; verify() -> {bad}")
+    require(stats["builds"] == 0 and stats["misses"] == 0 and stats["hits"] == n,
+            f"20b: expected {n} hits and no build, got {stats}")
+    require(bad == [], f"20b: libraries failed their digests: {bad}")
+    return {"fresh_process": stats, "verify": bad}
+
+
+def tuning_db_check(torch, card: str) -> dict:
+    """20c: ``cli.autotune --step`` at :data:`P20_STEP_SHAPE` and
+    ``--spec_k 1`` at the tiny config on the card; ``train_lm --tuned_step
+    --aot_warmup`` at that shape applies the DB's schedule over 2 steps
+    (one CUDA graph); ``serve_lm --tuning_db --selftest`` takes the DB's
+    ``spec_k`` for the tiny config and a 1-layer draft."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import autotune, serve_lm, train_lm
+
+    def cli(main, argv):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        return rc, buf.getvalue(), err.getvalue()
+
+    work = tempfile.mkdtemp(prefix="phase20-", dir=os.path.join(ROOT, "build"))
+    db = os.path.join(work, "tuned.json")
+    out: dict = {"card": card}
+    try:
+        batch, seq = P20_STEP_SHAPE
+        t0 = time.perf_counter()
+        rc, _, err = cli(autotune.main, ["--db", db, "--step", f"{batch}x{seq}", "--verify_steps",
+                                         "3", "--repeats", "2", "--spec_k", "1"])
+        lines = [ln for ln in err.splitlines() if ln.startswith(("step ", "spec_k "))]
+        log(f"20c cli.autotune --step {batch}x{seq} --spec_k 1 [{card}]: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f}s: {lines}")
+        require(rc == 0 and len(lines) == 2, f"20c: cli.autotune exited {rc}: {err[-2000:]}")
+        entries = json.load(open(db))["entries"]
+        step_key = f"step|lm|{batch}x{seq}|1|float32|cuda"
+        require(step_key in entries, f"20c: no {step_key} in {sorted(entries)}")
+        out["step"] = entries[step_key]
+        spec = [e for k, e in entries.items() if k.startswith("spec_k|")]
+        require(len(spec) == 1, f"20c: spec_k entries {sorted(entries)}")
+        out["spec_k"] = spec[0]
+        rc, text, err = cli(train_lm.main, [
+            "--device", "cuda", "--attention", "flash", "--num_layers", "2", "--num_heads", "2",
+            "--head_dim", "64", "--d_model", "128", "--d_ff", "256", "--seq_len", str(seq),
+            "--batch_size", str(batch), "--train_sequences", str(2 * batch + 2),
+            "--num_epochs", "1", "--tuned_step", db, "--aot_warmup"])
+        applied = [ln for ln in text.splitlines() if "tuned step schedule" in ln or "warmup:" in ln
+                   or ln.startswith("Epoch")]
+        log(f"20c train_lm --tuned_step --aot_warmup [{card}]: exit {rc}: {applied}")
+        require(rc == 0 and any(f"{out['step']['params']}" in ln for ln in applied)
+                and any("one CUDA graph" in ln for ln in applied),
+                f"20c: train_lm did not apply the schedule under a capture: {text[-2000:]} "
+                f"{err[-2000:]}")
+        tiny = ["--num_layers", "2", "--num_heads", "4", "--head_dim", "8", "--d_model", "32",
+                "--d_ff", "64"]
+        rc, _, err = cli(serve_lm.main, ["--selftest", "--device", "cuda", *tiny,
+                                         "--draft_layers", "1", "--tuning_db", db])
+        want = f"spec_k from tuning DB: {out['spec_k']['params']['spec_k']}"
+        log(f"20c serve_lm --tuning_db --selftest [{card}]: exit {rc}: "
+            f"{[ln for ln in err.splitlines() if 'spec_k' in ln or 'selftest' in ln]}")
+        require(rc == 0 and want in err, f"20c: serve_lm exited {rc}: {err[-2000:]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def compiler_phase(torch, card: str, seed: int) -> dict:
+    """Phase 20: the compiler layer (20a-20c)."""
+    out = {"captured": captured_step(torch, card, seed)}
+    torch.cuda.empty_cache()
+    out["cache"] = kernel_cache_check(torch, card)
+    out["tuning"] = tuning_db_check(torch, card)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -3696,28 +4052,32 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    logs = _build.build_all(force=True)
+    # All builds start together; the phases that need no K4 (3, 7, 8, 9,
+    # 12) run while flash_decode.cu (~110 s, 128 kernels) still builds.
+    t_build = time.perf_counter()
+    decode_build: dict = {}
+
+    def build_decode():
+        try:
+            decode_build["logs"] = _build.build_all(["flash_decode"], force=True)
+        except Exception as err:  # raised again after the join
+            decode_build["error"] = err
+
+    decode_thread = threading.Thread(target=build_decode)
+    decode_thread.start()
+    logs = _build.build_all(["flash_attention_fwd", "flash_attention_bwd"], force=True)
     for name, out in logs.items():
         for line in out.splitlines():
             if line.strip():
                 log(f"nvcc {name}: {line.strip()}")
-    log(f"phase 2 build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
+    log(f"phase 2 build: {sorted(logs)} in {time.perf_counter() - t_build:.1f}s "
+        "(flash_decode still building)")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     check_k1(torch, gen)
     check_k1(torch, gen, K1_PP_CASES)
     log(f"phase 3 K1 vs plain OK in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    check_k4(torch, gen)
-    log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches, k1_shape, fills, k4_len, profile = serve(torch, args.seed)
-    log(f"phase 5 serve OK in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    kernels = time_kernels(torch, gen, launches, k1_shape, fills, k4_len)
-    log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k2k3(torch, gen)
     check_k2k3(torch, gen, K2K3_PP_CASES)
@@ -3729,6 +4089,28 @@ def main() -> int:
     train_cli()
     log(f"phase 9 train_lm CLI OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    workloads = original_workloads(torch, card)
+    log(f"phase 12 hello_world, ResNet-18 and UNet training over NCCL, checkpoint OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    decode_thread.join()
+    if "error" in decode_build:
+        raise decode_build["error"]
+    for line in decode_build["logs"]["flash_decode"].splitlines():
+        if line.strip():
+            log(f"nvcc flash_decode: {line.strip()}")
+    log(f"phase 2 build: ['flash_decode'] done, waited {time.perf_counter() - t0:.1f}s for it "
+        f"after phases 3, 7-9 and 12, all builds in {time.perf_counter() - t_build:.1f}s")
+    t0 = time.perf_counter()
+    check_k4(torch, gen)
+    log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches, k1_shape, fills, k4_len, profile = serve(torch, args.seed)
+    log(f"phase 5 serve OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    kernels = time_kernels(torch, gen, launches, k1_shape, fills, k4_len)
+    log(f"phase 6 timing in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     checkpoint = checkpoint_phase(torch, card, then=lambda model_dir: int8_serve(torch, model_dir))
     log(f"phase 10 checkpoint, resume, generate and serve, and 11c int8 KV serving OK in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -3737,10 +4119,6 @@ def main() -> int:
     kernels.append(time_k4_int8(torch, gen, checkpoint["then"]["launches"]["K4_int8"], fills,
                                 k4_len))
     log(f"phase 11 prefix cache, speculative decoding, int8 KV and warmup OK in "
-        f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    workloads = original_workloads(torch, card)
-    log(f"phase 12 hello_world, ResNet-18 and UNet training over NCCL, checkpoint OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3789,6 +4167,13 @@ def main() -> int:
         f"syncs a step off and on, traced phases, the engine's instruments and spans) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    compiler = compiler_phase(torch, card, args.seed)
+    log(f"phase 20 the compiler layer (the 110M train step captured as one CUDA graph against "
+        f"eager, the kernel cache in a fresh process, the tuning DB through cli.autotune, "
+        f"train_lm --tuned_step --aot_warmup and serve_lm --tuning_db) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -3804,6 +4189,7 @@ def main() -> int:
                        "train": train, "checkpoint": checkpoint, "features": features,
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
                        "compose": compose, "completed": completed, "telemetry": telemetry,
+                       "compiler": compiler,
                        "phase_seconds": PHASE_SECONDS,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (

@@ -16,7 +16,9 @@ so ``--selftest`` gates on the share of tokens matching the float stream,
 ``--kv_acceptance_min``, and reports the float model's top-2 logit gap
 where a stream diverges), ``--prefix_cache``, ``--spec_k N
 --draft_layers M`` (a self-draft of the target's first M layers; the
-selftest also reconciles the speculative counters), ``--warmup`` (CUDA
+selftest also reconciles the speculative counters; ``--tuning_db DB``
+installs the tuning DB and, without ``--spec_k``, takes its ``spec_k``
+entry for this model and draft, ``cli.autotune --spec_k``), ``--warmup`` (CUDA
 graphs before traffic; the selftest checks that traffic captured
 nothing), ``--decode_buckets`` and ``--max_hold_steps``.
 
@@ -110,8 +112,14 @@ def build_parser() -> argparse.ArgumentParser:
     eng.add_argument("--max_hold_steps", type=int, default=4,
                      help="most consecutive steps decode may be held for a bucket")
     spec = parser.add_argument_group("speculative decoding (exact-greedy-match acceptance)")
-    spec.add_argument("--spec_k", type=int, default=0,
-                      help="draft tokens proposed per sequence per step (0 = off)")
+    spec.add_argument("--spec_k", type=int, default=None,
+                      help="draft tokens proposed per sequence per step (0 = off; -1, or not "
+                      "given with --tuning_db: the tuning DB's spec_k winner for this "
+                      "model/draft pair; default 0)")
+    spec.add_argument("--tuning_db", default=None,
+                      help="tuning DB (cli.autotune output), installed as the process default; "
+                      "without --spec_k its spec_k entry for this model and --draft_layers "
+                      "sets the proposal depth")
     spec.add_argument("--draft_layers", type=int, default=0,
                       help="self-draft: the target's first N layers (needed by --spec_k)")
     trace = parser.add_argument_group("trace")
@@ -302,6 +310,19 @@ def main(argv: list[str] | None = None) -> int:
         attention_window=args.attention_window,
     )
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.tuning_db:
+        from deeplearning_mpi_tpu_torch.compiler.autotune import set_default_db
+
+        set_default_db(args.tuning_db)
+    if args.spec_k == -1 or (args.spec_k is None and args.tuning_db and args.draft_layers):
+        from deeplearning_mpi_tpu_torch.compiler.autotune import tuned_spec_k
+
+        tuned = tuned_spec_k(cfg, args.draft_layers, dtype)
+        args.spec_k = tuned["spec_k"] if tuned else 0
+        note = (f"tuned accept_rate {tuned['accept_rate']}" if tuned
+                else "no spec_k entry for this model/draft: disabled")
+        print(f"spec_k from tuning DB: {args.spec_k} ({note})", file=sys.stderr)
+    args.spec_k = args.spec_k or 0
     if args.model_dir is None:
         model = TransformerLM(cfg, dtype=dtype, device=args.device).init_weights(args.random_seed)
     else:

@@ -110,6 +110,16 @@ bytes of the run's axes: the gradient all-reduce of the whole model over
 data, the ring's or Ulysses' exchanges over seq, the pipeline's shifts and
 the MoE dispatch over expert (``telemetry/comms.py``).
 
+``--aot_warmup`` captures the train step on one real batch before the
+first epoch (``Trainer.warmup``: one CUDA graph of the whole step on the
+card, replayed every step; on the CPU the same static-buffer program runs
+eagerly). It covers one process without a parallel axis, dense or MoE;
+every other layout is refused (ROADMAP Queue 1 item 9.1b).
+``--tuned_step DB`` applies the DB's ``step|...`` entry for this shape
+(``cli.autotune --step``): remat, ``--grad_accum`` and ``--zero_overlap``,
+set before anything is built; a missing, corrupt or entry-less DB keeps
+the flags and says so.
+
 Not ported yet: chaos, auto-resume (``--max_restarts``) and guardrails.
 """
 
@@ -159,6 +169,10 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=("none", "dots", "full"))
     model.add_argument("--attention", default="dense", choices=("dense", "flash", "ring", "ulysses"))
     model.add_argument("--loss_chunk", type=int, default=0)
+    model.add_argument("--aot_warmup", action="store_true",
+                       help="capture the train step on a sample batch before the first epoch "
+                       "(one CUDA graph on the card; on the CPU the same static-buffer program "
+                       "runs eagerly): --nproc 1 without a parallel axis, dense or MoE")
     model.add_argument("--microbatches", type=int, default=4,
                        help="GPipe microbatches when --pp > 1 (bubble fraction = "
                        "(pp-1)/(M+pp-1))")
@@ -204,6 +218,17 @@ def parse(argv: list[str] | None):
             "(routing ranks the whole sequence) and routes differently under KV-cached "
             "decode. Pass --allow_acausal_routing to proceed anyway, or use "
             "--moe_routing token_choice.")
+    if args.aot_warmup and not args.eval_only:
+        layout = [flag for flag, on in (
+            ("--nproc", args.nproc > 1), ("--coordinator", args.coordinator is not None),
+            ("--dp", args.dp not in (-1, 1)), ("--pp", args.pp > 1), ("--ep", args.ep > 1),
+            ("--sp", args.sp > 1), ("--tp", args.tp > 1),
+            ("--attention ring|ulysses", args.attention in ("ring", "ulysses")),
+            ("--zero", args.zero), ("--zero_overlap", args.zero_overlap)) if on]
+        if layout:
+            parser.error(f"--aot_warmup captures the step of one process without a parallel "
+                         f"axis; {', '.join(layout)} is not captured yet (ROADMAP Queue 1 item "
+                         "9.1b)")
     return args
 
 
@@ -252,6 +277,24 @@ def train(argv: list[str] | None = None):
     device = topo.device
     logger = config.run_logger(args, topo)
     log = logger.log
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.tuned_step:
+        # Before anything is built: remat is a model property and grad_accum
+        # shapes the loader. A missing or corrupt DB or an untuned shape keeps
+        # the flag defaults.
+        from deeplearning_mpi_tpu_torch.compiler.autotune import TuningDB, tuned_step_schedule
+
+        tuned = tuned_step_schedule("lm", (args.batch_size, args.seq_len), mesh, dtype,
+                                    db=TuningDB.load(args.tuned_step))
+        if tuned:
+            args.remat = tuned.get("remat", args.remat)
+            if tuned.get("grad_accum"):
+                args.grad_accum = int(tuned["grad_accum"])
+            if "overlap" in tuned:
+                args.zero_overlap = bool(tuned["overlap"])
+            log(f"tuned step schedule ({args.tuned_step}): {tuned}")
+        else:
+            log(f"no step tuning for this shape in {args.tuned_step}; using flag defaults")
     if args.text_file:
         dataset = ByteTextDataset(args.text_file, args.seq_len)
     else:
@@ -300,7 +343,6 @@ def train(argv: list[str] | None = None):
         if not args.eval_only and topo.is_coordinator:
             config.save_arch(cfg, ckpt_dir, pipeline_stages=args.pp, layout=mesh_layout(mesh))
         checkpointer = Checkpointer(ckpt_dir)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     try:
         if args.pp > 1:
             from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
@@ -344,6 +386,9 @@ def train(argv: list[str] | None = None):
         issued_flops_per_step=transformer_issued_flops(cfg, args.batch_size, args.seq_len,
                                                        remat=args.remat),
         comm_bytes_per_step=comm_bytes(args, mesh, model, dtype))
+    if args.aot_warmup and not args.eval_only:
+        # One real batch fixes the shapes; warmup does not train.
+        trainer.warmup(next(iter(train_loader.epoch(start_epoch))))
     return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
 
 

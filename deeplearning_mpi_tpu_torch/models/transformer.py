@@ -394,7 +394,9 @@ def run_block(block: Block, x, positions, attention_fn, remat: str) -> torch.Ten
         if remat == "dots" else None
     )
     kw = {} if context_fn is None else {"context_fn": context_fn}
-    return checkpoint(block, x, positions, use_reentrant=False,
+    # A block draws no random numbers: there is no generator state to
+    # replay, and a CUDA-graph capture could not read it.
+    return checkpoint(block, x, positions, use_reentrant=False, preserve_rng_state=False,
                       attention_fn=attention_fn, **kw)
 
 

@@ -152,7 +152,7 @@ def _chunked_nll(x_in: torch.Tensor, kernel: torch.Tensor, labels: torch.Tensor,
         sl = slice(start, start + chunk_size)
         total = total + checkpoint(
             _chunk_nll_sum, x_in[:, sl], kernel, labels[:, sl], weights[:, sl],
-            use_reentrant=False,
+            use_reentrant=False, preserve_rng_state=False,  # no random op to replay
         )
     return total
 

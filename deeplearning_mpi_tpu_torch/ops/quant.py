@@ -13,7 +13,8 @@ are exact in bfloat16).
 :func:`quantize_kv` / :func:`dequantize_kv` are the host-side int8 KV
 scheme of the reference (scale floored at 1e-12, values clipped to ±127),
 kept apart from the kernel-side ``ops.kernels.flash_decode.quantize_kv``;
-the engine's int8 KV pools that use them are not ported yet.
+the serving engine's int8 KV pools (``serving/engine.py``,
+``kv_dtype="int8"``) store through them.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ __all__ = [
     "atomic_write_json",
     "corrupt_checkpoint",
     "dir_digests",
+    "file_digest",
     "manifest_path",
     "read_manifest",
     "tree_digests",
@@ -95,18 +96,21 @@ def tree_digests(tree: Any) -> dict[str, str]:
     return out
 
 
+def file_digest(path: str | Path) -> str:
+    """sha256 of one file's bytes, hex."""
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
 def dir_digests(step_dir: str | Path) -> dict[str, str]:
     """sha256 per regular file under ``step_dir``, keyed by relative path:
     the manifest of a committed step, covering every byte written."""
     step_dir = Path(step_dir)
-    out: dict[str, str] = {}
-    for f in sorted(p for p in step_dir.rglob("*") if p.is_file()):
-        h = hashlib.sha256()
-        with open(f, "rb") as fh:
-            for chunk in iter(lambda: fh.read(1 << 20), b""):
-                h.update(chunk)
-        out[str(f.relative_to(step_dir))] = h.hexdigest()
-    return out
+    return {str(f.relative_to(step_dir)): file_digest(f)
+            for f in sorted(p for p in step_dir.rglob("*") if p.is_file())}
 
 
 def manifest_path(directory: str | Path, epoch: int) -> Path:

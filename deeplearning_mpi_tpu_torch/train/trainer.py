@@ -128,9 +128,13 @@ seq.
 flat all-reduce for bucketed reduce-scatters launched from the backward
 (``overlap``), or falls back with the reason logged.
 
-The step is eager PyTorch: the reference's ``jit`` has no counterpart the
-port needs. The NaN guard selects with ``torch.where`` on the device, so a
-step adds no host sync; the trainer reads its metrics once per epoch.
+The step is eager PyTorch. The NaN guard selects with ``torch.where`` on
+the device and Adam's bias correction takes its bases as scalars, so a step
+makes no host sync; the trainer reads its metrics once per epoch.
+:meth:`Trainer.warmup` (``train_lm --aot_warmup``) is the reference's AOT
+compile of the step: on CUDA the whole step captured as one CUDA graph
+(``compiler.aot.CapturedStep``), on the CPU the same static-buffer program
+run eagerly.
 
 **Telemetry** (the reference's, ``telemetry/``): the trainer always keeps a
 ``MetricsRegistry`` (a ``RunLogger`` becomes one of its sinks). Every
@@ -146,8 +150,8 @@ epoch). A profiler traces steps 3-5 (``PROFILE_STEPS``). With a span
 recorder (``tracer``) each step is fenced and its ``data_wait`` / ``h2d``
 / ``compute`` / ``collective_tail`` phases measured, ``other`` the
 residual, so the phases sum to the epoch's duration exactly; without one
-the loop adds no sync. Not ported yet (ROADMAP): chaos, guardrails,
-auto-resume and AOT warmup.
+the loop adds no sync. Not ported yet (ROADMAP): chaos, guardrails and
+auto-resume.
 """
 
 from __future__ import annotations
@@ -391,9 +395,11 @@ class Optimizer:
             b1, b2 = ADAM_BETAS
             new["mu"] = {n: (1 - b1) * g + b1 * state["mu"][n] for n, g in grads.items()}
             new["nu"] = {n: (1 - b2) * g * g + b2 * state["nu"][n] for n, g in grads.items()}
+            # Scalar ** Tensor: the base rides as a kernel argument, so no
+            # host value is copied to the card (a sync, and not capturable).
             c = count.float()
-            bc1 = 1 - torch.pow(torch.tensor(b1, device=c.device), c)
-            bc2 = 1 - torch.pow(torch.tensor(b2, device=c.device), c)
+            bc1 = 1 - torch.pow(b1, c)
+            bc2 = 1 - torch.pow(b2, c)
             direction = {n: (new["mu"][n] / bc1) / (torch.sqrt(new["nu"][n] / bc2) + ADAM_EPS)
                          for n in grads}
             if self.name == "adamw":
@@ -759,8 +765,10 @@ class Trainer:
         )
 
         state = self.state
-        zero = Zero1.for_state(state, self.group)
-        self.state = dataclasses.replace(state, zero=zero, opt_state=zero.shard(state.opt_state))
+        if state.zero is None:
+            zero = Zero1.for_state(state, self.group)
+            self.state = dataclasses.replace(state, zero=zero,
+                                             opt_state=zero.shard(state.opt_state))
         if not self.zero_overlap:
             return
         model = state.model
@@ -775,6 +783,101 @@ class Trainer:
             self.log("overlap: explicit bucketed ZeRO-1 schedule active")
         except OverlapUnsupported as err:
             self.log(f"overlap unsupported ({err}); falling back to the ZeRO-1 step (--zero)")
+
+    def apply_tuned_step(self, db: Any = None, *, model: str, batch_size: int, seq_len: int,
+                         dtype: Any = torch.float32, mesh: Any = None) -> dict[str, Any] | None:
+        """Adopt a tuned whole-step schedule (``cli.autotune --step``) for
+        ``mesh`` (None: one process), as the reference's
+        ``Trainer.apply_tuned_step``: the ``step|<model>|<batch>x<seq>|
+        <mesh>|<dtype>|<backend>`` entry of ``db`` (a ``TuningDB``, a path,
+        or None for the process default) sets ``grad_accum`` and the
+        overlapped ZeRO-1 schedule, and the step is rebuilt. The remat
+        policy is a model property: it is returned for the caller (the CLI
+        applies it when it builds the model). A missing, corrupt or
+        entry-less DB changes nothing and returns None."""
+        from deeplearning_mpi_tpu_torch.compiler.autotune import TuningDB, tuned_step_schedule
+
+        try:
+            if db is not None and not isinstance(db, TuningDB):
+                db = TuningDB.load(db)
+            params = tuned_step_schedule(model, (batch_size, seq_len), mesh, dtype, db=db)
+        except Exception:
+            return None
+        if not params:
+            return None
+        if params.get("grad_accum"):
+            self._step_kwargs["grad_accum"] = int(params["grad_accum"])
+        if "overlap" in params:
+            self.zero_overlap = bool(params["overlap"])
+            self.zero = self.zero or self.zero_overlap
+        self.train_step = make_train_step(self.task, group=self.group, seq=self.seq,
+                                          **self._step_kwargs)
+        self.place_state()
+        self.log("tuned step schedule applied: "
+                 + ", ".join(f"{k}={v}" for k, v in sorted(params.items())))
+        return params
+
+    def capture_refusal(self) -> str | None:
+        """The layout :meth:`warmup` cannot capture yet (ROADMAP Queue 1
+        item 9.1b), or None: the step of one process on one device, dense
+        or MoE. A process group's collectives, the lockstep forms and the
+        ZeRO-1 placement are not captured."""
+        model = self.state.model
+        if self.group is not None:
+            return "data parallelism over a process group (--dp, --nproc, --coordinator)"
+        if self.seq is not None:
+            return "sequence parallelism (--sp)"
+        if getattr(model, "pipe_layout", None) is not None:
+            return "pipeline parallelism (--pp)"
+        if getattr(model, "tp", None) is not None:
+            return "tensor parallelism (--tp)"
+        if self.state.expert_shards is not None:
+            return "expert parallelism (--ep)"
+        if self.zero:
+            return "ZeRO-1 (--zero, --zero_overlap)"
+        return None
+
+    def warmup(self, batch: Batch) -> Any:
+        """Capture the train step at ``batch``'s shapes before the loop, as
+        the reference's ``Trainer.warmup`` compiles it: on CUDA one CUDA
+        graph of the whole step (``compiler.aot.CapturedStep``); on the CPU
+        there is no graph, the reason is logged and the same static-buffer
+        program runs eagerly. ``self.train_step`` becomes a
+        ``compiler.aot.WarmProgram``: a batch of another shape runs the
+        eager step (``fallback_calls``). Warmup does not train: the state
+        after it is bitwise the state before.
+
+        Into the trainer's registry: ``train_compile_seconds`` (the
+        capture's seconds) and ``compile_cache_{hit,miss}_total`` (the
+        kernel cache's lookups during warmup, ``compiler/cache.py``).
+        ``xla_flops_per_step`` / ``xla_bytes_per_step`` are never set:
+        PyTorch has no cost analysis. A layout :meth:`capture_refusal`
+        names raises ``ValueError``."""
+        from deeplearning_mpi_tpu_torch.compiler import aot
+        from deeplearning_mpi_tpu_torch.compiler.cache import kernel_cache
+
+        refusal = self.capture_refusal()
+        if refusal is not None:
+            raise ValueError(f"warmup: {refusal} is not captured yet (ROADMAP Queue 1 item 9.1b)")
+        cache = kernel_cache()
+        hits, misses = cache.hits, cache.misses
+        t0 = time.perf_counter()
+        program = aot.CapturedStep(self.train_step, self.state, batch)
+        seconds = time.perf_counter() - t0
+        self.state = program.hold(self.state)
+        self.metrics.gauge("train_compile_seconds").set(seconds)
+        self.metrics.counter("compile_cache_hit_total").inc(cache.hits - hits)
+        self.metrics.counter("compile_cache_miss_total").inc(cache.misses - misses)
+        self.train_step = aot.WarmProgram({aot.batch_key(batch): program}, program.eager,
+                                          lambda state, batch: aot.batch_key(batch))
+        if program.graph is None:
+            device = next(self.state.model.parameters()).device
+            self.log(f"warmup: no CUDA graph on {device}; the train step's static-buffer "
+                     f"program runs eagerly ({seconds:.2f}s)")
+        else:
+            self.log(f"warmup: train_step captured as one CUDA graph in {seconds:.2f}s (kernel "
+                     f"cache {cache.hits - hits} hit(s), {cache.misses - misses} miss(es))")
+        return program
 
     def run_epoch(self, loader: Any, epoch: int) -> dict[str, float]:
         """One training epoch; the mean loss leaves non-finite steps out. An

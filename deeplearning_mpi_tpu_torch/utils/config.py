@@ -174,7 +174,6 @@ def restore_lm(
 # -- the data-parallel trainers' flags ---------------------------------------
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
 UNPORTED_FLAGS = {
-    "tuned_step": (None, "Queue 1 item 9 (the autotuner's tuning DB)"),
     "chaos": (None, "Queue 1 item 10 (chaos)"),
     "guardrails": (False, "Queue 1 item 10 (numerics guardrails)"),
     "digest_every": (0, "Queue 1 item 10 (numerics guardrails)"),
@@ -215,7 +214,10 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--zero_overlap", action="store_true",
                        help="ZeRO-1 with the bucketed reduce-scatter schedule (falls back to "
                        "--zero, the reason logged, where it does not apply)")
-    group.add_argument("--tuned_step", default=None, help="not ported yet")
+    group.add_argument("--tuned_step", default=None, metavar="DB",
+                       help="tuning DB (cli.autotune --step) whose step|... entry, if present "
+                       "for this model/shape/mesh/dtype, sets remat/grad_accum/overlap (train_lm); "
+                       "a missing or corrupt DB keeps the flag defaults and says so")
 
 
 def add_training_flags(
@@ -282,6 +284,10 @@ def reject_unported(args: argparse.Namespace) -> None:
     for flag, (off, item) in UNPORTED_FLAGS.items():
         if getattr(args, flag, off) != off:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP {item})")
+    if getattr(args, "tuned_step", None) and not hasattr(args, "d_model"):
+        raise SystemExit("--tuned_step: step tuning covers the 'lm' task only (train_lm), as "
+                         "the reference's tune_step_schedule does; refused here rather than "
+                         "ignored (ROADMAP Queue 1 item 9.1b)")
     sp = getattr(args, "sp", 1)
     if sp < 1:
         raise SystemExit(f"--sp must be >= 1, got {sp}")

@@ -13,6 +13,10 @@ import torch
 from deeplearning_mpi_tpu.ops import attention as jattn
 from deeplearning_mpi_tpu_torch.ops import attention as tattn
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

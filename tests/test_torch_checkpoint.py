@@ -69,6 +69,10 @@ from deeplearning_mpi_tpu_torch.train import (
 from deeplearning_mpi_tpu_torch.train import checkpoint as checkpoint_module
 from deeplearning_mpi_tpu_torch.train.checkpoint import CheckpointMismatch, Checkpointer
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 PARAM_TOL = dict(atol=5e-5, rtol=1e-4)
 
 

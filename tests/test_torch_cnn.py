@@ -40,6 +40,10 @@ from deeplearning_mpi_tpu_torch.models import UNet, get_model, resnet18, resnet5
 from deeplearning_mpi_tpu_torch.models.convert import cnn_variables_from_jax
 from deeplearning_mpi_tpu_torch.models.norm import BatchNorm
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 GRAD_L2 = 1e-5
 

@@ -58,6 +58,10 @@ from torch_compose_ranks import (  # noqa: E402
 )
 from torch_compose_reference import jax_step, tokens  # noqa: E402
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LAYOUTS = ranks.MOE
 WRONG = [k for k, v in ranks.WRONG.items() if v in LAYOUTS]

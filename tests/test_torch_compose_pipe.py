@@ -51,6 +51,10 @@ import torch_tp_ranks  # noqa: E402
 from torch_compose_ranks import rel, replicas_differ  # noqa: E402
 from torch_sharded_reference import jax_step, tokens  # noqa: E402
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 LAYOUTS = ranks.COMPOSE
 WRONG = [k for k, v in ranks.WRONG.items() if v in LAYOUTS]
 #: The float32 bars (module docstring) and the float64 twins'.

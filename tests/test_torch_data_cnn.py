@@ -40,6 +40,10 @@ from deeplearning_mpi_tpu_torch.data import cifar10 as cifar
 from deeplearning_mpi_tpu_torch.data import segmentation as seg
 from deeplearning_mpi_tpu_torch.ops import loss, metrics
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 
 def _same_examples(a, b, n):
     assert len(a) == len(b)

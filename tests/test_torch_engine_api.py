@@ -39,6 +39,10 @@ from deeplearning_mpi_tpu_torch.models.transformer import (
 )
 from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 SHAPE = dict(max_slots=3, block_size=4, num_blocks=32, max_blocks_per_seq=8, prefill_chunk=4)
 MAX_NEW = 5
 TIERS = {"gold": {"budget_tokens": 0, "priority": 1.0},

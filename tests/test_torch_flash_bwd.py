@@ -40,6 +40,10 @@ from deeplearning_mpi_tpu.ops.pallas.flash_attention import (
 from deeplearning_mpi_tpu.ops.pallas.flash_attention import flash_bwd_block
 from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as tfa
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 F32 = dict(atol=1e-5, rtol=1e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 

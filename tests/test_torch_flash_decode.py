@@ -36,6 +36,10 @@ import torch
 from deeplearning_mpi_tpu_torch.ops.attention import NEG_INF
 from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 B, H, D = 8, 12, 64
 
 

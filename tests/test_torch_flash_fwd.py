@@ -30,6 +30,10 @@ import torch
 
 from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as tfa
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 SEQ, TILE = 2048, 64
 BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 32}
 

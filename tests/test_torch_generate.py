@@ -33,6 +33,10 @@ from deeplearning_mpi_tpu_torch.models.generate import (
 )
 from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def tiny_pair():

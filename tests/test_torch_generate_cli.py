@@ -20,6 +20,10 @@ from deeplearning_mpi_tpu_torch.cli import generate, serve_lm, train_lm
 from deeplearning_mpi_tpu_torch.models.generate import beam_search
 from deeplearning_mpi_tpu_torch.models.generate import generate as lib_generate
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 SHAPE = ["--num_layers", "2", "--num_heads", "2", "--head_dim", "8", "--d_model", "16",
          "--d_ff", "32"]
 TRAIN = SHAPE + ["--device", "cpu", "--seq_len", "32", "--num_epochs", "1", "--batch_size", "8",

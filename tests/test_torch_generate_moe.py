@@ -49,6 +49,10 @@ from deeplearning_mpi_tpu_torch.models.transformer import (
 from deeplearning_mpi_tpu_torch.serving import ServingEngine
 from deeplearning_mpi_tpu_torch.utils.config import restore_lm
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 P, NEW = 8, 6
 
 

@@ -21,10 +21,15 @@ lifted beside them (``--pp x --ep``, ``--loss_chunk x --sp``, ZeRO-1 beside
 ``--pp``: ``train_lm`` over 4 gloo processes) one for the ViT (a step,
 ``train_resnet --arch vit_tiny``) and one for the telemetry (``train_lm``
 with ``--metrics_dir --log_dir --profile_dir``, a traced ``Trainer`` epoch,
-``serve_lm --metrics_file``), each process with jax blocked.
+``serve_lm --metrics_file``), and two for the compiler layer
+(``train_lm --aot_warmup --tuned_step``, ``cli.autotune --selftest``),
+each process with jax blocked. The AST scan covers every module of the
+package, the compiler layer's (``compiler/aot.py``, ``autotune.py``,
+``cache.py``, ``cli/autotune.py``) included.
 """
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -33,6 +38,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeplearning_mpi_tpu")
+#: The subprocesses run tiny shapes: one intra-op thread each.
+ENV = {**os.environ, "OMP_NUM_THREADS": "1"}
 PORT_FILES = sorted((ROOT / "deeplearning_mpi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -96,7 +103,7 @@ def test_port_runs_with_jax_blocked():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
+        env=ENV)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
@@ -128,7 +135,7 @@ def test_original_workloads_run_with_jax_blocked(tmp_path):
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
+        env=ENV)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
@@ -171,7 +178,7 @@ def test_moe_path_runs_with_jax_blocked(tmp_path):
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
+        env=ENV)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
@@ -209,7 +216,7 @@ def test_sequence_parallel_path_runs_with_jax_blocked(tmp_path):
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
-    )
+        env=ENV)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
@@ -387,7 +394,7 @@ def test_vit_runs_with_jax_blocked():
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, env=ENV)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
 
 
@@ -425,8 +432,40 @@ def test_telemetry_path_runs_with_jax_blocked(tmp_path):
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, env=ENV)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+
+
+@pytest.mark.parametrize("path", ["train_lm_aot_tuned", "autotune_selftest"])
+def test_compiler_paths_run_with_jax_blocked(path, tmp_path):
+    """The compiler layer with jax blocked: ``train_lm --aot_warmup
+    --tuned_step`` on a DB written by ``compiler.autotune``, and
+    ``cli.autotune --selftest``."""
+    block = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+             "    sys.modules[name] = None\n")
+    if path == "autotune_selftest":
+        code = block + ("from deeplearning_mpi_tpu_torch.cli import autotune\n"
+                        "assert autotune.main(['--selftest', '--device', 'cpu']) == 0\n")
+    else:
+        db = tmp_path / "tuned.json"
+        code = block + (
+            "import torch\n"
+            "from deeplearning_mpi_tpu_torch.cli import train_lm\n"
+            "from deeplearning_mpi_tpu_torch.compiler import autotune\n"
+            f"db = autotune.TuningDB({str(db)!r})\n"
+            "db.record_key(autotune.step_tuning_key('lm', (4, 16), None, torch.float32, 'cpu'),\n"
+            "              {'remat': 'full', 'grad_accum': 2, 'overlap': False})\n"
+            "db.save()\n"
+            "assert train_lm.main(['--device', 'cpu', '--num_layers', '2', '--num_heads', '2',\n"
+            "    '--head_dim', '8', '--d_model', '16', '--d_ff', '32', '--seq_len', '16',\n"
+            "    '--batch_size', '4', '--train_sequences', '20', '--num_epochs', '1',\n"
+            f"    '--aot_warmup', '--tuned_step', {str(db)!r}]) == 0\n")
+    out = subprocess.run([sys.executable, "-c", code + "print('ok')\n"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=ENV)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+    if path == "train_lm_aot_tuned":
+        assert "tuned step schedule" in out.stdout and "warmup: no CUDA graph" in out.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
@@ -440,7 +479,6 @@ def test_chip_smoke_refuses_without_card_or_port(alone, tmp_path):
         script = tmp_path / "chip_smoke.py"
     out = subprocess.run(
         [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True,
-        timeout=120,
-    )
+        timeout=120, env=ENV)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout

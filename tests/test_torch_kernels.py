@@ -18,6 +18,10 @@ from deeplearning_mpi_tpu.ops.pallas.flash_decode import quantize_kv as pallas_q
 from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as tfa
 from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as tfd
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

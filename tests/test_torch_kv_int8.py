@@ -41,6 +41,10 @@ from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
 from deeplearning_mpi_tpu_torch.serving.engine import PagedForward, kv_storage
 from deeplearning_mpi_tpu_torch.serving.kv_pool import init_kv_buffers
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 SHAPE = dict(max_slots=3, block_size=4, num_blocks=32, max_blocks_per_seq=8, prefill_chunk=4)
 MAX_NEW = 5
 

@@ -15,6 +15,10 @@ import torch
 from deeplearning_mpi_tpu.ops import loss as jloss
 from deeplearning_mpi_tpu_torch.ops import loss as tloss
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-6, rtol=1e-6)
 B, S, V, DM = 3, 17, 11, 8
 

@@ -42,6 +42,10 @@ from deeplearning_mpi_tpu_torch.models.transformer import (
     TransformerLM,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 B, S, D, F, E = 2, 12, 16, 24, 4
 OUT_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)

@@ -101,6 +101,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import torch_pipe_ranks as ranks  # noqa: E402
 import torch_tp_ranks  # noqa: E402
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 #: ``pipeline_apply`` against JAX's (outputs and gradients).
 APPLY_TOL = 1e-6

@@ -42,6 +42,10 @@ from deeplearning_mpi_tpu_torch.serving import (
     prefix_signature,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 MAX_NEW = 5
 SHAPE = dict(max_slots=3, block_size=4, num_blocks=32, max_blocks_per_seq=8, prefill_chunk=4)
 PREFIX_COUNTERS = ("serve_prefix_hits_total", "serve_prefix_tokens_reused_total",

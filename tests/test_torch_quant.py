@@ -33,6 +33,10 @@ from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, Tra
 from deeplearning_mpi_tpu_torch.ops import quant
 from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_bhsd
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 
 def test_quantize_array_matches_jax_and_keeps_its_bounds():
     w = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)

@@ -32,6 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TIMEOUT_S = 60
 

@@ -40,6 +40,10 @@ from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
 from deeplearning_mpi_tpu_torch.models.convert import lm_params_from_jax
 from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 FLAGS = ["--device", "cpu", "--num_layers", "2", "--num_heads", "4", "--head_dim", "8",
          "--d_model", "32", "--d_ff", "64", "--seq_len", "32", "--batch_size", "4",

@@ -68,6 +68,10 @@ from deeplearning_mpi_tpu_torch.parallel import make_ring_attention_fn, make_uly
 from deeplearning_mpi_tpu_torch.parallel.ring_attention import windowed_rotations
 from deeplearning_mpi_tpu_torch.parallel.ring_flash import _merge
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 B, S, H, D = 4, 32, 4, 16
 OUT_TOL = dict(atol=2e-5, rtol=0)
 GRAD_TOL = dict(atol=3e-5, rtol=0)

@@ -29,6 +29,10 @@ from deeplearning_mpi_tpu_torch.serving import (
     ServingEngine,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 PROMPT_LENS = (5, 13, 3, 17, 1, 9, 2, 11)
 MAX_NEW = 5
 SHAPE = dict(max_slots=3, block_size=4, num_blocks=32, max_blocks_per_seq=8, prefill_chunk=4)

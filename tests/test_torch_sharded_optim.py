@@ -55,6 +55,10 @@ from torch_sharded_reference import (  # noqa: E402
     zero_moment_shapes,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 LAYOUTS = ranks.ZERO + ranks.ADAFACTOR
 WRONG = [k for k, v in ranks.WRONG.items() if v in LAYOUTS]
 #: The layouts whose checkpoints are saved, resumed and restored.

@@ -45,6 +45,10 @@ from deeplearning_mpi_tpu_torch.telemetry import comms, flops, memory, registry,
 from deeplearning_mpi_tpu_torch.utils import profiling
 from deeplearning_mpi_tpu_torch.utils.logging import RunLogger
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REL = 1e-12
 

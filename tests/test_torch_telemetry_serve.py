@@ -47,6 +47,10 @@ from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
 from deeplearning_mpi_tpu_torch.telemetry import MetricsRegistry, SpanRecorder
 from deeplearning_mpi_tpu_torch.telemetry.schema import METRICS
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = dict(max_slots=3, block_size=4, num_blocks=32, max_blocks_per_seq=8, prefill_chunk=4,
              decode_buckets=(2,), prefix_cache=True)

@@ -47,6 +47,10 @@ from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_tr
 from deeplearning_mpi_tpu_torch.utils import config
 from deeplearning_mpi_tpu_torch.utils.profiling import nan_debug_mode
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 B, S, STEPS = 8, 16, 4
 TINY = ["--num_layers", "2", "--num_heads", "2", "--head_dim", "8", "--d_model", "16",

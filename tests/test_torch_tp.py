@@ -58,6 +58,10 @@ from deeplearning_mpi_tpu_torch.train import build_optimizer, create_train_state
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import torch_tp_ranks as ranks  # noqa: E402
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 B, S = 8, 32
 #: float32 bars against the JAX step (the port's parity tolerances).
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)

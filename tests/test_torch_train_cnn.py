@@ -50,6 +50,10 @@ from deeplearning_mpi_tpu_torch.train import (
     make_train_step,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 PARAM_TOL = dict(atol=5e-5, rtol=1e-4)
 

@@ -27,6 +27,10 @@ from deeplearning_mpi_tpu_torch.models.transformer import (
     apply_rope,
 )
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 PROMPT, TOTAL, STEPS = 9, 14, 4
 

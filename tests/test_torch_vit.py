@@ -31,6 +31,10 @@ from deeplearning_mpi_tpu_torch.models.convert import vit_params_from_jax
 from deeplearning_mpi_tpu_torch.models.vit import ViT, vit_tiny
 from deeplearning_mpi_tpu_torch.ops.loss import softmax_cross_entropy
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 #: logits (elementwise) and gradients (relative L2 per tensor) against JAX.
 LOGIT_TOL = 1e-5
 GRAD_L2 = 1e-5

@@ -40,6 +40,10 @@ import torch_moe_ranks as moe_ranks  # noqa: E402
 import torch_tp_ranks as ranks  # noqa: E402
 from test_torch_tp import CONFIGS, reference_leaves, spec_dim, to_reference_dim  # noqa: E402
 
+# Tiny shapes: one intra-op thread is faster than many, and the suite's
+# workers share the cores.
+torch.set_num_threads(1)
+
 #: relative error of the overlapped schedule against the data-parallel
 #: step, float64.
 F64_TOL = 1e-7
