@@ -204,17 +204,18 @@ Phases, each printed on its own line; any failure exits non-zero:
     SDPA;
 17. the parallel axes composed on one card, in the one-process grid
     (``parallel.seq_common``: two lockstep axes side by side, each module
-    calling its own). (a) The 110M ``TransformerConfig()`` in
+    calling its own), at 4 of the 12 blocks (``P17_LAYERS``; widths kept).
+    (a) The 110M ``TransformerConfig()``'s widths in
     bf16 at B8 S2048 with flash as ``PipelinedLM`` over pp 2 x tp 2 with 4
-    microbatches (K1/K2/K3 96 a step each: 12 layers x 4 microbatches x 2
-    model ranks, at B2 H6); (b) tp 2 x sp 2 at B2 S8192 with the ring (72
-    a step: 3 live blocks a layer and model rank) and with Ulysses (48: a
+    microbatches (K1/K2/K3 32 a step each: 4 layers x 4 microbatches x 2
+    model ranks, at B2 H6); (b) tp 2 x sp 2 at B2 S8192 with the ring (24
+    a step: 3 live blocks a layer and model rank) and with Ulysses (16: a
     whole-sequence call a layer, model rank and seq rank, at H3); (c)
     phase 13a's MoE LM (8 experts, top 2, capacity 1.25, balance loss
     0.01) with its routing shard by shard over 2 sequence shards (each
     shard's positions after the other's claims, capacity from the whole
-    length) and the ring over them (36 a step); (d) the MoE LM over tp 2,
-    attention and each expert's d_ff split (24 a step at H6). Each: step-1
+    length) and the ring over them (12 a step); (d) the MoE LM over tp 2,
+    attention and each expert's d_ff split (8 a step at H6). Each: step-1
     gradients gathered whole within 5e-2 relative L2 per tensor of the
     flat flash step's, 4 Adam steps (3e-4, clip 1.0) with every loss
     finite and falling (memorisation), the launch counts exact, a second
@@ -287,10 +288,28 @@ Phases, each printed on its own line; any failure exits non-zero:
     --step 8x256 --spec_k 1`` on the card, then ``train_lm --tuned_step
     --aot_warmup`` at that shape applies the DB's schedule under a capture
     over 2 steps, and ``serve_lm --tuning_db --selftest`` (the tiny config,
-    a 1-layer draft) takes the DB's ``spec_k``.
+    a 1-layer draft) takes the DB's ``spec_k``;
+21. the resilience layer. (a) Phase 8's step (110M, bf16, B8 S2048,
+    flash, Adam 3e-4, clip 1.0) with an EMA, warmed into one CUDA graph, 3
+    epochs of 2 steps under ``utils.config.execute`` (``max_restarts`` 2)
+    with ``kill@step:5,corrupt_ckpt@epoch:1,loader_stall@batch:1``, then
+    without a plan: parameters, Adam moments, ``count`` and EMA bitwise the
+    unfaulted run's, history [0, 1, 1, 2] with the unfaulted epoch losses,
+    books 3 = 2 + 1, K1/K2/K3 12 a step over the 9 steps run, no capture
+    after warmup, no eager step; the 110M save and verified-restore seconds.
+    (b) At 4 of the 12 blocks: ``nan_grad@step:1`` leaves the state after
+    step 1 bitwise the state before; under ``--guardrails`` a
+    ``loss_spike@step:9`` is judged poisoned, rolled back to the pinned
+    epoch 1 and replayed bitwise onto the unfaulted run (one rollback); the
+    chaos-hooked loop makes 0 synchronizing calls a step with guardrails
+    off. (c) ``train_lm --chaos kill@step:3,corrupt_ckpt@epoch:0
+    --max_restarts 2 --log_dir --aot_warmup`` at phase 19's widths (4
+    blocks) exits 0
+    with a balanced ``run_summary`` and ``heartbeat.json`` at the final
+    step; ``--chaos serve_crash@step:1`` exits 1 naming the workload.
 
 Order: all kernel builds start together; phases 3, 7, 8, 9 and 12 (no K4)
-run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-20 and
+run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-21 and
 the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
 
 The second-to-last lines are the kernel table (one JSON object) and the
@@ -302,8 +321,10 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -2933,12 +2954,15 @@ def pp_phase(torch, card: str, gen, seed: int) -> dict:
 #: its routing shard by shard over ``LockstepRing(2)`` and the ring over the
 #: same 2 shards (3 a layer). 17d: the MoE LM over tp 2, attention and each
 #: expert's d_ff split (a layer's one call a model rank, at B8 H6).
+#: 17a-17d's depth: 4 of the 110M model's 12 blocks (widths kept), so that
+#: phase 21 fits the script's time.
+P17_LAYERS = 4
 P17_CASES = {
-    "17a pp2 x tp2": ("pp_tp", 8, 2048, 12 * 4 * 2),
-    "17b tp2 x sp2 ring": ("tp_sp_ring", 2, 8192, 12 * 2 * 3),
-    "17b tp2 x sp2 ulysses": ("tp_sp_ulysses", 2, 8192, 12 * 2 * 2),
-    "17c moe x sp2 ring": ("moe_sp", 8, 2048, 12 * 3),
-    "17d moe x tp2": ("moe_tp", 8, 2048, 12 * 2),
+    "17a pp2 x tp2": ("pp_tp", 8, 2048, P17_LAYERS * 4 * 2),
+    "17b tp2 x sp2 ring": ("tp_sp_ring", 2, 8192, P17_LAYERS * 2 * 3),
+    "17b tp2 x sp2 ulysses": ("tp_sp_ulysses", 2, 8192, P17_LAYERS * 2 * 2),
+    "17c moe x sp2 ring": ("moe_sp", 8, 2048, P17_LAYERS * 3),
+    "17d moe x tp2": ("moe_tp", 8, 2048, P17_LAYERS * 2),
 }
 P17_STEPS = 4
 
@@ -2955,7 +2979,8 @@ def _compose_model(torch, kind: str, seed: int):
     from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
 
     moe = kind.startswith("moe")
-    cfg = moe_config() if moe else TransformerConfig()
+    cfg = (moe_config(num_layers=P17_LAYERS) if moe
+           else TransformerConfig(num_layers=P17_LAYERS))
     tp = (LockstepTP(2, "cuda") if kind in ("pp_tp", "tp_sp_ring", "tp_sp_ulysses", "moe_tp")
           else None)
     if kind == "pp_tp":
@@ -4031,6 +4056,452 @@ def compiler_phase(torch, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 21 ----------------------------------------------------------------
+#: 21a's plan on 3 epochs of 2 steps: the kill 1 step into epoch 2, epoch
+#: 1's save corrupted at commit, batch 1's assembly stalled past the
+#: watchdog's deadline. The restart walks past epoch 1 to epoch 0 and trains
+#: epochs 1-2 again: 2 + 2 + 1 + 2 + 2 = 9 steps, history [0, 1, 1, 2].
+P21_PLAN = "kill@step:5,corrupt_ckpt@epoch:1,loader_stall@batch:1"
+P21_EPOCHS, P21_STEPS_A, P21_RUN_STEPS = 3, 2, 9
+#: 21b: 4 of the 12 blocks; 3 epochs of 4 steps, the spike at step 9 (past
+#: the policy's 8-step warmup, epoch 2), rolled back to the pinned epoch 1.
+P21B_LAYERS, P21B_STEPS, P21B_SPIKE = 4, 4, 9
+P21_EMA = 0.999
+
+
+class _TimedCheckpointer:
+    """A ``Checkpointer`` whose saves and verified restores are timed
+    (synchronised first: the state copies to the host)."""
+
+    def __init__(self, torch, ck) -> None:
+        self.torch, self.ck, self.save_s, self.restore_s = torch, ck, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.ck, name)
+
+    def _timed(self, into, fn, *args, **kw):
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    def save(self, state, *, epoch):
+        return self._timed(self.save_s, self.ck.save, state, epoch=epoch)
+
+    def restore_verified(self, template):
+        return self._timed(self.restore_s, self.ck.restore_verified, template)
+
+    def rollback_to_last_good(self, template):
+        return self._timed(self.restore_s, self.ck.rollback_to_last_good, template)
+
+
+def _p21_run(torch, cfg, seed: int, *, batch: int, seq: int, steps: int, device: str,
+             plan: str | None = None, work: str | None = None, guardrails: bool = False,
+             warm: bool = True, stall_s: float = 1.0, ema: bool = True) -> dict:
+    """One supervised run through ``utils.config.execute`` (``max_restarts``
+    2): the LM of ``cfg`` from ``seed``'s weights, bf16 on the card (f32
+    elsewhere), flash, Adam 3e-4 with clip 1.0, an EMA when ``ema``;
+    ``steps`` batches an
+    epoch of seeded sequences; warmed (``Trainer.warmup``) first when
+    ``warm``. With ``plan``: the injector on the checkpointer (in ``work``)
+    and the trainer, the train loader under the watchdog (a 0.5 s deadline
+    against a ``stall_s`` stall). Returns the trainer, its books, the
+    launches after warmup, the checkpoint timings and the seconds."""
+    from deeplearning_mpi_tpu_torch.compiler import aot
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.resilience import (
+        ChaosInjector,
+        FaultPlan,
+        GuardrailPolicy,
+        ResilientLoader,
+    )
+    from deeplearning_mpi_tpu_torch.telemetry import InMemorySink, MetricsRegistry
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_mpi_tpu_torch.utils import config
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+
+    def factory():
+        model = TransformerLM(cfg, dtype=dtype, device=device).init_weights(seed)
+        return create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                  attention_fn=fa.flash_attention_bhsd, ema=ema)
+
+    chaos = None if plan is None else ChaosInjector(FaultPlan.parse(plan), stall_s=stall_s)
+    ck = None if work is None else _TimedCheckpointer(torch, Checkpointer(work, max_to_keep=5,
+                                                                         chaos=chaos))
+    sink = InMemorySink()
+    notes = []
+    trainer = Trainer(factory(), "lm", eval_every=1, ema_decay=P21_EMA if ema else 0.0,
+                      log=notes.append,
+                      checkpointer=ck, chaos=chaos, metrics=MetricsRegistry([sink]),
+                      guardrails=GuardrailPolicy() if guardrails else None)
+    loader = Loader(SyntheticTokens(batch * steps, seq, vocab_size=cfg.vocab_size, seed=seed),
+                    batch, shuffle=True, seed=seed, device=device)
+    t0 = time.perf_counter()
+    if warm:
+        trainer.warmup(next(iter(loader.epoch(0))))
+    warm_s = time.perf_counter() - t0
+    if chaos is not None:
+        chaos.bind_registry(trainer.metrics)
+        loader = ResilientLoader(loader, chaos=chaos, batch_timeout_s=0.5, backoff_s=0.01,
+                                 logger=trainer)
+    args = argparse.Namespace(num_epochs=P21_EPOCHS, max_restarts=2, eval_only=False,
+                              restart_delay_s=0.0)
+    captures = aot.CapturedProgram.total_captures
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    config.execute(config.Run(args, trainer, loader, None, 0, factory))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"trainer": trainer, "chaos": chaos, "summary": [r for r in sink.records
+                                                           if r["kind"] == "run_summary"][-1],
+            "launches": _kernel_counts(fa), "seconds": time.perf_counter() - t0,
+            "warmup_s": warm_s, "recaptures": aot.CapturedProgram.total_captures - captures,
+            "fallback_calls": getattr(trainer.train_step, "fallback_calls", None),
+            "save_s": [] if ck is None else ck.save_s,
+            "restore_s": [] if ck is None else ck.restore_s, "notes": notes}
+
+
+def _p21_free(torch) -> None:
+    """Free what dropped trainers held: a trainer, its warmed program and
+    its captured step refer to each other, so their CUDA graph pools go
+    only with a collection, before the cache is emptied."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _p21_books(run: dict) -> tuple:
+    s = run["summary"]
+    return (s.get("fault_injected_total"), s.get("recovery_total"), s.get("rollback_total"))
+
+
+def _p21_same_state(torch, want: dict, trainer) -> list[str]:
+    """The names of the tensors (parameters, optimizer state with ``count``,
+    EMA) of ``trainer``'s state that differ from ``want`` (a snapshot)."""
+    got = _state_tensors(trainer.state)
+    require(set(got) == set(want), "21: the two states hold other tensors")
+    return [n for n, t in got.items() if not torch.equal(t, want[n])]
+
+
+def _p21_snapshot(trainer) -> dict:
+    return {n: t.clone() for n, t in _state_tensors(trainer.state).items()}
+
+
+def resilience_drill(torch, card: str, seed: int, *, device: str = "cuda", cfg=None,
+                     batch: int = 8, seq: int = 2048) -> dict:
+    """21a: phase 8's step (the 110M model, bf16, B8 S2048, flash, Adam 3e-4
+    with clip 1.0, and an EMA) warmed into one CUDA graph, then 3 epochs of
+    2 steps under ``utils.config.execute`` with ``max_restarts`` 2 and
+    :data:`P21_PLAN`; then the same run without a plan (and without a
+    checkpointer). Hard bars: parameters, Adam moments, ``count`` and EMA
+    bitwise the unfaulted run's; history [0, 1, 1, 2] with each epoch's loss
+    the unfaulted epoch's; books 3 = 2 + 1; K1/K2/K3 12 a step over the 9
+    steps run (the replays included), no capture after warmup, no step
+    eager (``fallback_calls`` 0), the held model the one restored into.
+    The 110M save and verified-restore seconds are reported."""
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = cfg or TransformerConfig()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase21-", dir=os.path.join(ROOT, "build"))
+    _p21_free(torch)
+    try:
+        faulted = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21_STEPS_A,
+                           device=device, plan=P21_PLAN, work=os.path.join(work, "ck"))
+        nbytes = sum(f.stat().st_size for f in
+                     (faulted["trainer"].checkpointer.step_dir(2)).iterdir())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ft = faulted.pop("trainer")
+    programs = list(ft.train_step.programs.values())
+    require(all(p.model is ft.state.model for p in programs),
+            "21a: the trainer's model is not the one its captured step holds")
+    recovered, history = _p21_snapshot(ft), [h["epoch"] for h in ft.history]
+    losses = [(h["epoch"], h["loss"]) for h in ft.history]
+    chaos = ft.chaos
+    fallback_calls = ft.train_step.fallback_calls
+    del ft, programs
+    _p21_free(torch)
+    clean = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21_STEPS_A, device=device)
+    ct = clean.pop("trainer")
+    differ = _p21_same_state(torch, recovered, ct)
+    clean_loss = {h["epoch"]: h["loss"] for h in ct.history}
+    del ct, recovered
+    layers = cfg.num_layers
+    want = layers * P21_RUN_STEPS
+    out = {"card": card, "history": history, "losses": losses, "clean_losses": clean_loss,
+           "books": _p21_books(faulted), "launches": faulted["launches"],
+           "clean_launches": clean["launches"], "fallback_calls": fallback_calls,
+           "recaptures": faulted["recaptures"], "seconds": faulted["seconds"],
+           "clean_seconds": clean["seconds"], "warmup_s": faulted["warmup_s"],
+           "save_s": faulted["save_s"], "restore_s": faulted["restore_s"],
+           "checkpoint_bytes": nbytes, "tensors_differing": differ,
+           "chaos": chaos.summary()}
+    log(f"21a drill [{card}]: history {history}, books {out['books']} ({out['chaos']}), "
+        f"launches {out['launches']} (expected {want} each: {P21_RUN_STEPS} steps), fallback "
+        f"calls {out['fallback_calls']}, captures after warmup {out['recaptures']}; faulted run "
+        f"{out['seconds']:.2f}s, unfaulted {out['clean_seconds']:.2f}s, warmup "
+        f"{out['warmup_s']:.2f}s; saves {[round(x, 3) for x in out['save_s']]}s, restores "
+        f"{[round(x, 3) for x in out['restore_s']]}s of {nbytes} bytes; "
+        f"{len(differ)} tensors differ from the unfaulted run's")
+    require(history == [0, 1, 1, 2], f"21a: history {history}")
+    require(all(loss == clean_loss[e] for e, loss in losses),
+            f"21a: epoch losses {losses} against the unfaulted {clean_loss}")
+    require(not differ, f"21a: the recovered state differs from the unfaulted run's: {differ[:5]}")
+    require(out["books"] == (3, 2, 1), f"21a: books {out['books']}")
+    require(chaos.balanced() and not chaos.unrecovered(), f"21a: {out['chaos']}")
+    if device == "cuda":
+        require(all(n == want for n in out["launches"].values()),
+                f"21a: expected {want} launches of each kernel, got {out['launches']}")
+    require(out["fallback_calls"] == 0 and out["recaptures"] == 0,
+            f"21a: a clean step ran eager ({out['fallback_calls']}) or a capture was made "
+            f"({out['recaptures']})")
+    del faulted, clean
+    _p21_free(torch)
+    return out
+
+
+class _Snapshots:
+    """A loader over pre-built batches that clones the trainer's tensors at
+    each fetch: the state before each step (and after the last)."""
+
+    def __init__(self, batches, trainer_ref) -> None:
+        self.batches, self.trainer_ref, self.states = batches, trainer_ref, []
+
+    def _snap(self):
+        self.states.append({n: t.clone() for n, t in _state_tensors(
+            self.trainer_ref[0].state).items()})
+
+    def epoch(self, epoch: int):
+        for batch in self.batches:
+            self._snap()
+            yield batch
+        self._snap()
+
+
+def guard_drill(torch, card: str, seed: int, *, device: str = "cuda", cfg=None,
+                batch: int = 8, seq: int = 2048) -> dict:
+    """21b: phase 8's widths at :data:`P21B_LAYERS` of the 12 blocks. A
+    ``nan_grad@step:1`` on a warmed trainer: the state after step 1 bitwise
+    the state before it, the epoch's mean over the finite steps, one
+    recovery booked (the poisoned batch carries a mask the clean ones lack:
+    it takes the eager step, ``fallback_calls`` 1). Under ``guardrails``, a
+    ``loss_spike`` at step :data:`P21B_SPIKE`: judged poisoned, rolled back
+    to the pinned epoch 1 and replayed bitwise onto the unfaulted run, one
+    rollback in the books. Then the synchronizing calls a step of the
+    chaos-hooked loop, guardrails off (0) and on (the policy's reads)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.resilience import ChaosInjector, FaultPlan, GuardrailPolicy
+    from deeplearning_mpi_tpu_torch.train import Trainer, build_optimizer, create_train_state
+
+    cfg = cfg or dataclasses.replace(TransformerConfig(), num_layers=P21B_LAYERS)
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    out: dict = {"card": card, "layers": cfg.num_layers}
+
+    def state():
+        model = TransformerLM(cfg, dtype=dtype, device=device).init_weights(seed)
+        return create_train_state(model, build_optimizer("adam", 3e-4, clip_norm=1.0),
+                                  attention_fn=fa.flash_attention_bhsd)
+
+    batches = list(Loader(SyntheticTokens(3 * batch, seq, vocab_size=cfg.vocab_size, seed=seed),
+                          batch, shuffle=False, device=device).epoch(0))
+    # The NaN step, warmed.
+    chaos = ChaosInjector(FaultPlan.parse("nan_grad@step:1"))
+    ref = [None]
+    trainer = Trainer(state(), "lm", log=lambda m: None, chaos=chaos)
+    ref[0] = trainer
+    trainer.warmup(batches[0])
+    chaos.bind_registry(trainer.metrics)
+    snaps = _Snapshots(batches, ref)
+    stats = trainer.run_epoch(snaps, 0)
+    before, after = snaps.states[1], snaps.states[2]
+    skipped = [n for n, t in before.items() if not torch.equal(t, after[n])]
+    moved = [n for n, t in snaps.states[2].items() if not torch.equal(t, snaps.states[3][n])]
+    out["nan"] = {"changed_by_step_1": skipped, "epoch_loss": stats["loss"],
+                  "fallback_calls": trainer.train_step.fallback_calls,
+                  "books": (chaos.counts().get("fault_injected_total"),
+                            chaos.counts().get("recovery_total"))}
+    log(f"21b nan_grad@step:1 [{card}, {cfg.num_layers} blocks]: {len(skipped)} tensors changed "
+        f"by the poisoned step (0 expected), {len(moved)} by step 2; epoch loss "
+        f"{stats['loss']:.4f} over the finite steps; books {out['nan']['books']}; fallback calls "
+        f"{out['nan']['fallback_calls']} (the poisoned batch, its mask a key the clean ones lack)")
+    require(not skipped, f"21b: the NaN step changed {skipped[:5]}")
+    require(moved and math.isfinite(stats["loss"]), "21b: the next step did not train")
+    require(out["nan"]["books"] == (1.0, 1.0) and chaos.balanced(), f"21b: {chaos.summary()}")
+    require(out["nan"]["fallback_calls"] == 1, "21b: the poisoned batch did not take the eager step")
+    del trainer, snaps, ref, before, after
+    _p21_free(torch)
+    # The loss spike under guardrails, warmed, against the unfaulted run.
+    work = tempfile.mkdtemp(prefix="phase21b-", dir=os.path.join(ROOT, "build"))
+    try:
+        spiked = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21B_STEPS,
+                          device=device, plan=f"loss_spike@step:{P21B_SPIKE}",
+                          work=os.path.join(work, "ck"), guardrails=True, ema=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    st = spiked.pop("trainer")
+    replayed, history, spike_chaos = _p21_snapshot(st), [h["epoch"] for h in st.history], st.chaos
+    snap = st.metrics.snapshot()
+    del st
+    _p21_free(torch)
+    clean = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21B_STEPS, device=device,
+                     guardrails=True, ema=False)
+    differ = _p21_same_state(torch, replayed, clean.pop("trainer"))
+    del replayed
+    _p21_free(torch)
+    out["spike"] = {"history": history, "books": _p21_books(spiked),
+                    "guard_rollback_total": snap.get("guard_rollback_total"),
+                    "guard_poisoned_total": snap.get("guard_poisoned_total"),
+                    "fallback_calls": spiked["fallback_calls"], "seconds": spiked["seconds"],
+                    "restore_s": spiked["restore_s"], "tensors_differing": differ}
+    log(f"21b loss_spike@step:{P21B_SPIKE} under guardrails [{card}]: history "
+        f"{out['spike']['history']}, books {out['spike']['books']}, poisoned "
+        f"{out['spike']['guard_poisoned_total']}, rollbacks {out['spike']['guard_rollback_total']}"
+        f", fallback calls {out['spike']['fallback_calls']}; {len(differ)} tensors differ from "
+        f"the unfaulted run's; {spiked['seconds']:.2f}s")
+    require(out["spike"]["history"] == [0, 1, 2], f"21b: history {out['spike']['history']}")
+    require(not differ, f"21b: the replay differs from the unfaulted run: {differ[:5]}")
+    require(out["spike"]["books"] == (1, 0, 1) and spike_chaos.balanced(),
+            f"21b: books {out['spike']['books']}")
+    require(out["spike"]["guard_rollback_total"] == 1, "21b: no rollback booked")
+    require(out["spike"]["fallback_calls"] == 1,
+            "21b: the spiked batch (its __loss_scale__ key) did not take the eager step alone")
+    del spiked, clean
+    # Syncs a step: chaos hooks on, guardrails off and on.
+    syncs = {}
+    for arm, policy in (("off", None), ("on", GuardrailPolicy())):
+        trainer = Trainer(state(), "lm", log=lambda m: None, metrics_every=0,
+                          chaos=ChaosInjector(FaultPlan.parse("kill@step:999")),
+                          guardrails=policy)
+        trainer.run_epoch(_MarkedLoader(batches[:1], []), 0)  # warm
+        if device != "cuda":
+            syncs[arm] = None
+            continue
+        import warnings
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            marked = _MarkedLoader(batches, caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer.run_epoch(marked, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # The mode's own notice is no sync (20a).
+        real = [i for i, w in enumerate(caught) if "prototype" not in str(w.message)]
+        syncs[arm] = [sum(a <= i < b for i in real) for a, b in zip(marked.marks, marked.marks[1:])]
+        del trainer
+        _p21_free(torch)
+    out["syncs_per_step"] = syncs
+    log(f"21b synchronizing calls a step with the chaos hooks [{card}]: guardrails off "
+        f"{syncs['off']} (19b's count: 0), on {syncs['on']} (the policy's loss / finite / "
+        "grad-norm reads)")
+    if device == "cuda":
+        require(not any(syncs["off"]), f"21b: guardrails off, syncs a step {syncs['off']}")
+    return out
+
+
+#: 21c's model and shape: phase 19's widths (the 110M model's at vocab 256,
+#: bf16, B8 S2048, flash) at 4 of the 12 blocks, 17 train sequences (2
+#: steps an epoch), 2 epochs.
+P21C_LAYERS = 4
+P21C_FLAGS = ["--attention", "flash", "--dtype", "bfloat16", "--num_layers", str(P21C_LAYERS),
+              "--d_model", "768", "--num_heads", "12", "--head_dim", "64", "--d_ff", "2048",
+              "--seq_len", "2048", "--batch_size", "8", "--train_sequences", "18",
+              "--num_epochs", "2"]
+
+
+def resilience_cli(torch, card: str, *, device: str = "cuda", model_flags=None) -> dict:
+    """21c: ``cli.train_lm`` at phase 19's widths (the 110M model's at vocab
+    256, bf16, B8 S2048, flash) and :data:`P21C_LAYERS` of its 12 blocks,
+    2 epochs of 2 steps, with ``--chaos
+    kill@step:3,corrupt_ckpt@epoch:0 --max_restarts 2 --log_dir --aot_warmup``:
+    exit 0, the kill restarted from a fresh init (the only save corrupt), the
+    run summary's books balanced (2 = 1 + 1), ``heartbeat.json`` at the
+    final step (3 before the kill, 4 after); then ``--chaos
+    serve_crash@step:1`` exits 1 naming the training workload."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.resilience import Heartbeat
+
+    flags = ["--device", device] + (model_flags or P21C_FLAGS)
+    work = tempfile.mkdtemp(prefix="phase21c-", dir=os.path.join(ROOT, "build"))
+    try:
+        dirs = {k: os.path.join(work, k) for k in ("model", "log", "metrics")}
+        _zero_counts(fa)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = train_lm.main(flags + [
+                "--chaos", "kill@step:3,corrupt_ckpt@epoch:0", "--max_restarts", "2",
+                "--restart_delay_s", "0", "--model_dir", dirs["model"], "--log_dir", dirs["log"],
+                "--metrics_dir", dirs["metrics"], "--aot_warmup"])
+        seconds = time.perf_counter() - t0
+        launches = _kernel_counts(fa)
+        lines = [ln for ln in text.getvalue().splitlines()
+                 if ln.startswith(("chaos:", "checkpoint epoch", "restart:", "training failed",
+                                   "auto-resume", "warmup:"))]
+        for line in lines:
+            log(f"21c | {line}")
+        require(rc == 0, f"21c: train_lm --chaos exited {rc}")
+        summary = [r for r in _read_jsonl(os.path.join(dirs["metrics"], "metrics.jsonl"))
+                   if r["kind"] == "run_summary"][-1]
+        books = (summary.get("fault_injected_total"), summary.get("recovery_total"),
+                 summary.get("rollback_total"))
+        beat = Heartbeat.read(os.path.join(dirs["log"], "heartbeat.json")) or {}
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            refused = train_lm.main(flags + ["--chaos", "serve_crash@step:1"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"rc": rc, "seconds": seconds, "books": books, "heartbeat_step": beat.get("step"),
+           "launches": launches, "refused_rc": refused, "refusal": err.getvalue().strip()}
+    log(f"21c train_lm --chaos kill@step:3,corrupt_ckpt@epoch:0 --max_restarts 2 --aot_warmup "
+        f"[{card}]: exit {rc} in {seconds:.1f}s, run_summary books {books}, heartbeat step "
+        f"{out['heartbeat_step']}, launches {launches}; --chaos serve_crash@step:1 exit "
+        f"{refused}: {out['refusal'][:160]}")
+    require(books == (2, 1, 1), f"21c: run_summary books {books}")
+    require(out["heartbeat_step"] == 7, f"21c: heartbeat step {out['heartbeat_step']}")
+    if device == "cuda":  # the warmup's 3 eager steps and the 7 steps run, a layer each
+        require(launches["K2"] == launches["K3"] == P21C_LAYERS * 10 <= launches["K1"],
+                f"21c: launches {launches}")
+    require(refused == 1 and "training workload" in out["refusal"],
+            f"21c: serve_crash refused with {refused}: {out['refusal']}")
+    return out
+
+
+def resilience_phase(torch, card: str, seed: int) -> dict:
+    """Phase 21: the resilience layer (21a-21c), each after a collection
+    (the earlier phases' dropped trainers hold CUDA graph pools)."""
+    out = {"drill": resilience_drill(torch, card, seed)}
+    out["guard"] = guard_drill(torch, card, seed)
+    _p21_free(torch)
+    out["cli"] = resilience_cli(torch, card)
+    _p21_free(torch)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -4174,6 +4645,12 @@ def main() -> int:
         f"train_lm --tuned_step --aot_warmup and serve_lm --tuning_db) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    resilience = resilience_phase(torch, card, args.seed)
+    log(f"phase 21 the resilience layer (the 110M captured drill bitwise the unfaulted run, the "
+        f"NaN step and the guardrail rollback, train_lm --chaos --max_restarts --aot_warmup) OK "
+        f"in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -4189,7 +4666,7 @@ def main() -> int:
                        "train": train, "checkpoint": checkpoint, "features": features,
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
                        "compose": compose, "completed": completed, "telemetry": telemetry,
-                       "compiler": compiler,
+                       "compiler": compiler, "resilience": resilience,
                        "phase_seconds": PHASE_SECONDS,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (

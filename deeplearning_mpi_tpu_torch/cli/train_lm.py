@@ -120,7 +120,22 @@ every other layout is refused (ROADMAP Queue 1 item 9.1b).
 set before anything is built; a missing, corrupt or entry-less DB keeps
 the flags and says so.
 
-Not ported yet: chaos, auto-resume (``--max_restarts``) and guardrails.
+Resilience as the reference's (``utils/config.py``, ``resilience/``):
+``--max_restarts N`` / ``--restart_delay_s`` restart a crashed run from
+the newest checkpoint that verifies (a fresh init when none does);
+``--chaos PLAN`` (or ``$DMT_CHAOS``) injects the planned faults (a kind
+without a training hook exits 1 naming the workload) and wraps the train
+loader in the stall watchdog; ``--guardrails`` judges every step's loss and
+gradient norm and rolls a poisoned run back to the pinned last-known-good
+checkpoint, ``--digest_every N`` publishing parameter digests on the
+heartbeat (``--log_dir``) for ``cli.launch_pod``'s vote. Under
+``--aot_warmup`` a restart or a rollback loads the restored state into the
+captured step's storages (``Trainer.adopt``).
+
+    python -m deeplearning_mpi_tpu_torch.cli.train_lm --device cpu --num_layers 2 \
+        --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 --seq_len 32 --batch_size 4 \
+        --train_sequences 40 --num_epochs 3 --eval_every 1 --model_dir /tmp/lm \
+        --chaos kill@step:12,corrupt_ckpt@epoch:1,loader_stall@batch:1 --max_restarts 2
 """
 
 from __future__ import annotations
@@ -156,6 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="epochs between evals and checkpoints")
     train.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     config.add_observability_flags(train)
+    config.add_resilience_flags(train)
     model = parser.add_argument_group("model")
     model.add_argument("--seq_len", type=int, default=512)
     model.add_argument("--num_layers", type=int, default=4)
@@ -196,6 +212,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="save checkpoints under <model_dir>/<model_filename> "
                       "(default: none are written)")
     ckpt.add_argument("--model_filename", default="lm")
+    ckpt.add_argument("--keep_checkpoints", type=int, default=3,
+                      help="retention: the newest N checkpoints (and the pinned last-good)")
     ckpt.add_argument("--resume", action="store_true",
                       help="continue from the newest checkpoint that verifies "
                       "(weights, optimizer state and step: pass the same --optimizer "
@@ -274,6 +292,10 @@ def train(argv: list[str] | None = None):
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
 
     topo, mesh, group = config.setup_runtime(args)
+    from deeplearning_mpi_tpu_torch.resilience.supervisor import preflight
+
+    preflight(model_dir=args.model_dir, log_dir=args.log_dir, global_batch_size=args.batch_size,
+              mesh=mesh, grad_accum=args.grad_accum)
     device = topo.device
     logger = config.run_logger(args, topo)
     log = logger.log
@@ -332,6 +354,7 @@ def train(argv: list[str] | None = None):
         d_model=args.d_model, d_ff=args.d_ff, attention_window=args.attention_window,
         moe_experts=args.moe_experts, moe_top_k=args.moe_top_k, moe_routing=args.moe_routing,
     )
+    chaos = config.build_chaos(args)
     checkpointer = None
     if args.model_dir is not None:
         ckpt_dir = Path(args.model_dir) / args.model_filename
@@ -342,8 +365,9 @@ def train(argv: list[str] | None = None):
             raise SystemExit(err)
         if not args.eval_only and topo.is_coordinator:
             config.save_arch(cfg, ckpt_dir, pipeline_stages=args.pp, layout=mesh_layout(mesh))
-        checkpointer = Checkpointer(ckpt_dir)
-    try:
+        checkpointer = Checkpointer(ckpt_dir, max_to_keep=args.keep_checkpoints, chaos=chaos)
+
+    def build_model():
         if args.pp > 1:
             from deeplearning_mpi_tpu_torch.models.pipeline_lm import PipelinedLM
 
@@ -357,10 +381,19 @@ def train(argv: list[str] | None = None):
                                   return_prehead=args.loss_chunk > 0,
                                   expert_shards=expert_shards(mesh), tp=tp_shards(mesh, device),
                                   seq=seq_ring(mesh))
-        model = model.init_weights(args.random_seed)
+        return model.init_weights(args.random_seed)
+
+    try:
+        model = build_model()
     except ValueError as e:  # a width the tensor-parallel rule would split unevenly, a
         raise SystemExit(str(e)) from e  # depth the stages do not divide
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=1.0)
+
+    def state_factory():
+        """A fresh initial state (auto-resume's start when no step verifies)."""
+        return create_train_state(build_model(), tx, attention_fn=attention_fn,
+                                  ema=args.ema > 0)
+
     state = create_train_state(model, tx, attention_fn=attention_fn, ema=args.ema > 0)
     start_epoch = 0
     if checkpointer is not None:
@@ -380,16 +413,19 @@ def train(argv: list[str] | None = None):
                       grad_accum=args.grad_accum, loss_chunk=args.loss_chunk,
                       ema_decay=args.ema, logger=logger, checkpointer=checkpointer,
                       group=group, seq=seq_shards(mesh), zero=args.zero,
-                      zero_overlap=args.zero_overlap)
+                      zero_overlap=args.zero_overlap, chaos=chaos,
+                      guardrails=config.build_guardrails(args))
     config.build_observability(
         args, trainer, flops_per_step=transformer_train_flops(cfg, args.batch_size, args.seq_len),
         issued_flops_per_step=transformer_issued_flops(cfg, args.batch_size, args.seq_len,
                                                        remat=args.remat),
         comm_bytes_per_step=comm_bytes(args, mesh, model, dtype))
     if args.aot_warmup and not args.eval_only:
-        # One real batch fixes the shapes; warmup does not train.
+        # One real batch fixes the shapes; warmup does not train. The raw
+        # loader's: a planned loader fault must not fire here.
         trainer.warmup(next(iter(train_loader.epoch(start_epoch))))
-    return config.execute(config.Run(args, trainer, train_loader, eval_loader, start_epoch))
+    return config.execute(config.Run(args, trainer, config.chaos_loader(trainer, train_loader),
+                                     eval_loader, start_epoch, state_factory))
 
 
 def comm_bytes(args, mesh, model, dtype: torch.dtype) -> float:

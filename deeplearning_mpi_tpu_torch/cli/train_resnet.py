@@ -25,8 +25,11 @@ CNN flag and is refused with it, as in the reference.
 Real data: ``--data_dir`` holding ``cifar-10-batches-py`` (``cli.download
 cifar10 --from_file``). Telemetry as the reference's: ``--log_dir``,
 ``--metrics_dir`` / ``--metrics_every``, ``--profile_dir``, ``--debug_nans``
-(``utils/config.py``); MFU from the ResNet's analytic FLOPs. Not ported
-yet: the native C++ transforms and the flags ``reject_unported`` names.
+(``utils/config.py``); MFU from the ResNet's analytic FLOPs. Resilience as
+``cli/train_lm.py``'s: ``--max_restarts`` / ``--restart_delay_s``,
+``--chaos`` (a NaN poisons the image), ``--guardrails`` /
+``--digest_every``. Not ported yet: the native C++ transforms and the
+loader's fetch threads (``--num_workers``, refused).
 """
 
 from __future__ import annotations
@@ -81,6 +84,11 @@ def build(argv: list[str] | None = None) -> config.Run:
     from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size
 
     topo, mesh, group = config.setup_runtime(args)
+    from deeplearning_mpi_tpu_torch.resilience.supervisor import preflight
+
+    preflight(data_dir=None if args.synthetic else args.data_dir, model_dir=args.model_dir,
+              log_dir=args.log_dir, global_batch_size=args.batch_size, mesh=mesh,
+              grad_accum=args.grad_accum)
     device = topo.device
     if args.synthetic:
         train_ds = SyntheticCIFAR10(args.train_samples, seed=args.random_seed)
@@ -98,7 +106,8 @@ def build(argv: list[str] | None = None) -> config.Run:
     model = build_model(args, device)
     tx = config.build_optimizer_from_flags(args, train_loader, momentum=args.momentum)
     run = config.build_run(args, topo, group, task="classification", model=model, tx=tx,
-                           train_loader=train_loader, eval_loader=eval_loader)
+                           train_loader=train_loader, eval_loader=eval_loader,
+                           model_factory=lambda: build_model(args, device))
     n_params = sum(p.numel() for p in model.parameters())
     run.trainer.log(
         f"train_resnet: {args.arch}{'' if args.arch.startswith('vit') else f' ({args.stem} stem)'}"

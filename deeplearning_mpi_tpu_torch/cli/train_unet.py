@@ -16,6 +16,8 @@ Data parallelism as ``cli/train_resnet.py``.
         --num_epochs 1 --batch_size 4 --train_samples 20 --image_size 32
 
 Real data: ``--data_dir`` with ``images/`` and ``masks/`` (Pillow needed).
+Resilience (``--max_restarts``, ``--restart_delay_s``, ``--chaos``,
+``--guardrails``, ``--digest_every``) as ``cli/train_lm.py``'s.
 """
 
 from __future__ import annotations
@@ -90,6 +92,11 @@ def build(argv: list[str] | None = None) -> config.Run:
     from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size
 
     topo, mesh, group = config.setup_runtime(args)
+    from deeplearning_mpi_tpu_torch.resilience.supervisor import preflight
+
+    preflight(data_dir=None if (args.synthetic or args.volumetric) else args.data_dir,
+              model_dir=args.model_dir, log_dir=args.log_dir,
+              global_batch_size=args.batch_size, mesh=mesh, grad_accum=args.grad_accum)
     device = topo.device
     if args.volumetric:
         full = SyntheticVolumesDataset(args.train_samples, size=args.image_size,
@@ -114,6 +121,7 @@ def build(argv: list[str] | None = None) -> config.Run:
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=args.clip_norm)
     run = config.build_run(args, topo, group, task="segmentation", model=model, tx=tx,
                            train_loader=train_loader, eval_loader=eval_loader,
+                           model_factory=lambda: build_model(args, device),
                            seg_loss=args.loss)
     n_params = sum(p.numel() for p in model.parameters())
     run.trainer.log(

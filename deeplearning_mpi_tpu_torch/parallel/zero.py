@@ -443,7 +443,7 @@ class _Flight:
 def make_overlapped_train_step(
     task: str, state: Any, group: Any, *, busy: dict[str, int] | None = None,
     aux_weight: float = 0.0, grad_accum: int = 1, loss_chunk: int = 0, seg_loss: str = "bce",
-    ema_decay: float = 0.0, bucket_bytes: int = BUCKET_BYTES,
+    ema_decay: float = 0.0, bucket_bytes: int = BUCKET_BYTES, guard_metrics: bool = False,
 ) -> Callable:
     """The explicit bucketed ZeRO-1 step over the data ``group``:
     ``train.trainer.make_train_step`` with :class:`BucketedReduce` in place
@@ -464,6 +464,7 @@ def make_overlapped_train_step(
                                  "placement")
     step = make_train_step(task, aux_weight=aux_weight, grad_accum=grad_accum,
                            loss_chunk=loss_chunk, seg_loss=seg_loss, ema_decay=ema_decay,
-                           group=group, overlap=BucketedReduce(plan, zero, grad_accum))
+                           guard_metrics=guard_metrics, group=group,
+                           overlap=BucketedReduce(plan, zero, grad_accum))
     step.bucket_plan = plan
     return step

@@ -100,17 +100,23 @@ def file_digest(path: str | Path) -> str:
     """sha256 of one file's bytes, hex."""
     h = hashlib.sha256()
     with open(path, "rb") as fh:
-        for chunk in iter(lambda: fh.read(1 << 20), b""):
+        for chunk in iter(lambda: fh.read(1 << 23), b""):
             h.update(chunk)
     return h.hexdigest()
 
 
 def dir_digests(step_dir: str | Path) -> dict[str, str]:
     """sha256 per regular file under ``step_dir``, keyed by relative path:
-    the manifest of a committed step, covering every byte written."""
+    the manifest of a committed step, covering every byte written. The
+    files hash on threads side by side (``hashlib`` releases the GIL), so a
+    step costs its largest file's hash, not the sum."""
+    from concurrent.futures import ThreadPoolExecutor
+
     step_dir = Path(step_dir)
-    return {str(f.relative_to(step_dir)): file_digest(f)
-            for f in sorted(p for p in step_dir.rglob("*") if p.is_file())}
+    files = sorted(p for p in step_dir.rglob("*") if p.is_file())
+    with ThreadPoolExecutor(max_workers=max(1, min(8, len(files)))) as pool:
+        digests = list(pool.map(file_digest, files))
+    return {str(f.relative_to(step_dir)): d for f, d in zip(files, digests)}
 
 
 def manifest_path(directory: str | Path, epoch: int) -> Path:

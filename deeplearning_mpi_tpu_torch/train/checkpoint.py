@@ -51,7 +51,12 @@ save restores in one process over ``LockstepPipe(2)`` and an ``ep 2 x tp
 2`` save into the flat model (``arch.json``'s ``layout`` records the
 degrees a run trained under and is not compared).
 
-Not ported: the chaos hook.
+**Chaos** (``Checkpointer(chaos=)``, a ``resilience.ChaosInjector``): a
+planned ``corrupt_ckpt@epoch:N`` flips bytes in epoch N's committed step
+right after its manifest is written (``corrupt_checkpoint``), so the pin's
+re-hash fails and the corrupted save is never pinned; every step a restore
+walks past as corrupt is booked as that fault's rollback. Every rank asks
+the injector (the books agree across ranks); the writer flips the bytes.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ import torch.distributed as dist
 from deeplearning_mpi_tpu_torch.resilience.integrity import (
     CheckpointCorruption,
     atomic_write_json,
+    corrupt_checkpoint,
     dir_digests,
     read_manifest,
     write_manifest,
@@ -90,9 +96,25 @@ _UNREADABLE = (OSError, RuntimeError, EOFError, pickle.UnpicklingError, Checkpoi
 
 
 def _to_host(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    return tree.detach().to("cpu")
+    """A host copy of ``tree``. A card's tensors are copied without
+    blocking, which lands them in pinned memory that PyTorch's host
+    allocator keeps for the next save, then one synchronize: the copies are
+    whole before any byte is read."""
+    on_card = []
+
+    def copy(tree: Any) -> Any:
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        t = tree.detach()
+        if t.is_cuda:
+            on_card.append(t.device)
+            return t.to("cpu", non_blocking=True)
+        return t.to("cpu")
+
+    out = copy(tree)
+    for device in set(on_card):
+        torch.cuda.synchronize(device)
+    return out
 
 
 def _check_like(template: Any, loaded: Any, path: str) -> None:
@@ -139,10 +161,11 @@ class Checkpointer:
     """Save and restore the full train state under ``directory``, one step
     directory per epoch; see the module docstring for the protocol."""
 
-    def __init__(self, directory: str | Path, *, max_to_keep: int = 3) -> None:
+    def __init__(self, directory: str | Path, *, max_to_keep: int = 3, chaos: Any = None) -> None:
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.chaos = chaos
         #: anti-rollback fence: the highest pin generation seen; None until
         #: the pin file is first read.
         self._generation: int | None = None
@@ -172,11 +195,12 @@ class Checkpointer:
         group rank 0 writes and every rank waits for it (after every rank
         gathered its expert stacks, when they are sharded)."""
         arrays = state.arrays()
+        corrupt = self.chaos is not None and self.chaos.should_corrupt(epoch=epoch)
         if _writer():
-            self._write(arrays, epoch)
+            self._write(arrays, epoch, corrupt=corrupt)
         _barrier()
 
-    def _write(self, arrays: dict[str, Any], epoch: int) -> None:
+    def _write(self, arrays: dict[str, Any], epoch: int, *, corrupt: bool = False) -> None:
         arrays = _to_host(arrays)
         tmp = self.directory / f"tmp-{epoch}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -193,6 +217,10 @@ class Checkpointer:
         os.replace(tmp, final)
         _fsync_dir(self.directory)
         write_manifest(self.directory, epoch, dir_digests(final))
+        if corrupt:
+            # After the manifest, so the restore sees the mismatch.
+            victim = corrupt_checkpoint(final)
+            print(f"chaos: corrupted checkpoint epoch {epoch} ({victim.name})", flush=True)
         # Pin by re-hashing: only a save whose bytes still match its
         # manifest becomes the last-known-good.
         manifest = read_manifest(self.directory, epoch)
@@ -295,6 +323,8 @@ class Checkpointer:
 
     def _note_corrupt(self, epoch: int, why: str) -> None:
         print(f"checkpoint epoch {epoch} CORRUPT — rolling back ({why})", flush=True)
+        if self.chaos is not None:
+            self.chaos.record_rollback("corrupt_ckpt", at=epoch)
 
     def restore_verified(self, template: TrainState) -> tuple[TrainState, int]:
         """Restore the newest step that passes digest verification, walking

@@ -150,8 +150,20 @@ epoch). A profiler traces steps 3-5 (``PROFILE_STEPS``). With a span
 recorder (``tracer``) each step is fenced and its ``data_wait`` / ``h2d``
 / ``compute`` / ``collective_tail`` phases measured, ``other`` the
 residual, so the phases sum to the epoch's duration exactly; without one
-the loop adds no sync. Not ported yet (ROADMAP): chaos, guardrails and
-auto-resume.
+the loop adds no sync.
+
+**Resilience** (the reference's hooks, ``resilience/``): with a ``chaos``
+injector each step first meets ``check_kill``, ``check_rank_fault``,
+``maybe_poison`` and ``maybe_guard_fault``, and ``maybe_bitflip`` after
+the update; the epoch's finite count, read in its one sync, books the NaN
+recoveries. With a ``guardrails`` policy the step also returns the
+gradient norm, and each step's ``loss`` / ``finite`` / ``grad_norm`` are
+read on the host (the sanctioned sync) and judged: a ``poisoned`` verdict
+raises ``RollbackRequested`` for ``utils.config.execute`` to service.
+Without one the loop reads nothing. A ``heartbeat`` gets the loop's
+progress after every step and at eval and checkpoint boundaries, with the
+digest ring when the policy digests. :meth:`Trainer.adopt` takes a
+restored state into the tensors the (captured) step holds.
 """
 
 from __future__ import annotations
@@ -706,7 +718,8 @@ class Trainer:
         profiler: Any = None, tracer: Any = None,
         metrics: MetricsRegistry | None = None, metrics_every: int = 1,
         flops_per_step: float | None = None, issued_flops_per_step: float | None = None,
-        comm_bytes_per_step: float | None = None,
+        comm_bytes_per_step: float | None = None, chaos: Any = None, guardrails: Any = None,
+        heartbeat: Any = None,
     ) -> None:
         self.state = state
         self.task = task
@@ -732,10 +745,30 @@ class Trainer:
         self.profiler = profiler
         self.tracer = tracer
         self._profiled = False
+        self.chaos = chaos
+        self.heartbeat = heartbeat
+        #: the numerics policy (None: the loop reads nothing on the host).
+        self.guardrails = guardrails
+        #: the poisoned verdict awaiting its rollback (``utils.config.execute``).
+        self.pending_rollback: Any = None
+        #: {step: sha256} ring riding every heartbeat (the digest vote) and
+        #: {epoch: global step at its save} (the pod prunes by it).
+        self._digest_ring: dict[int, str] = {}
+        self._ckpt_ring: dict[int, int] = {}
+        if chaos is not None and guardrails is None:
+            from deeplearning_mpi_tpu_torch.resilience.faults import GUARD_KINDS
+
+            planned = sorted({s.kind for s in chaos.plan.specs if s.kind in GUARD_KINDS})
+            if planned:
+                raise ValueError(
+                    f"chaos kind(s) {', '.join(planned)} need a guardrail policy attached "
+                    "(Trainer(guardrails=...) / --guardrails) — without one they could never "
+                    "be detected and the chaos books could never balance")
         #: host-side step counter: reading ``state.step`` would sync
         self._global_step = 0
         self._step_kwargs = dict(aux_weight=aux_weight, grad_accum=grad_accum,
-                                 loss_chunk=loss_chunk, seg_loss=seg_loss, ema_decay=ema_decay)
+                                 loss_chunk=loss_chunk, seg_loss=seg_loss, ema_decay=ema_decay,
+                                 guard_metrics=guardrails is not None)
         self.train_step = make_train_step(task, group=group, seq=seq, **self._step_kwargs)
         self.eval_step = make_eval_step(task, loss_chunk=loss_chunk, seg_loss=seg_loss, seq=seq)
         self.history: list[dict[str, float]] = []
@@ -906,6 +939,14 @@ class Trainer:
                     break
                 t_have = time.monotonic()
                 phase_s["data_wait"] += t_have - t_fetch
+            if self.chaos is not None:
+                # kill@step:N means exactly N steps ran; the poison and the
+                # scale keys ride the batch, and the step's own guard, not
+                # the injector, must keep the run alive.
+                self.chaos.check_kill(step=self._global_step)
+                self.chaos.check_rank_fault(step=self._global_step)
+                batch = self.chaos.maybe_poison(batch, self.task, step=self._global_step)
+                batch = self.chaos.maybe_guard_fault(batch, step=self._global_step)
             if self.profiler is not None and not self._profiled:
                 if n_batches == self.PROFILE_STEPS[0]:
                     self.profiler.start()
@@ -937,11 +978,22 @@ class Trainer:
                 tracer.record_span("compute", t_h2d, t_loss, trace=step_trace)
                 tracer.record_span("collective_tail", t_loss, t_tail, trace=step_trace,
                                    epoch=epoch)
+            if self.chaos is not None:
+                self.chaos.maybe_bitflip(self.state.model, step=self._global_step)
+            if self.guardrails is not None:
+                self._guard_observe(metrics, step=self._global_step)
             timer.tick(metrics["loss"])
             if self.metrics_every and self._global_step % self.metrics_every == 0:
                 # The card's scalars, unread until flush_steps.
                 self.metrics.record_step(self._global_step, metrics)
             self._global_step += 1
+            if self.heartbeat is not None:
+                progress = {"epoch": epoch, "step_in_epoch": n_batches,
+                            "step": self._global_step, "phase": "train"}
+                if self._digest_ring:
+                    progress["digests"] = dict(self._digest_ring)
+                    progress["ckpts"] = dict(self._ckpt_ring)
+                self.heartbeat.progress = progress
             contrib = torch.where(metrics["finite"] > 0, metrics["loss"], 0.0)  # NaN*0 is NaN
             loss_sum = contrib if loss_sum is None else loss_sum + contrib
             finite_sum = metrics["finite"] if finite_sum is None else finite_sum + metrics["finite"]
@@ -953,6 +1005,10 @@ class Trainer:
         if not n_batches:
             raise ValueError("empty epoch — dataset smaller than one batch")
         n_finite = float(finite_sum)  # one host sync per epoch
+        if self.chaos is not None:
+            # The guard's skip count confirms that injected NaN steps were
+            # rejected: that IS their recovery.
+            self.chaos.reconcile_nan_recoveries(n_batches - int(n_finite))
         mean_loss = float(loss_sum) / n_finite if n_finite else float("nan")
         duration = time.perf_counter() - t0
         stats = {"epoch": epoch, "loss": mean_loss, "duration_s": duration,
@@ -1016,12 +1072,86 @@ class Trainer:
             stats.update(hbm)
         return stats
 
+    def _guard_observe(self, metrics: dict[str, torch.Tensor], *, step: int) -> None:
+        """Judge one step's health scalars and act on the verdict, as the
+        reference's ``Trainer._guard_observe``. The ``float()`` reads are
+        the sanctioned per-step sync (opt-in: without a policy this is never
+        called). Every ``digest_every`` steps the parameter digest joins the
+        ring. ``spike``: tolerated, counted, and the fired spike kinds at
+        this step booked as recovered. ``poisoned``: the buffered step
+        records dropped, the flight recorder dumped, the guard kinds booked
+        as rolled back, and :class:`RollbackRequested` raised."""
+        from deeplearning_mpi_tpu_torch.resilience.guardrails import (
+            RollbackRequested,
+            attach_digest_ring,
+            param_digest,
+        )
+
+        loss = float(metrics["loss"])
+        finite = float(metrics["finite"]) > 0
+        gn = metrics.get("grad_norm")
+        grad_norm = float(gn) if gn is not None else None
+        self.metrics.counter("guard_checks_total").inc()
+        verdict = self.guardrails.observe(step, loss=loss, grad_norm=grad_norm, finite=finite)
+        cfg = self.guardrails.config
+        if cfg.digest_every and step % cfg.digest_every == 0:
+            attach_digest_ring(self._digest_ring, step, param_digest(
+                self.state.model, sample_leaves=cfg.digest_sample_leaves))
+            self.metrics.counter("guard_digest_total").inc()
+        if verdict.ok:
+            return
+        if verdict.status == "spike":
+            self.metrics.counter("guard_spike_total").inc()
+            self.log(f"guardrail: tolerated {verdict.signal} spike at step {step} "
+                     f"(z={verdict.z:.1f}): {verdict.reason}")
+            if self.chaos is not None:
+                for kind in ("grad_spike", "loss_spike", "nan_grads"):
+                    self.chaos.record_recovery(kind, at=step)
+            return
+        self.metrics.counter("guard_poisoned_total").inc()
+        dropped = self.metrics.drop_pending_steps()
+        self.log(f"guardrail: POISONED at step {step} ({verdict.signal}, z={verdict.z:.1f}, "
+                 f"region={verdict.region}): {verdict.reason} — requesting rollback "
+                 f"(dropped {dropped} buffered step records)")
+        if self.chaos is not None:
+            for kind in ("loss_spike", "grad_spike", "nan_grads"):
+                self.chaos.record_rollback(kind)
+        try:
+            from deeplearning_mpi_tpu_torch.telemetry import spans
+
+            spans.dump_all(f"guard-rollback-step{step}")
+        except Exception:
+            pass  # the flight dump is evidence, never the failure itself
+        self.pending_rollback = verdict
+        raise RollbackRequested(verdict)
+
+    def _mark_progress(self, **fields: Any) -> None:
+        """Advance the heartbeat's progress at a phase boundary (an eval
+        batch, a save): a long non-train phase must not read as a hung rank."""
+        if self.heartbeat is not None:
+            self.heartbeat.progress = {"step": self._global_step, **fields}
+
+    def adopt(self, state: TrainState) -> None:
+        """Make ``state``'s values the trainer's WITHOUT rebinding a tensor
+        that the step holds: a state of another model (a fresh
+        ``state_factory()``) is copied into the held model (``TrainState.fill``,
+        which keeps the held placement); after :meth:`warmup` the optimizer
+        state and EMA are copied into the captured step's static storages
+        (``CapturedStep.hold``), whose graph reads them. The restart and
+        rollback paths of ``utils.config.execute`` restore through here."""
+        if state.model is not self.state.model:
+            state = self.state.fill(state.arrays())
+        for program in getattr(self.train_step, "programs", {}).values():
+            state = program.hold(state)
+        self.state = state
+
     def evaluate(self, loader: Any) -> dict[str, float]:
         """Weighted mean of the eval metrics over the loader (over every
         rank's rows, with a group); perplexity for the LM."""
         sums: dict[str, torch.Tensor] = {}
         weight = None
-        for batch in loader.epoch(0):
+        for n_eval, batch in enumerate(loader.epoch(0)):
+            self._mark_progress(phase="eval", eval_batch=n_eval)
             metrics = self.eval_step(self.state, batch)
             w = metrics.pop("weight").to(metrics["loss"].device)
             for k, v in metrics.items():
@@ -1048,7 +1178,14 @@ class Trainer:
         self.metrics.emit("eval_only", stats)
 
     def _save(self, epoch: int) -> None:
-        """Save the state; with a tracer, as a ``checkpoint`` span."""
+        """Save the state; with a tracer, as a ``checkpoint`` span. Under a
+        guardrail policy the global step of the save joins the heartbeat's
+        ``ckpts`` ring (the pod supervisor prunes saves after a divergence)."""
+        self._mark_progress(phase="checkpoint", epoch=epoch)
+        if self.guardrails is not None:
+            self._ckpt_ring[epoch] = self._global_step
+            while len(self._ckpt_ring) > 8:
+                self._ckpt_ring.pop(min(self._ckpt_ring))
         if self.tracer is None:
             self.checkpointer.save(self.state, epoch=epoch)
             return

@@ -1,9 +1,12 @@
 """Shared CLI helpers: the ``--ema`` type, the architecture sidecar, the LR
 flags, the ``--resume`` / ``--eval_only`` restore and the inference restore;
-for the data-parallel trainers the topology, training and observability
-flags, the runtime set-up (``--debug_nans`` included), the telemetry
-(:func:`build_observability`), the run log and the local launcher
-(``--nproc``).
+for the data-parallel trainers the topology, training, observability and
+resilience flags, the runtime set-up (``--debug_nans`` included), the
+telemetry and the heartbeat (:func:`build_observability`), the chaos
+injector and the guardrail policy (:func:`build_chaos`,
+:func:`build_guardrails`), the run log, the supervised run
+(:func:`execute`: auto-resume, rollback, preemption) and the local
+launcher (``--nproc``).
 
 The port's copy of the parts of ``deeplearning_mpi_tpu/utils/config.py``
 its CLIs use, with the reference's contracts: ``arch.json`` beside the
@@ -174,10 +177,6 @@ def restore_lm(
 # -- the data-parallel trainers' flags ---------------------------------------
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
 UNPORTED_FLAGS = {
-    "chaos": (None, "Queue 1 item 10 (chaos)"),
-    "guardrails": (False, "Queue 1 item 10 (numerics guardrails)"),
-    "digest_every": (0, "Queue 1 item 10 (numerics guardrails)"),
-    "max_restarts": (0, "Queue 1 item 10 (auto-resume)"),
     "num_workers": (None, "Queue 1 item 7's leftovers (the loader's fetch threads)"),
 }
 
@@ -248,11 +247,76 @@ def add_training_flags(
     group.add_argument("--eval_every", type=int, default=10)
     group.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     add_observability_flags(group)
-    group.add_argument("--chaos", default=None, help="not ported yet")
-    group.add_argument("--guardrails", action="store_true", help="not ported yet")
-    for flag in ("digest_every", "max_restarts"):
-        group.add_argument(f"--{flag}", type=int, default=0, help="not ported yet")
+    add_resilience_flags(group)
     group.add_argument("--num_workers", type=int, default=None, help="not ported yet")
+
+
+def add_resilience_flags(group: Any) -> None:
+    """The reference's resilience flags: ``--max_restarts`` /
+    ``--restart_delay_s`` (auto-resume, :func:`execute`), ``--chaos`` (a
+    fault plan, :func:`build_chaos`), ``--guardrails`` / ``--digest_every``
+    (:func:`build_guardrails`)."""
+    group.add_argument("--max_restarts", type=int, default=0,
+                       help="auto-resume from the newest checkpoint that verifies this many "
+                       "times on failure (0 = fail immediately; needs --model_dir)")
+    group.add_argument("--restart_delay_s", type=float, default=5.0,
+                       help="base seconds before an auto-resume restart (exponential backoff "
+                       "with deterministic jitter)")
+    group.add_argument("--chaos", default=None,
+                       help="deterministic fault-injection plan, e.g. 'nan_grad@step:7,"
+                       "loader_stall@batch:3,kill@step:12,corrupt_ckpt@epoch:1'; every fault "
+                       "fires once and is booked in fault_injected_total / recovery_total / "
+                       "rollback_total ($DMT_CHAOS is the fallback)")
+    group.add_argument("--guardrails", action="store_true",
+                       help="judge every step's loss / grad norm / finite flag (one host read a "
+                       "step); a poisoned verdict rolls back to the pinned last-known-good "
+                       "checkpoint and replays (pair with --max_restarts)")
+    group.add_argument("--digest_every", type=int, default=0,
+                       help="with --guardrails: every N steps a sha256 of sampled replicated "
+                       "parameters rides the heartbeat for the pod's digest vote (0 = off)")
+
+
+def build_chaos(args: argparse.Namespace) -> Any:
+    """``--chaos`` (or ``$DMT_CHAOS``) as a ``ChaosInjector``, None when no
+    plan is set; a kind the training workload has no hook for (a serving
+    kind) raises ``SystemExit`` naming the workload, before anything runs."""
+    from deeplearning_mpi_tpu_torch.resilience.faults import (
+        TRAIN_KINDS,
+        ChaosInjector,
+        validate_plan_kinds,
+    )
+
+    try:
+        injector = ChaosInjector.from_spec(getattr(args, "chaos", None))
+        if injector is not None:
+            validate_plan_kinds(
+                ",".join(f"{s.kind}@{s.unit}:{s.at}" for s in injector.plan.specs),
+                TRAIN_KINDS, workload="training")
+    except ValueError as err:
+        raise SystemExit(f"--chaos: {err}") from err
+    return injector
+
+
+def build_guardrails(args: argparse.Namespace) -> Any:
+    """``--guardrails`` / ``--digest_every`` as a ``GuardrailPolicy``, or
+    None (no policy: the trainer reads nothing on the host a step)."""
+    if not getattr(args, "guardrails", False):
+        return None
+    from deeplearning_mpi_tpu_torch.resilience.guardrails import GuardrailConfig, GuardrailPolicy
+
+    return GuardrailPolicy(GuardrailConfig(digest_every=getattr(args, "digest_every", 0) or 0))
+
+
+def chaos_loader(trainer: Any, loader: Any) -> Any:
+    """Under a chaos plan: the injector bound to the trainer's registry
+    (backfilled) and the train loader wrapped in the stall watchdog
+    (``resilience.ResilientLoader``, the same batches); else ``loader``."""
+    if trainer.chaos is None:
+        return loader
+    from deeplearning_mpi_tpu_torch.resilience.watchdog import ResilientLoader
+
+    trainer.chaos.bind_registry(trainer.metrics)
+    return ResilientLoader(loader, chaos=trainer.chaos, logger=trainer)
 
 
 def add_observability_flags(group: Any) -> None:
@@ -298,6 +362,7 @@ def reject_unported(args: argparse.Namespace) -> None:
     reject_pp(args)
     if (args.resume or args.eval_only) and args.model_dir is None:
         raise SystemExit("--resume and --eval_only need --model_dir")
+    build_chaos(args)  # a kind without a training hook is refused here
 
 
 def reject_tp(args: argparse.Namespace) -> None:
@@ -427,13 +492,16 @@ def launch_local(module: str, argv: list[str], nproc: int) -> int:
 
 @dataclasses.dataclass
 class Run:
-    """A data-parallel training run, built and not yet run."""
+    """A data-parallel training run, built and not yet run.
+    ``state_factory`` builds a fresh initial state (the auto-resume's
+    start when no checkpoint verifies)."""
 
     args: argparse.Namespace
     trainer: Any
     train_loader: Any
     eval_loader: Any
     start_epoch: int
+    state_factory: Callable[[], Any] | None = None
 
 
 def run_logger(args: argparse.Namespace, topo: Any) -> Any:
@@ -449,13 +517,22 @@ def run_logger(args: argparse.Namespace, topo: Any) -> Any:
     return logger
 
 
+def _dist_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 def build_observability(args: argparse.Namespace, trainer: Any, *,
                         flops_per_step: float | None = None,
                         issued_flops_per_step: float | None = None,
                         comm_bytes_per_step: float | None = None) -> None:
-    """Attach the profiler and the telemetry of the shared flags, as the
-    reference's ``build_observability`` (its ``--log_dir`` heartbeat lives
-    with the supervisor, ROADMAP Queue 1 item 10). ``--metrics_dir`` adds a
+    """Attach the profiler, the heartbeat and the telemetry of the shared
+    flags, as the reference's ``build_observability``. With ``--log_dir`` a
+    ``resilience.Heartbeat`` beats into ``<log_dir>/heartbeat.json`` (rank
+    0), or under a pod supervisor (``$DMT_HEARTBEAT_DIR``) every rank into
+    ``heartbeat-<rank>.json`` there, every ``$DMT_HEARTBEAT_INTERVAL_S``
+    (10 s by default). ``--metrics_dir`` adds a
     JSONL sink to the trainer's registry on rank 0 only (every rank
     computes the same records); ``flops_per_step`` /
     ``issued_flops_per_step`` / ``comm_bytes_per_step`` are the CLI's
@@ -470,6 +547,21 @@ def build_observability(args: argparse.Namespace, trainer: Any, *,
 
     if getattr(args, "profile_dir", None):
         trainer.profiler = Profiler(args.profile_dir)
+    if getattr(args, "log_dir", None):
+        from deeplearning_mpi_tpu_torch.resilience.cluster import (
+            ENV_HEARTBEAT_DIR,
+            ENV_HEARTBEAT_INTERVAL,
+        )
+        from deeplearning_mpi_tpu_torch.resilience.supervisor import Heartbeat
+        from deeplearning_mpi_tpu_torch.runtime.collectives import world_size
+
+        hb_dir = os.environ.get(ENV_HEARTBEAT_DIR)
+        if hb_dir or is_coordinator():
+            rank = 0 if world_size() == 1 else _dist_rank()
+            path = (Path(hb_dir) / f"heartbeat-{rank}.json" if hb_dir
+                    else Path(args.log_dir) / "heartbeat.json")
+            interval_s = float(os.environ.get(ENV_HEARTBEAT_INTERVAL, "10.0"))
+            trainer.heartbeat = Heartbeat(path, interval_s=interval_s).start()
     metrics_dir = getattr(args, "metrics_dir", None)
     if metrics_dir and is_coordinator():
         trainer.metrics.add_sink(JsonlSink(Path(metrics_dir) / "metrics.jsonl"))
@@ -489,52 +581,140 @@ def build_observability(args: argparse.Namespace, trainer: Any, *,
 
 def build_run(args: argparse.Namespace, topo: Any, group: Any, *, task: str,
               model: Any, tx: Any, train_loader: Any, eval_loader: Any,
-              seg_loss: str = "bce") -> Run:
+              seg_loss: str = "bce", model_factory: Callable[[], Any] | None = None) -> Run:
     """The train state, the checkpointer (with ``--model_dir``), the
-    ``--resume`` / ``--eval_only`` restore and the :class:`Trainer`."""
+    ``--resume`` / ``--eval_only`` restore, the :class:`Trainer` with the
+    chaos plan and guardrail policy of the flags, the train loader under
+    :func:`chaos_loader`, and (from ``model_factory``, a fresh model) the
+    run's ``state_factory``."""
     from deeplearning_mpi_tpu_torch.train import Trainer, create_train_state
     from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
 
     logger = run_logger(args, topo)
     log = logger.log
+    chaos = build_chaos(args)
     state = create_train_state(model, tx, ema=args.ema > 0)
     checkpointer, start_epoch = None, 0
     if args.model_dir is not None:
         checkpointer = Checkpointer(Path(args.model_dir) / args.model_filename,
-                                    max_to_keep=args.keep_checkpoints)
+                                    max_to_keep=args.keep_checkpoints, chaos=chaos)
         state, start_epoch = restore_for_start(args, checkpointer, state, log)
     trainer = Trainer(state, task, eval_every=args.eval_every, grad_accum=args.grad_accum,
                       seg_loss=seg_loss, ema_decay=args.ema, logger=logger,
                       checkpointer=checkpointer, group=group, zero=args.zero,
-                      zero_overlap=args.zero_overlap)
-    return Run(args, trainer, train_loader, eval_loader, start_epoch)
+                      zero_overlap=args.zero_overlap, chaos=chaos,
+                      guardrails=build_guardrails(args))
+    state_factory = None if model_factory is None else (
+        lambda: create_train_state(model_factory(), tx, ema=args.ema > 0))
+    return Run(args, trainer, chaos_loader(trainer, train_loader), eval_loader, start_epoch,
+               state_factory)
+
+
+def _recover(trainer: Any, checkpointer: Any, state_factory: Callable[[], Any] | None,
+             restart_epoch: int) -> int:
+    """The state for an auto-resume attempt, taken in through
+    ``Trainer.adopt`` (in place: a captured step keeps its storages);
+    returns the epoch to start from. A pending guardrail rollback restores
+    the pinned last-known-good (``Checkpointer.rollback_to_last_good``;
+    before any save, a fresh init), rejoins its step count and counts
+    ``guard_rollback_total``. A crash restores the newest step that
+    verifies (a fresh init when every step is corrupt, or none was saved)
+    and books the injected kill's recovery."""
+    from deeplearning_mpi_tpu_torch.resilience.integrity import CheckpointCorruption
+
+    pending = trainer.pending_rollback
+    if pending is not None:
+        trainer.pending_rollback = None
+        if checkpointer is not None and checkpointer.latest_epoch() is not None:
+            state, epoch = checkpointer.rollback_to_last_good(trainer.state)
+            trainer.adopt(state)
+            restart_epoch = epoch + 1
+        else:  # poisoned before the first save: a fresh init is the last good
+            trainer.adopt(state_factory())
+            restart_epoch = 0
+        trainer._global_step = trainer.state.step
+        trainer.metrics.counter("guard_rollback_total").inc()
+        trainer.log(f"guardrail rollback: restored last-good state (step "
+                    f"{trainer._global_step}); replaying from epoch {restart_epoch} "
+                    f"(poison region {pending.region})")
+        return restart_epoch
+    if checkpointer is not None and checkpointer.latest_epoch() is not None:
+        try:
+            state, epoch = checkpointer.restore_verified(trainer.state)
+            trainer.adopt(state)
+            # The VERIFIED epoch wins over the supervisor's latest + 1: a
+            # walk past a corrupted newest step re-trains what it skipped.
+            restart_epoch = epoch + 1
+        except CheckpointCorruption as err:
+            trainer.log(f"restart: {err}; restarting from a fresh init")
+            trainer.adopt(state_factory())
+            restart_epoch = 0
+    elif state_factory is not None:
+        trainer.adopt(state_factory())
+    if trainer.chaos is not None:
+        trainer.chaos.record_recovery("kill")  # a no-op unless a kill fired
+    return restart_epoch
 
 
 def execute(run: Run) -> Any:
     """Train (or, with ``--eval_only``, evaluate once); returns the
-    trainer. SIGTERM ends training after the current epoch with a final
-    checkpoint. At the end, as the reference: the profiler's window is
-    closed, one ``run_summary`` record of every instrument is emitted and
-    the telemetry sinks are closed."""
-    from deeplearning_mpi_tpu_torch.resilience import GracefulShutdown, Preempted
+    trainer. As the reference's ``execute_training``: ``--max_restarts N``
+    (with a checkpointer) runs ``fit`` under ``run_with_auto_resume``, each
+    retry restored by :func:`_recover` (a crash from the newest verified
+    step, a guardrail rollback from the pinned last-known-good) and delayed
+    by ``--restart_delay_s``'s backoff; ``--max_restarts`` without a
+    ``state_factory`` raises. SIGTERM ends training after the current
+    epoch with a final checkpoint (``Preempted``: a clean exit, never a
+    restart). At the end: the heartbeat stopped (its last beat written),
+    the profiler's window closed, one ``run_summary`` record of every
+    instrument (the chaos books among them) emitted, the injector's summary
+    logged, and the telemetry sinks closed."""
+    from deeplearning_mpi_tpu_torch.resilience import (
+        GracefulShutdown,
+        Preempted,
+        run_with_auto_resume,
+    )
 
     trainer, args = run.trainer, run.args
+    max_restarts = getattr(args, "max_restarts", 0)
+    checkpointer = trainer.checkpointer
     try:
         if args.eval_only:
             trainer.report_eval(trainer.evaluate(run.eval_loader))
             return trainer
+        if max_restarts > 0 and run.state_factory is None:
+            raise ValueError("--max_restarts requires a state_factory")
+        attempts = 0
+
+        def fit(restart_epoch: int) -> Any:
+            nonlocal attempts
+            attempts += 1
+            if attempts > 1:
+                restart_epoch = _recover(trainer, checkpointer, run.state_factory, restart_epoch)
+            return trainer.fit(run.train_loader, args.num_epochs, eval_loader=run.eval_loader,
+                               start_epoch=max(run.start_epoch, restart_epoch))
+
         with GracefulShutdown() as shutdown:
             trainer.shutdown = shutdown
             try:
-                trainer.fit(run.train_loader, args.num_epochs, eval_loader=run.eval_loader,
-                            start_epoch=run.start_epoch)
+                if max_restarts > 0 and checkpointer is not None:
+                    run_with_auto_resume(fit, checkpointer, max_restarts=max_restarts,
+                                         logger=trainer,
+                                         restart_delay_s=getattr(args, "restart_delay_s", 5.0),
+                                         registry=trainer.metrics)
+                else:
+                    fit(run.start_epoch)
             except Preempted as p:
                 trainer.log(f"exiting after preemption ({p})")
         return trainer
     finally:
+        if trainer.heartbeat is not None:
+            trainer.heartbeat.stop()
         if trainer.profiler is not None:
             trainer.profiler.stop()
         trainer.metrics.emit("run_summary", trainer.metrics.snapshot())
+        if trainer.chaos is not None:
+            trainer.log(trainer.chaos.summary())
         trainer.metrics.close()
 
 

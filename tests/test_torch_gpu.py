@@ -7,7 +7,9 @@ no group; K1-K4 at a tensor-parallel rank's local head counts, and the
 one-process tensor-parallel model on the card against the CPU; with four
 cards, data, expert, sequence, tensor and pipeline parallelism, ZeRO-1 and
 the composed layouts (pp x tp, tp x sp, ep x sp, ep x tp, pp x ep,
-loss_chunk x sp, ZeRO-1 x ep / sp / pp) over NCCL against one card.
+loss_chunk x sp, ZeRO-1 x ep / sp / pp) over NCCL against one card; and
+the elastic pod (``nccl_pod``: ``launch_pod`` over 2 NCCL ranks with
+``rank_kill``, re-formed onto 1 and resumed bitwise a clean resume).
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -1414,3 +1416,82 @@ def test_nccl_zero_composed_is_bitwise_without_it(nccl_sharded_runs, layout):
             assert all(torch.equal(got["params"][n], t) for n, t in want["params"].items())
         got = res[layout]
         assert any(s != got["param_shapes"][n] for n, s in got["moment_shapes"].items())
+
+
+def _pod_losses(path) -> tuple[dict, dict]:
+    """``(epoch, step) -> loss`` and ``epoch -> loss`` of a ``metrics.jsonl``,
+    epochs >= 1 (epoch 0 predates the failure)."""
+    import json
+
+    steps, epochs = {}, {}
+    for rec in map(json.loads, open(path)):
+        if rec.get("epoch") is None or rec["epoch"] < 1 or "loss" not in rec:
+            continue
+        if rec["kind"] == "step":
+            steps[(rec["epoch"], rec["step"])] = rec["loss"]
+        elif rec["kind"] == "epoch":
+            epochs[rec["epoch"]] = rec["loss"]
+    return steps, epochs
+
+
+def test_nccl_pod_rank_kill_reforms_and_resumes_bitwise(cuda, tmp_path, monkeypatch, capsys):
+    """``nccl_pod``: ``cli.launch_pod`` over 2 NCCL ranks (cards 0 and 1) of
+    ``train_lm`` at the 110M widths, 2 layers (vocab 256), bf16 B8 S2048
+    with flash, 3 epochs of 2 steps, ``rank_kill@step:3`` and
+    ``min_world_size 1``: the world sizes are [2, 1] (the reference's
+    ``tools/pod_drill.py``), the pod's books balance, and the resumed
+    world's step and epoch losses are bitwise a clean ``--resume`` of the
+    epoch-0 checkpoint at world size 1 on card 0."""
+    import json
+    import shutil
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: one NCCL rank a card")
+    from deeplearning_mpi_tpu_torch.cli import launch_pod, train_lm
+    from deeplearning_mpi_tpu_torch.ops.kernels import _build
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    print("nccl_pod cards:", _chip_smoke().gpu_name_and_power(), "x", torch.cuda.device_count())
+    _build.build_all(["flash_attention_fwd", "flash_attention_bwd"])  # once, for every rank
+    for var in [k for k in __import__("os").environ if k.startswith("DMT_")] + [
+            "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "LOCAL_RANK"]:
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PYTHONPATH", str(root))
+    monkeypatch.chdir(root)
+
+    def flags(tag):
+        return ["--device", "cuda", "--attention", "flash", "--dtype", "bfloat16",
+                "--num_layers", "2", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
+                "--d_ff", "2048", "--seq_len", "2048", "--batch_size", "8",
+                "--train_sequences", "18", "--num_epochs", "3", "--eval_every", "1",
+                "--keep_checkpoints", "10", "--resume", "--model_dir", str(tmp_path / f"{tag}m"),
+                "--log_dir", str(tmp_path / f"{tag}l"), "--metrics_dir", str(tmp_path / f"{tag}x")]
+
+    rc = launch_pod.main(["--num_processes", "2", "--pod_dir", str(tmp_path / "pod"),
+                          "--chaos", "rank_kill@step:3", "--min_world_size", "1",
+                          "--heartbeat_interval_s", "0.5", "--poll_interval_s", "0.25",
+                          "--heartbeat_deadline_s", "120", "--spawn_grace_s", "300", "--",
+                          sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.train_lm",
+                          *flags("")])
+    logs = "".join(p.read_text()[-3000:] for p in sorted((tmp_path / "pod").glob("*.log")))
+    assert rc == 0, capsys.readouterr().out + logs
+    summary = [r for r in map(json.loads, open(tmp_path / "pod" / "pod_metrics.jsonl"))
+               if r.get("kind") == "pod_summary"][-1]
+    print("nccl_pod summary:", {k: v for k, v in summary.items() if not k.startswith("ts")})
+    assert summary["world_sizes"] == "2->1" and summary["chaos_balanced"] is True
+    assert summary["fault_injected_total"] == summary["recovery_total"] == 1
+    assert (summary["pod_rank_failures_total"], summary["pod_restarts_total"]) == (1, 1)
+    shutil.copytree(tmp_path / "m", tmp_path / "oraclem")
+    for child in (tmp_path / "oraclem" / "lm").iterdir():
+        if (child.is_dir() and child.name.isdigit() and int(child.name) > 0) or (
+                child.name.startswith("manifest-") and child.stem != "manifest-0"):
+            shutil.rmtree(child) if child.is_dir() else child.unlink()
+    capsys.readouterr()
+    assert train_lm.main(flags("oracle")) == 0
+    assert "resumed from verified epoch 0" in capsys.readouterr().out
+    pod = _pod_losses(tmp_path / "x" / "metrics.jsonl")
+    oracle = _pod_losses(tmp_path / "oraclex" / "metrics.jsonl")
+    print("nccl_pod resumed losses:", pod, "oracle:", oracle)
+    assert oracle[0] and sorted(oracle[1]) == [1, 2]
+    assert pod == oracle

@@ -21,11 +21,15 @@ lifted beside them (``--pp x --ep``, ``--loss_chunk x --sp``, ZeRO-1 beside
 ``--pp``: ``train_lm`` over 4 gloo processes) one for the ViT (a step,
 ``train_resnet --arch vit_tiny``) and one for the telemetry (``train_lm``
 with ``--metrics_dir --log_dir --profile_dir``, a traced ``Trainer`` epoch,
-``serve_lm --metrics_file``), and two for the compiler layer
-(``train_lm --aot_warmup --tuned_step``, ``cli.autotune --selftest``),
-each process with jax blocked. The AST scan covers every module of the
-package, the compiler layer's (``compiler/aot.py``, ``autotune.py``,
-``cache.py``, ``cli/autotune.py``) included.
+``serve_lm --metrics_file``), two for the compiler layer
+(``train_lm --aot_warmup --tuned_step``, ``cli.autotune --selftest``), and
+two for the resilience layer (``train_lm --chaos ... --max_restarts 1``,
+``cli.launch_pod`` over a tiny worker), each process with jax blocked. The
+AST scan covers every module of the package, the compiler layer's
+(``compiler/aot.py``, ``autotune.py``, ``cache.py``, ``cli/autotune.py``)
+and the resilience layer's (``resilience/faults.py``, ``supervisor.py``,
+``watchdog.py``, ``guardrails.py``, ``cluster.py``, ``pod.py``,
+``train/resilience.py``, ``cli/launch_pod.py``) included.
 """
 
 import ast
@@ -415,7 +419,8 @@ def test_telemetry_path_runs_with_jax_blocked(tmp_path):
         "    '--log_dir', str(tmp / 'l'), '--profile_dir', str(tmp / 'p')]) == 0\n"
         "kinds = [json.loads(l)['kind'] for l in (tmp / 'm' / 'metrics.jsonl').open()]\n"
         "assert kinds[-2:] == ['epoch', 'run_summary'] and 'step' in kinds, kinds\n"
-        "assert list((tmp / 'p').iterdir()) and len(list((tmp / 'l').iterdir())) == 2\n"
+        "assert list((tmp / 'p').iterdir()) and len(list((tmp / 'l').iterdir())) == 3\n"
+        "assert (tmp / 'l' / 'heartbeat.json').is_file()  # the run log, its sidecar, the beat\n"
         "import torch\n"
         "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticTokens\n"
         "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
@@ -466,6 +471,61 @@ def test_compiler_paths_run_with_jax_blocked(path, tmp_path):
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
     if path == "train_lm_aot_tuned":
         assert "tuned step schedule" in out.stdout and "warmup: no CUDA graph" in out.stdout
+
+
+RESILIENCE_MODULES = ["resilience/faults.py", "resilience/supervisor.py", "resilience/watchdog.py",
+                      "resilience/guardrails.py", "resilience/cluster.py", "resilience/pod.py",
+                      "train/resilience.py", "cli/launch_pod.py"]
+
+
+def test_scan_covers_the_resilience_layer():
+    scanned = {p.relative_to(ROOT / "deeplearning_mpi_tpu_torch").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    assert set(RESILIENCE_MODULES) <= scanned
+
+
+@pytest.mark.parametrize("path", ["train_lm_chaos", "launch_pod"])
+def test_resilience_paths_run_with_jax_blocked(path, tmp_path):
+    """The resilience layer with jax blocked: ``train_lm --chaos
+    kill@step:4,corrupt_ckpt@epoch:0 --max_restarts 1`` (the kill restarted
+    from a fresh init, the corrupt save walked past), and ``cli.launch_pod``
+    over 2 tiny workers with ``rank_kill`` re-formed onto 1."""
+    block = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+             "    sys.modules[name] = None\n")
+    if path == "train_lm_chaos":
+        code = block + (
+            "from deeplearning_mpi_tpu_torch.cli import train_lm\n"
+            "assert train_lm.main(['--device', 'cpu', '--num_layers', '1', '--num_heads', '2',\n"
+            "    '--head_dim', '8', '--d_model', '16', '--d_ff', '32', '--seq_len', '16',\n"
+            "    '--batch_size', '4', '--train_sequences', '20', '--num_epochs', '2',\n"
+            f"    '--model_dir', {str(tmp_path / 'm')!r}, '--restart_delay_s', '0',\n"
+            "    '--chaos', 'kill@step:4,corrupt_ckpt@epoch:0', '--max_restarts', '1']) == 0\n")
+    else:
+        worker = tmp_path / "worker.py"
+        worker.write_text(
+            "import json, os, time\n"
+            "rank, world = int(os.environ.get('PROCESS_ID', 0)), int(os.environ.get('NUM_PROCESSES', 1))\n"
+            "for step in range(10):\n"
+            "    path = os.path.join(os.environ['DMT_HEARTBEAT_DIR'], f'heartbeat-{rank}.json')\n"
+            "    open(path + '.tmp', 'w').write(json.dumps({'progress_seq': step + 1, 'step': step}))\n"
+            "    os.replace(path + '.tmp', path)\n"
+            "    if rank == world - 1 and 'rank_kill' in os.environ.get('DMT_CHAOS', '') and step == 3:\n"
+            "        os._exit(23)\n"
+            "    time.sleep(0.05)\n")
+        code = block + (
+            "from deeplearning_mpi_tpu_torch.cli import launch_pod\n"
+            f"assert launch_pod.main(['--num_processes', '2', '--pod_dir', {str(tmp_path / 'pod')!r},\n"
+            "    '--chaos', 'rank_kill@step:3', '--heartbeat_interval_s', '0.05',\n"
+            "    '--poll_interval_s', '0.05', '--heartbeat_deadline_s', '5',\n"
+            f"    '--', sys.executable, {str(worker)!r}]) == 0\n")
+    out = subprocess.run([sys.executable, "-c", code + "print('ok')\n"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=ENV)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+    if path == "train_lm_chaos":
+        assert "chaos: 2 fault(s) injected, 1 recovered, 1 rolled back" in out.stdout
+    else:
+        assert "re-forming: world 2 -> 1" in out.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -334,8 +334,20 @@ def test_train_unet_cli_two_ranks():
                                        (["--num_workers", "2"], "item 7")])
 def test_unported_flags_refuse(flag, item, capsys):
     from deeplearning_mpi_tpu_torch.cli import train_resnet, train_unet
+    from deeplearning_mpi_tpu_torch.utils import config
 
     for cli in (train_resnet, train_unet):
+        if flag[0] == "--chaos":
+            # Item 10's training half is ported: the kind is validated (a
+            # training kind parses into an injector) and a serving kind is
+            # refused, naming the workload.
+            args = cli.build_parser().parse_args(["--device", "cpu", "--synthetic", *flag])
+            assert [s.kind for s in config.build_chaos(args).plan.specs] == ["kill"]
+            assert cli.main(["--device", "cpu", "--synthetic", "--chaos",
+                             "serve_crash@step:1"]) == 1
+            err = capsys.readouterr().err
+            assert "--chaos" in err and "serve_crash" in err and "training workload" in err
+            continue
         assert cli.main(["--device", "cpu", "--synthetic", *flag]) == 1
         err = capsys.readouterr().err
         assert f"ROADMAP Queue 1 {item}" in err and flag[0] in err

@@ -155,6 +155,7 @@ def test_traced_phases_tile_the_epoch(trainer_runs):
 
 def test_train_lm_telemetry_flags(tmp_path, capsys):
     from deeplearning_mpi_tpu_torch.cli import train_lm
+    from deeplearning_mpi_tpu_torch.resilience import Heartbeat
 
     dirs = {k: tmp_path / k for k in ("metrics", "log", "profile")}
     rc = train_lm.main(["--device", "cpu", "--attention", "flash", *TINY, "--seq_len", "32",
@@ -169,7 +170,9 @@ def test_train_lm_telemetry_flags(tmp_path, capsys):
     # 9 steps an epoch, every 2nd recorded (global steps 0, 2, ..., 16).
     assert [r["step"] for r in records if r["kind"] == "step"] == list(range(0, 18, 2))
     assert kinds[-3:] == ["epoch", "final_eval", "run_summary"] and kinds.count("epoch") == 2
-    logs = sorted(dirs["log"].iterdir())
+    # Beside the run log and its sidecar, the --log_dir heartbeat.
+    assert Heartbeat.read(dirs["log"] / "heartbeat.json")["step"] == 18
+    logs = sorted(p for p in dirs["log"].iterdir() if p.name != "heartbeat.json")
     assert [p.suffix for p in logs] == [".log", ".jsonl"]
     assert [json.loads(line) for line in logs[1].read_text().splitlines()] == records
     text = logs[0].read_text()
