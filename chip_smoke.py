@@ -59,7 +59,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    the step time, tokens/s, MFU, peak memory and one profiled step;
 9. the port's ``cli.train_lm`` at the 110M widths (vocab 256), seq 2048,
    batch 8, flash in bf16: must return 0;
-10. checkpoint, resume, generate and serve at those widths, in a temporary
+10. checkpoint, resume, generate and serve at those widths and 4 of the 12
+    blocks (``P10_MODEL``: its time is the full-state saves), in a temporary
     directory under ``build/``: (a) 2 epochs with ``--model_dir`` against 1
     epoch and a ``--resume`` to 2: equal epoch losses and final
     ``tree_digests`` bit for bit, K1/K2/K3 launched by the resumed run; (b)
@@ -74,15 +75,16 @@ Phases, each printed on its own line; any failure exits non-zero:
     its solo greedy run; (h) ``--quantize int8``: the share of tokens equal
     to the float stream's (no bar); (i) ``cli.serve_lm --model_dir
     --selftest`` exits 0, K4 launched;
-11. the rest of the serving engine on phase 5's model, weights and engine:
+11. the rest of the serving engine on the 110M widths at 4 of the 12
+    blocks (``P11_LAYERS``), phase 5's seed and engine:
     (a) the prefix cache: 12 requests in 3 groups sharing 256-token prefixes
     (tails diverging mid-block, 2 repeated prompts), every stream equal to
     offline greedy, tokens reused and copy-on-write copies above 0, the
     pool's books balanced after a flush at drain; (b) speculative decoding,
-    ``spec_k`` 4, on phase 5's trace: 2-layer and 12-layer self-drafts,
+    ``spec_k`` 4, on phase 5's trace: 2-layer and whole-model self-drafts,
     streams equal to offline greedy, proposed = accepted + rolled back, K4
     launched once a draft layer a draft step (and by the target's offline
-    decode), the 12-layer draft accepting every proposal; (c), while phase
+    decode), the whole-model draft accepting every proposal; (c), while phase
     10's checkpoint exists: ``cli.serve_lm --model_dir --kv_dtype int8
     --selftest`` exits 0 at the 0.9 acceptance gate, K4 launched on int8
     pages; (d) a warmed engine (CUDA graphs) against the eager one, in
@@ -306,11 +308,35 @@ Phases, each printed on its own line; any failure exits non-zero:
     --max_restarts 2 --log_dir --aot_warmup`` at phase 19's widths (4
     blocks) exits 0
     with a balanced ``run_summary`` and ``heartbeat.json`` at the final
-    step; ``--chaos serve_crash@step:1`` exits 1 naming the workload.
+    step; ``--chaos serve_crash@step:1`` exits 1 naming the workload;
+22. the serving half of the resilience layer. (a) Phase 5's engine and
+    trace with ``serve_crash@step:3,serve_crash@step:9``, eager then warmed:
+    every stream equal to offline greedy, books 2 = 2 + 0, requeued work,
+    K1 (the engine's prefill chunks) and K4 launched. (b) The disaggregated
+    pair at full depth on that trace, eager, warmed, and warmed with
+    ``handoff_stall@step:4``: streams equal to offline greedy, handoffs equal
+    to the requests with more than one new token, no K4 launch inside a
+    prefill-role step and no K1 launch inside a decode-role step, the KV
+    pools never moved, the shared pool drained, the books balanced. (c)
+    ``serve_lm --selftest`` through a fleet at the 110M widths (vocab 256, 2
+    of the 12 blocks), its three runs and (d) side by side: ``--replicas 2 --chaos
+    replica_kill@step:4,replica_hang@step:6 --swap_at 8`` (re-dispatched,
+    swapped in place with no capture, streams under both weight versions),
+    ``--replicas 2 --hedge_ms 60 --chaos replica_slow@step:2`` (hedges
+    fired), ``--autoscale --min_replicas 1 --max_replicas 3 --chaos
+    load_spike@step:2,scale_during_failure@step:1`` (a scale-up, zero drops):
+    each exits 0 with its bit-exact parity, one stream a rid, every worker
+    that served reporting K1 and K4 launches since its ready ack; each
+    replica's start-up split by stage. (d) ``cli.controlplane_drill``
+    there: the supervisor SIGKILLs itself mid-surge, the restarted one
+    re-adopts every live replica with no respawn, the books balance across
+    incarnations, parity holds. Then K1 at the prefill-chunk call (held to
+    ``FWD_TOL``, its bound the chunk's own work) and K4 at the serving
+    decode shape, timed with phase 22's launches.
 
-Order: all kernel builds start together; phases 3, 7, 8, 9 and 12 (no K4)
-run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-21 and
-the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
+Order: all kernel builds start together; phases 3, 7, 8, 9, 12 and 16 (no
+K4) run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-15,
+17-22 and the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -1155,8 +1181,10 @@ def time_training(torch, gen, launches, heads: int = 12, where: str = "phase 8",
 
 
 # -- phase 10 ----------------------------------------------------------------
-#: Phase 10's model flags: the 110M widths at vocab 256 (phase 9's).
-P10_MODEL = ["--num_layers", "12", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
+#: Phase 10's model flags: the 110M widths at vocab 256 (phase 9's), 4 of
+#: the 12 blocks: the phase's time is its full-state saves and restores, and
+#: its bars hold at any depth.
+P10_MODEL = ["--num_layers", "4", "--d_model", "768", "--num_heads", "12", "--head_dim", "64",
              "--d_ff", "2048"]
 #: Its training: seq 2048, batch 8, flash in bf16; 24 sequences (22 train:
 #: 2 steps an epoch; 2 eval), so each epoch's checkpoint is a full-size state.
@@ -1271,8 +1299,8 @@ def checkpoint_phase(torch, card: str, then=None) -> dict:
         # 10e: cli.generate --greedy from the checkpoint against the library.
         gen_argv = P10_MODEL + ["--device", "cuda", "--model_dir", a_dir,
                                 "--max_new_tokens", str(P10_NEW)]
-        cfg = TransformerConfig(vocab_size=256, num_layers=12, num_heads=12, head_dim=64,
-                                d_model=768, d_ff=2048)
+        cfg = TransformerConfig(vocab_size=256, num_layers=int(P10_MODEL[1]), num_heads=12,
+                                head_dim=64, d_model=768, d_ff=2048)
         model = restore_lm(cfg, dtype=torch.float32, device=torch.device("cuda"),
                            model_dir=a_dir)
         prompt = torch.tensor([list(P10_PROMPT.encode())], device="cuda")
@@ -1391,9 +1419,17 @@ def streams_equal(model, reqs, expects, label: str) -> None:
     require(not mismatched, f"{label}: {len(mismatched)}/{len(reqs)} streams differ")
 
 
+#: Phase 11's depth: 4 of the 110M model's 12 blocks (its widths, vocab
+#: and engine are phase 5's). The phase is host-bound eager serving and
+#: two profiled replays, whose time grows with the blocks; its bars hold
+#: at any depth.
+P11_LAYERS = 4
+
+
 def engine_features(torch, seed: int, card: str) -> dict:
-    """Phase 11a, b and d on the 110M model (f32, phase 5's weights and
-    engine): the prefix cache, speculative decoding and warmup."""
+    """Phase 11a, b and d on the 110M widths at ``P11_LAYERS`` blocks (f32,
+    phase 5's seed and engine): the prefix cache, speculative decoding and
+    warmup."""
     from deeplearning_mpi_tpu_torch.cli.serve_lm import latency_report, offline_greedy, replay
     from deeplearning_mpi_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -1403,7 +1439,7 @@ def engine_features(torch, seed: int, card: str) -> dict:
     from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
     from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
 
-    cfg = TransformerConfig()
+    cfg = TransformerConfig(num_layers=P11_LAYERS)
     model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
     out: dict = {"card": card}
 
@@ -1450,7 +1486,7 @@ def engine_features(torch, seed: int, card: str) -> dict:
     target_k4 = flash_decode_cuda.launches
     require(target_k4 > 0, "11b: the target's offline decode did not launch K4")
 
-    # 11b: speculative decoding, a 2-layer and a 12-layer self-draft.
+    # 11b: speculative decoding, a 2-layer and a whole-model self-draft.
     t0 = time.perf_counter()
     spec = {"target_offline_k4_launches": target_k4}
     for layers in (2, cfg.num_layers):
@@ -4502,6 +4538,394 @@ def resilience_phase(torch, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 22 ----------------------------------------------------------------
+#: 22a: two crashes mid-step (after admission and prefill) through phase 5's
+#: engine and trace.
+P22_CRASH = "serve_crash@step:3,serve_crash@step:9"
+#: 22b: the handoff wedged at the pair's step 4.
+P22_STALL = "handoff_stall@step:4"
+#: 22c/22d: the fleet's replicas at the 110M widths (vocab 256) and 2 of the
+#: 12 blocks: a replica process's start (torch, a CUDA context, its warmup)
+#: dominates a drill, not its depth.
+P22_LAYERS = 2
+P22_DEVICE = "cuda"
+P22_MODEL = ["--vocab_size", "256", "--num_layers", str(P22_LAYERS), "--num_heads", "12",
+             "--head_dim", "64", "--d_model", "768", "--d_ff", "2048"]
+#: 22c: the reference drills' plans (``tools/fleet_drill.py``,
+#: ``tools/autoscale_drill.py``) through ``serve_lm --selftest``; the trace
+#: flags keep requests arriving through the recoveries and the swap.
+P22_FLEETS = {
+    "kill_hang_swap": ["--replicas", "2", "--chaos", "replica_kill@step:4,replica_hang@step:6",
+                       "--swap_at", "8", "--num_requests", "30", "--rate", "1.2"],
+    "hedge": ["--replicas", "2", "--hedge_ms", "60", "--chaos", "replica_slow@step:2",
+              "--num_requests", "16", "--rate", "3"],
+    "autoscale": ["--autoscale", "--min_replicas", "1", "--max_replicas", "3", "--chaos",
+                  "load_spike@step:2,scale_during_failure@step:1", "--num_requests", "64",
+                  "--rate", "1000", "--max_new_tokens", "32", "--max_queue", "128"],
+}
+
+
+#: 22c-d's runs in lanes that run side by side, each lane's runs one after
+#: another (a run is host-bound: mostly replica start-up).
+P22_LANES = (("kill_hang_swap",), ("hedge",), ("autoscale",), ("controlplane",))
+
+
+def _zero_serving(fa, fd) -> None:
+    fa.flash_attention_cuda.launches = 0
+    fd.flash_decode_cuda.launches = 0
+
+
+def _serving_counts(fa, fd) -> dict:
+    return {"K1": fa.flash_attention_cuda.launches, "K4": fd.flash_decode_cuda.launches}
+
+
+def serve_crash_drill(torch, model, entries, expects) -> dict:
+    """22a: phase 5's engine under ``P22_CRASH``, eager then warmed: every
+    stream equal to offline greedy, the books 2 = 2 + 0, requeued work, K1
+    and K4 launched by the engine (counts set to 0 just before each run)."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import replay
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+
+    out = {}
+    for arm in ("eager", "warmed"):
+        chaos = ChaosInjector.from_spec(P22_CRASH)
+        engine = ServingEngine(model, EngineConfig(**SERVE_ENGINE), chaos=chaos)
+        if arm == "warmed":
+            engine.warmup()
+        captures = engine.captures
+        _zero_serving(fa, fd)
+        reqs, wall_s = replay(engine, entries)
+        torch.cuda.synchronize()
+        launches = _serving_counts(fa, fd)
+        c = chaos.counts()
+        books = (c.get("fault_injected_total", 0), c.get("recovery_total", 0),
+                 c.get("rollback_total", 0))
+        requeued = engine.counters["serve_requeued_total"]
+        log(f"22a {arm}: {wall_s:.2f}s, books {books}, requeued {requeued}, discarded "
+            f"{engine.counters['serve_tokens_discarded_total']} tokens, launches {launches}")
+        streams_equal(model, reqs, expects, f"22a {arm}")
+        require(books == (2, 2, 0) and chaos.balanced(), f"22a {arm}: books {books}")
+        require(requeued > 0, f"22a {arm}: the crashes requeued nothing")
+        require(launches["K1"] > 0 and launches["K4"] > 0, f"22a {arm}: launches {launches}")
+        require(engine.captures == captures, f"22a {arm}: traffic captured a program")
+        engine.pool.check()
+        require(engine.pool.in_use == 0, f"22a {arm}: pool not drained")
+        out[arm] = {"wall_s": wall_s, "books": books, "requeued": requeued,
+                    "launches": launches, "captures": engine.captures}
+    return out
+
+
+def disagg_drill(torch, model, entries, expects) -> dict:
+    """22b: the disaggregated pair at full depth on phase 5's trace, eager,
+    warmed, then warmed with ``P22_STALL``: the streams equal offline
+    greedy (and so the colocated engine's, held to the same), the handoffs
+    equal the requests with more than one new token (the stall run
+    included: it re-prefills nothing), no K4 launch inside a prefill-role
+    step and no K1 launch inside a decode-role step (counters read around
+    each role's step), the shared pool drained, the books balanced."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import replay
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector
+    from deeplearning_mpi_tpu_torch.serving import DisaggregatedEngine, EngineConfig
+
+    out = {}
+    for arm, plan in (("eager", None), ("warmed", None), ("warmed stall", P22_STALL)):
+        chaos = ChaosInjector.from_spec(plan) if plan else None
+        engine = DisaggregatedEngine(model, EngineConfig(**SERVE_ENGINE), chaos=chaos)
+        kv = [b.data_ptr() for b in engine.prefill._kvh.bufs]
+        if arm != "eager":
+            engine.warmup()
+        captures = engine.captures
+        lanes = {"prefill": {"K1": 0, "K4": 0}, "decode": {"K1": 0, "K4": 0}}
+
+        def counted(role, step):
+            def run():
+                before = _serving_counts(fa, fd)
+                done = step()
+                after = _serving_counts(fa, fd)
+                for k in lanes[role]:
+                    lanes[role][k] += after[k] - before[k]
+                return done
+            return run
+
+        engine.prefill.step = counted("prefill", engine.prefill.step)
+        engine.decode.step = counted("decode", engine.decode.step)
+        _zero_serving(fa, fd)
+        reqs, wall_s = replay(engine, entries)
+        torch.cuda.synchronize()
+        launches = _serving_counts(fa, fd)
+        crossing = sum(len(r.generated) > 1 for r in reqs)
+        c = engine.counters
+        log(f"22b {arm}: {wall_s:.2f}s, {c['serve_handoffs_total']} handoffs for {crossing} "
+            f"multi-token requests, {c['serve_handoff_stalls_total']} stalled step(s), lanes "
+            f"{lanes}, launches {launches}, {engine.captures} captures")
+        streams_equal(model, reqs, expects, f"22b {arm}")
+        require(c["serve_handoffs_total"] == crossing > 0, f"22b {arm}: handoffs")
+        require(lanes["prefill"]["K4"] == 0 and lanes["decode"]["K1"] == 0,
+                f"22b {arm}: a role left its lane: {lanes}")
+        require(lanes["prefill"]["K1"] > 0 and lanes["decode"]["K4"] > 0,
+                f"22b {arm}: a role launched nothing: {lanes}")
+        require(engine.captures == captures, f"22b {arm}: traffic captured a program")
+        require([b.data_ptr() for b in engine.prefill._kvh.bufs] == kv
+                and engine.decode._kvh is engine.prefill._kvh, f"22b {arm}: KV pools moved")
+        engine.pool.check()
+        require(engine.pool.in_use == 0, f"22b {arm}: pool holds {engine.pool.in_use} blocks")
+        if chaos is not None:
+            require(chaos.balanced() and c["serve_handoff_stalls_total"] == 1,
+                    f"22b {arm}: {chaos.summary()}")
+        out[arm] = {"wall_s": wall_s, "handoffs": c["serve_handoffs_total"], "lanes": lanes,
+                    "launches": launches, "captures": engine.captures,
+                    "stalls": c["serve_handoff_stalls_total"]}
+    return out
+
+
+def _fleet_check(name: str, lines: list[str], fleet_dir: str) -> dict:
+    """22c's bars on one ``serve_lm`` fleet run's output and journal."""
+    import collections
+
+    from deeplearning_mpi_tpu_torch.resilience.cluster import JOURNAL_FILE, replay_journal
+
+    def get(prefix):
+        return next(ln for ln in lines if ln.startswith(prefix))
+
+    workers = json.loads(get("fleet workers: ").split(": ", 1)[1])
+    versions = json.loads(get("fleet versions: ").split(": ", 1)[1])
+    summary = next(ln for ln in lines if re.match(r"fleet: \d+ completed", ln))
+    chaos_line = get("fleet: chaos: ")
+    journal = replay_journal(os.path.join(fleet_dir, JOURNAL_FILE))
+    done = collections.Counter(r["rid"] for r in journal if r["ev"] == "done")
+    # Spawn -> ready-ack of each replica attempt, on the supervisor's clock.
+    spawned = {(r["idx"], r["attempt"]): r["t"] for r in journal if r["ev"] == "spawn"}
+    ready_s = sorted(round(r["t"] - spawned[(r["idx"], r["attempt"])], 3) for r in journal
+                     if r["ev"] == "ready" and (r["idx"], r["attempt"]) in spawned)
+    # Where each attempt's start-up went: the worker's stages from its
+    # ready ack, the rest (interpreter, imports) spawn -> ready less them.
+    startup = []
+    for r in journal:
+        if r["ev"] == "ready" and (r["idx"], r["attempt"]) in spawned and r.get("startup_s"):
+            split = {k: round(v, 3) for k, v in r["startup_s"].items()}
+            split["imports"] = round(r["t"] - spawned[(r["idx"], r["attempt"])]
+                                     - sum(r["startup_s"].values()), 3)
+            startup.append(split)
+    recoveries = [float(m.group(1)) for m in (re.search(r"closed \(([0-9.]+)s after", ln)
+                                               for ln in lines) if m]
+    completed = int(re.match(r"fleet: (\d+) completed", summary).group(1))
+    redispatched = int(re.search(r"(\d+) re-dispatched", summary).group(1))
+    dropped = int(re.search(r"(\d+) dropped", summary).group(1))
+    served = {k: w for k, w in workers.items() if w["served"] > 0}
+    require(served and all(w["K1"] > 0 and w["K4"] > 0 for w in served.values()),
+            f"22c {name}: a serving worker launched no K1 or K4: {workers}")
+    require(set(done.values()) == {1} and len(done) == completed,
+            f"22c {name}: not one stream a rid")
+    require(dropped == 0 and "UNRECOVERED" not in chaos_line and "never fired" not in chaos_line,
+            f"22c {name}: {summary} | {chaos_line}")
+    row = {"completed": completed, "redispatched": redispatched, "workers": workers,
+           "versions": versions, "chaos": chaos_line, "summary": summary,
+           "ready_s": ready_s, "startup_s": startup, "recovery_s": recoveries}
+    if name == "kill_hang_swap":
+        swap = get("swap: ")
+        require(redispatched >= 1, f"22c {name}: nothing re-dispatched")
+        require("performed=True" in swap and "compile_flat=True" in swap and "in_place=True" in swap,
+                f"22c {name}: {swap}")
+        require(set(versions) == {"0", "1"}, f"22c {name}: versions {versions}")
+        row["swap"] = swap
+    elif name == "hedge":
+        row["hedges"] = get("hedges: ")
+        require(int(re.search(r"(\d+) fired", row["hedges"]).group(1)) >= 1,
+                f"22c {name}: no hedge fired")
+    else:
+        row["scale"] = get("autoscale: ")
+        require(int(re.search(r"(\d+) spawned", row["scale"]).group(1)) >= 1,
+                f"22c {name}: no scale-up: {row['scale']}")
+    return row
+
+
+def _controlplane_check(lines: list[str]) -> dict:
+    """22d's bars on ``cli.controlplane_drill``'s report."""
+    res = json.loads(next(ln for ln in lines if ln.startswith("controlplane_drill: "))
+                     .split(": ", 1)[1])
+    served = {k: w for k, w in res["workers"].items() if w["served"] > 0}
+    require(res["ok_all"], f"22d: bars {res['bars']}")
+    require(res["readopted"] == res["orphans"] >= 2 and res["respawned"] == 0,
+            f"22d: readopted {res['readopted']} of {res['orphans']}, respawned {res['respawned']}")
+    require(served and all(w["K1"] > 0 and w["K4"] > 0 for w in served.values()),
+            f"22d: a serving worker launched no K1 or K4: {res['workers']}")
+    return res
+
+
+def fleet_drills(torch, card: str) -> dict:
+    """22c and 22d in ``P22_LANES`` (each run its own processes: a run is
+    host-bound, mostly replica start-up): ``serve_lm --selftest``
+    on the card at the 110M widths (vocab 256, ``P22_LAYERS`` blocks)
+    through each of ``P22_FLEETS``, and ``cli.controlplane_drill``. 22c:
+    exit 0 with the CLI's own bit-exact parity, the books balanced, one
+    stream a rid (the journal's wins), every worker that served reporting K1
+    and K4 launches since its ready ack (its warmup's are not counted); the
+    kill / hang run re-dispatched and swapped in place with no capture
+    (streams under both versions), the slow one hedged, the autoscaled one
+    scaled up with zero drops; each replica's start-up by stage (the ready
+    ack's split, the imports the rest of spawn -> ready). 22d: the
+    supervisor SIGKILLs itself mid-surge and the restarted incarnation
+    re-adopts every live replica with no respawn, the books balance across
+    incarnations, every stream equals offline greedy."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="phase22c-", dir=os.path.join(ROOT, "build"))
+    env = {**os.environ, "DMT_CHAOS_STALL_S": "0.25"}
+    runs = {name: [sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.serve_lm",
+                   "--selftest", "--device", P22_DEVICE, *P22_MODEL,
+                   "--fleet_dir", os.path.join(work, name), *flags]
+            for name, flags in P22_FLEETS.items()}
+    runs["controlplane"] = [sys.executable, "-m", "deeplearning_mpi_tpu_torch.cli.controlplane_drill",
+                            "--device", P22_DEVICE, "--root", os.path.join(work, "cp"), *P22_MODEL]
+    out: dict = {"fleet": {}}
+    done: dict = {}
+
+    def lane(names, t0):
+        for name in names:
+            t_run = time.perf_counter()
+            with open(os.path.join(work, f"{name}.log"), "w+") as f:
+                proc = subprocess.Popen(runs[name], cwd=ROOT, env=env, stdout=f,
+                                        stderr=subprocess.STDOUT, text=True)
+                try:
+                    proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                f.seek(0)
+                done[name] = (proc.returncode, f.read().splitlines(),
+                              time.perf_counter() - t_run, time.perf_counter() - t0)
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lane, args=(names, t0)) for names in P22_LANES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for names in P22_LANES:
+            for name in names:
+                rc, lines, seconds, ended = done[name]
+                for line in lines:
+                    if not line.startswith("fleet: hedge: rid"):
+                        log(f"22{'d' if name == 'controlplane' else 'c'} {name} | {line[:400]}")
+                require(rc == 0, f"22 {name}: exited {rc}")
+                if name == "controlplane":
+                    row = out["controlplane"] = _controlplane_check(lines)
+                else:
+                    row = out["fleet"][name] = _fleet_check(name, lines, os.path.join(work, name))
+                row.update(seconds=seconds, ended_s=ended)
+                log(f"22 {name} OK in {seconds:.1f}s (ended {ended:.1f}s after the lanes "
+                    f"started): spawn -> ready {row.get('ready_s')}; by stage "
+                    f"{row.get('startup_s')}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def k1_chunk_row(torch, launches: int) -> dict:
+    """K1 at the engine's prefill-chunk call (``serving.engine.chunk_attention``):
+    a 128-row chunk at positions 384-511 over a slot's 1024 page rows, which
+    the engine issues as a square ``[1, 512, 12, 64]`` float32 causal call
+    with the rows before the chunk zero. The call is held to ``FWD_TOL``
+    against its plain version, bit-identical on a second launch, and
+    ``chunk_attention``'s rows are held to the masked matmul. The bound and
+    SDPA count the chunk's own work: its queries over ``k/v[:start + C]``
+    with the offset causal mask. ``launches`` are phase 22's."""
+    import torch.nn.functional as F
+
+    from deeplearning_mpi_tpu_torch.ops.attention import dense_attention
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.serving.engine import chunk_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    L, H, D, start, C = 1024, 12, 64, 384, 128
+    S = start + C
+    chunk = torch.randn(1, C, H, D, generator=gen, device="cuda")
+    pages_k, pages_v = (torch.randn(1, L, H, D, generator=gen, device="cuda") for _ in range(2))
+    q = torch.zeros(1, S, H, D, device="cuda")
+    q[:, start:] = chunk
+    k, v = pages_k[:, :S], pages_v[:, :S]
+    kw = dict(causal=True, window=None, shift=0, return_lse=False, out_dtype=None, layout="bshd")
+    got, again = (fa.flash_attention_cuda(q, k, v, **kw) for _ in range(2))
+    want = fa.flash_attention_reference(q, k, v, **kw)
+    rows = chunk_attention(chunk, pages_k, pages_v, start)
+    rows_want = dense_attention(chunk, pages_k, pages_v, causal=True, q_offset=start)
+    torch.cuda.synchronize()
+    atol, rtol, l2 = FWD_TOL["float32"]
+    ok, err, rel = grads_close(got, want, atol, rtol, l2)
+    require(torch.equal(got, again), "K1 chunk call: a second launch differs")
+    require(ok, f"K1 chunk call: max abs err {err}, rel L2 {rel}")
+    rows_ok, rows_err, rows_rel = grads_close(rows, rows_want, atol, rtol, l2)
+    require(rows_ok, f"chunk_attention vs the masked matmul: max abs err {rows_err}, "
+                     f"rel L2 {rows_rel}")
+    # Query row i (position start + i) sees keys 0 .. start + i.
+    pairs = H * (C * start + C * (C + 1) // 2)
+    flops, nbytes = 4 * D * pairs, (2 * C + 2 * S) * H * D * 4
+    qt, kt, vt = chunk.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= start + torch.arange(C, device="cuda")[:, None])
+    row = {
+        "name": "K1 flash_attention_fwd (f32 prefill chunk, phase 22)", "route": "cuda",
+        "source": "deeplearning_mpi_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_attention.py:110",
+        "launches": launches, "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw)),
+        "bound_ms": max(flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_FLOPS["float32"] > nbytes / PEAK_BYTES else "bytes",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+        "shape": f"B1 S{S} H{H} D{D} float32 causal call, chunk rows {start}-{S - 1} of {L} pages",
+    }
+    log(f"time {row['name']} [{row['shape']}]: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa (chunk over k/v[:{S}], offset mask) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"max abs err {err:.3e}, rel L2 {rel:.3e}; chunk rows vs masked matmul {rows_err:.3e}")
+    return row
+
+
+def serving_resilience_phase(torch, card: str, gen, seed: int) -> dict:
+    """Phase 22: the serving half of the resilience layer (22a-22d), then
+    K1 at the prefill-chunk call and K4 at the serving decode shape with
+    phase 22's launches (the in-process engines' and every worker's)."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig()
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+    entries = serve_trace(cfg.vocab_size, seed)
+    expects = [offline_greedy(model, e["prompt"], e["max_new"], None) for e in entries]
+    out = {"crash": serve_crash_drill(torch, model, entries, expects)}
+    out["disagg"] = disagg_drill(torch, model, entries, expects)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"22a-b in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    out.update(fleet_drills(torch, card))
+    log(f"22c-d in {time.perf_counter() - t0:.1f}s")
+    counts = {"K1": 0, "K4": 0}
+    for run in (*out["crash"].values(), *out["disagg"].values()):
+        for k in counts:
+            counts[k] += run["launches"][k]
+    workers = [w for f in out["fleet"].values() for w in f["workers"].values()]
+    workers += list(out["controlplane"]["workers"].values())
+    for w in workers:
+        for k in counts:
+            counts[k] += w[k]
+    out["launches"] = counts
+    out["kernels"] = [k1_chunk_row(torch, counts["K1"]),
+                      k4_row(torch, gen, counts["K4"], serve_fills(), 1024,
+                             name="K4 flash_decode (phase 22)")]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also write the results here as JSON")
@@ -4524,7 +4948,7 @@ def main() -> int:
     log(f"phase 1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # All builds start together; the phases that need no K4 (3, 7, 8, 9,
-    # 12) run while flash_decode.cu (~110 s, 128 kernels) still builds.
+    # 12, 16) run while flash_decode.cu (~110 s, 128 kernels) still builds.
     t_build = time.perf_counter()
     decode_build: dict = {}
 
@@ -4564,6 +4988,13 @@ def main() -> int:
     log(f"phase 12 hello_world, ResNet-18 and UNet training over NCCL, checkpoint OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pp = pp_phase(torch, card, torch.Generator(device="cuda").manual_seed(args.seed + 16),
+                  args.seed)
+    log(f"phase 16 pipeline parallelism (the 110M model over pp 4 x 4 microbatches in bf16, "
+        f"card vs CPU, the ViT trained through train_resnet, the --pp refusal) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     decode_thread.join()
     if "error" in decode_build:
         raise decode_build["error"]
@@ -4571,7 +5002,7 @@ def main() -> int:
         if line.strip():
             log(f"nvcc flash_decode: {line.strip()}")
     log(f"phase 2 build: ['flash_decode'] done, waited {time.perf_counter() - t0:.1f}s for it "
-        f"after phases 3, 7-9 and 12, all builds in {time.perf_counter() - t_build:.1f}s")
+        f"after phases 3, 7-9, 12 and 16, all builds in {time.perf_counter() - t_build:.1f}s")
     t0 = time.perf_counter()
     check_k4(torch, gen)
     log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
@@ -4608,14 +5039,7 @@ def main() -> int:
     kernels.extend(tp["kernels"])
     log(f"phase 15 tensor parallelism (the 110M model over tp 4 in bf16, card vs CPU, greedy "
         f"generation at tp 4, --zero_overlap over NCCL) OK in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    pp = pp_phase(torch, card, torch.Generator(device="cuda").manual_seed(args.seed + 16),
-                  args.seed)
     kernels.extend(pp["kernels"])
-    log(f"phase 16 pipeline parallelism (the 110M model over pp 4 x 4 microbatches in bf16, "
-        f"card vs CPU, the ViT trained through train_resnet, the --pp refusal) OK in "
-        f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     compose = compose_phase(torch, card, torch.Generator(device="cuda").manual_seed(args.seed + 17))
@@ -4651,6 +5075,14 @@ def main() -> int:
         f"NaN step and the guardrail rollback, train_lm --chaos --max_restarts --aot_warmup) OK "
         f"in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serving = serving_resilience_phase(torch, card, gen, args.seed)
+    kernels.extend(serving["kernels"])
+    log(f"phase 22 the serving half of the resilience layer (serve_crash recovered eager and "
+        f"warmed, the disaggregated pair with its roles in their lanes and a handoff stall, the "
+        f"fleet's failover, hot swap, hedging and autoscaling through serve_lm, the control "
+        f"plane re-adopting its replicas) OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -4667,7 +5099,7 @@ def main() -> int:
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
                        "compose": compose, "completed": completed, "telemetry": telemetry,
                        "compiler": compiler, "resilience": resilience,
-                       "phase_seconds": PHASE_SECONDS,
+                       "serving_resilience": serving, "phase_seconds": PHASE_SECONDS,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

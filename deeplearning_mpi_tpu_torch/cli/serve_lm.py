@@ -31,18 +31,41 @@ still queued ``S`` seconds after its arrival (a trace entry may override),
 and ``--metrics_file`` appends the engine's canonical telemetry records
 (the ``serve_*`` counters, TTFT / TPOT histograms and gauges, one
 ``serve_summary`` record at the end) for ``tools/metrics_report.py``.
+``--tenants 'prod=4096:1,batch=1024:0'`` sets per-tenant token budgets and
+priorities (``name=budget_tokens[:priority]``).
+
+The resilience flags: ``--disagg`` serves through the disaggregated
+prefill / decode pair (``serving/disagg.py``); ``--chaos`` (or
+``$DMT_CHAOS``) plans faults, validated per workload as the reference
+does: ``serve_crash`` in one engine, also ``handoff_stall`` with
+``--disagg``, ``replica_kill`` / ``replica_hang`` / ``replica_slow`` in a
+fleet, also ``load_spike`` / ``scale_during_failure`` with ``--autoscale``;
+the supervisor kinds are refused (this process is the supervisor and
+nothing restarts it). ``--replicas N`` (or ``--autoscale``) serves the
+trace through a supervised fleet of replica processes
+(``serving/fleet.py``) with ``--hedge_ms``, ``--swap_at`` (a rolling hot
+weight swap to the init of ``--random_seed + 1``), ``--min_replicas`` /
+``--max_replicas``, ``--autoscale_predictive`` with the ``--forecast_*``
+knobs and ``--fleet_dir``, and holds every completion bit-exactly to
+offline greedy under its weight version. Fleet mode refuses
+``--kv_dtype`` (its bar is bit-exact) and ``--spec_k``, and ``--tp``
+(ROADMAP Queue 1 item 8.6).
 
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest            # on the GPU
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --metrics_file serve.jsonl
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu \\
         --num_layers 2 --num_heads 2 --head_dim 8 --d_model 16 --d_ff 32 [--model_dir DIR] \\
-        [--kv_dtype int8] [--prefix_cache] [--spec_k 2 --draft_layers 1] [--warmup]
+        [--kv_dtype int8] [--prefix_cache] [--spec_k 2 --draft_layers 1] [--warmup] \\
+        [--disagg] [--chaos serve_crash@step:3]
+    python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu --num_layers 2 \\
+        --replicas 2 --chaos replica_kill@step:4,replica_hang@step:6 --swap_at 8
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from collections import deque
@@ -111,6 +134,14 @@ def build_parser() -> argparse.ArgumentParser:
                      "decode phase while supply can still reach a larger bucket")
     eng.add_argument("--max_hold_steps", type=int, default=4,
                      help="most consecutive steps decode may be held for a bucket")
+    eng.add_argument("--disagg", action="store_true",
+                     help="disaggregated topology: a prefill-only engine hands completed "
+                     "prompts (block tables over a shared KV pool, no KV bytes move) to a "
+                     "decode-only engine; with --replicas every replica runs disaggregated")
+    eng.add_argument("--tenants", default="",
+                     help="per-tenant admission policy, e.g. 'prod=4096:1,batch=1024:0': "
+                     "name=budget_tokens[:priority] (0 tokens = unlimited; over-budget "
+                     "submits are shed as tenant_budget; higher priority admits first)")
     spec = parser.add_argument_group("speculative decoding (exact-greedy-match acceptance)")
     spec.add_argument("--spec_k", type=int, default=None,
                       help="draft tokens proposed per sequence per step (0 = off; -1, or not "
@@ -142,10 +173,72 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics_file", default=None,
                         help="append canonical telemetry JSONL records here (readable by "
                         "tools/metrics_report.py)")
+    fleet = parser.add_argument_group(
+        "fleet (supervised replica processes behind the SLO-aware router)")
+    fleet.add_argument("--replicas", type=int, default=1,
+                       help="serve through N supervised replica processes (1 = one "
+                       "in-process engine); fleet mode implies --selftest semantics (a "
+                       "random-init model, parity against offline greedy)")
+    fleet.add_argument("--autoscale", action="store_true",
+                       help="closed-loop fleet sizing from measured load, with hysteresis, "
+                       "cooldown, the --min_replicas floor and the brownout ladder; implies "
+                       "fleet mode even with --replicas 1")
+    fleet.add_argument("--autoscale_predictive", action="store_true",
+                       help="arm scale-up on the forecast load one --forecast_horizon_s "
+                       "ahead (EWMA level and trend); implies --autoscale")
+    fleet.add_argument("--forecast_horizon_s", type=float, default=3.0,
+                       help="how far ahead the forecaster projects")
+    fleet.add_argument("--forecast_tau_s", type=float, default=1.0,
+                       help="EWMA time constant of the forecast load level")
+    fleet.add_argument("--forecast_trend_tau_s", type=float, default=1.0,
+                       help="EWMA time constant of the forecast load trend")
+    fleet.add_argument("--min_replicas", type=int, default=1,
+                       help="autoscaler floor (scale-down is vetoed at it)")
+    fleet.add_argument("--max_replicas", type=int, default=4,
+                       help="autoscaler ceiling (overload there climbs the brownout ladder)")
+    fleet.add_argument("--hedge_ms", type=float, default=0.0,
+                       help="a request outstanding this long (with deadline budget left) is "
+                       "duplicated on a second replica; the first completion wins (0 = off)")
+    fleet.add_argument("--swap_at", type=int, default=None,
+                       help="after N completions, hot-swap every replica's weights (rolling "
+                       "drain, in place) to the init of --random_seed + 1")
+    fleet.add_argument("--fleet_dir", default=None,
+                       help="directory for replica mailboxes, heartbeats and logs (default: "
+                       "a fresh temporary directory)")
+    fleet.add_argument("--tp", type=int, default=1,
+                       help="tensor-parallel degree per replica: refused above 1 (ROADMAP "
+                       "Queue 1 item 8.6)")
+    parser.add_argument("--chaos", default=None,
+                        help="fault plan, e.g. 'serve_crash@step:12' (the engine crashes "
+                        "mid-step and recovers); with --disagg also 'handoff_stall@step:N'; "
+                        "with --replicas 'replica_kill@step:4,replica_hang@step:6'; with "
+                        "--autoscale also load_spike / scale_during_failure; falls back to "
+                        "$DMT_CHAOS")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    parser.add_argument("--tp", type=int, default=1,
-                        help="refused above 1: tensor-parallel replicas need the fleet")
     return parser
+
+
+def _parse_tenants(spec: str):
+    """``'prod=4096:1,batch=1024:0'`` -> the scheduler's tenants dict
+    (``{name: {"budget_tokens": int, "priority": float}}``), or None for an
+    empty spec; a bad entry raises ``SystemExit``."""
+    spec = spec.strip()
+    if not spec:
+        return None
+    tenants = {}
+    for part in spec.split(","):
+        part = part.strip()
+        try:
+            name, policy = part.split("=", 1)
+            budget, _, priority = policy.partition(":")
+            tenants[name.strip()] = {
+                "budget_tokens": int(budget),
+                "priority": float(priority) if priority else 0.0,
+            }
+        except ValueError:
+            raise SystemExit(f"bad --tenants entry {part!r}: expected "
+                             "name=budget_tokens[:priority]")
+    return tenants
 
 
 def poisson_trace(args) -> list[dict]:
@@ -196,8 +289,12 @@ def load_trace(path: str, default_max_new: int, default_deadline: float) -> list
 def replay(engine, entries, *, poll_s: float = 0.0005):
     """Submit each entry at its arrival offset (wall clock), with its
     deadline (seconds after arrival; 0 or absent: none) and tenant, and step
-    the engine until everything drains. Returns (requests, wall seconds)."""
-    idle = engine.scheduler.idle
+    the engine until everything drains; an injected crash is recovered in
+    place. Returns (requests, wall seconds)."""
+    from deeplearning_mpi_tpu_torch.resilience.faults import InjectedFault
+
+    # A disaggregated pair is idle when both roles and the handoff queue are.
+    idle = engine.idle if hasattr(engine, "idle") else engine.scheduler.idle
     pending = deque(entries)
     reqs = []
     t0 = time.monotonic()
@@ -211,7 +308,11 @@ def replay(engine, entries, *, poll_s: float = 0.0005):
                 deadline=t0 + e["arrival"] + deadline if deadline > 0 else None,
                 tenant=e.get("tenant", "default")))
         if not idle():
-            engine.step()
+            try:
+                engine.step()
+            except InjectedFault as fault:
+                print(f"chaos: {fault} — recovering", file=sys.stderr)
+                engine.recover()
         elif pending:
             time.sleep(min(poll_s, max(pending[0]["arrival"] - now, 0.0)))
     return reqs, time.monotonic() - t0
@@ -266,15 +367,202 @@ def first_divergence(model, prompt: np.ndarray, got: list[int], want: list[int])
             f"{float(top2[0] - top2[1]):.3e}")
 
 
+def chaos_workload(args) -> tuple[frozenset[str], str]:
+    """The chaos kinds ``serve_lm``'s workload has a hook for, and its
+    name. The supervisor kinds are in none: this process is the supervisor
+    and nothing restarts it."""
+    from deeplearning_mpi_tpu_torch.resilience.faults import (
+        AUTOSCALE_KINDS,
+        DISAGG_KINDS,
+        FLEET_KINDS,
+        SERVE_KINDS,
+    )
+
+    if args.autoscale:
+        return FLEET_KINDS | AUTOSCALE_KINDS, "autoscaled serving fleet"
+    if args.replicas > 1:
+        return FLEET_KINDS, "serving fleet"
+    if args.disagg:
+        return DISAGG_KINDS, "disaggregated serving"
+    return SERVE_KINDS, "single-replica serving"
+
+
+def _worker_threads(args) -> int | None:
+    """A CPU fleet's torch threads a worker: this process's, split over the
+    most replicas the fleet may run (None on the card)."""
+    if args.device != "cpu":
+        return None
+    most = max(args.replicas, args.max_replicas if args.autoscale else 1)
+    return max(1, torch.get_num_threads() // most)
+
+
+def _run_fleet(args, eos_id) -> int:
+    """``--replicas N`` (or ``--autoscale``): route the trace through a
+    supervised replica fleet, then hold every completion to offline greedy
+    under the weights of its version, bit for bit, failed-over and hedged
+    requests included."""
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.serving import FleetFailure, FleetSupervisor
+    from deeplearning_mpi_tpu_torch.telemetry import JsonlSink, MetricsRegistry
+
+    model_spec = {
+        "vocab_size": args.vocab_size, "num_layers": args.num_layers,
+        "num_heads": args.num_heads, "num_kv_heads": args.num_kv_heads or None,
+        "head_dim": args.head_dim, "d_model": args.d_model, "d_ff": args.d_ff,
+        "attention_window": args.attention_window,
+    }
+    engine_spec = {
+        "max_slots": args.max_slots, "block_size": args.block_size,
+        "num_blocks": args.num_blocks, "max_blocks_per_seq": args.max_blocks_per_seq,
+        "prefill_chunk": args.prefill_chunk, "max_queue": args.max_queue,
+        "prefix_cache": args.prefix_cache,
+    }
+    try:
+        entries = (load_trace(args.trace, args.max_new_tokens, args.deadline) if args.trace
+                   else poisson_trace(args))
+        tenants = _parse_tenants(args.tenants)
+    except SystemExit as refusal:
+        print(refusal.code, file=sys.stderr)
+        return 1
+    for e in entries:
+        e["prompt"] = [int(t) for t in e["prompt"]]
+    fleet_dir = args.fleet_dir or tempfile.mkdtemp(prefix="dmt_fleet_")
+    registry = MetricsRegistry()
+    if args.metrics_file:
+        registry.add_sink(JsonlSink(args.metrics_file))
+    autoscale = None
+    if args.autoscale:
+        from deeplearning_mpi_tpu_torch.serving import AutoscalerConfig
+
+        autoscale = AutoscalerConfig(
+            min_replicas=args.min_replicas, max_replicas=args.max_replicas,
+            predictive=args.autoscale_predictive,
+            forecast_horizon_s=args.forecast_horizon_s, forecast_tau_s=args.forecast_tau_s,
+            forecast_trend_tau_s=args.forecast_trend_tau_s,
+        )
+    sup = FleetSupervisor(
+        model_spec, engine_spec, args.replicas, fleet_dir, seed=args.random_seed,
+        eos_id=eos_id, warmup=True, chaos=args.chaos, hedge_ms=args.hedge_ms,
+        registry=registry, disagg=args.disagg, tenants=tenants, autoscale=autoscale,
+        device=args.device, threads=_worker_threads(args),
+    )
+    swap_seed = args.random_seed + 1 if args.swap_at is not None else None
+    try:
+        result = sup.run(entries, swap_at=args.swap_at, swap_seed=swap_seed)
+    except FleetFailure as e:
+        print(f"fleet FAILED: {e} (logs under {fleet_dir})", file=sys.stderr)
+        return 1
+    shed = ", ".join(f"{n} {why}" for why, n in sorted(result.shed.items()))
+    print(f"fleet: {result.completed} completed, {sum(result.shed.values())} shed"
+          + (f" ({shed})" if shed else "")
+          + f", {result.dropped} dropped | {result.redispatched} re-dispatched across "
+          f"{result.restarts} restart(s)", file=sys.stderr)
+    snap = result.snapshot
+    if snap.get("serve_hedge_total", 0):
+        parts = [f"{snap[k]:.0f} {k.split('=', 1)[1].strip(chr(34) + '}')}"
+                 for k in sorted(snap) if k.startswith("serve_hedge_total{")]
+        print("hedges: " + ", ".join(parts), file=sys.stderr)
+    if result.scale:
+        sc = result.scale
+        print(f"autoscale: {sc['spawned']} spawned, {sc['retired']} retired, "
+              f"{sc['vetoed']} vetoed ({sc['events']} decisions), brownout max stage "
+              f"{sc['brownout_stage_max']}, final fleet {sc['replicas_final']}",
+              file=sys.stderr)
+    if result.swap["requested"]:
+        drain = result.swap["drain_s"]
+        print(f"swap: performed={result.swap['performed']} "
+              f"drain={drain and round(drain, 2)}s "
+              f"completions_during={result.swap['completions_during']} "
+              f"compile_flat={result.swap['compile_flat']} "
+              f"in_place={result.swap['in_place']}", file=sys.stderr)
+    print(f"fleet workers: {json.dumps(result.workers, sort_keys=True)}", file=sys.stderr)
+    versions: dict[int, int] = {}
+    for rec in result.requests.values():
+        versions[rec["version"]] = versions.get(rec["version"], 0) + 1
+    print(f"fleet versions: {json.dumps(versions, sort_keys=True)}", file=sys.stderr)
+    registry.close()
+
+    # Parity: each weight version rebuilt from (config, seed) on the same
+    # device, TF32 off as in the workers.
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    if args.device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(**model_spec)
+    models = {}
+
+    def version_model(version: int):
+        if version not in models:
+            seed = args.random_seed if version == 0 else swap_seed
+            models[version] = TransformerLM(cfg, dtype=torch.float32,
+                                            device=args.device).init_weights(seed)
+        return models[version]
+
+    mismatched = 0
+    for rid, rec in sorted(result.requests.items()):
+        expect = offline_greedy(version_model(rec["version"]),
+                                np.asarray(rec["prompt"], np.int32), rec["max_new"], eos_id)
+        if rec["tokens"] != expect:
+            mismatched += 1
+            print(f"fleet parity: rid {rid} (version {rec['version']}) diverged from offline "
+                  f"greedy:\n  fleet  : {rec['tokens']}\n  offline: {expect}",
+                  file=sys.stderr)
+    if mismatched or not result.ok:
+        print(f"fleet FAILED: ok={result.ok} (dropped={result.dropped}, compile_flat="
+              f"{result.compile_flat}, chaos_balanced={result.chaos_balanced}, swap in place="
+              f"{result.swap['in_place']}), {mismatched} parity mismatch(es); logs under "
+              f"{fleet_dir}", file=sys.stderr)
+        return 1
+    peak = args.replicas + (result.scale["spawned"] if result.scale else 0)
+    print(f"fleet OK: {result.completed} requests bit-identical to offline greedy across "
+          f"{peak} replica(s)", file=sys.stderr)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.autoscale_predictive:
+        args.autoscale = True  # predictive is a mode of the autoscaler
+    fleet = args.replicas > 1 or args.autoscale
+    eos_id = args.eos_id if args.eos_id >= 0 else None
+    # A kind this workload has no hook for would never fire and its books
+    # could never balance: refuse it.
+    chaos_spec = args.chaos or os.environ.get("DMT_CHAOS") or ""
+    if chaos_spec.strip():
+        from deeplearning_mpi_tpu_torch.resilience.faults import validate_plan_kinds
+
+        supported, workload = chaos_workload(args)
+        try:
+            validate_plan_kinds(chaos_spec, supported, workload=workload)
+        except ValueError as e:
+            print(f"--chaos: {e}", file=sys.stderr)
+            return 1
+    if fleet:
+        from deeplearning_mpi_tpu_torch.serving.fleet import TP_REPLICA_REASON
+
+        refusal = None
+        if args.tp > 1:
+            refusal = TP_REPLICA_REASON
+        elif args.kv_dtype:
+            refusal = "--kv_dtype does not compose with fleet mode: fleet parity is bit-exact"
+        elif args.spec_k:
+            refusal = "--replicas > 1 does not compose with --spec_k yet"
+        elif args.model_dir is not None:
+            refusal = ("fleet mode serves a seeded random init (its replicas rebuild the "
+                       "weights from (config, seed)); --model_dir is not served by a fleet")
+        if refusal:
+            print(refusal, file=sys.stderr)
+            return 1
+        return _run_fleet(args, eos_id)
     if not args.selftest and args.model_dir is None:
         print("serve_lm needs --model_dir (a checkpoint to serve) or --selftest",
               file=sys.stderr)
         return 2
     if args.tp > 1:
-        print("--tp > 1 shards replica processes; it requires --replicas > 1 (the serving "
-              "fleet is not ported yet: ROADMAP Queue 1 item 10)", file=sys.stderr)
+        print("--tp > 1 shards replica processes; it requires --replicas > 1 (and "
+              "tensor-parallel replicas are ROADMAP Queue 1 item 8.6)", file=sys.stderr)
         return 1
     if args.moe_experts > 0:
         # The engine would raise anyway, but before the restore.
@@ -298,11 +586,21 @@ def main(argv: list[str] | None = None) -> int:
         TransformerLM,
         self_draft,
     )
-    from deeplearning_mpi_tpu_torch.serving import EngineConfig, RequestState, ServingEngine
+    from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector
+    from deeplearning_mpi_tpu_torch.serving import (
+        DisaggregatedEngine,
+        EngineConfig,
+        RequestState,
+        ServingEngine,
+    )
     from deeplearning_mpi_tpu_torch.telemetry import JsonlSink, MetricsRegistry
     from deeplearning_mpi_tpu_torch.utils.config import restore_lm
 
-    eos_id = args.eos_id if args.eos_id >= 0 else None
+    try:
+        tenants = _parse_tenants(args.tenants)
+    except SystemExit as refusal:
+        print(refusal.code, file=sys.stderr)
+        return 1
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, num_kv_heads=args.num_kv_heads or None,
@@ -336,7 +634,9 @@ def main(argv: list[str] | None = None) -> int:
     registry = MetricsRegistry()
     if args.metrics_file:
         registry.add_sink(JsonlSink(args.metrics_file))
-    engine = ServingEngine(model, EngineConfig(
+    chaos = ChaosInjector.from_spec(args.chaos, registry=registry)
+    engine_cls = DisaggregatedEngine if args.disagg else ServingEngine
+    engine = engine_cls(model, EngineConfig(
         max_slots=args.max_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_blocks_per_seq=args.max_blocks_per_seq,
         prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
@@ -344,7 +644,7 @@ def main(argv: list[str] | None = None) -> int:
         max_hold_steps=args.max_hold_steps, kv_dtype=args.kv_dtype,
         prefix_cache=args.prefix_cache,
     ), eos_id=eos_id, draft=self_draft(model, args.draft_layers) if args.spec_k else None,
-        registry=registry)
+        registry=registry, chaos=chaos, tenants=tenants)
     if args.warmup:
         t_warm = time.monotonic()
         built = engine.warmup()
@@ -358,6 +658,12 @@ def main(argv: list[str] | None = None) -> int:
         print(refusal.code, file=sys.stderr)
         return 1
     reqs, wall_s = replay(engine, entries)
+    if chaos is not None:
+        print(chaos.summary(), file=sys.stderr)
+    if args.disagg:
+        c = engine.counters
+        print(f"disagg: {c['serve_handoffs_total']} prefill->decode handoffs, "
+              f"{c['serve_handoff_stalls_total']} stalled step(s)", file=sys.stderr)
     registry.emit("serve_summary", registry.snapshot())
     registry.close()
     rep = latency_report(reqs, wall_s)
@@ -387,6 +693,9 @@ def main(argv: list[str] | None = None) -> int:
            if r.state is not RequestState.FINISHED]
     if bad:
         print(f"selftest: not all requests completed: {bad}", file=sys.stderr)
+        return 1
+    if chaos is not None and not chaos.balanced():
+        print(f"selftest FAILED: chaos books unbalanced: {chaos.summary()}", file=sys.stderr)
         return 1
     if engine.captures != captures:
         print(f"selftest FAILED: traffic captured {engine.captures - captures} program(s) "

@@ -16,6 +16,12 @@ module is their owner:
   compare against it. A library whose bytes differ, or that ``dlopen``
   refuses, moves to ``quarantine/`` (kept as evidence, never deleted) and
   is rebuilt.
+- **Many processes.** A build holds the kernel's own file lock
+  (``.lock-<name>``) across its ``nvcc``, the ``os.replace`` of the
+  library and the manifest write, and a lookup holds it too: a process
+  that waited finds the other's library and its digest together (a hit),
+  never one without the other (a false mismatch that would quarantine a
+  good library).
 - **LRU.** A hit touches the library; :meth:`evict` removes the least
   recently used libraries until the cache fits a size; :meth:`stats`.
 - **Counters.** ``compile_cache_{hit,miss,evicted,quarantined}_total``
@@ -233,11 +239,27 @@ class CompileCache:
         if self.registry is not None and n and kind != "builds":
             self.registry.counter(f"compile_cache_{counter}_total").inc(n)
 
+    @contextlib.contextmanager
+    def _kernel_lock(self, names: list[str]):
+        """Hold the file lock of each named kernel (sorted: two processes
+        locking overlapping sets cannot deadlock)."""
+        self.path.mkdir(parents=True, exist_ok=True)
+        with contextlib.ExitStack() as stack:
+            for name in sorted(set(names)):
+                f = stack.enter_context(open(self.path / f".lock-{name}", "w"))
+                fcntl.flock(f, fcntl.LOCK_EX)
+            yield
+
     def lookup(self, name: str) -> Path | None:
         """The library of ``name`` at its current key, or None: a hit
         (counted, the library touched) when it exists and matches its
         recorded digest; a miss (counted) otherwise. A library that fails
-        its digest is quarantined first."""
+        its digest is quarantined first. Waits while another process builds
+        the kernel."""
+        with self._kernel_lock([name]):
+            return self._lookup(name)
+
+    def _lookup(self, name: str) -> Path | None:
         lib = self.library(name)
         if lib.is_file():
             want = self.recorded().get(lib.name)
@@ -252,12 +274,16 @@ class CompileCache:
     def build(self, names: list[str], *, force: bool = False) -> dict[str, str]:
         """Build the named kernels whose library misses (every one with
         ``force``), one build each, all started together; each library is
-        digested into the manifest. Returns each build's output; raises on
+        digested into the manifest, each under its kernel's lock from the
+        lookup to the manifest write. Returns each build's output; raises on
         a failed build."""
-        self.path.mkdir(parents=True, exist_ok=True)
+        with self._kernel_lock(names):
+            return self._build(names, force=force)
+
+    def _build(self, names: list[str], *, force: bool) -> dict[str, str]:
         procs = {}
         for name in names:
-            if not force and self.lookup(name) is not None:
+            if not force and self._lookup(name) is not None:
                 continue
             key = self.key(name)
             tmp = self.path / f"lib{name}-{key[:16]}.so.{os.getpid()}.tmp"
@@ -283,16 +309,20 @@ class CompileCache:
     def load(self, name: str) -> Any:
         """The opened library of ``name``: looked up by content key, built
         on a miss; a library the loader refuses is quarantined and rebuilt
-        once."""
-        lib = self.lookup(name)
-        if lib is None:
-            self.build([name], force=True)
-            lib = self.library(name)
+        once. The lookup and a build on its miss hold the kernel's lock
+        together: of processes starting at once, one builds and the rest
+        hit."""
+        with self._kernel_lock([name]):
+            lib = self._lookup(name)
+            if lib is None:
+                self._build([name], force=True)
+                lib = self.library(name)
         try:
             return self.loader(str(lib))
         except OSError:
-            self.quarantine([lib.name])
-            self.build([name], force=True)
+            with self._kernel_lock([name]):
+                self.quarantine([lib.name])
+                self._build([name], force=True)
             return self.loader(str(self.library(name)))
 
     # -- size-bounded eviction ------------------------------------------------------

@@ -1,8 +1,8 @@
 """The supervision core the pod supervisor stands on.
 
-Port of the parts of ``deeplearning_mpi_tpu/resilience/cluster.py`` that
-:mod:`.pod` needs (the serving fleet's supervisor, ROADMAP Queue 1 item
-10's serving half, will stand on the same core):
+Port of ``deeplearning_mpi_tpu/resilience/cluster.py``: the supervision
+core that :mod:`.pod` and the serving fleet (``serving/fleet.py``) stand
+on:
 
 - :class:`LivenessTracker`: progress-seq liveness over heartbeat payloads,
   on the supervisor's own monotonic clock;
@@ -14,9 +14,9 @@ Port of the parts of ``deeplearning_mpi_tpu/resilience/cluster.py`` that
   coordinator address and wait for peers;
 - :class:`SupervisorJournal` / :func:`replay_journal` /
   :func:`next_incarnation`: the write-ahead journal of supervisor
-  transitions, stamped with a monotonic incarnation id (the re-adoption of
-  a dead supervisor's workers from it is the serving fleet's, item 10's
-  serving half);
+  transitions, stamped with a monotonic incarnation id, and
+  :func:`pid_alive`, the orphan probe a restarted fleet supervisor
+  re-adopts a dead one's workers with;
 - :class:`ClusterSupervisor`: chaos spec and injector, the registry, the
   heartbeat cadence and the JSONL metrics sink.
 
@@ -46,11 +46,15 @@ __all__ = [
     "JOURNAL_FILE",
     "RENDEZVOUS_VARS",
     "SUP_INCARNATION",
+    "SUP_READOPTED",
+    "SUP_REPLAY_S",
+    "SUP_RESPAWNED",
     "ClusterSupervisor",
     "LivenessTracker",
     "SupervisorJournal",
     "kill_and_reap",
     "next_incarnation",
+    "pid_alive",
     "reap",
     "replay_journal",
     "scrub_rendezvous_env",
@@ -72,7 +76,31 @@ INCARNATION_FILE = "incarnation.json"
 #: the write-ahead journal under the supervisor's run directory.
 JOURNAL_FILE = "journal.jsonl"
 
+#: control-plane metric names (``telemetry/schema.py``)
 SUP_INCARNATION = "supervisor_incarnation"
+SUP_READOPTED = "supervisor_readopted_total"
+SUP_RESPAWNED = "supervisor_respawned_total"
+SUP_REPLAY_S = "supervisor_journal_replay_s"
+
+
+def pid_alive(pid: int) -> bool:
+    """True iff ``pid`` exists and is not a zombie awaiting its reap (a
+    zombie passes ``kill(pid, 0)`` but cannot serve, so ``/proc`` is read
+    where it exists)."""
+    if pid <= 0:
+        return False
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rpartition(")")[2].split()[0]
+        return state != "Z"
+    except (OSError, IndexError):
+        return True
 
 
 def next_incarnation(root_dir: Path | str) -> int:

@@ -42,10 +42,16 @@ kind             unit    injection site
                          silent corruption only the digest vote attributes
 ===============  ======  =====================================================
 
-The serving kinds (``serve_crash``, ``handoff_stall``, ``replica_*``,
-``load_spike``, ``scale_during_failure``, ``supervisor_*``) parse; their
-hooks belong to the serving half (ROADMAP Queue 1 item 10), and a trainer
-refuses them at validation (:data:`TRAIN_KINDS`), as the reference does.
+The serving kinds fire through the serving hooks:
+``serve_crash`` raises :class:`InjectedFault` mid-step in an engine
+(:meth:`ChaosInjector.check_serve_crash`), ``handoff_stall`` wedges a
+disaggregated pair's handoff queue (:meth:`ChaosInjector.check_handoff_stall`),
+``replica_kill`` / ``replica_hang`` / ``replica_slow`` detonate inside a
+fleet worker (:meth:`ChaosInjector.check_replica_fault`), ``load_spike`` and
+``scale_during_failure`` are the fleet supervisor's own, and
+``supervisor_kill`` / ``supervisor_hang`` detonate against the supervisor
+process (:meth:`ChaosInjector.check_supervisor_fault`). A trainer refuses
+them at validation (:data:`TRAIN_KINDS`), as the reference does.
 
 ``rank_kill`` / ``rank_hang`` / ``bitflip`` are pod-level
 (:data:`POD_KINDS`): the faulted process cannot account for its own fault,
@@ -69,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import signal
 import time
 from typing import Any, Optional
 
@@ -404,6 +411,59 @@ class ChaosInjector:
             _exit_rank(step)
         if self.should_fire("rank_hang", step):
             _hang_rank(step)
+
+    def check_serve_crash(self, *, step: int) -> None:
+        """Serving-engine hook, mid-step (after prefill changed the host's
+        books and the KV pools): a planned ``serve_crash`` raises."""
+        if self.should_fire("serve_crash", step):
+            raise InjectedFault(f"chaos: injected serve_crash@step:{step}")
+
+    def check_handoff_stall(self, *, step: int) -> bool:
+        """Disaggregated-serving hook, before the prefill -> decode handoff
+        drain: True while the queue is wedged. A planned ``handoff_stall``
+        fires once at its trigger and the wedge holds until the coordinator
+        records its recovery."""
+        self.should_fire("handoff_stall", step)
+        return any(s.kind == "handoff_stall" and s.fired and not s.recovered
+                   for s in self.plan.specs)
+
+    def check_replica_fault(self, *, step: int) -> float:
+        """Fleet-worker hook, between engine steps: the extra seconds a
+        step sleeps once ``replica_slow`` has fired (it persists for the
+        worker's life), else 0.0. A kill or a hang never returns. The
+        supervisor hands each replica only the entries aimed at it, so the
+        holder of the spec is the target."""
+        if self.should_fire("replica_kill", step):
+            _exit_rank(step)
+        if self.should_fire("replica_hang", step):
+            _hang_rank(step)
+        self.should_fire("replica_slow", step)
+        if any(s.kind == "replica_slow" and s.fired for s in self.plan.specs):
+            return self.stall_s
+        return 0.0
+
+    def check_supervisor_fault(self, *, step: int, on_fire: Any = None) -> None:
+        """Control-plane hook, in the supervisor's own poll loop with its
+        completed count. ``supervisor_kill`` SIGKILLs this process (its
+        workers live on as orphans); ``supervisor_hang`` wedges the loop
+        forever. ``on_fire(kind)`` runs first, so the write-ahead journal
+        records the fire the next incarnation must book. Triggers on
+        ``step >= at``: the count can jump past the mark between polls."""
+        for spec in self.plan.specs:
+            if spec.kind not in CONTROLPLANE_KINDS or spec.fired or step < spec.at:
+                continue
+            kind = spec.kind
+            self.should_fire(kind, spec.at)
+            if on_fire is not None:
+                on_fire(kind)
+            _dump_flight(f"chaos-{kind}-step{step}")
+            what = ("SIGKILLed (orphaning live workers)" if kind == "supervisor_kill"
+                    else "poll loop wedged")
+            print(f"chaos: injected {kind}@step:{step} — supervisor {what}", flush=True)
+            if kind == "supervisor_kill":
+                os.kill(os.getpid(), signal.SIGKILL)
+            while True:
+                time.sleep(60.0)
 
     def maybe_poison(self, batch: dict[str, torch.Tensor], task: str, *,
                      step: int) -> dict[str, torch.Tensor]:

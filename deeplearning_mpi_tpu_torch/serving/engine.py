@@ -7,7 +7,9 @@ into free slots (adopting cached prefix blocks), copy the partially
 adopted blocks (copy-on-write), run one ``prefill_chunk``-wide chunk for
 every PREFILL slot, grow each DECODE slot's KV cover (evicting the oldest
 under pressure), then one batched decode step over every DECODE slot, or
-with ``spec_k > 0`` one draft propose loop and one verify step.
+with ``spec_k > 0`` one draft propose loop and one verify step. The phases
+are methods (``_phase_*``) so the disaggregated roles (``serving/disagg.py``)
+each run the subset they own against this one implementation.
 
 :class:`PagedForward` computes ``TransformerLM`` numerics over paged block
 tables by reusing the model's own submodules (norms, projections, RoPE,
@@ -17,8 +19,11 @@ scatters each slot's new K/V through its block table (inactive slots write
 to the scratch block), gathers each slot's pages into a ``[S, L, Hkv, D]``
 view, and attends with ``batched_decode_attention`` — K4 on CUDA
 (``EngineConfig.use_kernel`` defaults to True here; the reference defaults
-to its einsum). The pools are updated in place (the reference donates and
-rebinds them).
+to its einsum). The chunked prefill attends its chunk over the slot's
+gathered pages through K1 on CUDA (the chunk's queries at their absolute
+rows of a square ``[1, start + C, H, D]`` call, the rows before them zero);
+the reference's, and the port's on the CPU, is the masked matmul. The pools are
+updated in place (the reference donates and rebinds them).
 
 int8 KV pools (``EngineConfig.kv_dtype="int8"``) store ``ops.quant``'s
 scheme: int8 rows plus one float32 scale per (token, head), written in the
@@ -35,18 +40,25 @@ Telemetry, as the reference's: with a ``registry`` (a
 ``telemetry.MetricsRegistry``) the engine keeps the reference's counters
 there as well as in :attr:`ServingEngine.counters` (the same values), the
 ``serve_ttft_s`` / ``serve_tpot_s`` histograms, and the queue-depth,
-active-slot, KV-block and KV-byte gauges (unlabeled: the reference labels
-them by role only in a disaggregated pair, ROADMAP item 10), plus the
+active-slot, KV-block and KV-byte gauges (labeled ``role=...`` in a
+disaggregated pair, whose coordinator keeps the unlabeled view), plus the
 prefix cache's; with a ``tracer`` (a ``telemetry.SpanRecorder``)
 each finished request's ``request`` / ``queue`` / ``prefill`` /
-``decode`` spans, derived from its own timestamps so they tile arrival to
-finish, and an ``engine_step`` / ``prefill_chunk`` event trail. Without
+``handoff`` (disaggregated only) / ``decode`` spans, derived from its own
+timestamps so they tile arrival to finish, and an ``engine_step`` /
+``prefill_chunk`` event trail. Without
 either, each hook is one ``is not None`` test. The reference counts XLA
 compiles in ``serve_compile_total``; the port counts the programs
 :meth:`ServingEngine.warmup` captures (an eager step compiles nothing).
 
-Greedy-only, dense models only. Not in this slice: disaggregation and
-chaos.
+Chaos: with a ``chaos`` injector a planned ``serve_crash`` raises
+mid-step, after admission and prefill changed the books and the pools;
+:meth:`ServingEngine.run_until_idle` recovers in place
+(:meth:`ServingEngine.recover`) and books the recovery. ``pool`` /
+``kv_buffers`` / ``draft_kv_buffers`` / ``prefix_cache`` inject shared
+block accounting and device pools: the disaggregation seam.
+
+Greedy-only, dense models only.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from deeplearning_mpi_tpu_torch.ops.attention import (
     dense_attention,
     repeat_kv,
 )
+from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deeplearning_mpi_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from deeplearning_mpi_tpu_torch.serving.kv_pool import (
     SCRATCH_BLOCK,
@@ -80,7 +93,10 @@ from deeplearning_mpi_tpu_torch.serving.scheduler import (
     Scheduler,
 )
 
-__all__ = ["EngineConfig", "KVBuffers", "PagedForward", "ServingEngine", "kv_storage"]
+__all__ = [
+    "EngineConfig", "KVBuffers", "PagedForward", "ServingEngine", "chunk_attention",
+    "kv_storage",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +175,31 @@ def pow2_bucket(n: int, cap: int | None = None) -> int:
     while b < max(int(n), 1):
         b *= 2
     return min(b, int(cap)) if cap is not None else b
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: int, *,
+                    window: int | None = None) -> torch.Tensor:
+    """A prefill chunk's causal attention through K1's square call: the
+    chunk's queries ``[1, C, H, D]`` (absolute positions ``start ..
+    start + C - 1``) over the slot's pages ``[1, L, H, D]`` (position
+    order). K1 takes one sequence length for q, k and v, so the queries sit
+    at their own rows of a ``[1, S, H, D]`` call, ``S = start + C``, the
+    rows before them zero. No chunk row sees a key past ``start + C - 1``,
+    so the pages are cut to ``S`` rows, or padded with zero rows where the
+    chunk runs past them; a chunk row sees exactly the keys at positions up
+    to its own, as in ``dense_attention(..., q_offset=start)``. K1 still
+    computes the ``start`` zero rows' causal triangle."""
+    C, L = q.shape[1], k.shape[1]
+    S = start + C
+    q_full = q.new_zeros((q.shape[0], S, *q.shape[2:]))
+    q_full[:, start:] = q
+    if S > L:
+        pad = k.new_zeros((k.shape[0], S - L, *k.shape[2:]))
+        k, v = torch.cat([k, pad], dim=1), torch.cat([v, pad], dim=1)
+    else:
+        k, v = k[:, :S], v[:, :S]
+    out = flash_attention(q_full, k, v, causal=True, window=window)
+    return out[:, start:]
 
 
 class PagedForward:
@@ -281,9 +322,13 @@ class PagedForward:
         tokens: torch.Tensor,  # [C] int64 prompt chunk (0-padded past n_valid)
         start: int,            # absolute position of tokens[0]
         n_valid: int,          # real rows in the chunk
+        *,
+        use_kernel: bool | None = True,
     ) -> torch.Tensor:
         """One prompt chunk for one slot; returns the last valid row's
-        float32 logits ``[V]``."""
+        float32 logits ``[V]``. On CUDA (unless ``use_kernel`` is False)
+        the chunk attends through K1 (:func:`chunk_attention`); elsewhere
+        through the masked matmul."""
         model, c, e = self.model, self.config, self.engine
         BS, C = e.block_size, tokens.shape[0]
         L = table.shape[0] * BS
@@ -295,6 +340,7 @@ class PagedForward:
         bid = torch.where(offs < n_valid, table[p // BS], SCRATCH_BLOCK)
         off = p % BS
         window = c.attention_window or None
+        kernel = tokens.is_cuda and use_kernel is not False
         for i, block in enumerate(model.layers):
             q, k, v = block.attn.project(block.attn_norm(x), pos)
             self._scatter(kv, i, bid, off, k[0], v[0])
@@ -302,10 +348,12 @@ class PagedForward:
             # The chunk's queries see earlier chunks' pages plus this chunk's
             # own rows; stale rows of a recycled block sit after the last
             # valid query and are causally masked.
-            ctx = dense_attention(
-                q, repeat_kv(k_seq, rep), repeat_kv(v_seq, rep),
-                causal=True, window=window, q_offset=start,
-            )
+            k_seq, v_seq = repeat_kv(k_seq, rep), repeat_kv(v_seq, rep)
+            if kernel:
+                ctx = chunk_attention(q, k_seq, v_seq, start, window=window)
+            else:
+                ctx = dense_attention(q, k_seq, v_seq, causal=True, window=window,
+                                      q_offset=start)
             x = x + block.attn.output(ctx)
             x = x + block.mlp(block.mlp_norm(x))
         x_last = model.final_norm(x)[0, n_valid - 1]
@@ -390,7 +438,16 @@ class ServingEngine:
     speculative decoding, a dense ``TransformerLM`` sharing the target's
     vocab; usually the target's first layers
     (``models.transformer.self_draft``). ``tenants`` configures the
-    scheduler's per-tenant budgets and priorities.
+    scheduler's per-tenant budgets and priorities. ``chaos`` (a
+    ``resilience.ChaosInjector``) fires ``serve_crash`` mid-step.
+
+    ``pool`` / ``kv_buffers`` / ``draft_kv_buffers`` / ``prefix_cache``
+    inject SHARED block accounting, device pools and prefix cache: a
+    prefill-only and a decode-only engine built over the same ones hand a
+    sequence over by moving its block table, the pages already in place
+    (``serving/disagg.py``). Omitted, the engine owns them. ``role`` names
+    the engine's half of such a pair: its gauges carry ``role=...`` and its
+    events the role.
     """
 
     def __init__(
@@ -404,6 +461,12 @@ class ServingEngine:
         tenants: dict[str, dict[str, Any]] | None = None,
         registry: Any = None,
         tracer: Any = None,
+        chaos: Any = None,
+        role: str | None = None,
+        pool: PagedKVPool | None = None,
+        kv_buffers: KVBuffers | None = None,
+        draft_kv_buffers: KVBuffers | None = None,
+        prefix_cache: RadixPrefixCache | None = None,
     ) -> None:
         engine = engine or EngineConfig()
         if model.config.moe_experts > 0:
@@ -431,6 +494,8 @@ class ServingEngine:
         self.eos_id = eos_id
         self.device = model.device
         self._clock = clock
+        self.chaos = chaos
+        self.role = role
         #: the reference's counters by name (see :attr:`counters`)
         self._counters: dict[str, int] = dict.fromkeys(_COUNTERS, 0)
         if engine.spec_k > 0:
@@ -439,9 +504,18 @@ class ServingEngine:
         # None unless a SpanRecorder was given: each hook is one pointer test.
         self._tracer = tracer
         self._kv_dtype_name = str(storage or model.dtype).replace("torch.", "")
-        self.pool = PagedKVPool(engine.num_blocks, engine.block_size, kv_dtype=storage)
-        self.prefix_cache = (RadixPrefixCache(self.pool, registry=registry)
-                             if engine.prefix_cache else None)
+        if pool is None:
+            pool = PagedKVPool(engine.num_blocks, engine.block_size, kv_dtype=storage)
+        elif (pool.num_blocks, pool.block_size) != (engine.num_blocks, engine.block_size):
+            raise ValueError(
+                f"injected pool geometry {pool.num_blocks}x{pool.block_size} does not "
+                f"match engine config {engine.num_blocks}x{engine.block_size}"
+            )
+        self.pool = pool
+        # An injected cache (one over a shared pool) implies the cache is on.
+        if prefix_cache is None and engine.prefix_cache:
+            prefix_cache = RadixPrefixCache(self.pool, registry=registry)
+        self.prefix_cache = prefix_cache
         self.scheduler = Scheduler(
             self.pool,
             max_slots=engine.max_slots,
@@ -456,7 +530,7 @@ class ServingEngine:
         )
         if registry is not None:
             self._register(registry)
-        self._kvh = KVBuffers(init_kv_buffers(
+        self._kvh = kv_buffers if kv_buffers is not None else KVBuffers(init_kv_buffers(
             self.config.num_layers, engine.num_blocks, engine.block_size,
             self.config.kv_heads, self.config.head_dim, storage or model.dtype, self.device,
         ))
@@ -466,7 +540,7 @@ class ServingEngine:
             from deeplearning_mpi_tpu_torch.serving.speculative import SpeculativeDecoder
 
             self._spec = SpeculativeDecoder(draft, target_config=self.config, engine=engine,
-                                            kv_dtype=storage)
+                                            kv_dtype=storage, kv_buffers=draft_kv_buffers)
         #: brownout stage 2+ suspends speculative drafts (plain decode emits
         #: the same tokens)
         self.spec_suspended = False
@@ -523,7 +597,7 @@ class ServingEngine:
                 registry.counter(name)
         for name in ("serve_queue_depth", "serve_slots_active", "serve_kv_blocks_in_use",
                      "serve_kv_bytes"):
-            registry.gauge(name)
+            registry.gauge(self._role_name(name))
         registry.gauge(labeled("serve_kv_bytes", dtype=self._kv_dtype_name))
         for name in ("serve_ttft_s", "serve_tpot_s", "serve_compile_seconds"):
             registry.histogram(name)
@@ -534,17 +608,27 @@ class ServingEngine:
             registry.gauge("serve_prefix_nodes")
             registry.gauge("serve_prefix_blocks")
 
+    def _role_name(self, name: str) -> str:
+        """A gauge's name for this engine: ``role=...``-labeled in a
+        disaggregated pair (two engines share one registry), plain
+        otherwise."""
+        if self.role is None:
+            return name
+        from deeplearning_mpi_tpu_torch.telemetry.registry import labeled
+
+        return labeled(name, role=self.role)
+
     def _set_gauges(self) -> None:
         m = self._metrics
         if m is None:
             return
         from deeplearning_mpi_tpu_torch.telemetry.registry import labeled
 
-        m.gauge("serve_queue_depth").set(self.scheduler.queue_depth())
-        m.gauge("serve_slots_active").set(self.scheduler.slots_active())
-        m.gauge("serve_kv_blocks_in_use").set(self.pool.in_use)
+        m.gauge(self._role_name("serve_queue_depth")).set(self.scheduler.queue_depth())
+        m.gauge(self._role_name("serve_slots_active")).set(self.scheduler.slots_active())
+        m.gauge(self._role_name("serve_kv_blocks_in_use")).set(self.pool.in_use)
         nbytes = self._kvh.nbytes
-        m.gauge("serve_kv_bytes").set(nbytes)
+        m.gauge(self._role_name("serve_kv_bytes")).set(nbytes)
         m.gauge(labeled("serve_kv_bytes", dtype=self._kv_dtype_name)).set(nbytes)
         if self.prefix_cache is not None:
             m.gauge("serve_prefix_nodes").set(self.prefix_cache.num_nodes)
@@ -558,9 +642,9 @@ class ServingEngine:
     def _trace_request(self, req: Request, now: float) -> None:
         """The request's phase spans from its own lifecycle stamps, written
         once at retirement: ``queue`` (arrival -> admitted), ``prefill``
-        (-> first token), ``decode`` (-> finished) under a ``request`` root
-        span, so the phases tile arrival -> finish (the reference's
-        ``handoff`` span belongs to disaggregation, ROADMAP item 10)."""
+        (-> first token), in a disaggregated pair ``handoff`` (detached ->
+        adopted), ``decode`` (-> finished) under a ``request`` root span, so
+        the phases tile arrival -> finish."""
         tr = self._tracer
         trace = req.trace or f"rid{req.rid}"
         root = tr.record_span("request", req.arrival, now, trace=trace, rid=req.rid,
@@ -571,8 +655,13 @@ class ServingEngine:
             if req.t_first_token is not None:
                 tr.record_span("prefill", req.t_admitted, req.t_first_token, trace=trace,
                                parent=root.sid)
-        if req.t_first_token is not None:
-            tr.record_span("decode", req.t_first_token, now, trace=trace, parent=root.sid,
+        decode_t0 = req.t_first_token
+        if req.t_detached is not None and req.t_adopted is not None:
+            tr.record_span("handoff", req.t_detached, req.t_adopted, trace=trace,
+                           parent=root.sid)
+            decode_t0 = req.t_adopted
+        if decode_t0 is not None:
+            tr.record_span("decode", decode_t0, now, trace=trace, parent=root.sid,
                            tokens=len(req.generated))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -669,9 +758,11 @@ class ServingEngine:
         deadline: Optional[float] = None,
         arrival: Optional[float] = None,
         tenant: str = "default",
+        trace: Optional[str] = None,
     ) -> Request:
         """Enqueue one request (or shed it at the door — check
-        ``req.state``). ``prompt`` is a 1-D int sequence."""
+        ``req.state``). ``prompt`` is a 1-D int sequence; ``trace`` keys its
+        spans (a fleet's global rid) instead of the engine-local rid."""
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         req = Request(
@@ -681,6 +772,7 @@ class ServingEngine:
             arrival=self._clock() if arrival is None else arrival,
             deadline=deadline,
             tenant=tenant,
+            trace=trace,
         )
         self._next_rid += 1
         self._inc("serve_requests_submitted")
@@ -712,20 +804,31 @@ class ServingEngine:
         self._phase_admit(self._clock())
         self._phase_cow()
         self._phase_prefill(finished)
+        self._phase_chaos()
         self._phase_decode(self._phase_grow(), finished)
         self.steps += 1
         self._set_gauges()
         if self._tracer is not None:
-            self._tracer.event("engine_step", step=self.steps, role="colocated",
+            self._tracer.event("engine_step", step=self.steps, role=self.role or "colocated",
                                finished=len(finished))
         return finished
 
     def run_until_idle(self, *, max_steps: int = 100_000) -> list[Request]:
-        """Step until queue and slots drain; returns everything finished."""
+        """Step until queue and slots drain; returns everything finished.
+        An injected crash is recovered in place (:meth:`recover`) and the
+        loop goes on: each planned fault fires once. Requests that finished
+        in a crashed step stay finished on their own objects (the step's
+        return value was lost with the exception)."""
+        from deeplearning_mpi_tpu_torch.resilience.faults import InjectedFault
+
         finished: list[Request] = []
         steps = 0
         while not self.scheduler.idle():
-            finished.extend(self.step())
+            try:
+                finished.extend(self.step())
+            except InjectedFault as err:
+                print(f"serving: {err} — recovering", flush=True)
+                self.recover()
             steps += 1
             if steps > max_steps:
                 raise RuntimeError(f"engine did not drain within {max_steps} steps")
@@ -749,8 +852,14 @@ class ServingEngine:
         self.pool.check()
         self._inc("serve_requeued_total", len(inflight))
         self._inc("serve_tokens_discarded_total", discarded)
+        if self.chaos is not None:
+            self.chaos.record_recovery("serve_crash")
         self._set_gauges()
-        return {"requeued": len(inflight), "tokens_discarded": discarded, **stats}
+        out = {"requeued": len(inflight), "tokens_discarded": discarded, **stats}
+        print(f"serving: recovered — requeued {out['requeued']} in-flight request(s), "
+              f"reclaimed {stats['reclaimed']} KV block(s), discarded {discarded} "
+              "token(s)", flush=True)
+        return out
 
     # -- step phases ---------------------------------------------------------
     def _phase_admit(self, now: float) -> list[Request]:
@@ -779,6 +888,13 @@ class ServingEngine:
         for req in list(self.scheduler.running()):
             if req.state is RequestState.PREFILL:
                 self._prefill_one(req, finished)
+
+    def _phase_chaos(self) -> None:
+        """The ``serve_crash`` site: mid-step, after admission and prefill
+        changed the books and the pools, the state :meth:`recover` must
+        untangle."""
+        if self.chaos is not None:
+            self.chaos.check_serve_crash(step=self.steps)
 
     def _phase_grow(self) -> list[Request]:
         """Mandatory KV growth for every DECODE slot: feeding a token at
@@ -927,7 +1043,8 @@ class ServingEngine:
         table = np.zeros((e.max_blocks_per_seq,), np.int64)
         table[: len(req.blocks)] = req.blocks
         last_logits = self._fwd.prefill_chunk(
-            self._kv, self._tensor(table), self._tensor(chunk), start, n_valid
+            self._kv, self._tensor(table), self._tensor(chunk), start, n_valid,
+            use_kernel=e.use_kernel,
         )
         self._record_writes(
             req.blocks[start // e.block_size : (start + n_valid - 1) // e.block_size + 1]
@@ -938,7 +1055,7 @@ class ServingEngine:
         self._inc("serve_prefill_chunks")
         if self._tracer is not None:
             self._tracer.event("prefill_chunk", trace=req.trace or f"rid{req.rid}",
-                               start=start, n=n_valid, role="colocated")
+                               start=start, n=n_valid, role=self.role or "colocated")
         req.prefilled += n_valid
         if req.prefilled < req.prompt_len:
             return
@@ -959,6 +1076,13 @@ class ServingEngine:
                 self.prefix_cache.insert(req.prompt, req.blocks, n_full * e.block_size)
         if self._done(req, tok):
             self._finish(req, req.t_first_token, finished)
+        else:
+            self._prefill_complete(req)
+
+    def _prefill_complete(self, req: Request) -> None:
+        """Hook: ``req`` finished its prompt (first token emitted) and enters
+        DECODE. A no-op here; the disaggregated prefill role hands the
+        sequence, block table and all, to its decode peer."""
 
     def _record_writes(self, blocks: Iterable[int]) -> None:
         """Log a step's KV writes against the pool's per-block epochs; data

@@ -54,6 +54,7 @@ class SpeculativeDecoder:
         target_config: TransformerConfig,
         engine: Any,  # EngineConfig (engine.py imports this module)
         kv_dtype: torch.dtype | None = None,
+        kv_buffers: Any = None,
     ) -> None:
         if not isinstance(draft, TransformerLM):
             raise NotImplementedError("the draft model must be a dense TransformerLM")
@@ -70,7 +71,8 @@ class SpeculativeDecoder:
         self.spec_k = engine.spec_k
         self.device = draft.device
         self._fwd = PagedForward(draft, engine, kv_dtype=kv_dtype)
-        self._kvh = KVBuffers(init_kv_buffers(
+        # Injected: the pools a disaggregated pair's two roles share.
+        self._kvh = kv_buffers if kv_buffers is not None else KVBuffers(init_kv_buffers(
             c.num_layers, engine.num_blocks, engine.block_size, c.kv_heads, c.head_dim,
             kv_dtype or draft.dtype, self.device,
         ))

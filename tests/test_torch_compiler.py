@@ -327,3 +327,41 @@ def test_cache_lru_eviction_and_stats(tmp_path):
     assert cache.lookup("b") is None and str(cache.lookup("a")) == libs["a"] and cache.hits == 1
     assert cache.evict(0) and cache.stats()["entries"] == 0
     assert np.isclose(cache.stats()["size_bytes"], 0)
+
+
+SLOW_RANDOM_BUILD = ("import os, sys, time; time.sleep(0.4); "
+                     "open(sys.argv[2], 'wb').write(open(sys.argv[1], 'rb').read() + os.urandom(16))")
+_BUILD_AT_ONCE = r"""
+import sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[4])
+from deeplearning_mpi_tpu_torch.compiler.cache import CompileCache
+cache = CompileCache(Path(sys.argv[1]), csrc=Path(sys.argv[2]),
+                     command=lambda src, out: [sys.executable, "-c", sys.argv[3], str(src), str(out)],
+                     toolchain=lambda: "fake nvcc 1.0", loader=lambda p: p)
+while time.time() < float(sys.argv[5]):
+    time.sleep(0.001)
+lib = cache.load("a")
+print(cache.builds, cache.hits, cache.quarantined, lib)
+"""
+
+
+def test_two_processes_building_one_kernel_at_once(tmp_path):
+    """Two processes load one missing kernel at the same instant, each
+    build writing different bytes: the kernel's lock makes one build and
+    the other hit its library, digest and all; nothing is quarantined."""
+    import subprocess
+    import time
+
+    cache = make_cache(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    go = str(time.time() + 1.5)
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AT_ONCE, str(cache.path),
+                               str(cache.csrc), SLOW_RANDOM_BUILD, root, go],
+                              stdout=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=60)[0].split() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert sorted(int(o[0]) for o in outs) == [0, 1]  # one build, one hit
+    assert all(int(o[2]) == 0 for o in outs) and outs[0][3] == outs[1][3]
+    assert not (cache.path / "quarantine").exists()
+    assert cache.verify(quarantine=False) == []

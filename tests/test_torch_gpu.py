@@ -1495,3 +1495,100 @@ def test_nccl_pod_rank_kill_reforms_and_resumes_bitwise(cuda, tmp_path, monkeypa
     print("nccl_pod resumed losses:", pod, "oracle:", oracle)
     assert oracle[0] and sorted(oracle[1]) == [1, 2]
     assert pod == oracle
+
+
+# -- the serving half of the resilience layer ------------------------------------------
+@pytest.mark.parametrize("start,chunk,length", [(0, 16, 128), (48, 16, 128), (120, 16, 128),
+                                                (384, 128, 1024)])
+def test_prefill_chunk_attention_through_k1(cuda, start, chunk, length):
+    """The engine's prefill-chunk call (``chunk_attention``) launches K1 once
+    and agrees with the masked matmul on the chunk's rows (the pages padded
+    where the chunk runs past them)."""
+    from deeplearning_mpi_tpu_torch.ops.attention import dense_attention
+    from deeplearning_mpi_tpu_torch.serving.engine import chunk_attention
+
+    q = torch.randn(1, chunk, 12, 64, generator=cuda, device="cuda")
+    k, v = (torch.randn(1, length, 12, 64, generator=cuda, device="cuda") for _ in range(2))
+    before = fa.flash_attention_cuda.launches
+    got = chunk_attention(q, k, v, start)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    valid = min(chunk, length - start)
+    want = dense_attention(q, k, v, causal=True, q_offset=start)
+    _out_close(got[:, :valid].contiguous(), want[:, :valid].contiguous(), torch.float32,
+               f"chunk at {start}")
+
+
+def test_disaggregated_pair_on_the_card(cuda):
+    """A warmed disaggregated pair on the card under ``handoff_stall`` and
+    ``serve_crash``: the streams equal the colocated engine's and offline
+    greedy's, the prefill role launches K1 and never K4, the decode role K4
+    and never K1, the shared pool drains and the books balance."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector
+    from deeplearning_mpi_tpu_torch.serving import (
+        DisaggregatedEngine,
+        EngineConfig,
+        ServingEngine,
+    )
+
+    model = TransformerLM(TransformerConfig(vocab_size=256, num_layers=2), dtype=torch.float32,
+                          device="cuda").init_weights(0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, size=n).astype(np.int32) for n in (7, 40, 19, 64, 3)]
+    cfg = EngineConfig(max_slots=3, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                       prefill_chunk=16)
+    chaos = ChaosInjector.from_spec("handoff_stall@step:2,serve_crash@step:5")
+    pair = DisaggregatedEngine(model, cfg, chaos=chaos)
+    pair.warmup()
+    lanes = {"prefill": [0, 0], "decode": [0, 0]}
+
+    def counted(role, step):
+        def run():
+            b = (fa.flash_attention_cuda.launches, fd.flash_decode_cuda.launches)
+            done = step()
+            lanes[role][0] += fa.flash_attention_cuda.launches - b[0]
+            lanes[role][1] += fd.flash_decode_cuda.launches - b[1]
+            return done
+        return run
+
+    pair.prefill.step = counted("prefill", pair.prefill.step)
+    pair.decode.step = counted("decode", pair.decode.step)
+    reqs = [pair.submit(p, 12) for p in prompts]
+    pair.run_until_idle()
+    colocated = ServingEngine(model, cfg)
+    creqs = [colocated.submit(p, 12) for p in prompts]
+    colocated.run_until_idle()
+    for r, c, p in zip(reqs, creqs, prompts):
+        assert r.generated == c.generated == offline_greedy(model, p, 12, None)
+    assert lanes["prefill"][0] > 0 == lanes["prefill"][1]
+    assert lanes["decode"][1] > 0 == lanes["decode"][0]
+    assert chaos.balanced() and pair.pool.in_use == 0
+    pair.pool.check()
+
+
+def test_fleet_on_the_card(cuda, tmp_path, capsys):
+    """``serve_lm --replicas 2`` on the card with a kill, a hang and a
+    rolling swap: exit 0 with the CLI's bit-exact parity, the swap in place,
+    every worker that served reporting K1 and K4 launches."""
+    import json
+
+    from deeplearning_mpi_tpu_torch.cli import serve_lm
+
+    rc = serve_lm.main(["--selftest", "--device", "cuda", "--num_layers", "2",
+                        "--num_heads", "12", "--head_dim", "64", "--d_model", "768",
+                        "--d_ff", "2048", "--replicas", "2", "--chaos",
+                        "replica_kill@step:4,replica_hang@step:6", "--swap_at", "8",
+                        "--num_requests", "24", "--rate", "3", "--fleet_dir",
+                        str(tmp_path / "f")])
+    out = capsys.readouterr()
+    text = out.out + out.err
+    assert rc == 0, text
+    assert "in_place=True" in text and "compile_flat=True" in text
+    workers = json.loads(next(ln for ln in text.splitlines()
+                              if ln.startswith("fleet workers: ")).split(": ", 1)[1])
+    served = [w for w in workers.values() if w["served"]]
+    assert served and all(w["K1"] > 0 and w["K4"] > 0 for w in served)

@@ -24,12 +24,16 @@ with ``--metrics_dir --log_dir --profile_dir``, a traced ``Trainer`` epoch,
 ``serve_lm --metrics_file``), two for the compiler layer
 (``train_lm --aot_warmup --tuned_step``, ``cli.autotune --selftest``), and
 two for the resilience layer (``train_lm --chaos ... --max_restarts 1``,
-``cli.launch_pod`` over a tiny worker), each process with jax blocked. The
+``cli.launch_pod`` over a tiny worker) and two for its serving half (a
+warmed disaggregated pair under chaos, a fleet worker serving from its
+inbox), each process with jax blocked. The
 AST scan covers every module of the package, the compiler layer's
 (``compiler/aot.py``, ``autotune.py``, ``cache.py``, ``cli/autotune.py``)
 and the resilience layer's (``resilience/faults.py``, ``supervisor.py``,
 ``watchdog.py``, ``guardrails.py``, ``cluster.py``, ``pod.py``,
-``train/resilience.py``, ``cli/launch_pod.py``) included.
+``train/resilience.py``, ``cli/launch_pod.py``) and the serving half's
+(``serving/disagg.py``, ``router.py``, ``autoscaler.py``, ``fleet.py``,
+``cli/controlplane_drill.py``) included.
 """
 
 import ast
@@ -526,6 +530,88 @@ def test_resilience_paths_run_with_jax_blocked(path, tmp_path):
         assert "chaos: 2 fault(s) injected, 1 recovered, 1 rolled back" in out.stdout
     else:
         assert "re-forming: world 2 -> 1" in out.stdout
+
+
+SERVING_RESILIENCE_MODULES = ["serving/disagg.py", "serving/router.py", "serving/autoscaler.py",
+                              "serving/fleet.py", "cli/controlplane_drill.py"]
+
+
+def test_scan_covers_the_serving_half_of_the_resilience_layer():
+    scanned = {p.relative_to(ROOT / "deeplearning_mpi_tpu_torch").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    assert set(SERVING_RESILIENCE_MODULES) <= scanned
+
+
+@pytest.mark.parametrize("path", ["disagg", "fleet_worker"])
+def test_serving_resilience_paths_run_with_jax_blocked(path, tmp_path):
+    """The serving half with jax blocked: a warmed disaggregated pair under
+    ``handoff_stall`` and ``serve_crash`` drains with its books balanced;
+    a fleet worker (``serving.fleet.worker_main``, as the supervisor spawns
+    it) serves two requests from its inbox, swaps its weights in place and
+    stops, reporting its launch counts."""
+    block = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+             "    sys.modules[name] = None\n")
+    model = {"vocab_size": 256, "num_layers": 1, "num_heads": 2, "num_kv_heads": None,
+             "head_dim": 8, "d_model": 16, "d_ff": 32, "attention_window": 0}
+    engine = {"max_slots": 2, "block_size": 4, "num_blocks": 16, "max_blocks_per_seq": 4,
+              "prefill_chunk": 4}
+    if path == "disagg":
+        code = block + (
+            "import numpy as np\n"
+            "from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM\n"
+            "from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector\n"
+            "from deeplearning_mpi_tpu_torch.serving import DisaggregatedEngine, EngineConfig\n"
+            f"model = TransformerLM(TransformerConfig(**{model!r}), device='cpu').init_weights(0)\n"
+            "chaos = ChaosInjector.from_spec('handoff_stall@step:2,serve_crash@step:4')\n"
+            f"engine = DisaggregatedEngine(model, EngineConfig(**{engine!r}), chaos=chaos)\n"
+            "assert engine.warmup()\n"
+            "reqs = [engine.submit(np.arange(1, n + 1), 4) for n in (3, 6, 2)]\n"
+            "engine.run_until_idle()\n"
+            "assert all(r.state.value == 'finished' for r in reqs) and chaos.balanced()\n"
+            "assert engine.counters['serve_handoffs_total'] >= 3 and engine.pool.in_use == 0\n")
+    else:
+        import json
+
+        rdir = tmp_path / "replica0-a0"
+        rdir.mkdir()
+        (rdir / "spec.json").write_text(json.dumps({
+            "model": model, "engine": engine, "seed": 0, "version": 0, "warmup": True,
+            "device": "cpu", "threads": 1}))
+        (rdir / "inbox.jsonl").write_text("".join(json.dumps(m) + "\n" for m in (
+            {"op": "req", "rid": 0, "prompt": [1, 2, 3], "max_new": 3},
+            {"op": "req", "rid": 1, "prompt": [4, 5], "max_new": 2})))
+        code = block + (
+            "from deeplearning_mpi_tpu_torch.serving.fleet import worker_main\n"
+            f"assert worker_main(['--replica', '0', '--dir', {str(rdir)!r},\n"
+            f"                    '--spec', {str(rdir / 'spec.json')!r}]) == 0\n")
+    proc = subprocess.Popen([sys.executable, "-c", code + "print('ok')\n"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=ENV)
+    if path == "fleet_worker":
+        import time
+
+        outbox, deadline = rdir / "outbox.jsonl", time.monotonic() + 90
+        while time.monotonic() < deadline and proc.poll() is None:
+            text = outbox.read_text() if outbox.exists() else ""
+            if text.count('"op": "done"') == 2:
+                break
+            time.sleep(0.05)
+        with open(rdir / "inbox.jsonl", "a") as f:
+            f.write(json.dumps({"op": "swap", "seed": 1, "version": 1}) + "\n"
+                    + json.dumps({"op": "stop"}) + "\n")
+    try:
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0 and stdout.strip().endswith("ok"), stdout + stderr
+    if path == "fleet_worker":
+        ops = [json.loads(line) for line in (rdir / "outbox.jsonl").read_text().splitlines()]
+        assert [m["op"] for m in ops][0] == "ready" and ops[-1]["op"] == "stopped"
+        assert sorted(m["rid"] for m in ops if m["op"] == "done") == [0, 1]
+        swapped = [m for m in ops if m["op"] == "swapped"]
+        assert swapped and swapped[0]["in_place"] is True
+        assert ops[-1]["launches"] == {"K1": 0, "K4": 0, "captures": ops[0]["compile_total"],
+                                       "served": 2}
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
