@@ -332,11 +332,32 @@ Phases, each printed on its own line; any failure exits non-zero:
     re-adopts every live replica with no respawn, the books balance across
     incarnations, parity holds. Then K1 at the prefill-chunk call (held to
     ``FWD_TOL``, its bound the chunk's own work) and K4 at the serving
-    decode shape, timed with phase 22's launches.
+    decode shape, timed with phase 22's launches;
+23. the last modules. (a) The sanitizer (``DMT_SANITIZE=1``): 21a's faulted
+    run's saves of the 110M captured state under the donation canary and
+    22a's eager and warmed engines (K1, K4) with 0 trips; then on a fresh
+    tiny warmed engine on the card (``cli.sanitize_drill``) each injection
+    (double free, use after free, refcount underflow, a write to a shared
+    block, a capture after warmup, an eager decode at an uncaptured width,
+    a save racing an in-place ``add_``) raised, classified, counted once
+    and mirrored into the registry. (b) ``sim.FleetSimulator`` on 22c's
+    ``--autoscale`` trace with 22c's ``AutoscalerConfig``, its
+    ``ServiceModel`` calibrated from that run's records (TTFT before any
+    fault, the workers' TPOT median, spawn -> ready): 64 completions and 0
+    sheds in both, a scale-up in each, the simulated TTFT p50 within the
+    reference calibration test's band (1.5 / 10.5 to 21.0 / 10.5) of the
+    measured one. (c) 12b on the native C++ transforms and the loader's
+    default fetch threads, every 12b bar held. (d) Before the
+    ``flash_decode`` join: seeded ``.pth`` files (torchvision ResNet-18
+    names with DDP's prefix; the reference UNet, 2 and 1 classes) through
+    ``cli.import_torch --device cuda``; the restored models' eval logits
+    within 1e-5 relative L2 of a functional oracle (f32, TF32 off); then
+    ``train_resnet --resume --torch_padding --eval_only`` and ``train_unet
+    --resume --reference_topology --eval_only`` on the imports.
 
-Order: all kernel builds start together; phases 3, 7, 8, 9, 12 and 16 (no
-K4) run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11, 13-15,
-17-22 and the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
+Order: all kernel builds start together; phases 3, 7, 8, 9, 12, 16 and 23d
+(no K4) run while ``flash_decode.cu`` still builds, then 4, 5, 6, 10, 11,
+13-15, 17-23 and the training-shape timing rows. 13c's CLIs run 4 of the MoE LM's 12 blocks.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is the result JSON. Without CUDA,
@@ -1801,6 +1822,20 @@ def original_workloads(torch, card: str) -> dict:
                                model_dir=model_dir if dtype == "float32" else None,
                                check_rows=8, metric="accuracy")
             run = r.pop("run")
+            if dtype == "float32":
+                # 23c: 12b's input pipeline, the native C++ transforms and
+                # the loader's default fetch threads.
+                from deeplearning_mpi_tpu_torch.data.native import (
+                    native_available,
+                    pipeline_description,
+                )
+
+                r["pipeline"] = pipeline_description(run.train_loader.num_workers)
+                log(f"23c 12b [{card}]: {r['pipeline']}; {r['images_per_s']:.1f} images/s, "
+                    f"busy share {100 * r['profile']['busy_share']:.2f}% (one profiled step), "
+                    "12b's bars held above")
+                require(native_available() and run.train_loader.num_workers > 0,
+                        f"23c: 12b did not run the native pipeline: {r['pipeline']}")
             if dtype != "float32":
                 r.pop("final_digests")
             if dtype == "float32":
@@ -4251,12 +4286,20 @@ def resilience_drill(torch, card: str, seed: int, *, device: str = "cuda", cfg=N
     work = tempfile.mkdtemp(prefix="phase21-", dir=os.path.join(ROOT, "build"))
     _p21_free(torch)
     try:
-        faulted = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21_STEPS_A,
-                           device=device, plan=P21_PLAN, work=os.path.join(work, "ck"))
+        # 23a: the faulted run's saves under the sanitizer's donation canary.
+        with _Sanitized() as san:
+            faulted = _p21_run(torch, cfg, seed, batch=batch, seq=seq, steps=P21_STEPS_A,
+                               device=device, plan=P21_PLAN, work=os.path.join(work, "ck"))
+            canary = {"canaries": san.canaries, "saves": len(faulted["save_s"]),
+                      "trips": san.trips()}
         nbytes = sum(f.stat().st_size for f in
                      (faulted["trainer"].checkpointer.step_dir(2)).iterdir())
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"23a canary over 21a's saves [{card}]: {canary['canaries']} canaries for "
+        f"{canary['saves']} saves of the 110M captured state, trips {canary['trips']}")
+    require(canary["canaries"] == canary["saves"] > 0 and not canary["trips"],
+            f"23a: the canary over 21a's saves: {canary}")
     ft = faulted.pop("trainer")
     programs = list(ft.train_step.programs.values())
     require(all(p.model is ft.state.model for p in programs),
@@ -4281,7 +4324,7 @@ def resilience_drill(torch, card: str, seed: int, *, device: str = "cuda", cfg=N
            "clean_seconds": clean["seconds"], "warmup_s": faulted["warmup_s"],
            "save_s": faulted["save_s"], "restore_s": faulted["restore_s"],
            "checkpoint_bytes": nbytes, "tensors_differing": differ,
-           "chaos": chaos.summary()}
+           "chaos": chaos.summary(), "canary": canary}
     log(f"21a drill [{card}]: history {history}, books {out['books']} ({out['chaos']}), "
         f"launches {out['launches']} (expected {want} each: {P21_RUN_STEPS} steps), fallback "
         f"calls {out['fallback_calls']}, captures after warmup {out['recaptures']}; faulted run "
@@ -4741,6 +4784,7 @@ def _fleet_check(name: str, lines: list[str], fleet_dir: str) -> dict:
         row["scale"] = get("autoscale: ")
         require(int(re.search(r"(\d+) spawned", row["scale"]).group(1)) >= 1,
                 f"22c {name}: no scale-up: {row['scale']}")
+        row["calibration"] = fleet_calibration(fleet_dir)  # 23b's inputs
     return row
 
 
@@ -4901,7 +4945,17 @@ def serving_resilience_phase(torch, card: str, gen, seed: int) -> dict:
     model = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
     entries = serve_trace(cfg.vocab_size, seed)
     expects = [offline_greedy(model, e["prompt"], e["max_new"], None) for e in entries]
-    out = {"crash": serve_crash_drill(torch, model, entries, expects)}
+    # 23a: 22a's engines (eager and warmed) built and run under the sanitizer.
+    with _Sanitized() as san:
+        out = {"crash": serve_crash_drill(torch, model, entries, expects)}
+        out["sanitized"] = {"trips": san.trips(),
+                            "mirrored": {k: v for k, v in san.registry.snapshot().items()
+                                         if k.startswith("sanitize_") and v}}
+    log(f"23a sanitized 22a [{card}]: eager and warmed engines under DMT_SANITIZE=1, streams "
+        f"equal offline greedy, launches {[r['launches'] for r in out['crash'].values()]}, "
+        f"trips {out['sanitized']['trips']}")
+    require(not out["sanitized"]["trips"] and not out["sanitized"]["mirrored"],
+            f"23a: 22a's sanitized engines tripped: {out['sanitized']}")
     out["disagg"] = disagg_drill(torch, model, entries, expects)
     del model
     gc.collect()
@@ -4923,6 +4977,288 @@ def serving_resilience_phase(torch, card: str, gen, seed: int) -> dict:
     out["kernels"] = [k1_chunk_row(torch, counts["K1"]),
                       k4_row(torch, gen, counts["K4"], serve_fills(), 1024,
                              name="K4 flash_decode (phase 22)")]
+    return out
+
+
+def phase_23(torch, card: str, serving: dict) -> dict:
+    """Phase 23's parts that follow phase 22: 23b (the simulator calibrated
+    from 22c's autoscaled fleet) and 23a's injections on a fresh engine;
+    23a's sanitized 22a and 21a saves ran inside those phases, 23c is phase
+    12b, 23d ran before the ``flash_decode`` join."""
+    out = {"sim": sim_calibration(card, serving["fleet"]["autoscale"].pop("calibration"))}
+    out["injections"] = sanitizer_injections(torch, card)
+    return out
+
+
+# -- phase 23 ----------------------------------------------------------------
+#: 23d: the ``.pth`` imports. ResNet-18 at torchvision's widths with a
+#: 10-class head (``module.``-prefixed keys, as DDP saves them) and the
+#: reference UNet (``out_classes`` 2, its default) against the oracle; a
+#: 1-class UNet (what ``train_unet`` builds) for ``--eval_only``.
+P23_EVAL_RESNET = ["--synthetic", "--batch_size", "64", "--train_samples", "512",
+                   "--torch_padding"]
+P23_EVAL_UNET = ["--synthetic", "--batch_size", "8", "--train_samples", "40", "--image_size",
+                 "128", "--reference_topology"]
+#: 23b: the reference calibration test's band around its measured burst
+#: TTFT p50 (``tests/test_sim.py``: 1.5 s < p50 < 21.0 s against ~10.5 s).
+P23_RATIO_BAND = (1.5 / 10.5, 21.0 / 10.5)
+
+
+class _Sanitized:
+    """``DMT_SANITIZE=1`` for a block: trips reset first, a registry
+    attached; afterwards the variable is removed and the registry detached
+    (objects built inside stay sanitized). Counts the donation canaries
+    made (``canaries``)."""
+
+    def __enter__(self):
+        from deeplearning_mpi_tpu_torch.analysis import sanitizer
+        from deeplearning_mpi_tpu_torch.telemetry import MetricsRegistry
+
+        self.sanitizer = sanitizer
+        self.registry = MetricsRegistry()
+        self.canaries = 0
+        self._canary = sanitizer.donation_canary
+
+        def counted(state):
+            self.canaries += 1
+            return self._canary(state)
+
+        sanitizer.donation_canary = counted
+        os.environ["DMT_SANITIZE"] = "1"
+        sanitizer.reset_trips()
+        sanitizer.attach_registry(self.registry)
+        return self
+
+    def trips(self) -> dict:
+        return self.sanitizer.trip_counts()
+
+    def __exit__(self, *exc):
+        os.environ.pop("DMT_SANITIZE", None)
+        self.sanitizer.donation_canary = self._canary
+        self.sanitizer.attach_registry(None)
+        return False
+
+
+def sanitizer_injections(torch, card: str, device: str = "cuda") -> dict:
+    """23a: ``cli.sanitize_drill`` on the card: a fresh tiny warmed engine
+    (captured decode graphs) serves a request with 0 trips, then each
+    injection (double free, use after free, refcount underflow, a
+    copy-on-write write to a shared block, a capture after warmup, and the
+    eager fallback at an uncaptured width; a checkpoint save racing an
+    in-place ``add_`` on the hashed tensor) raises, classified, counted
+    once and mirrored into the registry."""
+    from deeplearning_mpi_tpu_torch.analysis import sanitizer
+    from deeplearning_mpi_tpu_torch.cli import sanitize_drill
+
+    t0 = time.perf_counter()
+    try:
+        d = sanitize_drill.run(device)
+    finally:
+        os.environ.pop("DMT_SANITIZE", None)
+        sanitizer.attach_registry(None)
+    trips = d.trips
+    sanitizer.reset_trips()
+    log(f"23a injections [{card}]: {len(d.injections)} in {time.perf_counter() - t0:.1f}s, "
+        f"{ {k: v[0].replace('sanitize_', '') for k, v in d.injections.items()} }, trips {trips}")
+    require(not d.failures, f"23a: sanitize drill failed: {d.failures}")
+    require(all(after == before + 1 for _, before, after in d.injections.values())
+            and len(d.injections) == 7, f"23a: injections {d.injections}")
+    require(set(trips) == set(sanitizer.TRIP_CLASSES), f"23a: trip classes {trips}")
+    return {"injections": {k: list(v) for k, v in d.injections.items()}, "trips": trips}
+
+
+def _done_records(fleet_dir: str) -> list[dict]:
+    out = []
+    for name in sorted(os.listdir(fleet_dir)):
+        box = os.path.join(fleet_dir, name, "outbox.jsonl")
+        if os.path.isfile(box):
+            out += [r for r in _read_jsonl(box) if r.get("op") == "done"]
+    return out
+
+
+def fleet_calibration(fleet_dir: str) -> dict:
+    """23b's inputs from phase 22c's ``--autoscale`` run, read before its
+    directory goes: the fleet summary's TTFT before any fault (the
+    unloaded service time, as the reference calibrates from its drill's
+    unloaded p50; the least TTFT served where no request finished before
+    the first fault), the workers' TPOT median, every completion's TTFT
+    (p50 / p95: the measured side of the bar), the spawn -> ready seconds,
+    the scale-ups."""
+    import statistics
+
+    from deeplearning_mpi_tpu_torch.resilience.cluster import JOURNAL_FILE, replay_journal
+
+    summary = [r for r in _read_jsonl(os.path.join(fleet_dir, "fleet_metrics.jsonl"))
+               if r.get("kind") == "fleet_summary"][-1]
+    done = _done_records(fleet_dir)
+    ttfts = sorted(float(r["ttft"]) for r in done if r.get("ttft") is not None)
+    tpots = [float(r["tpot"]) for r in done if r.get("tpot") is not None]
+    journal = replay_journal(os.path.join(fleet_dir, JOURNAL_FILE))
+    spawned = {(r["idx"], r["attempt"]): r["t"] for r in journal if r["ev"] == "spawn"}
+    ready = sorted(r["t"] - spawned[(r["idx"], r["attempt"])] for r in journal
+                   if r["ev"] == "ready" and (r["idx"], r["attempt"]) in spawned)
+    unloaded = summary.get("ttft_before_p50")
+    return {"ttft_unloaded_s": unloaded if unloaded is not None else ttfts[0],
+            "ttft_unloaded_source": "ttft_before_p50" if unloaded is not None else "least TTFT",
+            "tpot_p50_s": statistics.median(tpots), "ttfts": ttfts,
+            "ttft_p50_s": ttfts[min(int(0.5 * len(ttfts)), len(ttfts) - 1)],
+            "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
+            "warmup_s": statistics.median(ready), "ready_s": ready,
+            "completed": int(summary["completed_total"]), "shed": int(summary["shed_total"]),
+            "scale_ups": int(summary.get("scale_spawned", 0))}
+
+
+def sim_calibration(card: str, measured: dict) -> dict:
+    """23b: ``sim.FleetSimulator`` on phase 22c's ``--autoscale`` trace (64
+    requests at once, ``--max_queue 128``, the fleet's engine and
+    ``AutoscalerConfig``), its ``ServiceModel.from_telemetry`` from that
+    run's records (:func:`fleet_calibration`). The reference calibration
+    test's bars: 64 completions and 0 sheds in both, a scale-up in each,
+    the simulated TTFT p50 within ``P23_RATIO_BAND`` of the measured one.
+    The fleet also served the 8 requests of its ``load_spike`` and a
+    ``scale_during_failure`` kill, which the simulator does not model (as
+    the reference's calibration drill's chaos)."""
+    import dataclasses
+
+    from deeplearning_mpi_tpu_torch.cli import serve_lm
+    from deeplearning_mpi_tpu_torch.serving import AutoscalerConfig
+    from deeplearning_mpi_tpu_torch.sim import FleetSimulator, ServiceModel, SimConfig
+
+    args = serve_lm.build_parser().parse_args(
+        ["--selftest", *P22_MODEL, *P22_FLEETS["autoscale"]])
+    entries = serve_lm.poisson_trace(args)
+    for e in entries:
+        e["prompt"] = [int(t) for t in e["prompt"]]
+        e.pop("deadline", None)
+    mean_prompt = sum(len(e["prompt"]) for e in entries) / len(entries)
+    service = ServiceModel.from_telemetry(
+        ttft_p50_s=measured["ttft_unloaded_s"], tpot_p50_s=measured["tpot_p50_s"],
+        mean_prompt_len=mean_prompt, warmup_s=measured["warmup_s"])
+    cfg = SimConfig(
+        initial_replicas=args.min_replicas, max_slots=args.max_slots, max_queue=args.max_queue,
+        kv_blocks=args.num_blocks, kv_block_size=args.block_size, service=service,
+        slo_ttft_s=30.0,
+        autoscale=AutoscalerConfig(min_replicas=args.min_replicas,
+                                   max_replicas=args.max_replicas))
+    t0 = time.perf_counter()
+    res = FleetSimulator(cfg).run(entries)
+    wall = time.perf_counter() - t0
+    p50, p95 = res.ttft_quantile(0.5), res.ttft_quantile(0.95)
+    ratio = p50 / measured["ttft_p50_s"]
+    out = {"card": card, "service": dataclasses.asdict(service), "requests": len(entries),
+           "sim": res.summary(), "sim_ttft_p50_s": p50, "sim_ttft_p95_s": p95,
+           "measured": {k: v for k, v in measured.items() if k != "ttfts"}, "ratio": ratio,
+           "band": P23_RATIO_BAND, "wall_s": wall}
+    log(f"23b calibrated simulator [{card}]: ServiceModel from 22c autoscale (unloaded TTFT "
+        f"{measured['ttft_unloaded_s']:.4f}s from {measured['ttft_unloaded_source']}, TPOT p50 "
+        f"{measured['tpot_p50_s']:.5f}s, warmup {measured['warmup_s']:.2f}s, mean prompt "
+        f"{mean_prompt:.1f}); simulated {res.completed}/{len(entries)} completed, {res.shed_total} "
+        f"shed, {res.scale_ups} scale-up(s) in {wall:.2f}s; TTFT p50 / p95 simulated "
+        f"{p50:.4f} / {p95:.4f}s, measured {measured['ttft_p50_s']:.4f} / "
+        f"{measured['ttft_p95_s']:.4f}s over {len(measured['ttfts'])} completions; ratio "
+        f"{ratio:.3f} (band {P23_RATIO_BAND[0]:.3f}-{P23_RATIO_BAND[1]:.3f})")
+    require(res.completed == len(entries) == 64 and res.shed_total == 0,
+            f"23b: simulated {res.completed} completed, {res.shed_total} shed")
+    require(measured["shed"] == 0 and measured["completed"] >= 64,
+            f"23b: the fleet completed {measured['completed']}, shed {measured['shed']}")
+    require(res.scale_ups >= 1 and measured["scale_ups"] >= 1,
+            f"23b: scale-ups simulated {res.scale_ups}, measured {measured['scale_ups']}")
+    require(P23_RATIO_BAND[0] <= ratio <= P23_RATIO_BAND[1],
+            f"23b: simulated/measured TTFT p50 {ratio:.3f} outside {P23_RATIO_BAND}")
+    return out
+
+
+def _pth_fixtures():
+    """``tests/torch_pth_fixtures.py``: the seeded state dicts and the
+    functional oracles (no JAX)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "torch_pth_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_pth_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def import_phase(torch, card: str, device: str = "cuda") -> dict:
+    """23d: seeded ``.pth`` files (torchvision ResNet-18 names with DDP's
+    ``module.`` prefix, 10 classes; the reference UNet, ``out_classes`` 2
+    and 1) converted by ``cli.import_torch --device cuda`` in process; the
+    model restored (verified) from each checkpoint against the functional
+    oracle over the raw state dict on one batch, float32, TF32 off, the
+    card's eval logits within 1e-5 relative L2; then ``train_resnet
+    --resume --torch_padding --eval_only`` and ``train_unet --resume
+    --reference_topology --eval_only`` on the imported checkpoints."""
+    import shutil
+    import tempfile
+
+    from deeplearning_mpi_tpu_torch.cli import import_torch, train_resnet, train_unet
+    from deeplearning_mpi_tpu_torch.runtime import bootstrap
+    from deeplearning_mpi_tpu_torch.train import create_train_state
+    from deeplearning_mpi_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_mpi_tpu_torch.utils.torch_import import strip_ddp_prefix
+
+    fx = _pth_fixtures()
+    work = tempfile.mkdtemp(prefix="phase23d-", dir=os.path.join(ROOT, "build"))
+    out: dict = {"card": card}
+    try:
+        cases = {
+            "resnet18": ({f"module.{k}": v for k, v in fx.resnet18_sd(width=64).items()},
+                         ["--arch", "resnet18"], 64),
+            "unet_2": (fx.unet_sd(widths=(64, 128, 256, 512), out_classes=2),
+                       ["--arch", "unet", "--out_classes", "2"], 64),
+        }
+        for name, (sd, flags, size) in cases.items():
+            t0 = time.perf_counter()
+            pth = os.path.join(work, f"{name}.pth")
+            torch.save(sd, pth)
+            model_dir = os.path.join(work, name)
+            require(import_torch.main(["--input", pth, *flags, "--model_dir", model_dir,
+                                       "--device", device]) == 0, f"23d: {name} import")
+            model, tx, filename = import_torch.build_target(
+                import_torch.build_parser().parse_args(["--input", pth, *flags]), device)
+            state, epoch = Checkpointer(os.path.join(model_dir, filename)).restore_verified(
+                create_train_state(model, tx))
+            model = state.model.eval()
+            x = torch.randn(4, size, size, 3, generator=torch.Generator().manual_seed(23))
+            raw = strip_ddp_prefix(sd)
+            with torch.no_grad():
+                got = model(x.to(device)).float().cpu()
+                oracle = (fx.oracle_resnet18 if name == "resnet18" else fx.oracle_unet)(
+                    x.permute(0, 3, 1, 2), raw)
+            if name != "resnet18":
+                oracle = oracle.permute(0, 2, 3, 1)
+            rel = float((got - oracle).norm() / oracle.norm())
+            out[name] = {"epoch": epoch, "rel_l2": rel, "max_abs": float((got - oracle).abs().max()),
+                         "seconds": time.perf_counter() - t0}
+            log(f"23d {name} [{card}]: imported on the card, restored verified epoch {epoch}; "
+                f"eval logits vs the functional oracle (f32, TF32 off): rel L2 {rel:.3e}, max "
+                f"abs {out[name]['max_abs']:.3e} in {out[name]['seconds']:.1f}s")
+            require(rel <= 1e-5, f"23d: {name} logits rel L2 {rel} > 1e-5")
+            del model, state
+        # --eval_only through the trainers (train_unet's head has 1 class).
+        pth = os.path.join(work, "unet_1.pth")
+        torch.save(fx.unet_sd(widths=(64, 128, 256, 512), out_classes=1), pth)
+        require(import_torch.main(["--input", pth, "--arch", "unet", "--model_dir",
+                                   os.path.join(work, "unet_1"), "--device", device]) == 0,
+                "23d: unet_1 import")
+        for name, cli, flags in (("resnet18", train_resnet, P23_EVAL_RESNET),
+                                 ("unet_1", train_unet, P23_EVAL_UNET)):
+            t0 = time.perf_counter()
+            trainer = cli.train([*flags, "--device", device, "--resume", "--eval_only",
+                                 "--model_dir", os.path.join(work, name), "--coordinator",
+                                 f"file://{os.path.join(work, name + '-rdzv')}",
+                                 "--num_processes", "1", "--process_id", "0"])
+            ev = trainer.history[-1]
+            bootstrap.shutdown()
+            out[f"{name}_eval_only"] = {k: v for k, v in ev.items()
+                                        if isinstance(v, (int, float))}
+            log(f"23d {cli.__name__.split('.')[-1]} --resume --eval_only on the import "
+                f"[{card}]: {out[f'{name}_eval_only']} in {time.perf_counter() - t0:.1f}s")
+            require("loss" in ev and math.isfinite(ev["loss"]), f"23d: {name} eval {ev}")
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -4995,6 +5331,12 @@ def main() -> int:
         f"card vs CPU, the ViT trained through train_resnet, the --pp refusal) OK in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    imports = import_phase(torch, card)
+    log(f"phase 23 (23d) .pth import on the card (ResNet-18 and the reference UNet through "
+        f"cli.import_torch against the functional oracle, --resume --eval_only) OK in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     decode_thread.join()
     if "error" in decode_build:
         raise decode_build["error"]
@@ -5002,7 +5344,8 @@ def main() -> int:
         if line.strip():
             log(f"nvcc flash_decode: {line.strip()}")
     log(f"phase 2 build: ['flash_decode'] done, waited {time.perf_counter() - t0:.1f}s for it "
-        f"after phases 3, 7-9, 12 and 16, all builds in {time.perf_counter() - t_build:.1f}s")
+        f"after phases 3, 7-9, 12, 16 and 23d, all builds in "
+        f"{time.perf_counter() - t_build:.1f}s")
     t0 = time.perf_counter()
     check_k4(torch, gen)
     log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
@@ -5083,6 +5426,12 @@ def main() -> int:
         f"fleet's failover, hot swap, hedging and autoscaling through serve_lm, the control "
         f"plane re-adopting its replicas) OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    last = phase_23(torch, card, serving)
+    last["imports"] = imports
+    log(f"phase 23 the last modules (the sanitizer over 21a's saves and 22a's engines and its "
+        f"injections on a fresh warmed engine, the simulator calibrated from 22c's fleet, "
+        f"12b on the native loader, the .pth imports) OK in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels[1:1] = time_training(torch, gen, train["launches"])
     extra = time_extra(torch, gen)
     log(f"phase 6 K1/K2/K3 training-shape, K4 long-cache and dense-vs-K4 timing in "
@@ -5099,7 +5448,8 @@ def main() -> int:
                        "workloads": workloads, "moe": moe, "seq": seq, "tp": tp, "pp": pp,
                        "compose": compose, "completed": completed, "telemetry": telemetry,
                        "compiler": compiler, "resilience": resilience,
-                       "serving_resilience": serving, "phase_seconds": PHASE_SECONDS,
+                       "serving_resilience": serving, "last_modules": last,
+                       "phase_seconds": PHASE_SECONDS,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     table = [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -94,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                      "uniform sampling splits prefill from decode tokens/s, beam and "
                      "ragged runs report stepped positions/s")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    from deeplearning_mpi_tpu_torch.utils.config import add_not_applicable
+
+    add_not_applicable(parser, "platform", "n_virtual_devices")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree: the Megatron-sharded model in one "
                         "process, shard i on cuda:i")

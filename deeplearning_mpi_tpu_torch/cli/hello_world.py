@@ -35,6 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="spawn this many local processes, joined through a file store")
     parser.add_argument("--timeout_s", type=float, default=None,
                         help="bound on the rendezvous and each collective")
+    from deeplearning_mpi_tpu_torch.utils.config import add_not_applicable
+
+    add_not_applicable(parser, "platform")
     return parser
 
 

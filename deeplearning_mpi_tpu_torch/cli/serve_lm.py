@@ -153,6 +153,17 @@ def build_parser() -> argparse.ArgumentParser:
                       "sets the proposal depth")
     spec.add_argument("--draft_layers", type=int, default=0,
                       help="self-draft: the target's first N layers (needed by --spec_k)")
+    spec.add_argument("--draft_d_model", type=int, default=None,
+                      help="custom draft width: a random-init draft of --draft_layers layers "
+                      "instead of the target's truncation (parity still holds: the draft "
+                      "only proposes, the target decides)")
+    spec.add_argument("--draft_d_ff", type=int, default=None)
+    spec.add_argument("--draft_heads", type=int, default=None)
+    spec.add_argument("--draft_head_dim", type=int, default=None,
+                      help="on the card K4 runs the draft's decode at this head dim; it must "
+                      "be one K4 was compiled for (else the wrapper's refusal)")
+    spec.add_argument("--draft_seed", type=int, default=0,
+                      help="init seed for a custom-width draft")
     trace = parser.add_argument_group("trace")
     trace.add_argument("--trace", default=None,
                        help="JSONL request trace (module docstring); default: a synthetic "
@@ -215,7 +226,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "--autoscale also load_spike / scale_during_failure; falls back to "
                         "$DMT_CHAOS")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    from deeplearning_mpi_tpu_torch.utils.config import add_not_applicable
+
+    add_not_applicable(parser, "platform", "use_kernel")
     return parser
+
+
+def build_draft(args, model):
+    """The draft of ``--spec_k``: the target's first ``--draft_layers``
+    layers, or with any ``--draft_*`` width a random-init model of that
+    depth and those widths from ``--draft_seed``, as the reference builds
+    it (``draft_config``); None without ``--spec_k``."""
+    if not args.spec_k:
+        return None
+    from deeplearning_mpi_tpu_torch.models.transformer import (
+        TransformerLM,
+        draft_config,
+        self_draft,
+    )
+
+    overrides = {k: v for k, v in (("d_model", args.draft_d_model), ("d_ff", args.draft_d_ff),
+                                   ("num_heads", args.draft_heads),
+                                   ("head_dim", args.draft_head_dim)) if v is not None}
+    if not overrides:
+        return self_draft(model, args.draft_layers)
+    return TransformerLM(draft_config(model.config, args.draft_layers, **overrides),
+                         dtype=model.dtype, device=model.device).init_weights(args.draft_seed)
 
 
 def _parse_tenants(spec: str):
@@ -581,11 +617,7 @@ def main(argv: list[str] | None = None) -> int:
               "integers like '4,8'", file=sys.stderr)
         return 1
     from deeplearning_mpi_tpu_torch import resolve_device
-    from deeplearning_mpi_tpu_torch.models.transformer import (
-        TransformerConfig,
-        TransformerLM,
-        self_draft,
-    )
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector
     from deeplearning_mpi_tpu_torch.serving import (
         DisaggregatedEngine,
@@ -643,7 +675,7 @@ def main(argv: list[str] | None = None) -> int:
         spec_k=args.spec_k, decode_buckets=decode_buckets,
         max_hold_steps=args.max_hold_steps, kv_dtype=args.kv_dtype,
         prefix_cache=args.prefix_cache,
-    ), eos_id=eos_id, draft=self_draft(model, args.draft_layers) if args.spec_k else None,
+    ), eos_id=eos_id, draft=build_draft(args, model),
         registry=registry, chaos=chaos, tenants=tenants)
     if args.warmup:
         t_warm = time.monotonic()

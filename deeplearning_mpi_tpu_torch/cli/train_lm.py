@@ -165,6 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--lr_schedule", default="constant", choices=("constant", "cosine", "linear"))
     train.add_argument("--warmup_steps", type=int, default=0)
     train.add_argument("--grad_accum", type=int, default=1)
+    train.add_argument("--num_workers", type=int, default=None,
+                       help="the loader's fetch threads (default: half the host's cores, at "
+                       "most 16; 0 = synchronous)")
     train.add_argument("--random_seed", type=int, default=0)
     train.add_argument("--ema", type=ema_decay, default=0.0)
     train.add_argument("--eval_every", type=int, default=10,
@@ -330,9 +333,10 @@ def train(argv: list[str] | None = None):
     # balance loss of a microbatch is the reference's under --dp too.
     chunks = args.grad_accum * (args.microbatches if args.pp > 1 else 1)
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          grad_accum=chunks, device=device, **ranks)
+                          grad_accum=chunks, device=device, num_workers=args.num_workers,
+                          **ranks)
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
-                         device=device, **ranks)
+                         device=device, num_workers=args.num_workers, **ranks)
 
     attention_fn = None
     if args.attention == "flash":

@@ -28,8 +28,12 @@ cifar10 --from_file``). Telemetry as the reference's: ``--log_dir``,
 (``utils/config.py``); MFU from the ResNet's analytic FLOPs. Resilience as
 ``cli/train_lm.py``'s: ``--max_restarts`` / ``--restart_delay_s``,
 ``--chaos`` (a NaN poisons the image), ``--guardrails`` /
-``--digest_every``. Not ported yet: the native C++ transforms and the
-loader's fetch threads (``--num_workers``, refused).
+``--digest_every``. The input pipeline is the reference's: the CIFAR
+transforms run in the native C++ core (``data/native.py``; numpy where no
+``g++`` is found or ``DLMPI_TPU_NO_NATIVE`` is set, bitwise the same
+batches either way) and ``--num_workers`` fetch threads assemble batches
+ahead (``data/loader.py``); the run log names the path and the thread
+count.
 """
 
 from __future__ import annotations
@@ -80,7 +84,11 @@ def build(argv: list[str] | None = None) -> config.Run:
         raise SystemExit("--torch_padding is a CNN numerics flag (strided-conv padding); it "
                          "does not apply to --arch " + args.arch)
     from deeplearning_mpi_tpu_torch.data import CIFAR10, Loader, SyntheticCIFAR10
-    from deeplearning_mpi_tpu_torch.data.cifar10 import eval_transform, train_transform
+    from deeplearning_mpi_tpu_torch.data.native import (
+        eval_transform,
+        pipeline_description,
+        train_transform,
+    )
     from deeplearning_mpi_tpu_torch.runtime.mesh import data_rank, data_size
 
     topo, mesh, group = config.setup_runtime(args)
@@ -100,15 +108,17 @@ def build(argv: list[str] | None = None) -> config.Run:
     ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
                           transform=train_transform, device=device,
-                          grad_accum=args.grad_accum, **ranks)
+                          grad_accum=args.grad_accum, num_workers=args.num_workers, **ranks)
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
-                         transform=eval_transform, device=device, **ranks)
+                         transform=eval_transform, device=device, num_workers=args.num_workers,
+                         **ranks)
     model = build_model(args, device)
     tx = config.build_optimizer_from_flags(args, train_loader, momentum=args.momentum)
     run = config.build_run(args, topo, group, task="classification", model=model, tx=tx,
                            train_loader=train_loader, eval_loader=eval_loader,
                            model_factory=lambda: build_model(args, device))
     n_params = sum(p.numel() for p in model.parameters())
+    run.trainer.log(pipeline_description(train_loader.num_workers))
     run.trainer.log(
         f"train_resnet: {args.arch}{'' if args.arch.startswith('vit') else f' ({args.stem} stem)'}"
         f", {n_params} params, {len(train_ds)} train / "

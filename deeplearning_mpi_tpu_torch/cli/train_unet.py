@@ -113,10 +113,11 @@ def build(argv: list[str] | None = None) -> config.Run:
     train_ds, eval_ds = _Subset(full, order[n_val:]), _Subset(full, order[:n_val])
     ranks = {"num_replicas": data_size(mesh), "rank": data_rank(mesh)}
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.random_seed,
-                          device=device, grad_accum=args.grad_accum, **ranks)
+                          device=device, grad_accum=args.grad_accum,
+                          num_workers=args.num_workers, **ranks)
     # drop_last=False: a small validation set wrap-pads to one full batch.
     eval_loader = Loader(eval_ds, args.batch_size, shuffle=False, drop_last=False,
-                         device=device, **ranks)
+                         device=device, num_workers=args.num_workers, **ranks)
     model = build_model(args, device)
     tx = config.build_optimizer_from_flags(args, train_loader, clip_norm=args.clip_norm)
     run = config.build_run(args, topo, group, task="segmentation", model=model, tx=tx,

@@ -122,13 +122,17 @@ class CompileCache:
     by default); ``loader`` opens a library (``ctypes.CDLL``). Tests give a
     build command that writes files, with no ``nvcc``. ``registry`` (a
     ``telemetry.MetricsRegistry``) receives the ``compile_cache_*``
-    counters."""
+    counters. ``suffix`` is the sources' extension (``.cu`` for the
+    kernels; the host loader's ``data/native.py`` builds a ``.cc`` with
+    ``g++`` through its own cache)."""
 
     def __init__(self, path: str | Path = BUILD_DIR, *, csrc: str | Path = CSRC_DIR,
                  command: Callable[[Path, Path], list[str]] = nvcc_command,
                  toolchain: Callable[[], str] = nvcc_version,
-                 loader: Callable[[str], Any] = ctypes.CDLL, registry: Any = None) -> None:
+                 loader: Callable[[str], Any] = ctypes.CDLL, registry: Any = None,
+                 suffix: str = ".cu") -> None:
         self.path = Path(path)
+        self.suffix = suffix
         self.csrc = Path(csrc)
         self.command = command
         self.toolchain = toolchain
@@ -143,18 +147,18 @@ class CompileCache:
 
     # -- keys ------------------------------------------------------------------
     def sources(self, name: str) -> list[Path]:
-        """``csrc/<name>.cu`` and every ``.cuh`` it includes from ``csrc``,
-        transitively, sorted."""
+        """``csrc/<name><suffix>`` and every header it includes from
+        ``csrc``, transitively, sorted."""
         seen: dict[str, Path] = {}
-        todo = [self.csrc / f"{name}.cu"]
+        todo = [self.csrc / f"{name}{self.suffix}"]
         while todo:
             src = todo.pop()
             if src.name in seen or not src.is_file():
                 continue
             seen[src.name] = src
             todo.extend(self.csrc / inc for inc in _INCLUDE.findall(src.read_text()))
-        if f"{name}.cu" not in seen:
-            raise FileNotFoundError(f"no kernel source {self.csrc / f'{name}.cu'}")
+        if f"{name}{self.suffix}" not in seen:
+            raise FileNotFoundError(f"no kernel source {self.csrc / f'{name}{self.suffix}'}")
         return [seen[n] for n in sorted(seen)]
 
     def key(self, name: str) -> str:
@@ -164,7 +168,7 @@ class CompileCache:
         h = hashlib.sha256()
         for src in self.sources(name):
             h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
-        argv = self.command(self.csrc / f"{name}.cu", Path("<out>"))
+        argv = self.command(self.csrc / f"{name}{self.suffix}", Path("<out>"))
         h.update(" ".join(argv).replace(str(self.csrc), "<csrc>").encode() + b"\0")
         h.update(self._toolchain.encode())
         return h.hexdigest()
@@ -180,7 +184,7 @@ class CompileCache:
         """The manifest's digests, read and written back under a file lock
         (several processes may build at once)."""
         self.path.mkdir(parents=True, exist_ok=True)
-        with open(self.path / ".lock", "w") as lock:
+        with open(self.path / ".lock", "w") as lock:  # dmt-lint: disable=DMT004 — an flock target, no bytes written
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
                 digests = json.loads((self.path / MANIFEST_NAME).read_text())["digests"]
@@ -246,7 +250,7 @@ class CompileCache:
         self.path.mkdir(parents=True, exist_ok=True)
         with contextlib.ExitStack() as stack:
             for name in sorted(set(names)):
-                f = stack.enter_context(open(self.path / f".lock-{name}", "w"))
+                f = stack.enter_context(open(self.path / f".lock-{name}", "w"))  # dmt-lint: disable=DMT004 — an flock target, no bytes written
                 fcntl.flock(f, fcntl.LOCK_EX)
             yield
 
@@ -288,7 +292,7 @@ class CompileCache:
             key = self.key(name)
             tmp = self.path / f"lib{name}-{key[:16]}.so.{os.getpid()}.tmp"
             procs[name] = (key, tmp, subprocess.Popen(
-                self.command(self.csrc / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+                self.command(self.csrc / f"{name}{self.suffix}", tmp), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         logs, failed = {}, []
         for name, (key, tmp, proc) in procs.items():

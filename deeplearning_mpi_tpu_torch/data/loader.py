@@ -22,12 +22,28 @@ the rank fetches and transforms each block that holds one of its rows and
 keeps its rows. So N ranks train on exactly the batches the JAX CLI feeds
 N processes. Batches are dicts of tensors on ``device``.
 
-Not ported: the fetch threads (``num_workers``) and the prefetch queue.
+``num_workers`` fetch threads, as the reference's ``ShardedLoader`` (its
+15 DataLoader worker processes at ``pytorch/resnet/main.py:100`` become a
+thread pool: per-example disk reads, decoding and resizing release the GIL,
+so threads overlap them without pickling examples between processes).
+Default: half the host's cores, capped at 16 (``pytorch/unet/train.py:92``'s
+``os.cpu_count()//2``); 0 is the synchronous path. With workers, a batch's
+examples are fetched in ``num_workers`` chunks at once and batch assembly is
+pipelined: up to two batches are fetched and transformed ahead of the one
+being consumed. Every batch is the one the synchronous path builds: its
+rows' order and its transform's generator depend on the batch's position,
+never on which thread built it. :func:`prefetch` runs any iterator (an
+epoch, with its host-to-card copies) a few items ahead in a thread.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Protocol
+import collections
+import os
+import queue as queue_mod
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Iterator, Protocol
 
 import numpy as np
 import torch
@@ -52,6 +68,7 @@ class Loader:
         self, dataset: ArrayDataset, batch_size: int, *, shuffle: bool = True, seed: int = 0,
         drop_last: bool = True, transform: Transform | None = None, num_replicas: int = 1,
         rank: int = 0, grad_accum: int = 1, device: str | torch.device = "cuda",
+        num_workers: int | None = None,
     ) -> None:
         if batch_size % num_replicas:
             raise ValueError(f"global batch {batch_size} not divisible by the "
@@ -80,6 +97,9 @@ class Loader:
         self.pick = (np.searchsorted(self.blocks, self.rows // self.block) * self.block
                      + self.rows % self.block)
         self.device = resolve_device(device)
+        if num_workers is None:
+            num_workers = min(16, (os.cpu_count() or 2) // 2)
+        self.num_workers = num_workers
 
     def epoch_order(self, epoch: int) -> np.ndarray:
         """Index order for this epoch, sized to whole batches."""
@@ -100,17 +120,20 @@ class Loader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def local_batch(self, order: np.ndarray, start: int, epoch: int) -> dict[str, np.ndarray]:
-        """This rank's host batch of the window at ``start``: fetched,
-        stacked, transformed, and marked valid where not wrap-padded."""
+    def local_batch(self, order: np.ndarray, start: int, epoch: int,
+                    fetch_pool: ThreadPoolExecutor | None = None) -> dict[str, np.ndarray]:
+        """This rank's host batch of the window at ``start``: fetched (in
+        ``fetch_pool``'s threads when given), stacked, transformed, and
+        marked valid where not wrap-padded. Thread-safe."""
         if self.transform is None:
-            stacked = self._fetch(order[start + self.rows])
+            stacked = self._fetch(order[start + self.rows], fetch_pool)
         else:
             parts = []
             for p in self.blocks:
                 first = start + p * self.block
                 rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch, 1, start]))
-                parts.append(self.transform(self._fetch(order[first:first + self.block]), rng))
+                parts.append(self.transform(self._fetch(order[first:first + self.block],
+                                                        fetch_pool), rng))
             stacked = {k: np.concatenate([part[k] for part in parts])[self.pick]
                        for k in parts[0]}
         if not self.drop_last:
@@ -118,12 +141,85 @@ class Loader:
             stacked["__valid__"] = (pos < len(self.dataset)).astype(np.float32)
         return stacked
 
-    def _fetch(self, indices: np.ndarray) -> dict[str, np.ndarray]:
-        examples = [self.dataset[int(i)] for i in indices]
+    def _fetch(self, indices: np.ndarray,
+               fetch_pool: ThreadPoolExecutor | None = None) -> dict[str, np.ndarray]:
+        if fetch_pool is not None and len(indices) >= 2 * self.num_workers:
+            # Chunked parallel fetch, the chunks concatenated in order.
+            chunks = np.array_split(indices, self.num_workers)
+            parts = fetch_pool.map(lambda c: [self.dataset[int(i)] for i in c], chunks)
+            examples = [ex for part in parts for ex in part]
+        else:
+            examples = [self.dataset[int(i)] for i in indices]
         return {k: np.stack([ex[k] for ex in examples]) for k in examples[0]}
 
+    def _to_device(self, stacked: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in stacked.items()}
+
     def epoch(self, epoch: int) -> Iterator[dict[str, torch.Tensor]]:
+        """This epoch's batches; with ``num_workers > 0`` assembled by a
+        pipeline two batches ahead (module docstring)."""
         order = self.epoch_order(epoch)
-        for start in range(0, len(order), self.batch_size):
-            stacked = self.local_batch(order, start, epoch)
-            yield {k: torch.from_numpy(v).to(self.device) for k, v in stacked.items()}
+        starts = range(0, len(order), self.batch_size)
+        if self.num_workers <= 0:
+            for start in starts:
+                yield self._to_device(self.local_batch(order, start, epoch))
+            return
+        # The pools live as long as this epoch's generator: closed when it
+        # is exhausted or abandoned. Two pools, so an assembling thread can
+        # fan its fetches out without waiting on its own pool.
+        with ThreadPoolExecutor(max_workers=3, thread_name_prefix="loader-batch") as batch_pool, \
+                ThreadPoolExecutor(max_workers=self.num_workers,
+                                   thread_name_prefix="loader-fetch") as fetch_pool:
+            pending: collections.deque = collections.deque()
+            for start in starts:
+                pending.append(batch_pool.submit(self.local_batch, order, start, epoch,
+                                                 fetch_pool))
+                if len(pending) > 2:  # batches in flight beyond the one consumed
+                    yield self._to_device(pending.popleft().result())
+            while pending:
+                yield self._to_device(pending.popleft().result())
+
+
+def prefetch(iterator: Iterator[Any], size: int = 2) -> Iterator[Any]:
+    """Run ``iterator`` ``size`` items ahead of the consumer in a producer
+    thread, through a bounded queue. Exceptions in the source reach the
+    consumer; abandoning the generator stops and joins the producer (a
+    producer still copying to the card while the caller restores and
+    retrains would race it)."""
+    q: queue_mod.Queue[Any] = queue_mod.Queue(maxsize=max(size, 1))
+    sentinel = object()
+    stop = threading.Event()
+    error: list[BaseException] = []
+
+    def put(item: Any) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 — raised again in the consumer
+            error.append(e)
+        finally:
+            put(sentinel)  # must arrive unless the consumer has left
+
+    thread = threading.Thread(target=producer, daemon=True, name="prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if error:
+                    raise error[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=30.0)

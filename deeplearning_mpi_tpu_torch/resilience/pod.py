@@ -241,7 +241,7 @@ class PodSupervisor(ClusterSupervisor):
             if world > 1:
                 env["PROCESS_ID"] = str(rank)
             log_path = self.pod_dir / f"attempt{attempt}-rank{rank}.log"
-            f = log_path.open("w")
+            f = log_path.open("w")  # dmt-lint: disable=DMT004 — per-attempt stdout capture, not a consumed JSON artifact
             handles.append(f)
             procs[rank] = subprocess.Popen(
                 self.worker_cmd,

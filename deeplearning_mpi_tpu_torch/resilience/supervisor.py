@@ -156,7 +156,7 @@ class Heartbeat:
         }
         tmp = self.path.with_suffix(".tmp")
         try:
-            tmp.write_text(json.dumps(payload))
+            tmp.write_text(json.dumps(payload))  # dmt-lint: disable=DMT004 — hand-rolled tmp+rename; fsync skipped on purpose at heartbeat cadence
             os.replace(tmp, self.path)  # atomic: a reader never sees partial JSON
         except OSError:
             pass  # disk hiccups must not kill the training process

@@ -51,6 +51,13 @@ either, each hook is one ``is not None`` test. The reference counts XLA
 compiles in ``serve_compile_total``; the port counts the programs
 :meth:`ServingEngine.warmup` captures (an eager step compiles nothing).
 
+Sanitizer (``DMT_SANITIZE=1`` at construction, ``analysis.sanitizer``):
+the engine mirrors trips into its registry, and once :meth:`warmup` has
+run a tick of ``serve_compile_total`` (a capture) trips the retrace
+tripwire, as does a decode, verify or draft step at a gather width warmup
+did not capture (it would run eagerly: the port's latency spike). The
+chunked prefill is eager by design and never trips.
+
 Chaos: with a ``chaos`` injector a planned ``serve_crash`` raises
 mid-step, after admission and prefill changed the books and the pools;
 :meth:`ServingEngine.run_until_idle` recovers in place
@@ -70,6 +77,7 @@ from typing import Any, Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from deeplearning_mpi_tpu_torch.analysis import sanitizer as _sanitizer
 from deeplearning_mpi_tpu_torch.compiler.aot import CapturedProgram, WarmProgram
 from deeplearning_mpi_tpu_torch.models.transformer import TransformerLM
 from deeplearning_mpi_tpu_torch.ops.attention import (
@@ -549,6 +557,12 @@ class ServingEngine:
         #: programs :meth:`warmup` built (CUDA graphs on the card); traffic
         #: never adds one
         self.captures = 0
+        # Armed by warmup(): with the sanitizer on, a capture or an eager
+        # decode-path fallback afterwards is a retrace trip.
+        self._warmed = False
+        self._sanitize = _sanitizer.enabled()
+        if self._sanitize:
+            _sanitizer.attach_registry(registry)
         self._next_rid = 0
         self.steps = 0
 
@@ -586,6 +600,24 @@ class ServingEngine:
         self._counters[name] = self._counters.get(name, 0) + amount
         if self._metrics is not None and amount:
             self._metrics.counter(name).inc(amount)
+        if self._sanitize and name == "serve_compile_total":
+            # Counter first, tripwire second: a tripped capture still shows
+            # up in serve_compile_total for the post-mortem.
+            _sanitizer.check_compile_tick(post_warmup=self._warmed, what="serving program captured")
+
+    def _guarded(self, eager: Callable[..., torch.Tensor], what: str) -> Callable[..., torch.Tensor]:
+        """A warmed program's eager fallback; with the sanitizer on, a call
+        after warmup (a width warmup did not capture) trips first."""
+        if not self._sanitize:
+            return eager
+
+        def fallback(*args: Any) -> torch.Tensor:
+            _sanitizer.check_compile_tick(
+                post_warmup=self._warmed, what=f"{what} at a gather width warmup did not capture "
+                f"(eager fallback, width {args[0].shape[1]})")
+            return eager(*args)
+
+        return fallback
 
     # -- telemetry -----------------------------------------------------------
     def _register(self, registry: Any) -> None:
@@ -737,16 +769,20 @@ class ServingEngine:
                     (zeros(S, w), zeros(S), zeros(S, e.spec_k + 1), zeros(S),
                      zeros(S, dtype=torch.bool)),
                 )
-        self._decode_fn = WarmProgram(decode, self._eager_decode, width)
+        self._decode_fn = WarmProgram(decode, self._guarded(self._eager_decode, "decode step"),
+                                      width)
         built = {"decode": len(decode)}
         if self._spec is not None:
-            self._verify_fn = WarmProgram(verify, self._eager_verify, width)
+            self._verify_fn = WarmProgram(verify, self._guarded(self._eager_verify, "verify step"),
+                                          width)
             built["verify"] = len(verify)
             built["draft_decode"] = self._spec.warmup(
                 {w: (zeros(S, w), *slots) for w in self._gather_widths()}, capture, width,
+                fallback=self._guarded(self._spec._eager_decode, "draft decode step"),
             )
         if cuda:
             torch.cuda.synchronize(self.device)
+        self._warmed = True
         return built
 
     # -- public API ---------------------------------------------------------
@@ -943,7 +979,7 @@ class ServingEngine:
         BS = e.block_size
         self._record_writes({req.blocks[(req.length - 1) // BS] for req in decoding})
         self._inc("serve_decode_steps")
-        next_np = next_tok.cpu().numpy()  # the one host sync per decode step
+        next_np = next_tok.cpu().numpy()  # dmt-lint: disable=DMT003 — THE audited sync: one sampled-token fetch per decode step (EOS/retire decisions are host-side)
         now = self._clock()
         for req in decoding:
             tok = int(next_np[req.slot])
@@ -1004,7 +1040,7 @@ class ServingEngine:
         self._record_writes(touched)
         self._inc("serve_decode_steps")
         self._inc("spec_verify_steps")
-        greedy_np = greedy.cpu().numpy()  # [S, W]: the accept loop runs on the host
+        greedy_np = greedy.cpu().numpy()  # [S, W]  # dmt-lint: disable=DMT003 — the audited verify fetch: exact-match acceptance runs on the host
         now = self._clock()
         for req in decoding:
             s = req.slot
@@ -1060,7 +1096,7 @@ class ServingEngine:
         if req.prefilled < req.prompt_len:
             return
         # Prompt ingested: the first token comes from the last-row logits.
-        tok = int(torch.argmax(last_logits))
+        tok = int(torch.argmax(last_logits))  # dmt-lint: disable=DMT003 — audited: the first token must reach the host to enter req.generated
         req.state = RequestState.DECODE
         req.generated.append(tok)
         req.t_first_token = self._clock()

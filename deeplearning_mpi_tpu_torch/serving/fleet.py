@@ -687,7 +687,7 @@ class FleetSupervisor(ClusterSupervisor):
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (root, env.get("PYTHONPATH", "")) if p)
         log_path = self.fleet_dir / f"replica{rep.idx}-a{rep.attempt}.log"
-        rep.log = log_path.open("w")  # the worker's stdout and stderr
+        rep.log = log_path.open("w")  # dmt-lint: disable=DMT004 — the worker's stdout and stderr, not a consumed JSON artifact
         rep.proc = subprocess.Popen(
             [
                 sys.executable, "-m", "deeplearning_mpi_tpu_torch.serving.fleet",

@@ -1,7 +1,7 @@
 """Paged KV-cache pool: fixed-size blocks, free-list allocation, block tables.
 
 Port of ``deeplearning_mpi_tpu/serving/kv_pool.py`` (host-side accounting
-unchanged; the reference's opt-in sanitizer hooks are left out). ONE
+and the reference's opt-in sanitizer hooks, ``analysis.sanitizer``). ONE
 preallocated device pool of ``num_blocks`` blocks per layer, a host-side
 free list, and a per-sequence block table mapping logical positions to pool
 blocks. Block 0 is the reserved scratch block: inactive slots and padded
@@ -9,7 +9,10 @@ prefill rows route their writes there.
 
 Invariants (checked by :meth:`PagedKVPool.check`): free + in-use =
 ``num_blocks - 1``; no block both free and allocated; allocation is
-all-or-nothing. Shared blocks (refcount > 1) may not be written.
+all-or-nothing. Shared blocks (refcount > 1) may not be written. With
+``DMT_SANITIZE=1`` at construction, freed blocks are poisoned until
+allocated again, so a double free, a use after free, a refcount underflow
+and a write to a shared block raise classified ``SanitizerError``s.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from collections import Counter
 from typing import Any, Iterable
 
 import torch
+
+from deeplearning_mpi_tpu_torch.analysis import sanitizer as _sanitizer
 
 __all__ = ["PagedKVPool", "SCRATCH_BLOCK", "init_kv_buffers"]
 
@@ -46,6 +51,7 @@ class PagedKVPool:
         self.total_freed = 0
         self._fill_epoch: dict[int, int] = {}
         self._scale_epoch: dict[int, int] = {}
+        self._san = _sanitizer.KVPoolSanitizer() if _sanitizer.enabled() else None
 
     @property
     def quantized(self) -> bool:
@@ -79,6 +85,8 @@ class PagedKVPool:
         blocks = [self._free.pop() for _ in range(n)]
         self._used.update(blocks)
         self.total_allocated += n
+        if self._san is not None:
+            self._san.on_alloc(blocks)
         return blocks
 
     def share(self, blocks: Iterable[int]) -> None:
@@ -98,16 +106,22 @@ class PagedKVPool:
 
     def free(self, blocks: Iterable[int]) -> None:
         """Drop one reference per block; recycle at refcount zero. Freeing
-        a block that is not allocated raises."""
-        for b in list(blocks):
+        a block that is not allocated raises (classified by the sanitizer as
+        a double free when the block is poisoned)."""
+        blocks = list(blocks)
+        if self._san is not None:
+            self._san.check_free(blocks, self._used)
+        recycled = []
+        for b in blocks:
             if b not in self._used:
                 raise ValueError(f"freeing block {b} that is not allocated")
             rc = self._refcount.get(b, 1)
             if rc < 1:
-                raise ValueError(
-                    f"refcount underflow on KV block {b}: count {rc} with the "
-                    "block still in the used set"
-                )
+                msg = (f"refcount underflow on KV block {b}: count {rc} with the block "
+                       "still in the used set — a sharer was freed twice or the books were torn")
+                if self._san is not None:
+                    _sanitizer.trip(_sanitizer.KV_REFCOUNT_UNDERFLOW, msg)
+                raise ValueError(msg)
             if rc > 1:
                 if rc == 2:
                     self._refcount.pop(b, None)
@@ -120,16 +134,24 @@ class PagedKVPool:
             self.total_freed += 1
             self._fill_epoch.pop(b, None)
             self._scale_epoch.pop(b, None)
+            recycled.append(b)
+        if self._san is not None and recycled:
+            self._san.on_free(recycled)
 
     def _check_cow(self, b: int, kind: str) -> None:
         if self._refcount.get(b, 1) > 1:
-            raise ValueError(
-                f"{kind} write recorded against shared KV block {b} "
-                f"(refcount {self._refcount[b]}): copy-on-write was skipped"
-            )
+            msg = (f"{kind} write recorded against shared KV block {b} (refcount "
+                   f"{self._refcount[b]}): the writer skipped copy-on-write and is mutating "
+                   "pages other sharers still read")
+            if self._san is not None:
+                _sanitizer.trip(_sanitizer.KV_COW_VIOLATION, msg)
+            raise ValueError(msg)
 
     def record_fill(self, blocks: Iterable[int]) -> None:
         """Note that KV *data* was scattered into ``blocks`` this step."""
+        blocks = list(blocks)
+        if self._san is not None:
+            self._san.check_touch(blocks, self._used, "data")
         for b in blocks:
             if b == SCRATCH_BLOCK:
                 continue
@@ -141,6 +163,9 @@ class PagedKVPool:
     def record_scale(self, blocks: Iterable[int]) -> None:
         """Note that *scale* rows were scattered into ``blocks`` (quantized
         pools only)."""
+        blocks = list(blocks)
+        if self._san is not None:
+            self._san.check_touch(blocks, self._used, "scale")
         for b in blocks:
             if b == SCRATCH_BLOCK:
                 continue

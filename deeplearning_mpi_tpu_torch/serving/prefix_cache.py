@@ -71,12 +71,12 @@ class _Node:
         self.last_used = 0
 
 
-#: each counting attribute's registry counter
+#: each registry counter's counting attribute
 _COUNTERS = {
-    "hits": "serve_prefix_hits_total",
-    "tokens_reused": "serve_prefix_tokens_reused_total",
-    "cow_copies": "serve_prefix_cow_copies_total",
-    "evictions": "serve_prefix_evictions_total",
+    "serve_prefix_hits_total": "hits",
+    "serve_prefix_tokens_reused_total": "tokens_reused",
+    "serve_prefix_cow_copies_total": "cow_copies",
+    "serve_prefix_evictions_total": "evictions",
 }
 
 
@@ -98,23 +98,26 @@ class RadixPrefixCache:
         self.cow_copies = 0
         self.evictions = 0
         if registry is not None:
-            for name in _COUNTERS.values():
+            for name in _COUNTERS:
                 registry.counter(name)
 
-    def _inc(self, attr: str, n: int = 1) -> None:
+    def _inc(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name`` (its canonical schema name) and
+        to the attribute that mirrors it."""
+        attr = _COUNTERS[name]
         setattr(self, attr, getattr(self, attr) + n)
         if self.registry is not None:
-            self.registry.counter(_COUNTERS[attr]).inc(n)
+            self.registry.counter(name).inc(n)
 
     def note_hit(self, tokens_reused: int) -> None:
         """The scheduler's call once an adoption lands (a match that fails
         admission is not a hit)."""
-        self._inc("hits")
-        self._inc("tokens_reused", tokens_reused)
+        self._inc("serve_prefix_hits_total")
+        self._inc("serve_prefix_tokens_reused_total", tokens_reused)
 
     def note_cow(self) -> None:
         """The engine's call per completed copy-on-write block copy."""
-        self._inc("cow_copies")
+        self._inc("serve_prefix_cow_copies_total")
 
     def _touch(self, node: _Node) -> None:
         self._tick += 1
@@ -251,7 +254,7 @@ class RadixPrefixCache:
                 break
             self._remove(victim)
             freed += 1
-            self._inc("evictions")
+            self._inc("serve_prefix_evictions_total")
         return freed
 
     def flush(self) -> int:

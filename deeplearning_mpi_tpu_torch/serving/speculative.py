@@ -93,15 +93,17 @@ class SpeculativeDecoder:
             use_kernel=None,
         )
 
-    def warmup(self, inputs: dict[int, tuple], capture: Callable, key: Callable) -> int:
+    def warmup(self, inputs: dict[int, tuple], capture: Callable, key: Callable,
+               fallback: Callable | None = None) -> int:
         """Build the draft decode step's program for each gather width
         (``inputs``: width -> example inputs) through the engine's
-        ``capture``; returns how many were built."""
+        ``capture``; ``fallback`` (default the eager step) runs a width not
+        built. Returns how many were built."""
         self._decode_fn = WarmProgram(
             {w: capture(lambda t, n, tok, a: self._fwd.decode_step(self._kv, t, n, tok, a,
                                                                    use_kernel=None), args)
              for w, args in inputs.items()},
-            self._eager_decode, key,
+            fallback or self._eager_decode, key,
         )
         return len(inputs)
 
@@ -145,7 +147,7 @@ class SpeculativeDecoder:
             act = rows & (j <= budget)
             out = self._decode_fn(tables, np.asarray(lengths + j, np.int64), cur, act)
             steps += 1
-            out_np = out.cpu().numpy()
+            out_np = out.cpu().numpy()  # dmt-lint: disable=DMT003 — the draft's one audited fetch per propose step: proposals feed the host-side accept loop
             if j < K:
                 take = act & (j < budget)
                 props[take, j] = out_np[take]

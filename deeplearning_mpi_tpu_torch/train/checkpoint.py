@@ -51,6 +51,12 @@ save restores in one process over ``LockstepPipe(2)`` and an ``ep 2 x tp
 2`` save into the flat model (``arch.json``'s ``layout`` records the
 degrees a run trained under and is not compared).
 
+**Donation canary** (``DMT_SANITIZE=1`` when the checkpointer is built,
+``analysis.sanitizer``): a save hashes the smallest tensor of
+``state.arrays()`` before the write and verifies it after the barrier, so
+an in-place update that reaches the live tensor mid-save trips instead of
+writing bytes that are not the state passed in. Off, it costs nothing.
+
 **Chaos** (``Checkpointer(chaos=)``, a ``resilience.ChaosInjector``): a
 planned ``corrupt_ckpt@epoch:N`` flips bytes in epoch N's committed step
 right after its manifest is written (``corrupt_checkpoint``), so the pin's
@@ -71,6 +77,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from deeplearning_mpi_tpu_torch.analysis import sanitizer as _sanitizer
 from deeplearning_mpi_tpu_torch.resilience.integrity import (
     CheckpointCorruption,
     atomic_write_json,
@@ -169,6 +176,7 @@ class Checkpointer:
         #: anti-rollback fence: the highest pin generation seen; None until
         #: the pin file is first read.
         self._generation: int | None = None
+        self._sanitize = _sanitizer.enabled()
 
     # -- layout -------------------------------------------------------------
     def step_dir(self, epoch: int) -> Path:
@@ -194,11 +202,14 @@ class Checkpointer:
         the manifest; pin it if it re-hashes clean; prune. With a live
         group rank 0 writes and every rank waits for it (after every rank
         gathered its expert stacks, when they are sharded)."""
+        canary = _sanitizer.donation_canary(state) if self._sanitize else None
         arrays = state.arrays()
         corrupt = self.chaos is not None and self.chaos.should_corrupt(epoch=epoch)
         if _writer():
             self._write(arrays, epoch, corrupt=corrupt)
         _barrier()
+        if canary is not None:
+            canary.verify(state)
 
     def _write(self, arrays: dict[str, Any], epoch: int, *, corrupt: bool = False) -> None:
         arrays = _to_host(arrays)

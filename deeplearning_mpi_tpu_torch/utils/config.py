@@ -176,9 +176,37 @@ def restore_lm(
 
 # -- the data-parallel trainers' flags ---------------------------------------
 #: Flags of layers not ported yet: flag -> (value that means "off", ROADMAP item).
-UNPORTED_FLAGS = {
-    "num_workers": (None, "Queue 1 item 7's leftovers (the loader's fetch threads)"),
+UNPORTED_FLAGS: dict[str, tuple] = {}
+
+#: The reference's flags that have no meaning on PyTorch: flag -> reason.
+NOT_APPLICABLE = {
+    "platform": "the reference picks a JAX backend (cpu/tpu); the port's --device "
+                "(cuda/cpu) says where it runs",
+    "n_virtual_devices": "the reference splits the host CPU into virtual XLA devices; "
+                         "PyTorch has none — --nproc spawns gloo ranks instead",
+    "use_kernel": "the reference chooses between its Pallas decode kernel and an einsum; "
+                  "the port's engine always runs K4 on the card",
 }
+
+
+class _NotApplicable(argparse.Action):
+    """A reference flag the port refuses by name: exit 2 with the reason."""
+
+    def __init__(self, option_strings, dest, **kwargs) -> None:
+        kwargs.setdefault("nargs", "?")
+        super().__init__(option_strings, dest, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None) -> None:
+        parser.exit(2, f"{parser.prog}: {option_string} is not applicable to the PyTorch port: "
+                       f"{NOT_APPLICABLE[self.dest]}\n")
+
+
+def add_not_applicable(parser: argparse.ArgumentParser, *flags: str) -> None:
+    """Accept each of the reference's ``flags`` (``NOT_APPLICABLE``) only to
+    refuse it with its reason (exit 2), never as an unrecognized flag."""
+    for flag in flags:
+        parser.add_argument(f"--{flag}", action=_NotApplicable, default=None,
+                            help=f"n/a on PyTorch: {NOT_APPLICABLE[flag]}")
 
 
 def add_topology_flags(parser: argparse.ArgumentParser) -> None:
@@ -213,6 +241,7 @@ def add_topology_flags(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--zero_overlap", action="store_true",
                        help="ZeRO-1 with the bucketed reduce-scatter schedule (falls back to "
                        "--zero, the reason logged, where it does not apply)")
+    add_not_applicable(parser, "platform")
     group.add_argument("--tuned_step", default=None, metavar="DB",
                        help="tuning DB (cli.autotune --step) whose step|... entry, if present "
                        "for this model/shape/mesh/dtype, sets remat/grad_accum/overlap (train_lm); "
@@ -248,7 +277,10 @@ def add_training_flags(
     group.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     add_observability_flags(group)
     add_resilience_flags(group)
-    group.add_argument("--num_workers", type=int, default=None, help="not ported yet")
+    group.add_argument("--num_workers", type=int, default=None,
+                       help="the loader's fetch threads (default: half the host's cores, at "
+                       "most 16; 0 = synchronous); the reference's DataLoader num_workers "
+                       "knob (resnet/main.py:100)")
 
 
 def add_resilience_flags(group: Any) -> None:

@@ -33,7 +33,11 @@ and the resilience layer's (``resilience/faults.py``, ``supervisor.py``,
 ``watchdog.py``, ``guardrails.py``, ``cluster.py``, ``pod.py``,
 ``train/resilience.py``, ``cli/launch_pod.py``) and the serving half's
 (``serving/disagg.py``, ``router.py``, ``autoscaler.py``, ``fleet.py``,
-``cli/controlplane_drill.py``) included.
+``cli/controlplane_drill.py``) included, and five for the last modules
+(the sanitize drill, the linter, the simulator and its sweep, a ``.pth``
+import evaluated through ``train_resnet``, a threaded native-loader
+epoch), with the scan covering ``analysis/``, ``sim/``,
+``utils/torch_import.py``, ``data/native.py`` and their CLIs.
 """
 
 import ast
@@ -612,6 +616,93 @@ def test_serving_resilience_paths_run_with_jax_blocked(path, tmp_path):
         assert swapped and swapped[0]["in_place"] is True
         assert ops[-1]["launches"] == {"K1": 0, "K4": 0, "captures": ops[0]["compile_total"],
                                        "served": 2}
+
+
+#: The last modules of the port: the analysis package, the simulator, the
+#: .pth import and the native loader.
+LAST_MODULES = (
+    "analysis/__init__.py", "analysis/core.py", "analysis/passes.py", "analysis/lint.py",
+    "analysis/sanitizer.py", "sim/__init__.py", "sim/traces.py", "sim/simulator.py",
+    "sim/search.py", "cli/sim_drill.py", "cli/sanitize_drill.py", "cli/import_torch.py",
+    "utils/torch_import.py", "data/native.py", "data/loader.py",
+)
+
+
+def test_scan_covers_the_last_modules():
+    scanned = {p.relative_to(ROOT / "deeplearning_mpi_tpu_torch").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    assert set(LAST_MODULES) <= scanned
+
+
+@pytest.mark.parametrize("path", ["sanitizer", "linter", "simulator", "import_cli",
+                                  "native_loader"])
+def test_last_modules_run_with_jax_blocked(path, tmp_path):
+    """Each of the last modules with jax blocked: the sanitize drill on the
+    CPU (every injection classified); the linter over the port's tree (0
+    findings) and over the fixture corpus (8); a trace simulated and swept;
+    a ``.pth`` imported and evaluated through ``train_resnet --eval_only``;
+    a threaded epoch of native-transformed CIFAR batches."""
+    block = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+             "    sys.modules[name] = None\n")
+    code = {
+        "sanitizer": (
+            "from deeplearning_mpi_tpu_torch.cli import sanitize_drill\n"
+            "assert sanitize_drill.main(['--device', 'cpu']) == 0\n"),
+        "linter": (
+            "from deeplearning_mpi_tpu_torch.analysis import lint\n"
+            "assert lint.main([]) == 0\n"
+            "from deeplearning_mpi_tpu_torch.analysis.core import run_lint\n"
+            f"found = run_lint([__import__('pathlib').Path({str(ROOT / 'tests/fixtures/torch_lint')!r})],"
+            " suppressions={})\n"
+            "assert len(found) == 8, found\n"),
+        "simulator": (
+            "from deeplearning_mpi_tpu_torch.serving.autoscaler import AutoscalerConfig\n"
+            "from deeplearning_mpi_tpu_torch.sim import *\n"
+            "e = to_fleet_entries(generate_entries(TraceConfig(duration_s=30.0, base_rps=4.0), 0))\n"
+            "cfg = SimConfig(autoscale=AutoscalerConfig(min_replicas=1, max_replicas=3))\n"
+            "r = FleetSimulator(cfg).run(e)\n"
+            "assert r.completed + r.shed_total == r.requests == len(e)\n"
+            "s = run_sweep(e, cfg, [{}, {'hedge_ms': 400.0}], trace_key=trace_digest(e))\n"
+            "assert s.key.startswith('simpolicy|')\n"),
+        "import_cli": (
+            "import numpy as np, torch\n"
+            "from deeplearning_mpi_tpu_torch.models.resnet import resnet18\n"
+            "from deeplearning_mpi_tpu_torch.cli import import_torch, train_resnet\n"
+            "names = {'Conv_0': 'conv1', 'BatchNorm_0': 'bn1', 'Dense_0': 'fc'}\n"
+            "m = resnet18(num_classes=10, torch_padding=True, device='cpu').init_weights(1)\n"
+            "sd = {}\n"
+            "for k, v in m.state_dict().items():\n"
+            "    mod, leaf = k.rsplit('.', 1)\n"
+            "    parts = mod.split('.')\n"
+            "    if parts[0] in names: sd[names[parts[0]] + '.' + leaf] = v\n"
+            "    else:\n"
+            "        b = int(parts[0].split('_')[1]); i = int(parts[1].split('_')[1])\n"
+            "        src = f'layer{b // 2 + 1}.{b % 2}.'\n"
+            "        src += ('downsample.' + ('0' if 'Conv' in parts[1] else '1') if i == 2\n"
+            "                else ('conv' if 'Conv' in parts[1] else 'bn') + str(i + 1))\n"
+            "        sd[src + '.' + leaf] = v\n"
+            f"torch.save({{'module.' + k: v for k, v in sd.items()}}, {str(tmp_path / 'r.pth')!r})\n"
+            f"assert import_torch.main(['--input', {str(tmp_path / 'r.pth')!r}, '--arch', 'resnet18',"
+            f" '--model_dir', {str(tmp_path / 'ck')!r}, '--device', 'cpu']) == 0\n"
+            "t = train_resnet.train(['--device', 'cpu', '--synthetic', '--batch_size', '8',"
+            " '--train_samples', '16', '--torch_padding', '--eval_only', '--model_dir',"
+            f" {str(tmp_path / 'ck')!r}])\n"
+            "assert 'accuracy' in t.history[-1]\n"),
+        "native_loader": (
+            "from deeplearning_mpi_tpu_torch.data import Loader, SyntheticCIFAR10\n"
+            "from deeplearning_mpi_tpu_torch.data.native import native_available, train_transform\n"
+            "ds = SyntheticCIFAR10(32, seed=0)\n"
+            "a = [b['image'] for b in Loader(ds, 8, transform=train_transform, device='cpu',"
+            " num_workers=2).epoch(0)]\n"
+            "c = [b['image'] for b in Loader(ds, 8, transform=train_transform, device='cpu',"
+            " num_workers=0).epoch(0)]\n"
+            "assert len(a) == 4 and all((x == y).all() for x, y in zip(a, c))\n"
+            "print('native', native_available())\n"),
+    }[path]
+    out = subprocess.run([sys.executable, "-c", block + code + "print('ok')\n"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240, env=ENV)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

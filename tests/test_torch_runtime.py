@@ -348,6 +348,13 @@ def test_unported_flags_refuse(flag, item, capsys):
             err = capsys.readouterr().err
             assert "--chaos" in err and "serve_crash" in err and "training workload" in err
             continue
+        if flag[0] == "--num_workers":
+            # Item 7's fetch threads are ported: the flag passes the
+            # refusals and reaches the loaders (tests/test_torch_native_loader.py).
+            args = cli.build_parser().parse_args(["--device", "cpu", "--synthetic", *flag])
+            config.reject_unported(args)
+            assert args.num_workers == 2 and not config.UNPORTED_FLAGS
+            continue
         assert cli.main(["--device", "cpu", "--synthetic", *flag]) == 1
         err = capsys.readouterr().err
         assert f"ROADMAP Queue 1 {item}" in err and flag[0] in err
