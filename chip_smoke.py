@@ -182,8 +182,18 @@ Phases, each printed on its own line; any failure exits non-zero:
     K1 launched 48 times for the prefill and K4 48 times a decode step. (d)
     ``cli.train_lm --tp 1 --zero_overlap`` over NCCL at world size 1 (the
     wiring only) exits 0 and logs the reference's fallback reason ("no
-    data parallelism"). Then K1/K2/K3 timed at the train step's shape at
-    H3 and K4 at B8 L1024 H3 Hkv3, beside their plain versions and SDPA;
+    data parallelism"). (e) Phase 5's trace through the serving engine over
+    (c)'s model (f32, tp 4, every shard on this card), warmed: every stream
+    equal to the same model's offline greedy and to phase 5's tp-1 stream
+    (the tp-1 model's top-2 logit gap printed at a divergence), K1 48 times
+    a prefill chunk and K4 48 times a decode step through the replays (12 a
+    rank), no capture during traffic; TTFT / TPOT p50 and one profiled
+    replay's busy share beside phase 5's, no bar. Then K1/K2/K3 timed at
+    the train step's shape at H3, K4 at B8 L1024 H3 Hkv3 (15c's and 15e's
+    launches) and K1 at the prefill-chunk call at H3 (15e's), beside their
+    plain versions and SDPA; phase 3 holds that chunk call at H3 and H6 and
+    phase 4 the serving shape at H6 Hkv6 (``K1_TP_CHUNK_CASES``,
+    ``k4_tp_cases``);
 16. pipeline parallelism on one card through the one-process form
     (``LockstepPipe``: the stages tick by tick, since NCCL refuses two ranks
     on one card) and the ViT family. (a) The 110M ``TransformerConfig()``
@@ -330,9 +340,13 @@ Phases, each printed on its own line; any failure exits non-zero:
     replica's start-up split by stage. (d) ``cli.controlplane_drill``
     there: the supervisor SIGKILLs itself mid-surge, the restarted one
     re-adopts every live replica with no respawn, the books balance across
-    incarnations, parity holds. Then K1 at the prefill-chunk call (held to
+    incarnations, parity holds. (e) In the hedge run's lane after it,
+    (c)'s kill / hang / swap run over tensor-parallel replicas (``--tp 2``,
+    every shard on this card): (c)'s bars, every rank of a serving replica
+    launching K1 and K4 in equal counts. Then K1 at the prefill-chunk call (held to
     ``FWD_TOL``, its bound the chunk's own work) and K4 at the serving
-    decode shape, timed with phase 22's launches;
+    decode shape, timed with phase 22's launches, and at a tp-2 rank's H6
+    with 22e's;
 23. the last modules. (a) The sanitizer (``DMT_SANITIZE=1``): 21a's faulted
     run's saves of the 110M captured state under the donation canary and
     22a's eager and warmed engines (K1, K4) with 0 trips; then on a fresh
@@ -505,6 +519,15 @@ K1_PP_CASES = [(f"bf16 causal bhsd views lse B{b} (pp microbatch)", b, 2048, 12,
                 {"return_lse": True}, "views") for b in (2, 1)]
 K2K3_PP_CASES = [(f"bf16 causal bhsd B{b} (pp microbatch)", b, 2048, 12, 64, "bfloat16", {},
                   "bhsd") for b in (2, 1)]
+#: The tensor-parallel engine's prefill-chunk call (``serving.engine.
+#: chunk_attention``: phase 5's 128-row chunk at rows 384-511 as a square f32
+#: causal ``[1, 512, H/tp, 64]`` call) at a tp-4 rank's H3 (15e) and a tp-2
+#: rank's H6 (22e). They draw from their own generator (``P3_TP_SEED``), so
+#: the draws of every case above, and of phase 14a after them, stay as they
+#: were.
+K1_TP_CHUNK_CASES = [(f"f32 causal S512 H{h} (tp {12 // h} rank prefill chunk)", 1, 512, h, 64,
+                      "float32", {}, "bshd") for h in (3, 6)]
+P3_TP_SEED = 20
 
 
 def check_k1(torch, gen, cases=None) -> None:
@@ -683,13 +706,25 @@ def k4_inputs(torch, gen, fd, case) -> tuple:
     return q, k, v, index.to(torch.int32), scales
 
 
-def check_k4(torch, gen) -> None:
+def k4_tp_cases() -> list[tuple]:
+    """Phase 4's tensor-parallel serving cases: the serving shape at a tp-2
+    rank's H6 Hkv6 (22e's engine), at phase 5's fills and seeded ones. They
+    draw from their own generator, after ``k4_cases``."""
+    import torch
+
+    return [(f"tp 2 rank serving shape L1024 H6 Hkv6 float32 fills "
+             f"{'serving' if fills else 'seeded'}", 8, 1024, 6, 6, 64, torch.float32, None,
+             False, fills) for fills in (serve_fills(), None)]
+
+
+def check_k4(torch, gen, cases=None) -> None:
     """K4 against its plain version: each row of each output held to
     ``DEC_TOL`` by q dtype, inactive rows zero, one launch counted per call,
-    and a second launch on the same inputs bit-identical."""
+    and a second launch on the same inputs bit-identical (``cases``:
+    ``k4_cases`` by default)."""
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
 
-    for case in k4_cases(fd.SPLIT_ROWS):
+    for case in cases or k4_cases(fd.SPLIT_ROWS):
         name, dtype, window = case[0], case[6], case[7]
         atol, rtol, l2 = DEC_TOL[str(dtype)[6:]]
         q, k, v, index, scales = k4_inputs(torch, gen, fd, case)
@@ -745,6 +780,8 @@ def serve(torch, seed: int):
     width = 1
     while width < -(-max(n + SERVE_NEW for n in SERVE_PROMPTS) // 16):
         width *= 2
+    profile["streams"] = [r.generated for r in reqs]  # 15e's tp-1 streams
+    profile["latency"] = rep
     return launches, k1_shape, serve_fills(), min(width, 64) * 16, profile
 
 
@@ -771,18 +808,22 @@ def device_profile(torch, fn, label: str) -> dict:
         wall_s = time.perf_counter() - t0
     # Device events, less the device-side spans of ``record_function``
     # ranges (the MoE layer's ``moe/*``): a span covers the gaps between its
-    # kernels, which are not device work.
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith("moe/")]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
-        busy_us += max(0.0, stop - max(start, end))
+    # kernels, which are not device work. Read from the profiler's raw
+    # events: building ``prof.events()`` costs seconds a 10^4 events (~34 s
+    # for 15e's replay), and only the MoE stages below need it.
+    raw = prof.profiler.kineto_results.events()
+    device = [(e.start_ns(), e.end_ns(), e.name()) for e in raw
+              if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+              and not e.is_hidden_event() and not e.name().startswith("moe/")]
+    busy_ns, end = 0, float("-inf")
+    for start, stop, _ in sorted(device):
+        busy_ns += max(0, stop - max(start, end))
         end = max(end, stop)
+    busy_us = busy_ns / 1e3
     by_name: dict[str, list] = {}
-    for e in device:
-        entry = by_name.setdefault(e.name, [0.0, 0])
-        entry[0] += (e.time_range.end - e.time_range.start) / 1e3
+    for start, stop, name in device:
+        entry = by_name.setdefault(name, [0.0, 0])
+        entry[0] += (stop - start) / 1e6
         entry[1] += 1
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     # The port's own kernels, wherever they rank (their C++ names).
@@ -797,7 +838,8 @@ def device_profile(torch, fn, label: str) -> dict:
     # The MoE layer's forward stages (its ``moe/*`` ranges on the host): device
     # ms of the kernels each launched.
     stages: dict[str, list] = {}
-    for e in prof.events():
+    moe = any(e.device_type() == DeviceType.CPU and e.name().startswith("moe/") for e in raw)
+    for e in prof.events() if moe else ():
         if e.device_type == DeviceType.CPU and e.name.startswith("moe/"):
             entry = stages.setdefault(e.name, [0.0, 0])
             entry[0] += getattr(e, "device_time_total", 0.0) / 1e3
@@ -2650,18 +2692,18 @@ def tp_card_vs_cpu(torch, seed: int) -> dict:
     return {"loss_rel": loss_rel, "grads_rel_l2_max": rel[worst], "grads_worst": worst}
 
 
-def tp_generate(torch, seed: int) -> dict:
-    """15c: the 110M ``TransformerConfig()`` in float32 (phase 5's weights)
-    under ``LockstepTP(4)`` on this card: greedy generation of 2 prompts of
-    64 tokens, 16 new, token-identical to the unsharded model; K1 launched
-    4 x 12 times for the prefill and K4 4 x 12 times a decode step."""
+def tp_generate(torch, seed: int, model) -> dict:
+    """15c: ``model``, the 110M ``TransformerConfig()`` in float32 (phase
+    5's weights) under ``LockstepTP(4)`` on this card: greedy generation of
+    2 prompts of 64 tokens, 16 new, token-identical to the unsharded model;
+    K1 launched 4 x 12 times for the prefill and K4 4 x 12 times a decode
+    step."""
     import numpy as np
 
     from deeplearning_mpi_tpu_torch.models.generate import generate
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
     from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
-    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
 
     cfg = TransformerConfig()
     new = 16
@@ -2670,8 +2712,6 @@ def tp_generate(torch, seed: int) -> dict:
     one = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
     want = generate(one, prompt, max_new_tokens=new, temperature=0.0)
     del one
-    model = TransformerLM(cfg, dtype=torch.float32, device="cuda",
-                          tp=LockstepTP(P15_TP, "cuda")).init_weights(seed)
     _zero_counts(fa, fd)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2689,6 +2729,76 @@ def tp_generate(torch, seed: int) -> dict:
             f"15c: launches {launches}, expected {expect}")
     return {"token_identical": same, "seconds": seconds, "launches": launches,
             "decode_steps": 2 * (new - 1)}
+
+
+def tp_serve(torch, seed: int, phase5: dict, model) -> dict:
+    """15e: phase 5's trace through the serving engine over ``model``, 15c's
+    float32 110M ``TransformerConfig()`` under ``LockstepTP(4)`` on this card,
+    warmed (the decode steps captured as CUDA graphs): every stream equal
+    to the offline greedy of the same tp model and to phase 5's tp-1
+    stream (at a divergence the tp-1 model's top-2 logit gap is printed);
+    K1 4 x 12 times a prefill chunk and K4 4 x 12 times a decode step,
+    counted through the replays, each rank its 12; no capture during
+    traffic. TTFT / TPOT p50 and one profiled replay's device-busy share
+    are reported beside phase 5's, with no bar."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import latency_report, offline_greedy, replay
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_attention as fa
+    from deeplearning_mpi_tpu_torch.ops.kernels import flash_decode as fd
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+
+    cfg = model.config
+    entries = serve_trace(cfg.vocab_size, seed)
+    engine = ServingEngine(model, EngineConfig(**SERVE_ENGINE))
+    t0 = time.perf_counter()
+    built = engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    captures, ranks0 = engine.captures, engine.rank_launches
+    chunks0, steps0 = engine.prefill_chunks, engine.decode_steps
+    _zero_counts(fa, fd)
+    reqs, wall_s = replay(engine, entries)
+    torch.cuda.synchronize()
+    launches = _kernel_counts(fa, fd)
+    chunks, steps = engine.prefill_chunks - chunks0, engine.decode_steps - steps0
+    ranks = [{k: now[k] - then[k] for k in now} for now, then in
+             zip(engine.rank_launches, ranks0)]
+    rep = latency_report(reqs, wall_s)
+    log(f"15e tp {P15_TP} engine (f32, warmed: {engine.captures} graphs {built} in "
+        f"{warmup_s:.2f}s): {json.dumps(rep)} | {chunks} prefill chunks, {steps} decode steps, "
+        f"launches {launches}, by rank {ranks}")
+    t0 = time.perf_counter()
+    expects = [offline_greedy(model, r.prompt, r.max_new_tokens, None) for r in reqs]
+    oracle_s = time.perf_counter() - t0
+    # The tp-1 model prints the top-2 logit gap at a divergence: built only
+    # for one.
+    streams = [r.generated for r in reqs]
+    one = (TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(seed)
+           if streams != expects or streams != phase5["streams"] else None)
+    streams_equal(one, reqs, expects, f"15e tp {P15_TP} engine vs its offline greedy")
+    streams_equal(one, reqs, phase5["streams"], f"15e tp {P15_TP} engine vs phase 5 (tp 1)")
+    del one
+    per = cfg.num_layers * P15_TP
+    require(chunks > 0 and steps > 0 and launches["K1"] == per * chunks
+            and launches["K4"] == per * steps,
+            f"15e: launches {launches} for {chunks} chunks and {steps} decode steps, "
+            f"expected {per} a chunk and {per} a step")
+    require(all(r == {"K1": cfg.num_layers * chunks, "K4": cfg.num_layers * steps}
+                for r in ranks), f"15e: launches by rank {ranks}")
+    require(engine.captures == captures, "15e: traffic captured a program after warmup")
+    t0 = time.perf_counter()
+    profile = device_profile(torch, lambda: replay(engine, entries), "15e profile")
+    profile_s = time.perf_counter() - t0
+    require(engine.captures == captures, "15e: the profiled replay captured a program")
+    busy5 = phase5["busy_share"]
+    log(f"15e vs phase 5 (tp 1, eager): TTFT p50 {rep['ttft_p50_s']} vs "
+        f"{phase5['latency']['ttft_p50_s']} s, TPOT p50 {rep['tpot_p50_s']} vs "
+        f"{phase5['latency']['tpot_p50_s']} s, device busy {100 * profile['busy_share']:.2f}% "
+        f"vs {100 * busy5:.2f}%; seconds: warmup {warmup_s:.1f}, replay {wall_s:.1f}, "
+        f"offline greedy {oracle_s:.1f}, profiled replay {profile_s:.1f}")
+    return {"latency": rep, "warmup_s": warmup_s, "built": built, "captures": engine.captures,
+            "prefill_chunks": chunks, "decode_steps": steps, "launches": launches,
+            "launches_by_rank": ranks, "busy_share": profile["busy_share"],
+            "profile_port": profile["port"]}
 
 
 def tp_zero_cli(torch, card: str) -> dict:
@@ -2730,13 +2840,23 @@ def tp_zero_cli(torch, card: str) -> dict:
     return {"rc": rc, "fallback_logged": fell_back}
 
 
-def tp_phase(torch, card: str, gen, seed: int) -> dict:
-    """Phase 15: tensor parallelism (15a-15c), the ZeRO-1 wiring (15d) and
-    the kernel rows at a tp-4 rank's local heads."""
+def tp_phase(torch, card: str, gen, seed: int, phase5: dict) -> dict:
+    """Phase 15: tensor parallelism (15a-15c), the ZeRO-1 wiring (15d), the
+    serving engine at tp 4 (15e) and the kernel rows at a tp-4 rank's local
+    heads."""
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+
     out = {"train": tp_train(torch, seed)}
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = tp_card_vs_cpu(torch, seed)
-    out["generate"] = tp_generate(torch, seed)
+    # 15c's and 15e's model: the 110M widths in f32 over tp ranks on this card.
+    model = TransformerLM(TransformerConfig(), dtype=torch.float32, device="cuda",
+                          tp=LockstepTP(P15_TP, "cuda")).init_weights(seed)
+    out["generate"] = tp_generate(torch, seed, model)
+    out["serve"] = tp_serve(torch, seed, phase5, model)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     out["zero_cli"] = tp_zero_cli(torch, card)
     heads = 12 // P15_TP
@@ -2747,6 +2867,15 @@ def tp_phase(torch, card: str, gen, seed: int) -> dict:
     log(f"time {k4['name']} [{k4['shape']}]: kernel {k4['ms']:.4f} ms (warm "
         f"{k4['warm_ms']:.4f}), plain {k4['plain_ms']:.4f} ms, sdpa {k4['library_ms']:.4f} ms, "
         f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), {k4['launches']} launches in 15c")
+    out["kernels"].append(k4)
+    serve = out["serve"]
+    out["kernels"].append(k1_chunk_row(torch, serve["launches"]["K1"], heads=heads,
+                                       where="15e"))
+    k4 = k4_row(torch, gen, serve["launches"]["K4"], serve_fills(), 1024, heads=heads,
+                name=f"K4 flash_decode (tp {P15_TP} engine, 15e)")
+    log(f"time {k4['name']} [{k4['shape']}]: kernel {k4['ms']:.4f} ms (warm "
+        f"{k4['warm_ms']:.4f}), plain {k4['plain_ms']:.4f} ms, sdpa {k4['library_ms']:.4f} ms, "
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), {k4['launches']} launches in 15e")
     out["kernels"].append(k4)
     return out
 
@@ -4592,6 +4721,8 @@ P22_STALL = "handoff_stall@step:4"
 #: dominates a drill, not its depth.
 P22_LAYERS = 2
 P22_DEVICE = "cuda"
+#: 22e's ranks a replica
+P22_TP = 2
 P22_MODEL = ["--vocab_size", "256", "--num_layers", str(P22_LAYERS), "--num_heads", "12",
              "--head_dim", "64", "--d_model", "768", "--d_ff", "2048"]
 #: 22c: the reference drills' plans (``tools/fleet_drill.py``,
@@ -4605,12 +4736,20 @@ P22_FLEETS = {
     "autoscale": ["--autoscale", "--min_replicas", "1", "--max_replicas", "3", "--chaos",
                   "load_spike@step:2,scale_during_failure@step:1", "--num_requests", "64",
                   "--rate", "1000", "--max_new_tokens", "32", "--max_queue", "128"],
+    # 22e: the kill / hang / swap drill over tensor-parallel replicas, each
+    # replica 2 ranks (H6 Hkv6 a rank); on one card all four shards on it.
+    "tp": ["--replicas", "2", "--tp", str(P22_TP), "--chaos",
+           "replica_kill@step:4,replica_hang@step:6", "--swap_at", "8", "--num_requests", "30",
+           "--rate", "1.2"],
 }
 
 
-#: 22c-d's runs in lanes that run side by side, each lane's runs one after
-#: another (a run is host-bound: mostly replica start-up).
-P22_LANES = (("kill_hang_swap",), ("hedge",), ("autoscale",), ("controlplane",))
+#: 22c-e's runs in lanes that run side by side, each lane's runs one after
+#: another (a run is host-bound: mostly replica start-up). 22e follows the
+#: shortest run: a fifth lane at the start slowed the autoscale run's first
+#: replica until its scale-up's kill landed before any completion, leaving
+#: 23b no unloaded TTFT to calibrate from.
+P22_LANES = (("kill_hang_swap",), ("hedge", "tp"), ("autoscale",), ("controlplane",))
 
 
 def _zero_serving(fa, fd) -> None:
@@ -4769,18 +4908,28 @@ def _fleet_check(name: str, lines: list[str], fleet_dir: str) -> dict:
     row = {"completed": completed, "redispatched": redispatched, "workers": workers,
            "versions": versions, "chaos": chaos_line, "summary": summary,
            "ready_s": ready_s, "startup_s": startup, "recovery_s": recoveries}
-    if name == "kill_hang_swap":
+    if name == "tp":
+        # Every rank of every serving replica launched both kernels, and the
+        # ranks of a replica split its launches evenly (lockstep).
+        require(all(len(w["K1_by_rank"]) == P22_TP and min(w["K1_by_rank"] + w["K4_by_rank"]) > 0
+                    and sum(w["K1_by_rank"]) == w["K1"] and sum(w["K4_by_rank"]) == w["K4"]
+                    and len(set(w["K1_by_rank"])) == len(set(w["K4_by_rank"])) == 1
+                    for w in served.values()), f"22e: launches by rank {workers}")
+        devices = [r.get("devices") for r in journal if r["ev"] == "ready"]
+        require(all(d and len(d) == P22_TP for d in devices), f"22e: ranks' devices {devices}")
+        row["devices"] = devices
+    if name in ("kill_hang_swap", "tp"):
         swap = get("swap: ")
         require(redispatched >= 1, f"22c {name}: nothing re-dispatched")
         require("performed=True" in swap and "compile_flat=True" in swap and "in_place=True" in swap,
                 f"22c {name}: {swap}")
         require(set(versions) == {"0", "1"}, f"22c {name}: versions {versions}")
         row["swap"] = swap
-    elif name == "hedge":
+    if name == "hedge":
         row["hedges"] = get("hedges: ")
         require(int(re.search(r"(\d+) fired", row["hedges"]).group(1)) >= 1,
                 f"22c {name}: no hedge fired")
-    else:
+    elif name == "autoscale":
         row["scale"] = get("autoscale: ")
         require(int(re.search(r"(\d+) spawned", row["scale"]).group(1)) >= 1,
                 f"22c {name}: no scale-up: {row['scale']}")
@@ -4802,10 +4951,13 @@ def _controlplane_check(lines: list[str]) -> dict:
 
 
 def fleet_drills(torch, card: str) -> dict:
-    """22c and 22d in ``P22_LANES`` (each run its own processes: a run is
+    """22c-e in ``P22_LANES`` (each run its own processes: a run is
     host-bound, mostly replica start-up): ``serve_lm --selftest``
     on the card at the 110M widths (vocab 256, ``P22_LAYERS`` blocks)
-    through each of ``P22_FLEETS``, and ``cli.controlplane_drill``. 22c:
+    through each of ``P22_FLEETS``, and ``cli.controlplane_drill``. 22e is
+    22c's kill / hang / swap drill over replicas of ``P22_TP`` ranks (on one
+    card all four shards share it) under 22c's bars, every rank of a
+    serving replica launching K1 and K4 and the ranks' counts equal. 22c:
     exit 0 with the CLI's own bit-exact parity, the books balanced, one
     stream a rid (the journal's wins), every worker that served reporting K1
     and K4 launches since its ready ack (its warmup's are not counted); the
@@ -4857,7 +5009,8 @@ def fleet_drills(torch, card: str) -> dict:
                 rc, lines, seconds, ended = done[name]
                 for line in lines:
                     if not line.startswith("fleet: hedge: rid"):
-                        log(f"22{'d' if name == 'controlplane' else 'c'} {name} | {line[:400]}")
+                        part = {"controlplane": "d", "tp": "e"}.get(name, "c")
+                        log(f"22{part} {name} | {line[:400]}")
                 require(rc == 0, f"22 {name}: exited {rc}")
                 if name == "controlplane":
                     row = out["controlplane"] = _controlplane_check(lines)
@@ -4872,15 +5025,16 @@ def fleet_drills(torch, card: str) -> dict:
     return out
 
 
-def k1_chunk_row(torch, launches: int) -> dict:
+def k1_chunk_row(torch, launches: int, heads: int = 12, where: str = "phase 22") -> dict:
     """K1 at the engine's prefill-chunk call (``serving.engine.chunk_attention``):
     a 128-row chunk at positions 384-511 over a slot's 1024 page rows, which
-    the engine issues as a square ``[1, 512, 12, 64]`` float32 causal call
-    with the rows before the chunk zero. The call is held to ``FWD_TOL``
+    the engine issues as a square ``[1, 512, heads, 64]`` float32 causal call
+    with the rows before the chunk zero (``heads``: 12, or a tensor-parallel
+    rank's H/tp). The call is held to ``FWD_TOL``
     against its plain version, bit-identical on a second launch, and
     ``chunk_attention``'s rows are held to the masked matmul. The bound and
     SDPA count the chunk's own work: its queries over ``k/v[:start + C]``
-    with the offset causal mask. ``launches`` are phase 22's."""
+    with the offset causal mask. ``launches`` are ``where``'s."""
     import torch.nn.functional as F
 
     from deeplearning_mpi_tpu_torch.ops.attention import dense_attention
@@ -4888,7 +5042,7 @@ def k1_chunk_row(torch, launches: int) -> dict:
     from deeplearning_mpi_tpu_torch.serving.engine import chunk_attention
 
     gen = torch.Generator(device="cuda").manual_seed(22)
-    L, H, D, start, C = 1024, 12, 64, 384, 128
+    L, H, D, start, C = 1024, heads, 64, 384, 128
     S = start + C
     chunk = torch.randn(1, C, H, D, generator=gen, device="cuda")
     pages_k, pages_v = (torch.randn(1, L, H, D, generator=gen, device="cuda") for _ in range(2))
@@ -4915,7 +5069,8 @@ def k1_chunk_row(torch, launches: int) -> dict:
     mask = (torch.arange(S, device="cuda")[None, :]
             <= start + torch.arange(C, device="cuda")[:, None])
     row = {
-        "name": "K1 flash_attention_fwd (f32 prefill chunk, phase 22)", "route": "cuda",
+        "name": f"K1 flash_attention_fwd (f32 prefill chunk{'' if H == 12 else f' H{H}'}, "
+                f"{where})", "route": "cuda",
         "source": "deeplearning_mpi_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "deeplearning_mpi_tpu/ops/pallas/flash_attention.py:110",
         "launches": launches, "max_abs_err": err,
@@ -4968,15 +5123,23 @@ def serving_resilience_phase(torch, card: str, gen, seed: int) -> dict:
     for run in (*out["crash"].values(), *out["disagg"].values()):
         for k in counts:
             counts[k] += run["launches"][k]
-    workers = [w for f in out["fleet"].values() for w in f["workers"].values()]
+    workers = [w for name, f in out["fleet"].items() if name != "tp"
+               for w in f["workers"].values()]
     workers += list(out["controlplane"]["workers"].values())
     for w in workers:
         for k in counts:
             counts[k] += w[k]
-    out["launches"] = counts
+    # 22e's replicas launched at a rank's H6 heads: their own rows.
+    tp_counts = {k: sum(w[k] for w in out["fleet"]["tp"]["workers"].values())
+                 for k in ("K1", "K4")}
+    out["launches"], out["tp_launches"] = counts, tp_counts
+    heads = 12 // P22_TP
     out["kernels"] = [k1_chunk_row(torch, counts["K1"]),
                       k4_row(torch, gen, counts["K4"], serve_fills(), 1024,
-                             name="K4 flash_decode (phase 22)")]
+                             name="K4 flash_decode (phase 22)"),
+                      k1_chunk_row(torch, tp_counts["K1"], heads=heads, where="22e"),
+                      k4_row(torch, gen, tp_counts["K4"], serve_fills(), 1024, heads=heads,
+                             name=f"K4 flash_decode (tp {P22_TP} fleet, 22e)")]
     return out
 
 
@@ -5308,6 +5471,8 @@ def main() -> int:
     t0 = time.perf_counter()
     check_k1(torch, gen)
     check_k1(torch, gen, K1_PP_CASES)
+    check_k1(torch, torch.Generator(device="cuda").manual_seed(args.seed + P3_TP_SEED),
+             K1_TP_CHUNK_CASES)
     log(f"phase 3 K1 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_k2k3(torch, gen)
@@ -5348,6 +5513,8 @@ def main() -> int:
         f"{time.perf_counter() - t_build:.1f}s")
     t0 = time.perf_counter()
     check_k4(torch, gen)
+    check_k4(torch, torch.Generator(device="cuda").manual_seed(args.seed + P3_TP_SEED),
+             k4_tp_cases())
     log(f"phase 4 K4 vs plain OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     launches, k1_shape, fills, k4_len, profile = serve(torch, args.seed)
@@ -5378,10 +5545,11 @@ def main() -> int:
         f"of 4, the --sp CLIs) OK in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    tp = tp_phase(torch, card, gen, args.seed)
+    tp = tp_phase(torch, card, gen, args.seed, profile)
     kernels.extend(tp["kernels"])
     log(f"phase 15 tensor parallelism (the 110M model over tp 4 in bf16, card vs CPU, greedy "
-        f"generation at tp 4, --zero_overlap over NCCL) OK in {time.perf_counter() - t0:.1f}s")
+        f"generation at tp 4, the serving engine at tp 4 warmed, --zero_overlap over NCCL) OK "
+        f"in {time.perf_counter() - t0:.1f}s")
     kernels.extend(pp["kernels"])
     t0 = time.perf_counter()
     torch.cuda.empty_cache()

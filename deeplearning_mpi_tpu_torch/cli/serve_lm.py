@@ -47,9 +47,13 @@ trace through a supervised fleet of replica processes
 weight swap to the init of ``--random_seed + 1``), ``--min_replicas`` /
 ``--max_replicas``, ``--autoscale_predictive`` with the ``--forecast_*``
 knobs and ``--fleet_dir``, and holds every completion bit-exactly to
-offline greedy under its weight version. Fleet mode refuses
-``--kv_dtype`` (its bar is bit-exact) and ``--spec_k``, and ``--tp``
-(ROADMAP Queue 1 item 8.6).
+offline greedy under its weight version. ``--tp T`` shards each replica
+over ``T`` ranks in its process (``parallel.tensor_parallel.LockstepTP``;
+replica ``r``'s rank ``j`` on ``cuda:((r * T + j) mod device_count)``, all
+on the CPU with ``--device cpu``), its engine attending through K1 / K4 at
+``H/T`` heads; the parity oracle stays the UNSHARDED model of each weight
+version. ``--tp`` needs fleet mode, as in the reference. Fleet mode refuses
+``--kv_dtype`` (its bar is bit-exact) and ``--spec_k``.
 
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest            # on the GPU
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --metrics_file serve.jsonl
@@ -58,7 +62,7 @@ offline greedy under its weight version. Fleet mode refuses
         [--kv_dtype int8] [--prefix_cache] [--spec_k 2 --draft_layers 1] [--warmup] \\
         [--disagg] [--chaos serve_crash@step:3]
     python -m deeplearning_mpi_tpu_torch.cli.serve_lm --selftest --device cpu --num_layers 2 \\
-        --replicas 2 --chaos replica_kill@step:4,replica_hang@step:6 --swap_at 8
+        --replicas 2 --chaos replica_kill@step:4,replica_hang@step:6 --swap_at 8 [--tp 2]
 """
 
 from __future__ import annotations
@@ -217,8 +221,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="directory for replica mailboxes, heartbeats and logs (default: "
                        "a fresh temporary directory)")
     fleet.add_argument("--tp", type=int, default=1,
-                       help="tensor-parallel degree per replica: refused above 1 (ROADMAP "
-                       "Queue 1 item 8.6)")
+                       help="tensor-parallel degree per replica: each replica's parameters "
+                       "and KV pools are sharded over this many ranks in its process "
+                       "(Megatron pairs, the reference's rule), rank j of replica r on "
+                       "cuda:((r * tp + j) mod device_count); requires --replicas > 1")
     parser.add_argument("--chaos", default=None,
                         help="fault plan, e.g. 'serve_crash@step:12' (the engine crashes "
                         "mid-step and recovers); with --disagg also 'handoff_stall@step:N'; "
@@ -423,6 +429,29 @@ def chaos_workload(args) -> tuple[frozenset[str], str]:
     return SERVE_KINDS, "single-replica serving"
 
 
+def _model_spec(args) -> dict:
+    """The served model's ``TransformerConfig`` fields from the flags."""
+    return {
+        "vocab_size": args.vocab_size, "num_layers": args.num_layers,
+        "num_heads": args.num_heads, "num_kv_heads": args.num_kv_heads or None,
+        "head_dim": args.head_dim, "d_model": args.d_model, "d_ff": args.d_ff,
+        "attention_window": args.attention_window,
+    }
+
+
+def _tp_refusal(args) -> str | None:
+    """Why the replicas' model cannot be sharded ``--tp`` ways (the port's
+    rule shards a Megatron pair whole and whole heads), before any spawn."""
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import plan
+
+    try:
+        plan(TransformerConfig(**_model_spec(args)), args.tp)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def _worker_threads(args) -> int | None:
     """A CPU fleet's torch threads a worker: this process's, split over the
     most replicas the fleet may run (None on the card)."""
@@ -442,12 +471,7 @@ def _run_fleet(args, eos_id) -> int:
     from deeplearning_mpi_tpu_torch.serving import FleetFailure, FleetSupervisor
     from deeplearning_mpi_tpu_torch.telemetry import JsonlSink, MetricsRegistry
 
-    model_spec = {
-        "vocab_size": args.vocab_size, "num_layers": args.num_layers,
-        "num_heads": args.num_heads, "num_kv_heads": args.num_kv_heads or None,
-        "head_dim": args.head_dim, "d_model": args.d_model, "d_ff": args.d_ff,
-        "attention_window": args.attention_window,
-    }
+    model_spec = _model_spec(args)
     engine_spec = {
         "max_slots": args.max_slots, "block_size": args.block_size,
         "num_blocks": args.num_blocks, "max_blocks_per_seq": args.max_blocks_per_seq,
@@ -480,8 +504,8 @@ def _run_fleet(args, eos_id) -> int:
     sup = FleetSupervisor(
         model_spec, engine_spec, args.replicas, fleet_dir, seed=args.random_seed,
         eos_id=eos_id, warmup=True, chaos=args.chaos, hedge_ms=args.hedge_ms,
-        registry=registry, disagg=args.disagg, tenants=tenants, autoscale=autoscale,
-        device=args.device, threads=_worker_threads(args),
+        registry=registry, disagg=args.disagg, tp=args.tp, tenants=tenants,
+        autoscale=autoscale, device=args.device, threads=_worker_threads(args),
     )
     swap_seed = args.random_seed + 1 if args.swap_at is not None else None
     try:
@@ -576,18 +600,16 @@ def main(argv: list[str] | None = None) -> int:
             print(f"--chaos: {e}", file=sys.stderr)
             return 1
     if fleet:
-        from deeplearning_mpi_tpu_torch.serving.fleet import TP_REPLICA_REASON
-
         refusal = None
-        if args.tp > 1:
-            refusal = TP_REPLICA_REASON
-        elif args.kv_dtype:
+        if args.kv_dtype:
             refusal = "--kv_dtype does not compose with fleet mode: fleet parity is bit-exact"
         elif args.spec_k:
             refusal = "--replicas > 1 does not compose with --spec_k yet"
         elif args.model_dir is not None:
             refusal = ("fleet mode serves a seeded random init (its replicas rebuild the "
                        "weights from (config, seed)); --model_dir is not served by a fleet")
+        elif args.tp > 1:
+            refusal = _tp_refusal(args)
         if refusal:
             print(refusal, file=sys.stderr)
             return 1
@@ -597,8 +619,7 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
     if args.tp > 1:
-        print("--tp > 1 shards replica processes; it requires --replicas > 1 (and "
-              "tensor-parallel replicas are ROADMAP Queue 1 item 8.6)", file=sys.stderr)
+        print("--tp > 1 shards replica processes; it requires --replicas > 1", file=sys.stderr)
         return 1
     if args.moe_experts > 0:
         # The engine would raise anyway, but before the restore.
@@ -633,12 +654,7 @@ def main(argv: list[str] | None = None) -> int:
     except SystemExit as refusal:
         print(refusal.code, file=sys.stderr)
         return 1
-    cfg = TransformerConfig(
-        vocab_size=args.vocab_size, num_layers=args.num_layers,
-        num_heads=args.num_heads, num_kv_heads=args.num_kv_heads or None,
-        head_dim=args.head_dim, d_model=args.d_model, d_ff=args.d_ff,
-        attention_window=args.attention_window,
-    )
+    cfg = TransformerConfig(**_model_spec(args))
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if args.tuning_db:
         from deeplearning_mpi_tpu_torch.compiler.autotune import set_default_db

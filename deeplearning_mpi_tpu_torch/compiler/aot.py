@@ -44,6 +44,7 @@ donates nothing; ``compiler/cache.py``).
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Hashable, Sequence
 
 import numpy as np
@@ -79,8 +80,12 @@ class CapturedProgram:
     it allocates once, such as K4's per-stream arrival counters, exists
     before capture, as PyTorch's graph notes require; ``warmup_runs``
     times), then is captured on that stream into a graph whose memory
-    comes from ``pool``. The eager runs' kernel launches are real and stay
-    counted. On the CPU the one eager run is all warmup does.
+    comes from ``pool``. No cyclic garbage collection runs during the
+    capture (one collection runs just before it). The eager runs' kernel
+    launches are real and stay counted. ``counters`` are more ``(object, attribute)`` launch counts
+    that a replay adds again, beside :func:`kernel_counters` (a
+    tensor-parallel engine's per-rank counts). On the CPU the one eager run
+    is all warmup does.
     """
 
     #: CUDA graphs captured in this process, by every program
@@ -94,6 +99,7 @@ class CapturedProgram:
         pool: Any = None,
         stream: torch.cuda.Stream | None = None,
         warmup_runs: int = 1,
+        counters: Sequence[tuple[Any, str]] = (),
     ) -> None:
         self.fn = fn
         self.inputs = tuple(t.clone() for t in inputs)
@@ -109,10 +115,21 @@ class CapturedProgram:
             for _ in range(warmup_runs):
                 fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(stream)
-        before = {key: getattr(*key) for key in kernel_counters()}
+        before = {key: getattr(*key) for key in [*kernel_counters(), *counters]}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.output = fn(*self.inputs)
+        # A dead program's graph freed mid-capture (a dropped engine or
+        # trainer in a reference cycle, reclaimed by a collection that the
+        # capture's own allocations trigger) invalidates the capture: collect
+        # before it, and not during it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.output = fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {key: getattr(*key) - n for key, n in before.items()
                          if getattr(*key) != n}
         _add_counts(self.launches, -1)

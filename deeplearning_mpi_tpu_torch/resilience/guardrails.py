@@ -292,8 +292,12 @@ class DigestVote:
         """Forget a departed rank's ring."""
         self._rings.pop(int(rank), None)
 
-    def tally(self) -> Optional[VoteResult]:
-        """Compare the commonly held steps; the earliest mismatch wins."""
+    def tally(self, quorum: int | None = None) -> Optional[VoteResult]:
+        """Compare the commonly held steps; the earliest mismatch wins.
+        With ``quorum``, a step that agrees is settled (``last_agreed_step``)
+        only once that many ranks hold it: a lagging rank's ring still gets
+        its vote on every step its peers already agreed on. Without it (the
+        reference's rule) any two agreeing ranks settle a step."""
         if len(self._rings) < 2:
             return None
         common: dict[int, dict[int, str]] = {}
@@ -308,7 +312,8 @@ class DigestVote:
             for rank, digest in votes.items():
                 tallies.setdefault(digest, []).append(rank)
             if len(tallies) == 1:
-                self.last_agreed_step = step
+                if quorum is None or len(votes) >= quorum:
+                    self.last_agreed_step = step
                 continue
             sizes = sorted(len(r) for r in tallies.values())
             minority: list[int] = []

@@ -26,6 +26,10 @@ world first makes progress, and strips the fired entry before the respawn.
 --digest_every N`` carry a ``{step: digest}`` ring on every heartbeat; the
 supervisor feeds the rings into a :class:`~.guardrails.DigestVote` each
 poll, and the first step where live ranks disagree convicts the minority.
+A step that agrees is settled only once every rank of the world holds it
+(``DigestVote.tally(quorum=)``): the reference settles it on any two
+agreeing rings, so a rank whose ring lands a poll later than its peers'
+never gets its vote on that step.
 The blamed HOST is booked in a :class:`~.guardrails.QuarantineLedger` read
 before every spawn, checkpoints saved after the divergence are pruned, and
 the survivors re-form without it.
@@ -450,7 +454,7 @@ class PodSupervisor(ClusterSupervisor):
                                 hb = Heartbeat.read(hb_dir / f"heartbeat-{rank}.json")
                                 if hb:
                                     vote.observe(hosts[rank], hb.get("digests"))
-                            divergence = vote.tally()
+                            divergence = vote.tally(quorum=len(procs))
                             if divergence is None:
                                 ok = True
                                 return self._result(
@@ -520,7 +524,7 @@ class PodSupervisor(ClusterSupervisor):
                                     f"(flagged, not failed)"
                                 )
                         if not dead and not hung:
-                            divergence = vote.tally()
+                            divergence = vote.tally(quorum=len(procs))
                             if divergence is not None:
                                 # A rank that already finished (exit 0) can
                                 # still be the corrupt one: every live or

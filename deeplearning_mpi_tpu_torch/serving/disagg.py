@@ -24,6 +24,9 @@ reallocated (not by the handoff, not by :meth:`DisaggregatedEngine.recover`).
 A completed prefill's pages are already where the decode role gathers
 them; the handoff moves the block table's ownership.
 
+Over a tensor-parallel model (``serving/engine.py``) the one holder keeps
+every rank's pools, and the pool's block ids name the same block in each.
+
 The roles share one model, so a hot weight swap (an in-place copy into its
 parameters) reaches both; the shared prefix cache is flushed with it.
 
@@ -46,6 +49,7 @@ from deeplearning_mpi_tpu_torch.serving.engine import (
     EngineConfig,
     KVBuffers,
     ServingEngine,
+    engine_kv_buffers,
     kv_storage,
 )
 from deeplearning_mpi_tpu_torch.serving.kv_pool import PagedKVPool, init_kv_buffers
@@ -148,11 +152,8 @@ class DisaggregatedEngine:
         # ONE pool and ONE set of device pools for both roles, allocated
         # before either captures a program.
         self.pool = PagedKVPool(engine.num_blocks, engine.block_size, kv_dtype=storage)
-        c = self.config
-        kvh = KVBuffers(init_kv_buffers(
-            c.num_layers, engine.num_blocks, engine.block_size, c.kv_heads, c.head_dim,
-            storage or model.dtype, model.device,
-        ))
+        # A tensor-parallel model's pools are one set a rank, shared alike.
+        kvh = engine_kv_buffers(model, engine, storage)
         draft_kvh = None
         if engine.spec_k > 0 and draft is not None:
             d = draft.config
@@ -212,6 +213,12 @@ class DisaggregatedEngine:
     @property
     def captures(self) -> int:
         return self.prefill.captures + self.decode.captures
+
+    @property
+    def rank_launches(self) -> list[dict[str, int]]:
+        """Each tensor-parallel rank's K1 / K4 launches, both roles'."""
+        return [{k: p[k] + d[k] for k in p}
+                for p, d in zip(self.prefill.rank_launches, self.decode.rank_launches)]
 
     @property
     def counters(self) -> dict[str, int]:

@@ -65,6 +65,25 @@ mid-step, after admission and prefill changed the books and the pools;
 ``kv_buffers`` / ``draft_kv_buffers`` / ``prefix_cache`` inject shared
 block accounting and device pools: the disaggregation seam.
 
+Tensor parallelism: a model sharded over a ``LockstepTP`` (``TransformerLM(
+tp=...)``, the one-process form: ``tp`` ranks in this process, every shard on
+one card or one a card) serves through the same engine. Each rank holds its
+own pools at ``Hkv/tp`` heads on its device (``kv_pool.init_kv_buffers``)
+under ONE block bookkeeping; per layer each rank projects its local heads,
+scatters into and gathers from its own pools and attends through K4
+(decode) or K1 (the prefill chunk) at ``H/tp`` heads, and the ranks' partial
+output projections are summed in ``TPPair.forward``'s order
+(``tp.reduce``); the MLP runs through its ``TPPair``. The embedding is
+gathered once a step and the step's block tables, lengths and masks reach
+each rank's device once a step. ``copy_block`` copies in every rank's
+pools. Under tensor parallelism the engine refuses ``spec_k > 0`` and int8
+KV by name (:data:`TP_SPEC_REASON`, :data:`TP_INT8_REASON`; the reference's
+fleet, its only tensor-parallel server, refuses both), and :meth:`ServingEngine.warmup`
+refuses ranks on more than one card (:data:`TP_CAPTURE_REASON`): a CUDA
+graph captured on one card's stream does not record another card's
+kernels. :attr:`PagedForward.rank_launches` counts each rank's K1 / K4
+launches, replays included.
+
 Greedy-only, dense models only.
 """
 
@@ -87,7 +106,11 @@ from deeplearning_mpi_tpu_torch.ops.attention import (
     dense_attention,
     repeat_kv,
 )
-from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention
+from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_cuda,
+)
+from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
 from deeplearning_mpi_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from deeplearning_mpi_tpu_torch.serving.kv_pool import (
     SCRATCH_BLOCK,
@@ -102,9 +125,29 @@ from deeplearning_mpi_tpu_torch.serving.scheduler import (
 )
 
 __all__ = [
-    "EngineConfig", "KVBuffers", "PagedForward", "ServingEngine", "chunk_attention",
-    "kv_storage",
+    "EngineConfig", "KVBuffers", "PagedForward", "ServingEngine", "TP_CAPTURE_REASON",
+    "TP_INT8_REASON", "TP_SPEC_REASON", "chunk_attention", "engine_kv_buffers", "kv_storage",
+    "tp_ranks",
 ]
+
+#: why a tensor-parallel engine refuses speculative decoding: the draft
+#: shares the target's modules (``self_draft``), and the reference's only
+#: tensor-parallel server (its fleet) refuses ``--spec_k``
+TP_SPEC_REASON = (
+    "spec_k > 0 does not compose with a tensor-parallel model in the serving engine (the "
+    "reference's fleet, its only tensor-parallel server, refuses --spec_k)")
+#: why a tensor-parallel engine refuses int8 KV: the reference's fleet, its
+#: only tensor-parallel server, refuses ``--kv_dtype`` (its bar is bit-exact)
+TP_INT8_REASON = (
+    "kv_dtype='int8' does not compose with a tensor-parallel model in the serving engine "
+    "(the reference's fleet, its only tensor-parallel server, refuses --kv_dtype)")
+#: why warmup refuses ranks on several cards: a CUDA graph captured on one
+#: card's stream does not record the kernels another card runs, so its
+#: replays would silently skip them (ROADMAP Queue 1 item 9.1b)
+TP_CAPTURE_REASON = (
+    "warmup of a tensor-parallel engine whose ranks sit on more than one card: a CUDA graph "
+    "captured on one card's stream does not record the other cards' kernels (ROADMAP Queue 1 "
+    "item 9.1b); serve it eagerly, or put every rank on one card")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,16 +208,45 @@ def kv_storage(name: str | None) -> torch.dtype | None:
 
 class KVBuffers:
     """Holder for the device KV pools an engine steps over: ``(k, v)``, plus
-    ``(k_scale, v_scale)`` for int8 storage."""
+    ``(k_scale, v_scale)`` for int8 storage; under tensor parallelism one
+    such tuple a rank."""
 
     __slots__ = ("bufs",)
 
-    def __init__(self, bufs: tuple[torch.Tensor, ...]) -> None:
+    def __init__(self, bufs: tuple) -> None:
         self.bufs = bufs
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every pool, every rank's."""
+        return [t for b in self.bufs for t in (b if isinstance(b, tuple) else (b,))]
 
     @property
     def nbytes(self) -> int:
-        return sum(b.numel() * b.element_size() for b in self.bufs)
+        return sum(b.numel() * b.element_size() for b in self.tensors())
+
+
+def tp_ranks(model: TransformerLM) -> Any:
+    """The ``LockstepTP`` a model's attention is split over (None when it is
+    not split); the process-group form raises: the engine runs every rank in
+    this process."""
+    tp = getattr(model, "tp", None)
+    if tp is None or not model.tp_plan.attention:
+        return None
+    if not tp.lockstep:
+        raise NotImplementedError(
+            "the serving engine runs a tensor-parallel model's ranks in one process "
+            "(LockstepTP), not one rank of a process group (GroupTP)")
+    return tp
+
+
+def engine_kv_buffers(model: TransformerLM, engine: EngineConfig,
+                      storage: torch.dtype | None) -> KVBuffers:
+    """The zeroed device pools of ``model`` under ``engine``'s geometry: one
+    set, or one a rank of a tensor-parallel model on the rank's device."""
+    c, tp = model.config, tp_ranks(model)
+    return KVBuffers(init_kv_buffers(
+        c.num_layers, engine.num_blocks, engine.block_size, c.kv_heads, c.head_dim,
+        storage or model.dtype, model.device, devices=None if tp is None else tp.devices))
 
 
 def pow2_bucket(n: int, cap: int | None = None) -> int:
@@ -210,11 +282,24 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: in
     return out[:, start:]
 
 
+class RankLaunches:
+    """One tensor-parallel rank's kernel launches (K1: prefill chunks, K4:
+    decode steps), counted around the rank's attention calls; a captured
+    program replays them (``compiler.aot.CapturedProgram(counters=)``)."""
+
+    __slots__ = ("K1", "K4")
+
+    def __init__(self) -> None:
+        self.K1 = self.K4 = 0
+
+
 class PagedForward:
     """``TransformerLM`` numerics over paged KV block tables, through the
     model's own submodules. One per model: the engine's for the target,
     the speculative decoder's for the draft. ``kv_dtype`` is the pools'
-    storage (:func:`kv_storage`: None, the compute dtype, or int8)."""
+    storage (:func:`kv_storage`: None, the compute dtype, or int8). Over a
+    tensor-parallel model (:func:`tp_ranks`) the pools are one tuple a rank
+    and each layer's attention runs rank by rank (module docstring)."""
 
     def __init__(self, model: TransformerLM, engine: EngineConfig, *,
                  kv_dtype: torch.dtype | None = None) -> None:
@@ -222,6 +307,35 @@ class PagedForward:
         self.config = model.config
         self.engine = engine
         self.quantized = kv_dtype is not None
+        self.tp = tp_ranks(model)
+        #: each rank's K1 / K4 launches (tensor parallelism only)
+        self.rank_launches = [RankLaunches() for _ in (self.tp.ranks if self.tp else ())]
+
+    def rank_counters(self) -> list[tuple[RankLaunches, str]]:
+        """``(counter, attribute)`` of every rank's launch count, for a
+        captured program to replay."""
+        return [(c, k) for c in self.rank_launches for k in RankLaunches.__slots__]
+
+    def _over_ranks(self, pair, h: torch.Tensor, ranks: list[dict], attend: Callable):
+        """One layer's attention over the tensor-parallel ranks, as
+        ``TPPair.forward`` runs it: ``h`` copied to each rank, rank ``j``'s
+        partial output ``attend(j, shard, h_j, ranks[j])``, the partials
+        summed in rank order (``tp.reduce``). Each rank's K1 / K4 launches
+        are counted."""
+        k1, k4 = flash_attention_cuda, flash_decode_cuda
+        parts = []
+        for j, (shard, hj) in enumerate(zip(pair.shards, pair.tp.scatter(h))):
+            before = k1.launches, k4.launches
+            parts.append(attend(j, shard, hj, ranks[j]))
+            counts = self.rank_launches[j]
+            counts.K1 += k1.launches - before[0]
+            counts.K4 += k4.launches - before[1]
+        return pair.tp.reduce(parts)
+
+    def _to_ranks(self, **step: torch.Tensor) -> list[dict]:
+        """A step's index tensors on each rank's device, once a step (the
+        same tensors where a rank shares the first rank's device)."""
+        return [{k: t.to(d) for k, t in step.items()} for d in self.tp.devices]
 
     # -- paged scatter / gather (the storage format's seam) -----------------
     def _scatter(self, kv, layer: int, bid, off, k, v) -> None:
@@ -244,8 +358,7 @@ class PagedForward:
         """Each row's pages in position order, ``[rows, L, Hkv, D]``, in the
         compute dtype; int8 storage dequantizes here unless ``raw``, which
         returns the int8 pages and their ``[rows, L, Hkv]`` scales."""
-        c = self.config
-        shape = (rows, -1, c.kv_heads, c.head_dim)
+        shape = (rows, -1, *kv[0].shape[-2:])  # the pool's (Hkv or Hkv/tp, D)
         if not self.quantized:
             k_pool, v_pool = kv
             return k_pool[layer][tables].reshape(shape), v_pool[layer][tables].reshape(shape)
@@ -259,9 +372,11 @@ class PagedForward:
 
     def copy_block(self, kv, src: int, dst: int) -> None:
         """Copy every pool's pages of block ``src`` into ``dst``, all layers,
-        scales included, in place: the prefix cache's copy-on-write."""
-        for buf in kv:
-            buf[:, dst] = buf[:, src]
+        scales included, every rank's pools under tensor parallelism, in
+        place: the prefix cache's copy-on-write."""
+        for bufs in (kv if self.tp is not None else (kv,)):
+            for buf in bufs:
+                buf[:, dst] = buf[:, src]
 
     # -- decode step --------------------------------------------------------
     @torch.no_grad()
@@ -282,7 +397,8 @@ class PagedForward:
         model, e = self.model, self.engine
         S, BS = tables.shape[0], e.block_size
         MB = tables.shape[1]
-        x = model.embed_tokens(tokens)[:, None, :]  # [S, 1, d]
+        table = model._table()  # gathered once a step under tensor parallelism
+        x = model.embed_tokens(tokens, table)[:, None, :]  # [S, 1, d]
         pos = torch.clamp(lengths - 1, min=0)[:, None]  # [S, 1] absolute
         p = pos[:, 0]
         rows = torch.arange(S, device=tables.device)
@@ -297,23 +413,36 @@ class PagedForward:
         raw = self.quantized and tables.is_cuda and use_kernel is not False
         if self.quantized and not raw:
             use_kernel = False
+        step = dict(pos=pos, bid=bid, off=off, tables=tables, idx=idx)
+        ranks = None if self.tp is None else self._to_ranks(**step)
         for i, block in enumerate(model.layers):
-            q, k, v = block.attn.project(block.attn_norm(x), pos)
-            self._scatter(kv, i, bid, off, k[:, 0], v[:, 0])
-            if raw:
-                k_seq, v_seq, k_scale, v_scale = self._gather(kv, i, tables, S, raw=True)
-                ctx = batched_decode_attention(
-                    q, k_seq, v_seq, idx, window=window, use_kernel=True,
-                    k_scale=k_scale, v_scale=v_scale,
-                )
+
+            def attend(j, attn, h, a, layer=i):
+                kv_j = kv if j is None else kv[j]
+                q, k, v = attn.project(h, a["pos"])
+                self._scatter(kv_j, layer, a["bid"], a["off"], k[:, 0], v[:, 0])
+                if raw:
+                    k_seq, v_seq, k_scale, v_scale = self._gather(kv_j, layer, a["tables"], S,
+                                                                  raw=True)
+                    ctx = batched_decode_attention(
+                        q, k_seq, v_seq, a["idx"], window=window, use_kernel=True,
+                        k_scale=k_scale, v_scale=v_scale,
+                    )
+                else:
+                    k_seq, v_seq = self._gather(kv_j, layer, a["tables"], S)
+                    ctx = batched_decode_attention(
+                        q, k_seq, v_seq, a["idx"], window=window, use_kernel=use_kernel
+                    )
+                return attn.output(ctx)
+
+            h = block.attn_norm(x)
+            if ranks is None:
+                x = x + attend(None, block.attn, h, step)
             else:
-                k_seq, v_seq = self._gather(kv, i, tables, S)
-                ctx = batched_decode_attention(
-                    q, k_seq, v_seq, idx, window=window, use_kernel=use_kernel
-                )
-            x = x + block.attn.output(ctx)
+                x = x + self._over_ranks(block.attn, h, ranks, attend)
             x = x + block.mlp(block.mlp_norm(x))
-        return model.head(model.final_norm(x)[:, 0])  # [S, V] f32
+        # [S, V] f32
+        return model.head(model.final_norm(x)[:, 0], table if model.lm_head is None else None)
 
     def decode_step(self, kv, tables, lengths, tokens, active, *,
                     use_kernel: bool | None = True) -> torch.Tensor:
@@ -340,8 +469,8 @@ class PagedForward:
         model, c, e = self.model, self.config, self.engine
         BS, C = e.block_size, tokens.shape[0]
         L = table.shape[0] * BS
-        rep = c.num_heads // c.kv_heads
-        x = model.embed_tokens(tokens)[None]  # [1, C, d]
+        emb = model._table()  # gathered once a chunk under tensor parallelism
+        x = model.embed_tokens(tokens, emb)[None]  # [1, C, d]
         offs = torch.arange(C, device=tokens.device)
         pos = (start + offs)[None]  # [1, C] absolute
         p = torch.clamp(start + offs, max=L - 1)
@@ -349,23 +478,35 @@ class PagedForward:
         off = p % BS
         window = c.attention_window or None
         kernel = tokens.is_cuda and use_kernel is not False
+        step = dict(pos=pos, bid=bid, off=off, table=table)
+        ranks = None if self.tp is None else self._to_ranks(**step)
         for i, block in enumerate(model.layers):
-            q, k, v = block.attn.project(block.attn_norm(x), pos)
-            self._scatter(kv, i, bid, off, k[0], v[0])
-            k_seq, v_seq = self._gather(kv, i, table[None], 1)
-            # The chunk's queries see earlier chunks' pages plus this chunk's
-            # own rows; stale rows of a recycled block sit after the last
-            # valid query and are causally masked.
-            k_seq, v_seq = repeat_kv(k_seq, rep), repeat_kv(v_seq, rep)
-            if kernel:
-                ctx = chunk_attention(q, k_seq, v_seq, start, window=window)
+
+            def attend(j, attn, h, a, layer=i):
+                kv_j = kv if j is None else kv[j]
+                q, k, v = attn.project(h, a["pos"])
+                self._scatter(kv_j, layer, a["bid"], a["off"], k[0], v[0])
+                k_seq, v_seq = self._gather(kv_j, layer, a["table"][None], 1)
+                # The chunk's queries see earlier chunks' pages plus this
+                # chunk's own rows; stale rows of a recycled block sit after
+                # the last valid query and are causally masked.
+                rep = attn.num_heads // attn.kv_heads
+                k_seq, v_seq = repeat_kv(k_seq, rep), repeat_kv(v_seq, rep)
+                if kernel:
+                    ctx = chunk_attention(q, k_seq, v_seq, start, window=window)
+                else:
+                    ctx = dense_attention(q, k_seq, v_seq, causal=True, window=window,
+                                          q_offset=start)
+                return attn.output(ctx)
+
+            h = block.attn_norm(x)
+            if ranks is None:
+                x = x + attend(None, block.attn, h, step)
             else:
-                ctx = dense_attention(q, k_seq, v_seq, causal=True, window=window,
-                                      q_offset=start)
-            x = x + block.attn.output(ctx)
+                x = x + self._over_ranks(block.attn, h, ranks, attend)
             x = x + block.mlp(block.mlp_norm(x))
         x_last = model.final_norm(x)[0, n_valid - 1]
-        return model.head(x_last)
+        return model.head(x_last, emb if model.lm_head is None else None)
 
     # -- verify step (speculative decoding) ---------------------------------
     @torch.no_grad()
@@ -387,6 +528,8 @@ class PagedForward:
         coordinates with a per-row offset; scores and softmax are float32,
         masked to ``NEG_INF``, and an all-masked row is zeroed, as in
         ``dense_attention``."""
+        if self.tp is not None:
+            raise NotImplementedError(TP_SPEC_REASON)
         model, c, e = self.model, self.config, self.engine
         S, MB, BS = tables.shape[0], tables.shape[1], e.block_size
         W = tokens.shape[1]
@@ -496,6 +639,11 @@ class ServingEngine:
                 "self_draft builds one from the target's own first N layers)"
             )
         storage = kv_storage(engine.kv_dtype)
+        if getattr(model, "tp", None) is not None:
+            if engine.spec_k > 0:
+                raise NotImplementedError(TP_SPEC_REASON)
+            if storage is not None:
+                raise NotImplementedError(TP_INT8_REASON)
         self.model = model
         self.config = model.config
         self.engine = engine
@@ -538,10 +686,8 @@ class ServingEngine:
         )
         if registry is not None:
             self._register(registry)
-        self._kvh = kv_buffers if kv_buffers is not None else KVBuffers(init_kv_buffers(
-            self.config.num_layers, engine.num_blocks, engine.block_size,
-            self.config.kv_heads, self.config.head_dim, storage or model.dtype, self.device,
-        ))
+        self._kvh = (kv_buffers if kv_buffers is not None
+                     else engine_kv_buffers(model, engine, storage))
         self._fwd = PagedForward(model, engine, kv_dtype=storage)
         self._spec = None
         if engine.spec_k > 0:
@@ -587,6 +733,12 @@ class ServingEngine:
                 "serve_prefix_blocks": c.num_blocks_cached,
             })
         return out
+
+    @property
+    def rank_launches(self) -> list[dict[str, int]]:
+        """Each tensor-parallel rank's K1 / K4 launches so far (replays
+        included); empty without tensor parallelism."""
+        return [{"K1": c.K1, "K4": c.K4} for c in self._fwd.rank_launches]
 
     @property
     def decode_steps(self) -> int:
@@ -733,9 +885,15 @@ class ServingEngine:
         was not captured runs eagerly. The chunked prefill stays eager: it
         takes its ``start`` and ``n_valid`` as Python ints. On the CPU the
         same buffers are built and each program runs once eagerly, with no
-        capture. Returns the number of programs built by kind."""
+        capture. A tensor-parallel model's ranks on one card are captured
+        as one program; ranks on several cards raise
+        :data:`TP_CAPTURE_REASON`. Returns the number of programs built by
+        kind."""
         e, S = self.engine, self.engine.max_slots
         cuda = self.device.type == "cuda"
+        tp = self._fwd.tp
+        if cuda and tp is not None and len(set(tp.devices)) > 1:
+            raise NotImplementedError(TP_CAPTURE_REASON)
         pool = torch.cuda.graph_pool_handle() if cuda else None
         stream = torch.cuda.Stream(self.device) if cuda else None
 
@@ -745,7 +903,8 @@ class ServingEngine:
         def capture(fn, inputs) -> CapturedProgram:
             self.captures += 1
             t0 = time.perf_counter()
-            program = CapturedProgram(fn, inputs, pool=pool, stream=stream)
+            program = CapturedProgram(fn, inputs, pool=pool, stream=stream,
+                                      counters=self._fwd.rank_counters())
             self._inc("serve_compile_total")
             if self._metrics is not None:
                 self._metrics.histogram("serve_compile_seconds").observe(

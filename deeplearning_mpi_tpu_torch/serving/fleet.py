@@ -5,7 +5,10 @@ supervised OS process running the port's paged
 :class:`~deeplearning_mpi_tpu_torch.serving.engine.ServingEngine` (or a
 :class:`~deeplearning_mpi_tpu_torch.serving.disagg.DisaggregatedEngine`)
 on its own device: ``cuda:(i mod device_count)`` for replica ``i``, or the
-CPU when the caller asks for it. The supervisor stands on the supervision
+CPU when the caller asks for it. A tensor-parallel replica (``tp > 1``) is
+``tp`` ranks in its one process (``LockstepTP``): replica ``r``'s rank ``j``
+on ``cuda:((r * tp + j) mod device_count)``, so on one card every shard of
+every replica shares it. The supervisor stands on the supervision
 core of :mod:`~deeplearning_mpi_tpu_torch.resilience.cluster` (liveness by
 ``progress_seq``, SIGKILL-and-reap teardown, the chaos books, the
 write-ahead journal) and fronts the replicas with the
@@ -36,8 +39,10 @@ The contract, as the reference's:
 
 The kernels are built once, by the supervisor, before the first spawn
 (``ops.kernels._build.build_all``): N replicas starting cold would each run
-``nvcc``. A worker's launch counts (K1, K4) and its captured-graph count
-ride its final ``stopped`` message.
+``nvcc``. A worker's launch counts (K1, K4) ride its ready ack (warmup's,
+journaled) and, with its captured-graph count, its final ``stopped``
+message (serving's); both sum a tensor-parallel replica's ranks and carry
+each rank's split beside the sums.
 
 Chaos: ``replica_kill`` / ``replica_hang`` / ``replica_slow`` detonate in a
 worker (:meth:`ChaosInjector.check_replica_fault`); the supervisor keeps
@@ -79,20 +84,12 @@ from deeplearning_mpi_tpu_torch.resilience.cluster import (
     tail_jsonl,
 )
 
-__all__ = ["FleetFailure", "FleetResult", "FleetSupervisor", "TP_REPLICA_REASON",
+__all__ = ["FleetFailure", "FleetResult", "FleetSupervisor", "replica_devices",
            "worker_main"]
 
 FLEET_RESTARTS = "fleet_replica_restarts_total"
 FLEET_FAILURES = "fleet_replica_failures_total"
 FLEET_REDISPATCH = "fleet_redispatch_total"
-
-#: why a tensor-parallel replica is refused: the reference's is its engine
-#: under GSPMD; the port's paged engine has no tensor-parallel form yet.
-TP_REPLICA_REASON = (
-    "tensor-parallel replicas (--tp > 1 with --replicas) need a tensor-parallel paged "
-    "serving engine, which the port does not have yet (ROADMAP Queue 1 item 8.6: "
-    "serve_lm under the composed layouts)"
-)
 
 #: the kernels a replica launches: K1 (prefill chunks) and K4 (decode)
 REPLICA_KERNELS = ("flash_attention_fwd", "flash_decode")
@@ -113,6 +110,12 @@ def _param_storages(model) -> list[int]:
     return [p.data_ptr() for p in model.parameters()]
 
 
+def replica_devices(replica: int, tp: int, device_count: int) -> list[str]:
+    """The cards of replica ``replica``'s ``tp`` ranks: rank ``j`` on
+    ``cuda:((replica * tp + j) mod device_count)``."""
+    return [f"cuda:{(replica * tp + j) % device_count}" for j in range(tp)]
+
+
 def worker_main(argv: list[str] | None = None) -> int:
     """Replica worker: an engine wrapped in the fleet wire protocol.
 
@@ -121,7 +124,11 @@ def worker_main(argv: list[str] | None = None) -> int:
     (replicas of one (seed, version) are bit-identical, which makes a
     cross-replica re-dispatch parity-safe), on the spec's device (``cuda``
     unless it says ``cpu``; asked for ``cuda`` without a card it raises),
-    warms the engine, then loops: drain inbox ops, step the engine when
+    sharded over ``LockstepTP(tp, ...)`` when the spec's ``tp`` is above 1
+    (:func:`replica_devices`; every rank on the CPU when asked). It warms
+    the engine (ranks on several cards cannot be captured: the ready ack
+    carries the engine's refusal and the replica serves eagerly), then
+    loops: drain inbox ops, step the engine when
     busy, report completions, and publish liveness and the snapshot the
     router scores on through the heartbeat."""
     import argparse
@@ -139,10 +146,15 @@ def worker_main(argv: list[str] | None = None) -> int:
     from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
     from deeplearning_mpi_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
     from deeplearning_mpi_tpu_torch.ops.kernels.flash_decode import flash_decode_cuda
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
     from deeplearning_mpi_tpu_torch.resilience.cluster import ENV_HEARTBEAT_INTERVAL
     from deeplearning_mpi_tpu_torch.resilience.faults import ChaosInjector, InjectedFault
     from deeplearning_mpi_tpu_torch.resilience.supervisor import Heartbeat
-    from deeplearning_mpi_tpu_torch.serving.engine import EngineConfig, ServingEngine
+    from deeplearning_mpi_tpu_torch.serving.engine import (
+        TP_CAPTURE_REASON,
+        EngineConfig,
+        ServingEngine,
+    )
     from deeplearning_mpi_tpu_torch.serving.scheduler import RequestState
     from deeplearning_mpi_tpu_torch.telemetry import MetricsRegistry
 
@@ -152,23 +164,28 @@ def worker_main(argv: list[str] | None = None) -> int:
     stamps = [time.monotonic()]
     rdir = Path(args.dir)
     spec = json.loads(Path(args.spec).read_text())
-    if int(spec.get("tp", 1)) > 1:
-        raise SystemExit(TP_REPLICA_REASON)
+    tp = int(spec.get("tp", 1))
     disagg = bool(spec.get("disagg", False))
     if spec.get("threads"):
         torch.set_num_threads(int(spec["threads"]))
     device = resolve_device(spec.get("device", "cuda"))
+    devices = [device] * tp
     if device.type == "cuda":
-        device = torch.device("cuda", args.replica % torch.cuda.device_count())
+        devices = [torch.device(d) for d in
+                   replica_devices(args.replica, tp, torch.cuda.device_count())]
+        device = devices[0]
         torch.cuda.set_device(device)
         # The offline-greedy oracle runs with TF32 off; so must a replica,
         # or the fleet's bit-exact bar measures TF32, not the fleet.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.synchronize(device)  # the CUDA context
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)  # the CUDA contexts
     stamps.append(time.monotonic())
     cfg = TransformerConfig(**spec["model"])
-    model = TransformerLM(cfg, dtype=torch.float32, device=device).init_weights(int(spec["seed"]))
+    # tp 1: LockstepTP(1) is no sharding (TransformerLM ignores it).
+    model = TransformerLM(cfg, dtype=torch.float32, device=device,
+                          tp=LockstepTP(tp, devices)).init_weights(int(spec["seed"]))
     stamps.append(time.monotonic())
     storages = _param_storages(model)
     version = int(spec.get("version", 0))
@@ -212,12 +229,33 @@ def worker_main(argv: list[str] | None = None) -> int:
         def handoff_depth() -> int:
             return 0
     stamps.append(time.monotonic())
+    warmup_refused = None
     if spec.get("warmup", True):
-        engine.warmup()
+        try:
+            engine.warmup()
+        except NotImplementedError as refusal:
+            if str(refusal) != TP_CAPTURE_REASON:
+                raise
+            warmup_refused = str(refusal)
+            print(f"fleet-worker {args.replica}: warmup refused, serving eagerly: {refusal}",
+                  flush=True)
     stamps.append(time.monotonic())
     startup_s = dict(zip(("device", "model", "engine", "warmup"),
                          (b - a for a, b in zip(stamps, stamps[1:]))))
-    # The stop message reports the launches of serving alone, not warmup's.
+
+    def kernel_counts() -> dict[str, Any]:
+        """K1 / K4 launches, summed over a tensor-parallel replica's ranks
+        and each rank's beside them."""
+        out: dict[str, Any] = {"K1": flash_attention_cuda.launches,
+                               "K4": flash_decode_cuda.launches}
+        if tp > 1:
+            for k in ("K1", "K4"):
+                out[f"{k}_by_rank"] = [r[k] for r in engine.rank_launches]
+        return out
+
+    # The ready ack reports warmup's launches, the stop message serving's
+    # alone.
+    at_ready = kernel_counts()
     flash_attention_cuda.launches = flash_decode_cuda.launches = 0
     compile_counter = registry.counter("serve_compile_total")
     ttft_hist = registry.histogram("serve_ttft_s")
@@ -230,14 +268,19 @@ def worker_main(argv: list[str] | None = None) -> int:
 
     served = 0
 
-    def launches() -> dict[str, int]:
-        return {"K1": flash_attention_cuda.launches, "K4": flash_decode_cuda.launches,
-                "captures": engine.captures, "served": served}
+    def launches() -> dict[str, Any]:
+        out = kernel_counts()
+        for k in ("K1_by_rank", "K4_by_rank"):
+            if k in out:
+                out[k] = [n - w for n, w in zip(out[k], at_ready[k])]
+        return {**out, "captures": engine.captures, "served": served}
 
     mono_offset = tracer.mono_offset if tracer is not None else time.time() - time.monotonic()
     emit({"op": "ready", "replica": args.replica, "pid": os.getpid(), "version": version,
           "compile_total": compile_counter.value, "mono_offset": mono_offset,
-          "incarnation": incarnation, "device": str(device), "startup_s": startup_s})
+          "incarnation": incarnation, "device": str(device), "startup_s": startup_s,
+          "tp": tp, "devices": [str(d) for d in devices], "warmup_refused": warmup_refused,
+          "launches": at_ready})
 
     inbox = rdir / "inbox.jsonl"
     offset = 0
@@ -489,7 +532,9 @@ class FleetSupervisor(ClusterSupervisor):
     (weights rebuild from ``(config, seed, version)``; a weight swap ships
     a new seed the same way). ``device`` is where the replicas run
     (``cuda``: replica ``i`` on ``cuda:(i mod device_count)``; ``cpu`` only
-    when asked); ``threads`` sets each worker's torch thread count.
+    when asked); ``tp`` shards each replica over that many ranks in its
+    process (:func:`replica_devices`); ``threads`` sets each worker's torch
+    thread count.
 
     The supervision bones — liveness tracking, SIGKILL+reap teardown,
     chaos books, JSONL IPC tailing — come from the unified core
@@ -562,8 +607,6 @@ class FleetSupervisor(ClusterSupervisor):
         self.disagg = bool(disagg)
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
-        if tp > 1:
-            raise NotImplementedError(TP_REPLICA_REASON)
         self.tp = int(tp)
         self.device = str(device)
         self.threads = threads
@@ -1251,7 +1294,11 @@ class FleetSupervisor(ClusterSupervisor):
                 journal.record(
                     "ready", idx=rep.idx, attempt=rep.attempt,
                     compile_total=rep.compile_at_ready, startup_s=m.get("startup_s"),
+                    devices=m.get("devices"), launches=m.get("launches"),
                 )
+                if m.get("warmup_refused"):
+                    self._log(f"replica {rep.idx}: warmup refused, serving eagerly on "
+                              f"{m.get('devices')}: {m['warmup_refused']}")
                 router.mark_alive(rep.idx, now)
                 router.include(rep.idx)
                 for pr in list(pending_recoveries):

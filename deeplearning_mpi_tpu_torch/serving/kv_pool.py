@@ -13,6 +13,12 @@ all-or-nothing. Shared blocks (refcount > 1) may not be written. With
 ``DMT_SANITIZE=1`` at construction, freed blocks are poisoned until
 allocated again, so a double free, a use after free, a refcount underflow
 and a write to a shared block raise classified ``SanitizerError``s.
+
+Under tensor parallelism (a ``LockstepTP`` model) each rank holds its own
+device pools at ``Hkv/tp`` heads on its own device
+(:func:`init_kv_buffers` with ``devices``); the block bookkeeping stays one
+:class:`PagedKVPool` for every rank, so a block id names the same block in
+every rank's pools.
 """
 
 from __future__ import annotations
@@ -225,13 +231,20 @@ class PagedKVPool:
 
 def init_kv_buffers(
     num_layers: int, num_blocks: int, block_size: int, kv_heads: int,
-    head_dim: int, kv_dtype: torch.dtype, device: torch.device | str,
-) -> tuple[torch.Tensor, ...]:
+    head_dim: int, kv_dtype: torch.dtype, device: torch.device | str, *,
+    devices: list[torch.device] | None = None,
+) -> tuple:
     """Zero-initialised device pools ``(k, v)``, each ``[num_layers,
     num_blocks, block_size, kv_heads, head_dim]`` (zeros, never
     ``torch.empty``: a masked weight times a NaN row is NaN). Integer
     storage adds float32 scale pools ``[num_layers, num_blocks, block_size,
-    kv_heads]`` initialised to 1."""
+    kv_heads]`` initialised to 1. With ``devices`` (a tensor-parallel
+    model's ranks), one such tuple a rank, each at ``kv_heads /
+    len(devices)`` heads on its rank's device (``device`` unused)."""
+    if devices is not None:
+        local = kv_heads // len(devices)
+        return tuple(init_kv_buffers(num_layers, num_blocks, block_size, local, head_dim,
+                                     kv_dtype, d) for d in devices)
     shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
     k = torch.zeros(shape, dtype=kv_dtype, device=device)
     v = torch.zeros(shape, dtype=kv_dtype, device=device)

@@ -290,6 +290,10 @@ def test_supervisor_kinds_refused_by_serve_lm_accepted_by_the_fleet(tmp_path):
     sup = port_fleet.FleetSupervisor({"vocab_size": 16}, {"max_slots": 1}, 1, tmp_path / "f",
                                      seed=0, chaos="supervisor_kill@step:5")
     assert sup.chaos_spec == "supervisor_kill@step:5"
-    with pytest.raises(NotImplementedError, match="item 8.6"):
-        port_fleet.FleetSupervisor({"vocab_size": 16}, {"max_slots": 1}, 2, tmp_path / "g",
-                                   tp=2)
+    # Tensor-parallel replicas construct, and their spec carries the degree.
+    sup = port_fleet.FleetSupervisor({"vocab_size": 16}, {"max_slots": 1}, 2, tmp_path / "g",
+                                     tp=2)
+    assert sup.tp == 2
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        port_fleet.FleetSupervisor({"vocab_size": 16}, {"max_slots": 1}, 2, tmp_path / "h",
+                                   tp=0)

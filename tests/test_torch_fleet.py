@@ -43,8 +43,12 @@ from torch_fleet_drills import (  # noqa: E402
 def kill_hang_swap(tmp_path_factory):
     root = tmp_path_factory.mktemp("fleet")
     # A trickle that outlasts the faults' recovery, so requests arrive
-    # after the rolling swap too.
-    entries = trace(12, 12, dt=0.5)
+    # after the rolling swap too: the swap waits for the killed replica's
+    # respawn (the head of its queue), and on a loaded host a respawn
+    # (mostly importing torch) with the hang's 3 s deadline ran past a 6 s
+    # trickle, so every stream finished under version 0. 16 s leaves a
+    # respawn ~6 s.
+    entries = trace(12, 16, dt=1.0)
     sup = FleetSupervisor(MODEL_SPEC, ENGINE_SPEC, 2, root / "fleet", seed=SEED,
                           chaos="replica_kill@step:4,replica_hang@step:6",
                           heartbeat_interval_s=0.2, heartbeat_deadline_s=3.0,

@@ -12,8 +12,9 @@ CPU, at tiny widths, one torch thread a worker.
    and a restarted incarnation re-adopts every live worker with no respawn,
    replays the journal into books that balance across incarnations, and
    drains with parity.
-3. ``serve_lm --autoscale`` refuses a supervisor kind and ``--tp`` with
-   replicas, and the fleet refuses ``--kv_dtype`` and ``--spec_k``.
+3. ``serve_lm --autoscale`` refuses a supervisor kind, the fleet refuses
+   ``--kv_dtype`` and ``--spec_k``, ``--tp`` alone is refused as in the
+   reference, and ``--tp`` with replicas reaches the fleet with its degree.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from deeplearning_mpi_tpu_torch.cli import controlplane_drill
+from deeplearning_mpi_tpu_torch.cli import serve_lm
 from deeplearning_mpi_tpu_torch.cli.serve_lm import main as serve_lm_main
 from deeplearning_mpi_tpu_torch.serving import AutoscalerConfig, FleetSupervisor
 from torch_fleet_drills import ENGINE_SPEC, MODEL_SPEC, SEED, check_parity, trace  # noqa: E402
@@ -69,12 +71,19 @@ def test_control_plane_readopts_and_replays(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,message", [
     (["--autoscale", "--chaos", "supervisor_kill@step:3"], "supervisor_kill"),
-    (["--replicas", "2", "--tp", "2"], "item 8.6"),
+    (["--replicas", "2", "--tp", "2"], None),
     (["--replicas", "2", "--kv_dtype", "int8"], "bit-exact"),
     (["--replicas", "2", "--spec_k", "2", "--draft_layers", "1"], "--spec_k"),
     (["--tp", "2"], "requires --replicas > 1"),
     (["--tenants", "prod=lots"], "bad --tenants entry"),
 ], ids=["supervisor_kind", "tp", "kv_dtype", "spec_k", "tp_alone", "tenants"])
-def test_serve_lm_refusals(flags, message, capsys):
+def test_serve_lm_refusals(flags, message, capsys, monkeypatch):
+    if message is None:
+        # Lifted: the call passes every refusal and reaches the fleet with
+        # its degree (test_torch_fleet_tp.py runs such a fleet).
+        ran = []
+        monkeypatch.setattr(serve_lm, "_run_fleet", lambda args, eos_id: ran.append(args.tp) or 0)
+        assert serve_lm_main(["--selftest", "--device", "cpu", *flags]) == 0 and ran == [2]
+        return
     assert serve_lm_main(["--selftest", "--device", "cpu", *flags]) == 1
     assert message in capsys.readouterr().err

@@ -9,7 +9,12 @@ cards, data, expert, sequence, tensor and pipeline parallelism, ZeRO-1 and
 the composed layouts (pp x tp, tp x sp, ep x sp, ep x tp, pp x ep,
 loss_chunk x sp, ZeRO-1 x ep / sp / pp) over NCCL against one card; and
 the elastic pod (``nccl_pod``: ``launch_pod`` over 2 NCCL ranks with
-``rank_kill``, re-formed onto 1 and resumed bitwise a clean resume).
+``rank_kill``, re-formed onto 1 and resumed bitwise a clean resume); the
+serving engine over ``LockstepTP`` (``tp_engine``: every rank on one card
+warmed, a replayed step bitwise the eager one; one rank a card on four
+cards, warmup refused by name and served eagerly) and a fleet of
+tensor-parallel replicas across four cards (``tp_fleet``); a capture that
+a collection of dead graphs must not invalidate (``dead_graphs``).
 
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import
 time) where ``torch.cuda.is_available()`` is false. On the card:
@@ -1592,3 +1597,177 @@ def test_fleet_on_the_card(cuda, tmp_path, capsys):
                               if ln.startswith("fleet workers: ")).split(": ", 1)[1])
     served = [w for w in workers.values() if w["served"]]
     assert served and all(w["K1"] > 0 and w["K4"] > 0 for w in served)
+
+
+def _tp_serving(devices, tp):
+    """A tensor-parallel engine's model (``LockstepTP(tp, devices)``) at the
+    110M widths and 2 blocks (vocab 256), its unsharded twin on ``cuda:0``,
+    seeded prompts and an engine config."""
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.parallel.tensor_parallel import LockstepTP
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig
+
+    cfg = TransformerConfig(vocab_size=256, num_layers=2)
+    model = TransformerLM(cfg, dtype=torch.float32, device="cuda",
+                          tp=LockstepTP(tp, devices)).init_weights(0)
+    one = TransformerLM(cfg, dtype=torch.float32, device="cuda").init_weights(0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, size=n).astype(np.int32) for n in (7, 40, 19, 64, 3)]
+    engine = EngineConfig(max_slots=3, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                          prefill_chunk=16)
+    return model, one, prompts, engine
+
+
+def test_tp_engine_on_one_card_warmed_equals_offline_greedy(cuda):
+    """The engine over ``LockstepTP(4)`` with every rank on this card,
+    warmed: streams equal the unsharded model's offline greedy, each rank
+    launched K1 a layer a prefill chunk and K4 a layer a decode step through
+    the replays, and no capture during traffic; a captured decode step's
+    logits equal the eager step's bit for bit."""
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy
+    from deeplearning_mpi_tpu_torch.serving import ServingEngine
+
+    model, one, prompts, cfg = _tp_serving("cuda", 4)
+    engine = ServingEngine(model, cfg)
+    engine.warmup()
+    captures, warm = engine.captures, engine.rank_launches
+    reqs = [engine.submit(p, 12) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    for r, p in zip(reqs, prompts):
+        assert r.generated == offline_greedy(one, p, 12, None)
+    assert engine.captures == captures
+    layers = model.config.num_layers
+    served = [{k: r[k] - w[k] for k in r} for r, w in zip(engine.rank_launches, warm)]
+    assert served == [{"K1": layers * engine.prefill_chunks,
+                       "K4": layers * engine.decode_steps}] * 4
+    from deeplearning_mpi_tpu_torch.compiler.aot import CapturedProgram
+
+    fwd = engine._fwd
+    args = (torch.tensor([[1, 2], [3, 4], [5, 6]], device="cuda"),
+            torch.tensor([20, 9, 31], device="cuda"), torch.tensor([5, 6, 7], device="cuda"),
+            torch.tensor([True, False, True], device="cuda"))
+    eager = fwd.decode_logits(engine._kv, *args)
+    prog = CapturedProgram(lambda *a: fwd.decode_logits(engine._kv, *a), args,
+                           pool=torch.cuda.graph_pool_handle(), counters=fwd.rank_counters())
+    before = engine.rank_launches
+    got = prog(*args).clone()
+    torch.cuda.synchronize()
+    assert prog.graph is not None and torch.equal(got, eager)
+    assert [r["K4"] - b["K4"] for r, b in zip(engine.rank_launches, before)] == [layers] * 4
+
+
+def test_tp_engine_across_cards_refuses_capture_and_serves_eagerly(cuda):
+    """``LockstepTP(4)`` with one rank a card: ``warmup()`` raises
+    ``TP_CAPTURE_REASON`` (a graph captured on one card's stream does not
+    record the others' kernels), and the eager engine's streams equal the
+    unsharded model's offline greedy, each rank's kernels launched on its
+    own card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one rank a card")
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy
+    from deeplearning_mpi_tpu_torch.serving import ServingEngine
+    from deeplearning_mpi_tpu_torch.serving.engine import TP_CAPTURE_REASON
+
+    model, one, prompts, cfg = _tp_serving([f"cuda:{i}" for i in range(4)], 4)
+    engine = ServingEngine(model, cfg)
+    assert [t.device.index for t in engine._kvh.tensors()] == [0, 0, 1, 1, 2, 2, 3, 3]
+    with pytest.raises(NotImplementedError) as err:
+        engine.warmup()
+    assert str(err.value) == TP_CAPTURE_REASON and engine.captures == 0
+    reqs = [engine.submit(p, 12) for p in prompts]
+    engine.run_until_idle()
+    for r, p in zip(reqs, prompts):
+        assert r.generated == offline_greedy(one, p, 12, None)
+    assert all(r["K1"] > 0 and r["K4"] > 0 for r in engine.rank_launches)
+
+
+def test_tp_fleet_across_cards(cuda, tmp_path, capsys):
+    """``serve_lm --replicas 2 --tp 2`` with one rank a card (replica r's
+    rank j on ``cuda:(2r + j)``), a kill, a hang and a rolling swap: exit 0
+    with the CLI's bit-exact parity against the unsharded model, the swap
+    in place, no capture after warmup (each worker's warmup refused by
+    name, served eagerly), every rank of a serving worker launching K1 and
+    K4."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one rank a card")
+    import json
+
+    from deeplearning_mpi_tpu_torch.cli import serve_lm
+    from deeplearning_mpi_tpu_torch.resilience.cluster import JOURNAL_FILE, replay_journal
+
+    rc = serve_lm.main(["--selftest", "--device", "cuda", "--num_layers", "2",
+                        "--num_heads", "12", "--head_dim", "64", "--d_model", "768",
+                        "--d_ff", "2048", "--replicas", "2", "--tp", "2", "--chaos",
+                        "replica_kill@step:4,replica_hang@step:6", "--swap_at", "8",
+                        "--num_requests", "30", "--rate", "1.2", "--fleet_dir",
+                        str(tmp_path / "f")])
+    out = capsys.readouterr()
+    text = out.out + out.err
+    assert rc == 0, text
+    assert "in_place=True" in text and "compile_flat=True" in text
+    assert "warmup refused" in text
+    workers = json.loads(next(ln for ln in text.splitlines()
+                              if ln.startswith("fleet workers: ")).split(": ", 1)[1])
+    served = [w for w in workers.values() if w["served"]]
+    assert served and all(min(w["K1_by_rank"] + w["K4_by_rank"]) > 0 for w in served)
+    devices = {r["idx"]: r["devices"] for r in replay_journal(tmp_path / "f" / JOURNAL_FILE)
+               if r["ev"] == "ready"}
+    assert devices[0] == ["cuda:0", "cuda:1"] and devices[1] == ["cuda:2", "cuda:3"]
+
+
+@pytest.mark.parametrize("guard", [True, False], ids=["guarded", "wrong_unguarded"])
+def test_capture_survives_a_collection_of_dead_graphs(cuda, guard, monkeypatch):
+    """A warmed engine dropped in a reference cycle (engine -> warmed
+    program -> captured program -> engine) holds its CUDA graphs until a
+    cyclic collection; one that runs during another capture frees a graph
+    mid-capture and invalidates that capture (as it did to
+    ``chip_smoke.py`` phase 22b's third engine). ``CapturedProgram``
+    collects before a capture and keeps the collector off during it. The collector runs where allocations happen
+    to trigger it, so here the captured decode step runs a collection
+    itself whenever the collector is on: the guarded engine captures and
+    serves offline greedy, the wrong copy (its ``gc`` calls made no-ops)
+    fails its capture. It runs last: a failed capture leaves the card
+    usable, but nothing after it depends on that."""
+    import gc
+    import types
+
+    import numpy as np
+
+    from deeplearning_mpi_tpu_torch.cli.serve_lm import offline_greedy
+    from deeplearning_mpi_tpu_torch.compiler import aot
+    from deeplearning_mpi_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from deeplearning_mpi_tpu_torch.serving import EngineConfig, ServingEngine
+
+    model = TransformerLM(TransformerConfig(vocab_size=256, num_layers=2), dtype=torch.float32,
+                          device="cuda").init_weights(0)
+    cfg = EngineConfig(max_slots=3, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                       prefill_chunk=16)
+    dead = ServingEngine(model, cfg)
+    dead.warmup()
+    gc.collect()  # the dead engine's objects reach the oldest generation
+    del dead  # its graphs now wait for a full cyclic collection
+    engine = ServingEngine(model, cfg)
+    step = engine._fwd.decode_step
+
+    def collecting_step(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and gc.isenabled():
+            gc.collect()  # where an allocation may set the collector off
+        return step(*args, **kwargs)
+
+    engine._fwd.decode_step = collecting_step
+    if not guard:
+        monkeypatch.setattr(aot, "gc", types.SimpleNamespace(
+            collect=lambda: 0, isenabled=gc.isenabled, disable=lambda: None, enable=gc.enable))
+        with pytest.raises(RuntimeError, match="capture"):
+            engine.warmup()
+        return
+    engine.warmup()
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % 251 for n in (9, 30, 4)]
+    reqs = [engine.submit(p, 8) for p in prompts]
+    engine.run_until_idle()
+    assert engine.captures > 0
+    for r, p in zip(reqs, prompts):
+        assert r.generated == offline_greedy(model, p, 8, None)

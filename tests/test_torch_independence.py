@@ -618,6 +618,40 @@ def test_serving_resilience_paths_run_with_jax_blocked(path, tmp_path):
                                        "served": 2}
 
 
+#: The modules the tensor-parallel serving slice changed.
+TP_SERVING_MODULES = ["serving/kv_pool.py", "serving/engine.py", "serving/disagg.py",
+                      "serving/fleet.py", "compiler/aot.py", "cli/serve_lm.py",
+                      "resilience/guardrails.py", "resilience/pod.py"]
+
+
+def test_scan_covers_the_tensor_parallel_serving_modules():
+    scanned = {p.relative_to(ROOT / "deeplearning_mpi_tpu_torch").as_posix() for p in PORT_FILES
+               if p.name != "chip_smoke.py"}
+    assert set(TP_SERVING_MODULES) <= scanned
+
+
+def test_serve_lm_fleet_tp_runs_with_jax_blocked(tmp_path):
+    """``serve_lm --replicas 2 --tp 2`` on the CPU with jax blocked in the
+    supervisor's process: two tensor-parallel replicas serve the trace and
+    every stream passes the CLI's bit-exact parity check."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deeplearning_mpi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from deeplearning_mpi_tpu_torch.cli.serve_lm import main\n"
+        "rc = main(['--selftest', '--device', 'cpu', '--replicas', '2', '--tp', '2',\n"
+        "           '--num_layers', '1', '--num_heads', '2', '--head_dim', '16',\n"
+        "           '--d_model', '64', '--d_ff', '128', '--num_requests', '4',\n"
+        f"           '--max_new_tokens', '4', '--fleet_dir', {str(tmp_path / 'f')!r}])\n"
+        "assert rc == 0, rc\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=180, env=ENV)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+    assert "fleet OK: 4 requests bit-identical to offline greedy" in out.stderr
+
+
 #: The last modules of the port: the analysis package, the simulator, the
 #: .pth import and the native loader.
 LAST_MODULES = (

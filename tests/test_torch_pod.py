@@ -269,6 +269,27 @@ def test_no_survivors_and_restart_budget_are_pod_failures(worker, tmp_path):
                     max_pod_restarts=0).run()
 
 
+def test_a_lagging_ring_keeps_its_vote_under_a_quorum():
+    """The bitflip drill's race: two clean rings land, a tally runs, then
+    the corrupt rank's ring. Settling a step on any two agreeing rings (the
+    reference's rule, ``tally()``) hides the flip for good; the pod's
+    ``tally(quorum=world)`` still convicts the late rank."""
+    from deeplearning_mpi_tpu_torch.resilience.guardrails import DigestVote
+
+    clean = {str(s): "clean" for s in range(6)}
+    flipped = {str(s): "flip" if s >= 3 else "clean" for s in range(6)}
+    verdicts = {}
+    for quorum in (None, 3):
+        vote = DigestVote()
+        vote.observe(0, clean)
+        vote.observe(1, clean)
+        assert vote.tally(quorum=quorum) is None
+        vote.observe(2, flipped)
+        verdicts[quorum] = vote.tally(quorum=quorum)
+    assert verdicts[None] is None
+    assert verdicts[3] is not None and verdicts[3].step == 3 and verdicts[3].minority == (2,)
+
+
 def test_bitflip_convicted_by_the_vote_and_quarantined(worker, tmp_path):
     ckpt = tmp_path / "ckpt"
     for epoch in (0, 1):

@@ -123,3 +123,22 @@ def test_not_applicable_flags_refused_by_name(cli, flag, capsys):
     assert exit_.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag} is not applicable to the PyTorch port" in err and "unrecognized" not in err
+
+
+def test_tp_help_and_docstring_say_what_tp_does(capsys):
+    """``--tp`` shards each fleet replica (the help and the module
+    docstring say so, and no longer "refused above 1"); a degree the port's
+    rule cannot split (heads it does not divide) is refused before any
+    replica spawns, naming the heads."""
+    with pytest.raises(SystemExit):
+        serve_lm.build_parser().parse_args(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "tensor-parallel degree per replica" in text and "refused above 1" not in text
+    assert "cuda:((r * tp + j) mod device_count)" in text
+    doc = " ".join(serve_lm.__doc__.split())
+    assert "``--tp T`` shards each replica" in doc and "item 8.6" not in doc
+    # H * D = 48 splits 3 ways, the 2 heads do not: the port splits whole heads.
+    assert serve_lm.main(["--selftest", "--device", "cpu", "--num_heads", "2", "--head_dim",
+                          "24", "--d_model", "64", "--d_ff", "96", "--replicas", "2",
+                          "--tp", "3"]) == 1
+    assert "must divide num_heads" in capsys.readouterr().err
